@@ -1,0 +1,341 @@
+"""Generic plumbing elements: queue, capsfilter, appsrc, appsink, fakesink
+and tensortestsrc.
+
+Port of the matching elements of ``nnstreamer_tpu/pipeline/basic.py``.
+The queue is always a Python ``queue.Queue``: the native C++ ring of the
+JAX package (``backend=native``) is not ported. ``tee`` and ``identity``
+are not ported yet.
+"""
+from __future__ import annotations
+
+import queue as _pyqueue
+import threading
+import time
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+
+from ..tensors.buffer import Buffer, Chunk
+from ..tensors.caps import Caps
+from ..tensors.types import TensorType
+from ..utils.log import logger
+from .element import (Element, NotPortedError, SinkElement, SrcElement,
+                      TransformElement)
+from .events import CapsEvent, Event
+from .pad import FlowError, Pad
+from .registry import register_element
+
+_SENTINEL = object()
+
+
+@register_element("queue")
+class Queue(Element):
+    """Thread boundary with a bounded buffer queue.
+
+    Backpressure: upstream ``chain`` blocks when the queue is full
+    (matching gst queue defaults). GStreamer leaky semantics:
+    ``leaky=upstream`` drops the incoming buffer when full;
+    ``leaky=downstream`` evicts the oldest queued buffer to make room.
+    ``backend`` accepts ``auto`` and ``python``, which are the same queue
+    here.
+    """
+
+    SINK_TEMPLATES = {"sink": None}
+    SRC_TEMPLATES = {"src": None}
+    PROPS = {"max-size-buffers": 16, "leaky": "none", "backend": "auto"}
+
+    def __init__(self, name=None, **props):
+        super().__init__(name, **props)
+        self._q = self._make_q()
+        self._thread: Optional[threading.Thread] = None
+        self._running = False
+
+    def _make_q(self):
+        return _pyqueue.Queue(maxsize=max(1, self.max_size_buffers))
+
+    def set_property(self, key: str, value) -> None:
+        super().set_property(key, value)
+        if key.replace("_", "-") == "max-size-buffers":
+            # properties may be applied after __init__ (launch parser);
+            # rebuild then, but never once the worker owns the queue
+            if "_q" not in self.__dict__:
+                return
+            if getattr(self, "_running", False):
+                raise RuntimeError(
+                    f"{self.name}: cannot reconfigure a running queue")
+            self._q = self._make_q()
+
+    def check_ported(self) -> None:
+        super().check_ported()
+        if self.backend not in ("auto", "python"):
+            raise NotPortedError(
+                f"{self.name}: backend={self.backend!r} is not ported yet "
+                "(the port has only the python queue)")
+
+    def start(self) -> None:
+        super().start()
+        self._running = True
+        self._thread = threading.Thread(
+            target=self._worker, name=f"queue:{self.name}", daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._running = False
+        super().stop()
+        try:
+            self._q.put_nowait(_SENTINEL)
+        except _pyqueue.Full:
+            try:
+                self._q.get_nowait()
+                self._q.put_nowait(_SENTINEL)
+            except (_pyqueue.Empty, _pyqueue.Full):
+                pass
+        if self._thread is not None and self._thread is not threading.current_thread():
+            self._thread.join(timeout=5.0)
+            self._thread = None
+
+    def chain(self, pad: Pad, item) -> None:
+        if isinstance(item, Event):
+            self._q.put(item)  # events are serialized: never dropped
+            return
+        if self.leaky == "upstream":
+            # GStreamer leaky=upstream: drop the incoming buffer when full
+            try:
+                self._q.put_nowait(item)
+            except _pyqueue.Full:
+                pass
+        elif self.leaky == "downstream":
+            # GStreamer leaky=downstream: evict the oldest queued BUFFER;
+            # events keep their queue position (they are never dropped)
+            while True:
+                try:
+                    self._q.put_nowait(item)
+                    return
+                except _pyqueue.Full:
+                    dropped = False
+                    with self._q.mutex:
+                        for i, old in enumerate(self._q.queue):
+                            if not isinstance(old, Event):
+                                del self._q.queue[i]
+                                dropped = True
+                                # wake producers blocked in put(): mutex IS
+                                # the not_full condition's lock
+                                self._q.not_full.notify()
+                                break
+                    if not dropped:
+                        # only events queued: block until the worker drains
+                        self._q.put(item)
+                        return
+        else:
+            self._q.put(item)  # blocking: backpressure
+
+    def _worker(self) -> None:
+        while self._running:
+            item = self._q.get()
+            if item is _SENTINEL:
+                break
+            try:
+                if isinstance(item, Event):
+                    if isinstance(item, CapsEvent):
+                        self.sinkpad.set_caps(item.caps)
+                        self.set_src_caps(item.caps)
+                    else:
+                        self.forward_event(item)
+                else:
+                    self.stats.add(buffers=1, bytes=item.nbytes)
+                    self.srcpad.push(item)
+            except FlowError:
+                break
+            except Exception as exc:  # noqa: BLE001
+                logger.exception("%s: error in queue worker", self.name)
+                self.post_error(exc)
+                break
+
+
+@register_element("capsfilter")
+class CapsFilter(TransformElement):
+    """Pass-through that restricts negotiation to its ``caps`` property."""
+
+    PROPS = {"caps": ""}
+
+    def transform(self, buf: Buffer) -> Buffer:
+        return buf
+
+    def transform_caps(self, incaps: Caps) -> Optional[Caps]:
+        if not self.caps:
+            return incaps
+        want = Caps(self.caps) if isinstance(self.caps, str) else self.caps
+        out = incaps.intersect(want)
+        if out.is_empty():
+            raise ValueError(
+                f"{self.name}: caps {incaps} do not satisfy filter {want}")
+        return out.fixate() if not out.is_fixed() else out
+
+
+@register_element("appsrc")
+class AppSrc(SrcElement):
+    """Application-driven source: the app thread calls ``push_buffer`` /
+    ``end_stream``; the src loop relays into the pipeline."""
+
+    PROPS = {"caps": "", "max-buffers": 64}
+
+    def __init__(self, name=None, **props):
+        super().__init__(name, **props)
+        self._q: _pyqueue.Queue = _pyqueue.Queue(maxsize=max(1, self.max_buffers))
+
+    def push_buffer(self, buf: Buffer) -> None:
+        self._q.put(buf)
+
+    def end_stream(self) -> None:
+        self._q.put(_SENTINEL)
+
+    def negotiate_src_caps(self) -> Optional[Caps]:
+        return Caps(self.caps) if self.caps else None
+
+    def create(self) -> Optional[Buffer]:
+        while not self._stop_evt.is_set():
+            try:
+                item = self._q.get(timeout=0.1)
+            except _pyqueue.Empty:
+                continue
+            return None if item is _SENTINEL else item
+        return None
+
+
+@register_element("appsink")
+class AppSink(SinkElement):
+    """Collecting sink with an optional new-data callback
+    (≙ tensor_sink's ``new-data`` signal, ref: gsttensor_sink.c)."""
+
+    PROPS = {"max-buffers": 0, "emit-signals": True}
+
+    def __init__(self, name=None, **props):
+        super().__init__(name, **props)
+        self.buffers: List[Buffer] = []
+        self.callback: Optional[Callable[[Buffer], None]] = None
+        self._lock = threading.Lock()
+
+    def connect(self, callback: Callable[[Buffer], None]) -> None:
+        self.callback = callback
+
+    def render(self, buf: Buffer) -> None:
+        with self._lock:
+            self.buffers.append(buf)
+            if self.max_buffers > 0 and len(self.buffers) > self.max_buffers:
+                self.buffers.pop(0)
+        if self.callback is not None:
+            self.callback(buf)
+
+    def pop_all(self) -> List[Buffer]:
+        with self._lock:
+            out, self.buffers = self.buffers, []
+            return out
+
+
+@register_element("tensortestsrc")
+class TensorTestSrc(SrcElement):
+    """Synthetic tensor source (≙ videotestsrc feeding tensor_converter in
+    reference test pipelines). Generates frames matching its ``caps``
+    property with a chosen fill pattern; PTS synthesized from framerate.
+
+    The frames are the JAX package's, byte for byte: the same numpy
+    ``default_rng(seed)`` calls in the same order. A bfloat16 tensor is
+    drawn as the JAX package draws it (float64 from the generator) and
+    rounded to bf16 by torch.
+
+    ``device=true`` stages a pool of ``pool-size`` frames on the card and
+    cycles them, so the stream is device-resident from the source on;
+    ``unique=true`` adds the frame counter to each pooled frame on the
+    card, so every emitted frame differs.
+    """
+
+    PROPS = {"caps": "", "pattern": "counter", "seed": 0, "is-live": False,
+             "device": False, "pool-size": 4, "unique": False}
+
+    def __init__(self, name=None, **props):
+        super().__init__(name, **props)
+        self._config = None
+        self._count = 0
+        self._rng = None
+        self._pool = None
+
+    def negotiate_src_caps(self) -> Optional[Caps]:
+        if not self.caps:
+            raise ValueError(f"{self.name}: 'caps' property is required")
+        caps = Caps(self.caps)
+        if not caps.is_fixed():
+            caps = caps.fixate()
+        self._config = caps.to_config()
+        return caps
+
+    def _make_frame(self, count: int):
+        arrays = []
+        for info in self._config.info:
+            if info.type is TensorType.BFLOAT16:
+                arrays.append(self._make_bf16(info.shape, count))
+                continue
+            dt = info.type.np_dtype
+            if self.pattern == "zeros":
+                arr = np.zeros(info.shape, dtype=dt)
+            elif self.pattern == "ones":
+                arr = np.ones(info.shape, dtype=dt)
+            elif self.pattern == "random":
+                if np.issubdtype(np.dtype(dt), np.integer):
+                    ii = np.iinfo(dt)
+                    arr = self._rng.integers(ii.min, ii.max, info.shape,
+                                             dtype=dt, endpoint=True)
+                else:
+                    arr = self._rng.random(info.shape).astype(dt)
+            else:  # counter
+                arr = np.full(info.shape, count).astype(dt)
+            arrays.append(arr)
+        return arrays
+
+    def _make_bf16(self, shape, count: int) -> torch.Tensor:
+        if self.pattern == "zeros":
+            src = np.zeros(shape)
+        elif self.pattern == "ones":
+            src = np.ones(shape)
+        elif self.pattern == "random":
+            src = self._rng.random(shape)
+        else:  # counter
+            src = np.full(shape, count, dtype=np.float64)
+        return torch.from_numpy(src).to(torch.bfloat16)
+
+    def create(self) -> Optional[Buffer]:
+        if self._rng is None:
+            self._rng = np.random.default_rng(self.seed)
+        if self.device:
+            if self._pool is None:
+                if not torch.cuda.is_available():
+                    raise RuntimeError(
+                        f"{self.name}: device=true needs a CUDA device")
+                n = max(1, int(self.pool_size))
+                self._pool = [
+                    [Chunk(a).device("cuda") for a in self._make_frame(i)]
+                    for i in range(n)]
+            chunks = [Chunk(t) for t in
+                      self._pool[self._count % len(self._pool)]]
+            if self.unique:
+                chunks = [Chunk(c.raw + torch.tensor(
+                    self._count % 199 + 1, dtype=c.raw.dtype,
+                    device=c.raw.device)) for c in chunks]
+        else:
+            chunks = [Chunk(a) for a in self._make_frame(self._count)]
+        cfg = self._config
+        dur = cfg.frame_duration_ns()
+        pts = self._count * dur if dur else self._count
+        self._count += 1
+        if self.is_live and dur:
+            time.sleep(dur / 1e9)
+        return Buffer(chunks, pts=pts, duration=dur)
+
+
+@register_element("fakesink")
+class FakeSink(SinkElement):
+    PROPS = {"dump": False}
+
+    def render(self, buf: Buffer) -> None:
+        if self.dump:
+            logger.info("%s: pts=%s %r", self.name, buf.pts, buf)
