@@ -7,16 +7,32 @@ Phases, in order; any failure exits non-zero and prints no result line:
 1. device   — a CUDA device must be present; prints nvidia-smi's card
               name and power limit.
 2. build    — compiles every CUDA kernel of the port (one nvcc per source,
-              all at once) and prints the build seconds and ptxas report.
-3. kernels  — each kernel against its plain PyTorch version on the card,
-              at the main path's shapes and a few ragged ones, with the
-              tolerance stated beside each; kernel, plain and library
-              times from CUDA events.
+              all at once: attention.cu, normalize.cu) and prints the
+              build seconds and ptxas report.
+3. kernels  — the attention kernel against its plain PyTorch version on
+              the card, at the main path's shapes and a few ragged ones,
+              with the tolerance stated beside each; kernel, plain and
+              library times from CUDA events.
+3b. normalize — the normalize kernel against normalize_plain on the card,
+              bitwise, at frame, batch, ragged and unaligned shapes in
+              bf16/f16/f32; kernel and plain times (CUDA events), the
+              kernel's device time (torch.profiler) and the bound.
 4. pipeline — the ViT-B/16 labeling line at full published width
               (patch 16, d_model 768, 12 layers, 12 heads, 224x224, 1000
               classes; seeded random weights) through parse_launch:
               16 labelled frames, 12 attention launches per frame, and the
               same frames' logits against attn=stock.
+5. mobilenet — the MobileNet-v2 lines at full published width (width
+              1.0, 224x224, 1001 classes; seeded random weights) through
+              parse_launch, all with prefetch-host=true: the headline
+              line (fps, p50 frame time, frames per fetch RPC), its
+              image_labeling variant (labels equal the argmax of the same
+              frames' logits from the module itself), the batch-32 line
+              (frames/s) and top1=1 (ids equal that argmax); the card's
+              logits against the same weights in f32 on the CPU.
+6. normalize entry — the headline frames on the card through
+              ops.fused_normalize, the kernel's own entry point (no
+              pipeline path calls it), counting its launches.
 
 The second-to-last line is the kernels JSON, the last line the result:
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -38,6 +54,13 @@ BF16_FLOPS_S = 989e12
 VIT_LAYERS = 12
 FRAMES = 16
 SEED = 0
+MOBILENET_WARMUP = 16
+MOBILENET_FRAMES = 64      # measured frames of the headline line
+BATCH = 32
+BATCH_BUFFERS = 10         # batch-32 buffers: 2 warm-up + 8 measured
+LABELED_FRAMES = 16
+CAPS = ("other/tensors,format=static,num_tensors=1,types=(string)uint8,"
+        "dimensions=(string){dims},framerate=(fraction)0/1")
 
 
 def log(*a):
@@ -82,6 +105,25 @@ def time_ms(fn, iters=50, warmup=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, kernel, iters=20):
+    """Mean device time (ms) of the kernels named ``kernel`` in one call,
+    from torch.profiler's CUDA trace over ``iters`` calls; None if the
+    profiler records none. Event times of back-to-back calls measure the
+    host's enqueue rate where a launch is shorter than its enqueue."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    found = [e for e in prof.key_averages() if kernel in e.key and
+             e.device_type == torch.autograd.DeviceType.CUDA]
+    if not found:
+        return None
+    return sum(e.self_device_time_total for e in found) / 1e3 / iters
 
 
 def attention_bound(b, s, h, d, itemsize):
@@ -140,6 +182,15 @@ def phase_kernels():
     return rows
 
 
+def _frames(n, shape):
+    """tensortestsrc's random frames of ``shape`` (seed SEED), drawn as
+    it draws them."""
+    rng = np.random.default_rng(SEED)
+    return torch.from_numpy(np.stack([
+        rng.integers(0, 255, shape, np.uint8, endpoint=True)
+        for _ in range(n)]))
+
+
 def phase_pipeline(smi, tmp):
     import nnstreamer_tpu_torch as pt
     from nnstreamer_tpu_torch.models import zoo
@@ -148,9 +199,8 @@ def phase_pipeline(smi, tmp):
     labels = os.path.join(tmp, "labels.txt")
     with open(labels, "w") as f:
         f.write("\n".join(f"class{i}" for i in range(1000)))
-    caps = ("other/tensors,format=static,num_tensors=1,types=(string)uint8,"
-            "dimensions=(string)3:224:224,framerate=(fraction)0/1")
-    line = (f"tensortestsrc caps={caps} pattern=random seed={SEED} "
+    line = (f"tensortestsrc caps={CAPS.format(dims='3:224:224')} "
+            f"pattern=random seed={SEED} "
             f"num-buffers={FRAMES} ! tensor_filter name=f "
             'framework=torch-cuda model="zoo://vit?attn=pallas" '
             f"! tensor_decoder mode=image_labeling option1={labels} "
@@ -179,10 +229,7 @@ def phase_pipeline(smi, tmp):
 
     # the same frames, re-made as tensortestsrc makes them, through the
     # same weights with the kernel and with stock attention
-    rng = np.random.default_rng(SEED)
-    frames = torch.from_numpy(np.stack([
-        rng.integers(0, 255, (224, 224, 3), np.uint8, endpoint=True)
-        for _ in range(FRAMES)])).cuda()
+    frames = _frames(FRAMES, (224, 224, 3)).cuda()
     with torch.inference_mode():
         apply_fn, fused, _, _ = zoo.build("vit", attn="pallas")
         fused_logits = apply_fn(fused.cuda().eval(), frames)
@@ -212,13 +259,246 @@ def phase_pipeline(smi, tmp):
             "p50_ms": float(np.percentile(gaps, 50))}
 
 
+def normalize_bound(n, itemsize):
+    """Least time (ms): n bytes read and n * itemsize written once; no
+    arithmetic bound applies."""
+    return n * (1 + itemsize) / HBM_BYTES_S * 1e3, "bytes"
+
+
+def phase_normalize():
+    from nnstreamer_tpu_torch.ops import normalize as N
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def frames(shape):
+        return torch.randint(0, 256, shape, generator=g, device="cuda",
+                             dtype=torch.uint8)
+
+    # tolerance 0 (bitwise): kernel and plain version both do an f32
+    # subtraction, an f32 product and one round-to-nearest cast
+    raw = frames((1_000_004,))
+    cases = [((224, 224, 3), frames((224, 224, 3))),
+             ((8,), frames((8,))),
+             ((3, 5, 7), frames((3, 5, 7))),
+             ((64, 1024), frames((64, 1024))),
+             ((BATCH, 224, 224, 3), frames((BATCH, 224, 224, 3))),
+             ((1_000_003,), raw[:1_000_003]),
+             (("unaligned", 1_000_003), raw[1:])]
+    rows, worst = [], 0.0
+    for label, x in cases:
+        for dtype, scale, offset in ((torch.bfloat16, 1 / 127.5, 127.5),
+                                     (torch.float16, 1 / 127.5, 127.5),
+                                     (torch.float32, 1 / 127.5, 127.5),
+                                     (torch.float32, 2.0, 1.0)):
+            got = N.fused_normalize(x, scale, offset, dtype)
+            torch.cuda.synchronize()
+            want = N.normalize_plain(x, scale, offset, dtype)
+            bits = torch.int32 if dtype == torch.float32 else torch.int16
+            same = got.dtype == dtype and got.shape == x.shape \
+                and torch.equal(got.view(bits), want.view(bits))
+            err = (got.float() - want.float()).abs().max().item()
+            worst = max(worst, err)
+            if not same:
+                sys.exit(f"chip_smoke: normalize kernel differs from "
+                         f"normalize_plain at {label} {dtype} scale={scale} "
+                         f"offset={offset}: max |err| {err}")
+    log(f"kernel normalize: bitwise equal to normalize_plain at "
+        f"{len(cases)} shapes x 4 dtype/scale cases "
+        f"(x storage offset {raw[1:].storage_offset()} for the unaligned "
+        f"view)")
+    for shape in ((224, 224, 3), (BATCH, 224, 224, 3)):
+        x = frames(shape)
+        row = {"shape": list(shape), "dtype": "bfloat16", "max_abs_err": 0.0,
+               "tol": 0.0}
+        row["ms"] = time_ms(lambda: N.fused_normalize(x))
+        row["device_ms"] = device_ms(lambda: N.fused_normalize(x),
+                                     "normalize_kernel")
+        row["plain_ms"] = time_ms(lambda: N.normalize_plain(x))
+        row["bound_ms"], row["bound_by"] = normalize_bound(x.numel(), 2)
+        row["library_ms"] = None
+        log(f"kernel normalize {row}")
+        rows.append(row)
+    return rows, worst
+
+
+def _run_timed(line, warmup, frames, timeout=600):
+    """Run a line to EOS, materialising every buffer on the host at the
+    sink; returns (pipeline, arrival times of buffers warmup+1..)."""
+    import nnstreamer_tpu_torch as pt
+    pipe = pt.parse_launch(line)
+    stamps = []
+
+    def on_buffer(buf):
+        buf.host_arrays()
+        stamps.append(time.perf_counter())
+
+    pipe["out"].connect(on_buffer)
+    pipe.run(timeout=timeout)
+    if len(stamps) != warmup + frames:
+        sys.exit(f"chip_smoke: {len(stamps)} of {warmup + frames} buffers "
+                 f"arrived: {line[:100]}")
+    return pipe, stamps[warmup:]
+
+
+def phase_mobilenet(smi, tmp):
+    from nnstreamer_tpu_torch.models import zoo
+    from nnstreamer_tpu_torch.models.mobilenet import MobileNetV2
+    from nnstreamer_tpu_torch.ops import attention as A, normalize as N
+    from nnstreamer_tpu_torch.tensors.transfer import fetch_stats
+
+    filt = ("tensor_filter framework=torch-cuda model=zoo://mobilenet_v2"
+            "{opts} latency=1 prefetch-host=true")
+    frame_caps = CAPS.format(dims="3:224:224")
+    out = {}
+
+    # -- the headline line
+    n = MOBILENET_WARMUP + MOBILENET_FRAMES
+    line = (f"tensortestsrc caps={frame_caps} pattern=random seed={SEED} "
+            f"num-buffers={n} ! queue max-size-buffers=8 ! "
+            f"{filt.format(opts='')} ! queue max-size-buffers=32 "
+            "! appsink name=out")
+    A.launches = N.launches = 0
+    fetch_stats(reset=True)
+    pipe, stamps = _run_timed(line, MOBILENET_WARMUP, MOBILENET_FRAMES)
+    fetch = fetch_stats(reset=True)
+    if fetch["frames"] != n:
+        sys.exit(f"chip_smoke: prefetch-host fetched {fetch['frames']} of "
+                 f"{n} frames")
+    gaps = np.diff(stamps) * 1e3
+    fps = (len(stamps) - 1) / (stamps[-1] - stamps[0])
+    p50 = float(np.percentile(gaps, 50))
+    out["headline"] = {"frames": n, "measured": len(stamps), "fps": fps,
+                       "p50_ms": p50, "fetch": fetch}
+    log(f"mobilenet headline: {n} frames ({MOBILENET_FRAMES} measured "
+        f"after {MOBILENET_WARMUP}), steady {fps:.2f} fps, p50 frame time "
+        f"{p50:.3f} ms, fetch {fetch}, kernel launches attention "
+        f"{A.launches} normalize {N.launches}; {smi}")
+    bufs = pipe["out"].buffers
+    logits0 = bufs[0].chunks[0].host()
+    if logits0.shape != (1001,) or logits0.dtype != np.float32:
+        sys.exit(f"chip_smoke: headline output is {logits0.shape} "
+                 f"{logits0.dtype}, expected (1001,) float32")
+
+    # -- the module itself on the same frames, per frame as the filter
+    # runs it; and its f32 twin on the CPU as the reference
+    frames = _frames(LABELED_FRAMES, (224, 224, 3))
+    apply_fn, module, _, _ = zoo.build("mobilenet_v2")
+    module = module.cuda().eval()
+    with torch.inference_mode():
+        logits = torch.stack([apply_fn(module, f)
+                              for f in frames.cuda()]).cpu()
+        ref = MobileNetV2(dtype=torch.float32)
+        ref.load_state_dict(module.state_dict())
+        ref_logits = ref.eval()(frames[:2].float() / 127.5 - 1.0)
+    if logits.shape != (LABELED_FRAMES, 1001) \
+            or not bool(torch.isfinite(logits).all()):
+        sys.exit("chip_smoke: MobileNet logits are not finite [16, 1001]")
+    pipe_logits = torch.from_numpy(np.stack(
+        [b.chunks[0].host() for b in bufs[:LABELED_FRAMES]]))
+    # the filter runs the same module on the same card and shapes:
+    # equal up to the convolution algorithm cuDNN picks (observed 0)
+    diff = (pipe_logits - logits).abs().max().item()
+    log(f"mobilenet: headline line vs module logits on the same "
+        f"{LABELED_FRAMES} frames max |diff| {diff:.4g}")
+    if not diff <= 1e-3 * logits.abs().max().item():
+        sys.exit("chip_smoke: the headline line's logits differ from the "
+                 "module's on the same frames")
+    # bf16 on the card against f32 on the CPU: 5 % of the largest
+    # |logit|. bf16 keeps 8 bits; 52 conv+BatchNorm layers round their
+    # outputs to it (observed on the CPU: 1.5 %).
+    diff = (logits[:2] - ref_logits).abs().max().item()
+    scale = ref_logits.abs().max().item()
+    log(f"mobilenet logits: card bf16 vs CPU f32 max |diff| {diff:.4g} "
+        f"(max |logit| {scale:.4g}, tol {0.05 * scale:.4g})")
+    if not diff <= 0.05 * scale:
+        sys.exit("chip_smoke: MobileNet bf16 logits on the card disagree "
+                 "with the f32 reference")
+    want = logits.argmax(-1).tolist()
+
+    # -- the golden variant: image_labeling on the same frames
+    labels = os.path.join(tmp, "labels1001.txt")
+    with open(labels, "w") as f:
+        f.write("\n".join(f"class{i}" for i in range(1001)))
+    line = (f"tensortestsrc caps={frame_caps} pattern=random seed={SEED} "
+            f"num-buffers={LABELED_FRAMES} ! queue max-size-buffers=8 ! "
+            f"{filt.format(opts='')} ! queue max-size-buffers=32 ! "
+            f"tensor_decoder mode=image_labeling option1={labels} "
+            "! appsink name=out")
+    pipe, _ = _run_timed(line, 0, LABELED_FRAMES)
+    got = [b.extras["label_index"] for b in pipe["out"].buffers]
+    if got != want:
+        sys.exit(f"chip_smoke: labels {got} differ from the logits' "
+                 f"argmax {want}")
+    log(f"mobilenet golden: {LABELED_FRAMES} labels equal the argmax of "
+        f"the module's logits ({len(set(got))} distinct)")
+
+    # -- top1=1: one int32 id per frame
+    line = (f"tensortestsrc caps={frame_caps} pattern=random seed={SEED} "
+            f"num-buffers={LABELED_FRAMES} ! queue max-size-buffers=8 ! "
+            f"{filt.format(opts='?top1=1')} ! queue max-size-buffers=32 "
+            "! appsink name=out")
+    pipe, _ = _run_timed(line, 0, LABELED_FRAMES)
+    ids = [b.chunks[0].host() for b in pipe["out"].buffers]
+    if any(i.shape != (1,) or i.dtype != np.int32 for i in ids) \
+            or [int(i[0]) for i in ids] != want:
+        sys.exit(f"chip_smoke: top1=1 ids {[i.tolist() for i in ids]} "
+                 f"differ from the logits' argmax {want}")
+    log(f"mobilenet top1=1: {LABELED_FRAMES} int32 ids equal the argmax")
+
+    # -- the batch-32 line, shallow queues
+    line = (f"tensortestsrc caps={CAPS.format(dims=f'3:224:224:{BATCH}')} "
+            f"pattern=random seed={SEED} num-buffers={BATCH_BUFFERS} "
+            f"! queue max-size-buffers=4 ! {filt.format(opts='')} "
+            "! queue max-size-buffers=8 ! appsink name=out")
+    fetch_stats(reset=True)
+    pipe, stamps = _run_timed(line, 2, BATCH_BUFFERS - 2)
+    fetch = fetch_stats(reset=True)
+    bfps = (len(stamps) - 1) * BATCH / (stamps[-1] - stamps[0])
+    shape = pipe["out"].buffers[0].chunks[0].shape
+    if shape != (BATCH, 1001):
+        sys.exit(f"chip_smoke: batch-32 output is {shape}")
+    out["batch32"] = {"buffers": BATCH_BUFFERS, "frames_per_s": bfps,
+                      "fetch": fetch}
+    log(f"mobilenet batch-{BATCH}: {BATCH_BUFFERS} buffers "
+        f"({BATCH_BUFFERS - 2} measured), {bfps:.2f} frames/s, fetch "
+        f"{fetch}; {smi}")
+    return out, frames
+
+
+def phase_normalize_entry(frames):
+    """The kernel's own entry point on the headline's frames, one call a
+    frame and one for the stack; returns the launches it made."""
+    from nnstreamer_tpu_torch.ops import fused_normalize
+    from nnstreamer_tpu_torch.ops import normalize as N
+
+    dev = frames.cuda()
+    torch.cuda.synchronize()
+    N.launches = 0
+    outs = [fused_normalize(f) for f in dev] + [fused_normalize(dev)]
+    torch.cuda.synchronize()
+    launches = N.launches
+    if launches != len(dev) + 1:
+        sys.exit(f"chip_smoke: fused_normalize launched {launches} times "
+                 f"for {len(dev) + 1} calls")
+    if not all(torch.equal(o, N.normalize_plain(f))
+               for o, f in zip(outs, list(dev) + [dev])):
+        sys.exit("chip_smoke: fused_normalize differs from normalize_plain "
+                 "on the headline frames")
+    log(f"normalize entry: {launches} launches for {len(dev)} frames and "
+        "their stack, bitwise equal to normalize_plain")
+    return launches
+
+
 def main():
     smi = phase_device()
     kind = torch.cuda.get_device_name(0)
     phase_build()
     rows = phase_kernels()
+    norm_rows, norm_err = phase_normalize()
     with tempfile.TemporaryDirectory() as tmp:
         run = phase_pipeline(smi, tmp)
+        mobilenet, frames = phase_mobilenet(smi, tmp)
+    norm_launches = phase_normalize_entry(frames)
     main_row = rows[0]
     kernels = [{
         "name": "attention",
@@ -234,7 +514,22 @@ def main():
         "library_ms": main_row["library_ms"],
         "shapes": rows,
         "card": smi,
+    }, {
+        "name": "normalize",
+        "route": "cuda",
+        "source": "nnstreamer_tpu_torch/csrc/normalize.cu",
+        "replaces": "nnstreamer_tpu/ops/normalize.py:43",
+        "launches": norm_launches,
+        "max_abs_err": norm_err,
+        "ms": norm_rows[0]["ms"],
+        "plain_ms": norm_rows[0]["plain_ms"],
+        "bound_ms": norm_rows[0]["bound_ms"],
+        "bound_by": norm_rows[0]["bound_by"],
+        "library_ms": None,
+        "shapes": norm_rows,
+        "card": smi,
     }]
+    log(json.dumps({"mobilenet": mobilenet, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -3,14 +3,17 @@
 Port of ``nnstreamer_tpu/elements/filter.py`` (≙ gst/nnstreamer/
 tensor_filter/tensor_filter.c + tensor_filter_common.c): property parsing,
 framework auto-detection, model-vs-caps verification with batch-dim
-tolerance, the synchronous invoke, and the rolling latency/throughput
-statistics. Chunks handed to the backend may already live on the card;
-outputs stay there until a host boundary.
+tolerance, the synchronous invoke, ``prefetch-host``, and the rolling
+latency/throughput statistics. Chunks handed to the backend may already
+live on the card; outputs stay there until a host boundary, or, with
+``prefetch-host=true``, leave as :class:`~..tensors.transfer.PendingHost`
+handles whose D2H copy the coalescing fetcher has already started.
 
 Not ported yet, each refused at start when set (``NOT_PORTED``): the
-in-flight window and its reorder/donation options, prefetch-host, the
-circuit breaker, warmup, invoke-async/invoke-dynamic, suspend, the
-shared-model key, input/output combination and custom properties. QoS
+in-flight window and its reorder/donation options (and with it the
+windowed path's prefetch), the circuit breaker, warmup,
+invoke-async/invoke-dynamic, suspend, the shared-model key,
+input/output combination and custom properties. QoS
 throttling is not ported either: the port's sinks send no QoS events.
 """
 from __future__ import annotations
@@ -28,6 +31,7 @@ from ..pipeline.registry import register_element
 from ..tensors.buffer import Buffer, Chunk
 from ..tensors.caps import Caps
 from ..tensors.info import TensorInfo, TensorsConfig, TensorsInfo
+from ..tensors.transfer import submit_fetch
 from ..tensors.types import TensorFormat
 from ..utils.log import logger
 
@@ -70,6 +74,9 @@ class TensorFilter(Element):
         "accelerator": "",
         "latency": 0,            # 1 = enable latency property updates
         "throughput": 0,
+        # start each frame's D2H copy right after the invoke, coalesced
+        # across frames (tensors/transfer.py)
+        "prefetch-host": False,
     }
     NOT_PORTED = {
         "custom": "",
@@ -79,7 +86,6 @@ class TensorFilter(Element):
         "shared-tensor-filter-key": "",
         "input-combination": "",
         "output-combination": "",
-        "prefetch-host": False,
         "breaker-threshold": 0,
         "breaker-reset-ms": 1000.0,
         "breaker-retry-after-ms": 50.0,
@@ -200,6 +206,10 @@ class TensorFilter(Element):
             self._account_invoke_error(exc)
             return
         self._record_latency(time.perf_counter_ns() - t0)
+        if self.prefetch_host:
+            # the frame leaves carrying PendingHost handles; frames queued
+            # while a copy batch is in flight share the next one
+            outputs = submit_fetch(outputs)
         self.push(buf.with_chunks([Chunk(o) for o in outputs]))
 
     def _account_invoke_error(self, exc: BaseException) -> None:

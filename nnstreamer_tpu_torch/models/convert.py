@@ -13,7 +13,10 @@ Layout changes:
 * the attention's ``DenseGeneral`` kernels: query/key/value
   ``[d, H, Dh]`` -> ``[H*Dh, d]``, their biases ``[H, Dh]`` -> ``[H*Dh]``;
   out ``[H, Dh, d]`` -> ``[d, H*Dh]``;
-* LayerNorm ``scale`` -> ``weight``; ``pos_embed`` unchanged.
+* LayerNorm ``scale`` -> ``weight``; ``pos_embed`` unchanged;
+* MobileNet-v2: conv kernels HWIO -> OIHW (a depthwise ``(3, 3, 1, C)``
+  kernel becomes ``(C, 1, 3, 3)``), BatchNorm ``scale``/``bias`` from
+  ``params`` and ``mean``/``var`` from ``batch_stats``.
 """
 from __future__ import annotations
 
@@ -69,4 +72,35 @@ def vit_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
         i += 1
     _layernorm("ln_f", p["LayerNorm_0"], out)
     _dense("head", p["Dense_0"], out)
+    return out
+
+
+def _conv_bn(prefix: str, p: Mapping, stats: Mapping,
+             out: Dict[str, torch.Tensor]) -> None:
+    out[f"{prefix}.weight"] = _t(
+        np.transpose(np.asarray(p["Conv_0"]["kernel"]), (3, 2, 0, 1)))
+    out[f"{prefix}.scale"] = _t(p["BatchNorm_0"]["scale"])
+    out[f"{prefix}.bias"] = _t(p["BatchNorm_0"]["bias"])
+    out[f"{prefix}.mean"] = _t(stats["BatchNorm_0"]["mean"])
+    out[f"{prefix}.var"] = _t(stats["BatchNorm_0"]["var"])
+
+
+def mobilenet_params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """flax ``MobileNetV2`` variables (``{"params": ..., "batch_stats":
+    ...}``) -> the ``state_dict`` of
+    :class:`..models.mobilenet.MobileNetV2`."""
+    p, stats = variables["params"], variables["batch_stats"]
+    out: Dict[str, torch.Tensor] = {}
+    _conv_bn("stem", p["ConvBN_0"], stats["ConvBN_0"], out)
+    i = 0
+    while f"InvertedResidual_{i}" in p:
+        name = f"InvertedResidual_{i}"
+        j = 0
+        while f"ConvBN_{j}" in p[name]:
+            _conv_bn(f"blocks.{i}.layers.{j}", p[name][f"ConvBN_{j}"],
+                     stats[name][f"ConvBN_{j}"], out)
+            j += 1
+        i += 1
+    _conv_bn("head_conv", p["ConvBN_1"], stats["ConvBN_1"], out)
+    _dense("fc", p["Dense_0"], out)
     return out

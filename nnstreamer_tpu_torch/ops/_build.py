@@ -38,6 +38,11 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
                               + [_float, _ptr]),
         "nns_cuda_error_string": (ctypes.c_char_p, [_int]),
     },
+    "normalize": {
+        "nns_normalize_u8": (_int, [_ptr, _ptr, _ll, _int, _float, _float,
+                                    _ptr]),
+        "nns_cuda_error_string": (ctypes.c_char_p, [_int]),
+    },
 }
 
 _lock = threading.Lock()

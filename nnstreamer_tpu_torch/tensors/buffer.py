@@ -4,12 +4,12 @@ Port of ``nnstreamer_tpu/tensors/buffer.py`` (the analog of a GstBuffer
 carrying N tensor memories, ref: gst/nnstreamer/nnstreamer_plugin_api_impl.c).
 
 A chunk holds a host ``np.ndarray`` (or raw bytes), a CPU
-``torch.Tensor``, or a CUDA ``torch.Tensor``. Only the last is
-device-resident: chained device-side elements hand CUDA tensors to each
-other, and only decoder/sink boundaries call :meth:`Chunk.host`.
-
-Not ported yet: ``PendingHost`` chunks (the prefetch-host D2H fetch
-service, ``tensors/fetch.py`` and ``tensors/transfer.py``).
+``torch.Tensor``, a CUDA ``torch.Tensor``, or a
+:class:`~.transfer.PendingHost` (a D2H fetch in flight, started by the
+filter's ``prefetch-host``). CUDA tensors, and pending fetches whose
+device tensor is still reachable, are device-resident: chained
+device-side elements hand them to each other, and only decoder/sink
+boundaries call :meth:`Chunk.host`.
 """
 from __future__ import annotations
 
@@ -21,14 +21,10 @@ import torch
 
 from .info import TensorInfo, TensorsInfo
 from .meta import TensorMetaInfo
+from .transfer import PendingHost, is_device_tensor
 from .types import TensorType
 
 _RAW = (bytes, bytearray, memoryview)
-
-
-def is_device_tensor(x) -> bool:
-    """True for a tensor that lives on the card."""
-    return isinstance(x, torch.Tensor) and x.device.type == "cuda"
 
 
 class BufferFlags(enum.IntFlag):
@@ -39,7 +35,8 @@ class BufferFlags(enum.IntFlag):
 
 
 class Chunk:
-    """One tensor memory.
+    """One tensor memory: host data, a tensor, or a
+    :class:`~.transfer.PendingHost`.
 
     ``meta`` is present on flexible/sparse streams (self-describing header,
     ref: GstTensorMetaInfo); static streams rely on negotiated caps.
@@ -51,22 +48,41 @@ class Chunk:
         self._data = data
         self.meta = meta
 
+    def _settle(self) -> Any:
+        """Resolve an in-flight fetch (blocking) and cache the result."""
+        d = self._data
+        if isinstance(d, PendingHost):
+            d = self._data = d.resolve()
+        return d
+
     # -- residency --------------------------------------------------------
     @property
     def is_device(self) -> bool:
-        return is_device_tensor(self._data)
+        d = self._data
+        if isinstance(d, PendingHost):
+            # still device-reachable until the fetch lands: chained
+            # device-side elements keep card residency without waiting
+            return d.dev is not None and not d.done
+        return is_device_tensor(d)
 
     @property
     def raw(self) -> Any:
-        """The underlying array, wherever it lives."""
-        return self._data
+        """The underlying array, wherever it lives. For a chunk whose
+        host fetch is in flight this is non-blocking while the device
+        tensor is still reachable (device consumers proceed on the
+        card); otherwise it blocks for the fetched host copy."""
+        d = self._data
+        if isinstance(d, PendingHost) and not d.done and d.dev is not None:
+            return d.dev
+        return self._settle()
 
     def host(self) -> Union[np.ndarray, torch.Tensor]:
-        """Materialize on the host (D2H copy if device-resident).
+        """Materialize on the host (D2H copy if device-resident; waits
+        for an in-flight fetch).
 
         Returns an ``np.ndarray``, except for bfloat16 data: numpy has no
         bf16, so that comes back as a CPU ``torch.Tensor``."""
-        d = self._data
+        d = self._settle()
         if isinstance(d, np.ndarray):
             return d
         if isinstance(d, _RAW):
@@ -80,6 +96,9 @@ class Chunk:
                non_blocking: bool = False) -> torch.Tensor:
         """Materialize as a tensor on ``device`` (H2D copy if needed)."""
         d = self._data
+        if isinstance(d, PendingHost):
+            # prefer the still-live device tensor: no wait, no H2D
+            d = d.dev if d.dev is not None else self._settle()
         if isinstance(d, _RAW):
             d = self.host()
         if isinstance(d, np.ndarray):
@@ -96,11 +115,12 @@ class Chunk:
 
     @property
     def dtype(self):
-        """numpy dtype for host arrays, ``torch.dtype`` for tensors."""
+        """numpy dtype for host arrays, ``torch.dtype`` for tensors and
+        pending fetches."""
         d = self._data
         if isinstance(d, _RAW):
             return np.dtype(np.uint8)
-        if isinstance(d, torch.Tensor):
+        if isinstance(d, (torch.Tensor, PendingHost)):
             return d.dtype
         return np.dtype(d.dtype)
 
@@ -157,6 +177,14 @@ class Buffer:
     @property
     def nbytes(self) -> int:
         return sum(c.nbytes for c in self.chunks)
+
+    def arrays(self) -> List[Any]:
+        """Each chunk's data without blocking (see :attr:`Chunk.raw`)."""
+        return [c.raw for c in self.chunks]
+
+    def host_arrays(self) -> List[Union[np.ndarray, torch.Tensor]]:
+        """Each chunk on the host: the blocking host boundary."""
+        return [c.host() for c in self.chunks]
 
     def to_infos(self) -> TensorsInfo:
         return TensorsInfo(c.to_info() for c in self.chunks)

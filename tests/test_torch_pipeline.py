@@ -201,7 +201,7 @@ def test_auto_framework_resolves_zoo_to_torch_cuda():
 
 
 @pytest.mark.parametrize("prop", [
-    "in-flight=2", "prefetch-host=true", "breaker-threshold=3",
+    "in-flight=2", "donate-input=true", "breaker-threshold=3",
     "warmup=true", "invoke-async=true", "on-error=skip",
     "custom=mesh:2x1x1"])
 def test_unported_filter_properties_raise_at_start(prop):
@@ -221,3 +221,140 @@ def test_fusion_request_is_refused_and_opt_out_accepted():
         "! appsink name=out")
     pipe.run(timeout=30)
     assert len(pipe["out"].buffers) == 2
+
+
+# -- the MobileNet-v2 headline line (bench.py's bench_mobilenet) -----------
+
+MN_CAPS = ("other/tensors,format=static,num_tensors=1,types=(string)uint8,"
+           "dimensions=(string)3:96:96,framerate=(fraction)0/1")
+MN_FRAMES = 6
+
+MN_JAX_PY = '''
+import numpy as np
+from nnstreamer_tpu.models import zoo
+
+
+def get_model():
+    apply_fn, _, in_info, out_info = zoo.build(
+        "mobilenet_v2", width="0.35", size="96")
+    flat = np.load({npz!r})
+    tree = {{}}
+    for key in flat.files:
+        *path, leaf = key.split("/")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {{}})
+        node[leaf] = flat[key]
+    return apply_fn, tree, in_info, out_info
+'''
+
+MN_PORT_PY = '''
+import numpy as np
+from nnstreamer_tpu_torch.models.convert import mobilenet_params_from_jax
+from nnstreamer_tpu_torch.models.mobilenet import MobileNetV2, make_apply
+from nnstreamer_tpu_torch.tensors.info import TensorsInfo
+
+
+def get_model():
+    flat = np.load({npz!r})
+    tree = {{}}
+    for key in flat.files:
+        *path, leaf = key.split("/")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {{}})
+        node[leaf] = flat[key]
+    model = MobileNetV2(num_classes=1001, width=0.35)
+    model.load_state_dict(mobilenet_params_from_jax(tree))
+    return (make_apply(False), model, TensorsInfo.make("uint8", "3:96:96"),
+            TensorsInfo.make("float32", "1001"))
+'''
+
+
+@pytest.fixture(scope="module")
+def mobilenet_models(tmp_path_factory):
+    """One set of MobileNet-v2 variables (width 0.35, 96x96, BatchNorm
+    statistics drawn from a numpy seed) served to both packages through
+    model files; and a 1001-line labels file."""
+    tmp = tmp_path_factory.mktemp("mobilenet")
+    _, variables, _, _ = jax_zoo.build("mobilenet_v2", width="0.35",
+                                       size="96")
+    rng = np.random.default_rng(21)
+    flat = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(
+            jax.device_get(variables))[0]:
+        key = "/".join(str(k.key) for k in path)
+        leaf = np.asarray(leaf)
+        if key.endswith("/mean"):
+            leaf = rng.normal(0.0, 0.5, leaf.shape).astype(np.float32)
+        elif key.endswith("/var"):
+            leaf = rng.uniform(0.5, 2.0, leaf.shape).astype(np.float32)
+        flat[key] = leaf
+    npz = tmp / "mobilenet.npz"
+    np.savez(npz, **flat)
+    jax_py, port_py = tmp / "mobilenet_jax.py", tmp / "mobilenet_port.py"
+    jax_py.write_text(MN_JAX_PY.format(npz=str(npz)))
+    port_py.write_text(MN_PORT_PY.format(npz=str(npz)))
+    labels = tmp / "labels1001.txt"
+    labels.write_text("\n".join(f"class{i}" for i in range(1001)))
+    return str(jax_py), str(port_py), str(labels)
+
+
+def _mobilenet_lines(models, tail):
+    """bench.py's headline line, at width 0.35 and 96x96, in both
+    packages: prefetch-host=true, queues of 8 and 32."""
+    jax_py, port_py, _ = models
+    src = (f"tensortestsrc caps={MN_CAPS} pattern=random seed={SEED} "
+           f"num-buffers={MN_FRAMES} ! queue max-size-buffers=8")
+    filt = "latency=1 prefetch-host=true ! queue max-size-buffers=32"
+    return (f"{src} ! tensor_filter name=f framework=jax model={jax_py} "
+            f"{filt} {tail}",
+            f"{src} ! tensor_filter name=f framework=torch-cuda "
+            f"accelerator=true:cpu model={port_py} {filt} {tail}")
+
+
+def test_mobilenet_headline_line_matches_jax(mobilenet_models):
+    jax_line, port_line = _mobilenet_lines(mobilenet_models,
+                                           "! appsink name=out")
+    jpipe, ppipe = _run(nt, jax_line), _run(pt, port_line)
+    want = np.stack([b.chunks[0].host() for b in jpipe["out"].buffers])
+    got = np.stack([b.chunks[0].host() for b in ppipe["out"].buffers])
+    assert got.shape == want.shape == (MN_FRAMES, 1001)
+    assert got.dtype == np.float32
+    # bf16 bound of tests/test_torch_mobilenet.py
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-2)
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+    assert str(ppipe["f"].srcpad.caps) == str(jpipe["f"].srcpad.caps)
+    assert ppipe["f"].latency_us > 0
+
+
+def test_mobilenet_golden_labels_match_jax(mobilenet_models):
+    labels = mobilenet_models[2]
+    jax_line, port_line = _mobilenet_lines(
+        mobilenet_models, f"! tensor_decoder mode=image_labeling "
+        f"option1={labels} ! appsink name=out")
+    want = _run(nt, jax_line)["out"].buffers
+    got = _run(pt, port_line)["out"].buffers
+    assert len(got) == len(want) == MN_FRAMES
+    assert [b.extras["label"] for b in got] == \
+        [b.extras["label"] for b in want]
+    assert [b.pts for b in got] == [b.pts for b in want]
+
+
+def test_mobilenet_batched_top1_line_on_cpu():
+    """The batched sibling (4 frames a buffer) with top1=1: [4, 1] int32
+    ids a buffer, equal to the argmax of the logits line's output."""
+    caps = MN_CAPS.replace("3:96:96", "3:96:96:4")
+    line = (f"tensortestsrc caps={caps} pattern=random seed={SEED} "
+            "num-buffers=2 ! queue max-size-buffers=4 ! tensor_filter "
+            "framework=torch-cuda accelerator=true:cpu "
+            'model="zoo://mobilenet_v2?width=0.35&size=96{}" '
+            "prefetch-host=true ! queue max-size-buffers=8 "
+            "! appsink name=out")
+    logits = _run(pt, line.format(""))["out"].buffers
+    top1 = _run(pt, line.format("&top1=1"))["out"].buffers
+    for lg, t1 in zip(logits, top1):
+        ids = t1.chunks[0].host()
+        assert ids.shape == (4, 1) and ids.dtype == np.int32
+        np.testing.assert_array_equal(ids[:, 0],
+                                      lg.chunks[0].host().argmax(-1))

@@ -1,19 +1,28 @@
-"""Where a frame's time goes in the port's ViT-B/16 labeling line on a GPU.
+"""Where a frame's time goes in one of the port's labeling lines on a GPU.
 
-    python3 tools/torch_vit_profile.py [--frames N]
+    python3 tools/torch_profile.py [--model vit|mobilenet_v2]
+                                   [--batch B] [--frames N]
 
-Runs chip_smoke.py's line with an ``appsrc`` in place of
-``tensortestsrc`` (appsrc ! tensor_filter framework=torch-cuda
-model="zoo://vit?attn=pallas" ! tensor_decoder mode=image_labeling !
-appsink; full-width ViT-B/16, seeded random weights, batch 1 per frame),
-so the frames (made as tensortestsrc makes them, before the run) can be
-pushed after the model is open and warm: 4 warm-up frames, then N frames
-timed, then N frames under torch.profiler. Prints the card, the frame
-time (p50 gap between frames at the sink, plain and profiled), device
-kernel time and launches per frame in the profiled window, the device's
-idle share (1 - kernel time / frame time), and the kernels that take the
-most device time. Frame generation is not in the frame time here; it is
-in chip_smoke.py's. CPU ops are not listed: the model runs on the
+Runs chip_smoke.py's line for the model with an ``appsrc`` in place of
+``tensortestsrc``:
+
+* ``vit`` (default): appsrc ! tensor_filter framework=torch-cuda
+  model="zoo://vit?attn=pallas" ! tensor_decoder mode=image_labeling !
+  appsink; full-width ViT-B/16, 1000 labels;
+* ``mobilenet_v2``: the same with model=zoo://mobilenet_v2
+  prefetch-host=true (width 1.0, 224x224, 1001 labels) — the headline
+  line with its golden decoder;
+
+seeded random weights. ``--batch B`` (>1) stacks B frames a buffer
+(caps ``3:224:224:B``) and drops the decoder, as the batched line does.
+The frames (made as tensortestsrc makes them, before the run) are pushed
+after the model is open and warm: 4 warm-up buffers, then N buffers
+timed, then N buffers under torch.profiler. Prints the card, the buffer
+time (p50 gap between buffers at the sink, plain and profiled), device
+kernel time and launches per buffer in the profiled window, the device's
+idle share (1 - kernel time / buffer time), and the kernels that take
+the most device time. Frame generation is not in the buffer time here;
+it is in chip_smoke.py's. CPU ops are not listed: the model runs on the
 pipeline's source thread, which the profiler's CPU side does not follow.
 Needs a CUDA device; exits non-zero without one.
 """
@@ -31,16 +40,22 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 CAPS = ("other/tensors,format=static,num_tensors=1,types=(string)uint8,"
-        "dimensions=(string)3:224:224,framerate=(fraction)0/1")
+        "dimensions=(string){dims},framerate=(fraction)0/1")
 WARMUP = 4
+MODELS = {  # model property, filter options, labels
+    "vit": ('"zoo://vit?attn=pallas"', "", 1000),
+    "mobilenet_v2": ("zoo://mobilenet_v2", "prefetch-host=true", 1001),
+}
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=sorted(MODELS), default="vit")
+    ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--frames", type=int, default=32)
     args = ap.parse_args()
     if not torch.cuda.is_available():
-        sys.exit("torch_vit_profile: no CUDA device")
+        sys.exit("torch_profile: no CUDA device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -49,9 +64,11 @@ def main():
     import nnstreamer_tpu_torch as pt
     from torch.profiler import ProfilerActivity, profile
 
-    n = args.frames
+    n, batch = args.frames, args.batch
+    shape = (224, 224, 3) if batch == 1 else (batch, 224, 224, 3)
+    dims = "3:224:224" if batch == 1 else f"3:224:224:{batch}"
     rng = np.random.default_rng(0)
-    frames = [rng.integers(0, 255, (224, 224, 3), np.uint8, endpoint=True)
+    frames = [rng.integers(0, 255, shape, np.uint8, endpoint=True)
               for _ in range(WARMUP + 2 * n)]
     arrivals = []
     arrived = threading.Condition()
@@ -69,14 +86,16 @@ def main():
                 sys.exit(f"{len(arrivals)} of {hi} frames arrived")
         return float(np.percentile(np.diff(arrivals[lo:hi]) * 1e3, 50))
 
+    model, opts, classes = MODELS[args.model]
     with tempfile.TemporaryDirectory() as tmp:
         labels = os.path.join(tmp, "labels.txt")
         with open(labels, "w") as f:
-            f.write("\n".join(f"class{i}" for i in range(1000)))
+            f.write("\n".join(f"class{i}" for i in range(classes)))
+        decoder = ("" if batch > 1 else
+                   f"! tensor_decoder mode=image_labeling option1={labels} ")
         pipe = pt.parse_launch(
-            f"appsrc name=src caps={CAPS} ! tensor_filter "
-            'framework=torch-cuda model="zoo://vit?attn=pallas" '
-            f"! tensor_decoder mode=image_labeling option1={labels} "
+            f"appsrc name=src caps={CAPS.format(dims=dims)} ! tensor_filter "
+            f"framework=torch-cuda model={model} {opts} {decoder}"
             "! appsink name=out")
         pipe["out"].connect(on_frame)
         pipe.start()
@@ -93,15 +112,16 @@ def main():
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        sys.exit("torch_vit_profile: the profiler recorded no device kernel")
+        sys.exit("torch_profile: the profiler recorded no device kernel")
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
     launches = sum(e.count for e in kernels) / n
-    print(f"frame time p50: {plain_ms:.3f} ms plain, {prof_ms:.3f} ms "
-          f"profiled; device kernel time {dev_ms:.3f} ms/frame over "
-          f"{launches:.1f} kernel launches/frame; device idle share "
+    print(f"{args.model}, batch {batch}: buffer time p50: {plain_ms:.3f} "
+          f"ms plain, {prof_ms:.3f} ms profiled; device kernel time "
+          f"{dev_ms:.3f} ms/buffer over {launches:.1f} kernel "
+          f"launches/buffer; device idle share "
           f"{1 - dev_ms / plain_ms:.3f} (plain), {1 - dev_ms / prof_ms:.3f} "
           f"(profiled); {smi}", flush=True)
-    print("top kernels by device time (ms/frame, launches/frame):")
+    print("top kernels by device time (ms/buffer, launches/buffer):")
     for e in sorted(kernels, key=lambda e: e.self_device_time_total,
                     reverse=True)[:15]:
         print(f"  {e.self_device_time_total / 1e3 / n:8.4f} "
