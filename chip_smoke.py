@@ -8,11 +8,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
               name and power limit.
 2. build    — compiles every CUDA kernel of the port (one nvcc per source,
               all at once: attention.cu, normalize.cu) and prints the
-              build seconds and ptxas report.
+              build seconds, ptxas's registers, shared memory and spills
+              for each kernel instantiation and, where cuobjdump is
+              present, the HMMA (tensor-core)
+              instructions in each attention kernel's SASS: a bf16/f16
+              kernel without them fails.
 3. kernels  — the attention kernel against its plain PyTorch version on
-              the card, at the main path's shapes and a few ragged ones,
-              with the tolerance stated beside each; kernel, plain and
-              library times from CUDA events.
+              the card, at the main path's shapes and ragged, D=20/72 and
+              storage-offset-1 ones, with the tolerance stated beside
+              each; kernel, plain and library times from CUDA events, and
+              for bf16 the kernel's device time (torch.profiler).
 3b. normalize — the normalize kernel against normalize_plain on the card,
               bitwise, at frame, batch, ragged and unaligned shapes in
               bf16/f16/f32; kernel and plain times (CUDA events), the
@@ -33,6 +38,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
 6. normalize entry — the headline frames on the card through
               ops.fused_normalize, the kernel's own entry point (no
               pipeline path calls it), counting its launches.
+7. vit batch — the ViT-B/16 line at batch 64 (caps 3:224:224:64,
+              tensortestsrc ! tensor_filter ... attn=pallas ! appsink):
+              2 warm-up and 4 measured buffers, 12 attention launches a
+              buffer, frames/s, and the first buffer's logits against
+              attn=stock on the same frames.
 
 The second-to-last line is the kernels JSON, the last line the result:
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -58,6 +68,9 @@ MOBILENET_WARMUP = 16
 MOBILENET_FRAMES = 64      # measured frames of the headline line
 BATCH = 32
 BATCH_BUFFERS = 10         # batch-32 buffers: 2 warm-up + 8 measured
+VIT_BATCH = 64
+VIT_BATCH_WARMUP = 2
+VIT_BATCH_BUFFERS = 4      # measured batch-64 buffers
 LABELED_FRAMES = 16
 CAPS = ("other/tensors,format=static,num_tensors=1,types=(string)uint8,"
         "dimensions=(string){dims},framerate=(fraction)0/1")
@@ -81,15 +94,89 @@ def phase_device():
     return smi
 
 
+def _demangle(names):
+    """C++ names of ``names`` through c++filt where it exists."""
+    import shutil
+    if not names or not shutil.which("c++filt"):
+        return list(names)
+    out = subprocess.run(["c++filt"], input="\n".join(names),
+                         capture_output=True, text=True, timeout=60).stdout
+    return out.splitlines() if out.count("\n") >= len(names) - 1 \
+        else list(names)
+
+
+def _ptxas_report(out):
+    """(function, registers line, spill line) for each kernel in nvcc's
+    -Xptxas -v output."""
+    import re
+    funcs, regs, spills, current = [], {}, {}, None
+    for line in out.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([A-Za-z0-9_$]+)'?", line)
+        if m:
+            current = m.group(1)
+            if current not in funcs:
+                funcs.append(current)
+        elif current and "registers" in line:
+            regs[current] = line.split(":", 1)[-1].strip()
+        elif current and "spill" in line:
+            spills[current] = line.strip()
+    names = _demangle(funcs)
+    return [(_short(n), regs.get(f, "?"), spills.get(f, "?"))
+            for f, n in zip(funcs, names)]
+
+
+def _short(name):
+    """A kernel's name without its return type, namespace and
+    parameters: ``attention_fwd_mma_kernel<__nv_bfloat16, 64, true>``."""
+    name = name.replace("void ", "", 1).replace("(anonymous namespace)::",
+                                                "")
+    depth = 0
+    for i, ch in enumerate(name):
+        depth += (ch == "<") - (ch == ">")
+        if ch == "(" and depth == 0:
+            return name[:i]
+    return name
+
+
+def _sass_hmma(lib):
+    """{kernel: HMMA/HGMMA instruction count} from cuobjdump's SASS of
+    ``lib``; None where cuobjdump is absent."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = line.split("Function :", 1)[1].strip()
+            counts[current] = 0
+        elif current and ("HMMA" in line or "HGMMA" in line):
+            counts[current] += 1
+    return dict(zip(map(_short, _demangle(list(counts))), counts.values()))
+
+
 def phase_build():
     from nnstreamer_tpu_torch.ops import _build
     t0 = time.perf_counter()
     logs = _build.build_all()
     log(f"build: {time.perf_counter() - t0:.2f} s for {sorted(logs)}")
     for name, out in logs.items():
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"  ptxas[{name}]: {line.strip()}")
+        for func, regs, spill in _ptxas_report(out):
+            log(f"  ptxas[{name}] {func}: {regs}; {spill}")
+    hmma = _sass_hmma(_build.library_path("attention"))
+    if hmma is None:
+        log("  cuobjdump: not present; SASS not inspected")
+    else:
+        for func, n in hmma.items():
+            log(f"  sass {func}: {n} HMMA/HGMMA")
+        mma = {f: n for f, n in hmma.items() if "mma_kernel" in f}
+        if not mma or not all(mma.values()):
+            sys.exit(f"chip_smoke: a tensor-core attention kernel has no "
+                     f"HMMA in its SASS: {mma}")
+    return hmma
 
 
 def time_ms(fn, iters=50, warmup=5):
@@ -145,30 +232,46 @@ def phase_kernels():
         return [torch.randn(shape, generator=g, device="cuda").to(dtype)
                 for _ in range(3)]
 
-    # (shape, dtype, tolerance): bf16 allows two bf16 ulps below 2 in
-    # magnitude (2**-6): the plain version rounds the normalised p to bf16
-    # before p.v, the kernel keeps the unnormalised p in f32, and each
-    # rounds o once. f32 differs by summation order only; f16 as bf16
-    # with 3 more mantissa bits.
+    def offset1(shape, dtype, seed):
+        """q/k/v as views at storage offset 1: no row is 16-byte
+        aligned, so the kernel stages with element loads."""
+        n = int(np.prod(shape))
+        return [t[1:].view(shape)
+                for t in qkv((n + 1,), dtype, seed)]
+
+    # (shape, dtype, tolerance[, view]): bf16 allows two bf16 ulps below
+    # 2 in magnitude (2**-6): the plain version rounds the normalised p
+    # to bf16 before p.v, the tensor-core kernel the unnormalised p of
+    # each key tile, and each rounds o once. f32 differs by summation
+    # order only; f16 as bf16 with 3 more mantissa bits.
     cases = [((1, 196, 12, 64), torch.bfloat16, 2.0 ** -6),
              ((64, 196, 12, 64), torch.bfloat16, 2.0 ** -6),
              ((1, 7, 2, 8), torch.bfloat16, 2.0 ** -6),
              ((2, 1000, 4, 128), torch.bfloat16, 2.0 ** -6),
+             ((1, 65, 2, 64), torch.bfloat16, 2.0 ** -6),
+             ((1, 50, 3, 20), torch.bfloat16, 2.0 ** -6),
+             ((3, 33, 5, 72), torch.bfloat16, 2.0 ** -6),
+             ((2, 50, 4, 32), torch.bfloat16, 2.0 ** -6, offset1),
              ((1, 196, 12, 64), torch.float32, 1e-5),
-             ((1, 196, 12, 64), torch.float16, 2.0 ** -9)]
+             ((1, 196, 12, 64), torch.float16, 2.0 ** -9),
+             ((64, 196, 12, 64), torch.float16, 2.0 ** -9)]
     rows = []
-    for i, (shape, dtype, tol) in enumerate(cases):
-        q, k, v = qkv(shape, dtype, seed=i)
+    for i, (shape, dtype, tol, *view) in enumerate(cases):
+        q, k, v = (view[0] if view else qkv)(shape, dtype, seed=i)
         got = A.fused_attention(q, k, v)
         torch.cuda.synchronize()
         want = A.attention_plain(q, k, v)
         err = (got.float() - want.float()).abs().max().item()
         ok = err <= tol and bool(torch.isfinite(got).all())
+        plan = A.plan(q, k, v)
         row = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
+               "kernel": plan.kernel, "staging": plan.staging,
                "max_abs_err": err, "tol": tol}
-        if dtype == torch.bfloat16:
+        if dtype == torch.bfloat16 and not view:
             bq, bk, bv = (t.transpose(1, 2) for t in (q, k, v))
             row["ms"] = time_ms(lambda: A.fused_attention(q, k, v))
+            row["device_ms"] = device_ms(
+                lambda: A.fused_attention(q, k, v), "attention_fwd")
             row["plain_ms"] = time_ms(lambda: A.attention_plain(q, k, v))
             row["library_ms"] = time_ms(
                 lambda: F.scaled_dot_product_attention(bq, bk, bv))
@@ -257,6 +360,53 @@ def phase_pipeline(smi, tmp):
         sys.exit("chip_smoke: attn=pallas and attn=stock logits disagree")
     return {"frames": FRAMES, "launches": launches, "fps": steady_fps,
             "p50_ms": float(np.percentile(gaps, 50))}
+
+
+def phase_vit_batch(smi):
+    """The ViT-B/16 line at batch 64; returns its launches and
+    frames/s."""
+    from nnstreamer_tpu_torch.models import zoo
+    from nnstreamer_tpu_torch.ops import attention as A
+
+    n = VIT_BATCH_WARMUP + VIT_BATCH_BUFFERS
+    line = (f"tensortestsrc caps={CAPS.format(dims=f'3:224:224:{VIT_BATCH}')} "
+            f"pattern=random seed={SEED} num-buffers={n} ! tensor_filter "
+            'framework=torch-cuda model="zoo://vit?attn=pallas" '
+            "! appsink name=out")
+    A.launches = 0
+    pipe, stamps = _run_timed(line, VIT_BATCH_WARMUP, VIT_BATCH_BUFFERS)
+    launches = A.launches
+    if launches != VIT_LAYERS * n:
+        sys.exit(f"chip_smoke: {launches} attention launches for {n} "
+                 f"batch-{VIT_BATCH} buffers, expected {VIT_LAYERS} a "
+                 "buffer")
+    fps = (len(stamps) - 1) * VIT_BATCH / (stamps[-1] - stamps[0])
+    got = torch.from_numpy(pipe["out"].buffers[0].chunks[0].host())
+    if tuple(got.shape) != (VIT_BATCH, 1000) \
+            or not bool(torch.isfinite(got).all()):
+        sys.exit(f"chip_smoke: batch-{VIT_BATCH} ViT logits are "
+                 f"{tuple(got.shape)} or not finite")
+    # the first buffer's frames, re-made as tensortestsrc makes them,
+    # through the same weights with stock attention; the batch-1 phase's
+    # tolerance
+    frames = _frames(1, (VIT_BATCH, 224, 224, 3))[0].cuda()
+    with torch.inference_mode():
+        apply_fn, stock, _, _ = zoo.build("vit", attn="stock")
+        want = apply_fn(stock.cuda().eval(), frames).float().cpu()
+    diff = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    tol = 5e-2 + 0.05 * scale
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    log(f"vit batch-{VIT_BATCH}: {n} buffers ({VIT_BATCH_BUFFERS} measured "
+        f"after {VIT_BATCH_WARMUP}), {launches} attention launches, "
+        f"{fps:.2f} frames/s; logits vs attn=stock max |diff| {diff:.4g} "
+        f"(max |logit| {scale:.4g}, tol {tol:.4g}), top-1 agreement "
+        f"{agree:.3f}; {smi}")
+    if not diff <= tol:
+        sys.exit(f"chip_smoke: batch-{VIT_BATCH} attn=pallas and attn=stock "
+                 "logits disagree")
+    return {"buffers": n, "measured": VIT_BATCH_BUFFERS,
+            "launches": launches, "frames_per_s": fps, "max_abs_diff": diff}
 
 
 def normalize_bound(n, itemsize):
@@ -492,13 +642,14 @@ def phase_normalize_entry(frames):
 def main():
     smi = phase_device()
     kind = torch.cuda.get_device_name(0)
-    phase_build()
+    hmma = phase_build()
     rows = phase_kernels()
     norm_rows, norm_err = phase_normalize()
     with tempfile.TemporaryDirectory() as tmp:
         run = phase_pipeline(smi, tmp)
         mobilenet, frames = phase_mobilenet(smi, tmp)
     norm_launches = phase_normalize_entry(frames)
+    vit_batch = phase_vit_batch(smi)
     main_row = rows[0]
     kernels = [{
         "name": "attention",
@@ -512,7 +663,11 @@ def main():
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+        "device_ms": main_row["device_ms"],
+        "path_launches": {"vit_batch1": run["launches"],
+                          f"vit_batch{VIT_BATCH}": vit_batch["launches"]},
         "shapes": rows,
+        "sass_hmma": hmma,
         "card": smi,
     }, {
         "name": "normalize",
@@ -529,7 +684,8 @@ def main():
         "shapes": norm_rows,
         "card": smi,
     }]
-    log(json.dumps({"mobilenet": mobilenet, "card": smi}))
+    log(json.dumps({"mobilenet": mobilenet, f"vit_batch{VIT_BATCH}": vit_batch,
+                    "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

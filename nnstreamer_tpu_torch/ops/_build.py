@@ -35,7 +35,7 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "attention": {
         "nns_attention_fwd": (_int, [_ptr, _ptr, _ptr, _ptr, _int, _int,
                                      _int, _int, _int] + [_ll] * 12
-                              + [_float, _ptr]),
+                              + [_int, _float, _ptr]),
         "nns_cuda_error_string": (ctypes.c_char_p, [_int]),
     },
     "normalize": {

@@ -1,36 +1,44 @@
 """Fused multi-head attention: a hand-written CUDA kernel for Hopper.
 
 Replaces the Pallas TPU kernel of ``nnstreamer_tpu/ops/attention.py``
-(``_fused_bshd``, body ``_attn_kernel``, entry ``fused_attention``). It
-computes the same function: non-causal attention per (batch, head) over
-``[B, S, H, D]`` q/k/v, scores ``q·kᵀ`` accumulated in f32 and scaled by
-``D**-0.5`` inside the kernel (flax hands an ``attention_fn`` unscaled
-q/k/v), an f32 softmax over the keys, ``p·v`` accumulated in f32, output
-in q's dtype.
+(``_fused_bshd`` at :80, body ``_attn_kernel`` at :60, entry
+``fused_attention``). It computes the same function: non-causal
+attention per (batch, head) over ``[B, S, H, D]`` q/k/v, scores ``q·kᵀ``
+accumulated in f32 and scaled by ``D**-0.5`` inside the kernel (flax
+hands an ``attention_fn`` unscaled q/k/v), an f32 softmax over the keys,
+``p·v`` accumulated in f32, output in q's dtype. Any S is taken; D must
+be at most 128.
 
-Bound on the H100 (3.35 TB/s HBM, 989 TFLOP/s bf16 dense): at the ViT-B/16
-shapes (S=196, H=12, D=64, bf16) one call moves 1.2 MB of q/k/v/o at
-B=1 and 77 MB at B=64, against 0.12 and 7.5 GFLOP, so the call is
-memory-bound at both batch sizes (0.36 µs and 23 µs of HBM time). What the
-design does about it: q/k/v are read once each, straight from the
-``[B, S, H, D]`` layout through their strides, and o is written once. The
-TPU kernel paid for transposes and pads to 128 around its call; here
-there are none, and no ``S×S`` score tensor ever reaches device memory.
+Bound on the H100 (3.35 TB/s HBM, 989 TFLOP/s bf16 dense): one call
+moves ``4·B·S·H·D·itemsize`` bytes of q/k/v/o, so at the ViT-B/16 shapes
+(S=196, H=12, D=64, bf16) 1.2 MB at B=1 and 77 MB at B=64, against 0.12
+and 7.5 GFLOP: memory-bound at both batch sizes (0.36 µs and 23 µs of
+HBM time). What the design does about it: q/k/v are read once each,
+straight from the ``[B, S, H, D]`` layout through their strides, o is
+written once, and no ``S×S`` score tensor ever reaches device memory.
 
-The kernel (``csrc/attention.cu``) runs one block per (b·h, 16 query
-rows) and walks the keys in tiles of 32 staged in shared memory, with an
-online softmax in f32 registers. It runs its products on the CUDA
-cores in f32 with scalar shared-memory loads (about 2·D + 64 per query
-row and key tile), so at large batch the shared-memory load issue rate
-bounds it, far above the HBM bound; tensor cores (``mma``/``wgmma``),
-vector loads and TMA are for a later change (times in PERF.md). Any S
-is taken; D must be at most 128.
+The kernels (``csrc/attention.cu``), routed by dtype (:func:`plan`):
+
+* bf16/f16 run a FlashAttention-2 forward on the tensor cores
+  (``mma.sync.m16n8k16``, f32 accumulate). A block of 4 warps takes 64
+  query rows of one (b, h), each warp 16 rows with its Q fragments held
+  in registers; keys and values go through shared memory in tiles of 64
+  in a two-stage ring, loaded with 16-byte ``cp.async`` while the
+  previous tile is computed on (or with element loads where a row is not
+  16-byte aligned or ``D·itemsize`` is not a multiple of 16); an online
+  softmax runs on the accumulator fragments, and the probabilities go
+  from the score accumulators to the ``p·v`` product in registers.
+* f32 runs on the CUDA cores in f32 (the tensor cores would take TF32):
+  one block per (b·h, 16 query rows), key tiles of 32 staged in shared
+  memory, an online softmax in registers.
 
 Rounding differs from the TPU kernel in one place: the TPU kernel rounds
-the *normalised* ``p`` to the input dtype before ``p·v``; the online
-softmax keeps the unnormalised ``p`` of each key tile in f32 and divides
-by the row sum once at the end. :func:`attention_plain` keeps the TPU
-kernel's rounding, and is what the kernel is held against.
+the *normalised* ``p`` to the input dtype before ``p·v``; the bf16/f16
+kernel rounds the *unnormalised* ``p`` of each key tile (at most 1,
+before the division) to the input dtype, accumulates ``p·v`` and the row
+sum in f32 and divides once at the end; the f32 kernel keeps ``p`` in
+f32. :func:`attention_plain` keeps the TPU kernel's rounding, and is
+what the kernels are held against.
 
 ``bias``/``mask`` are outside the kernel's contract, as in the JAX
 package: :func:`fused_attention` then takes the stock path
@@ -40,7 +48,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -106,24 +114,52 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                              "in its last (head) dim")
 
 
+class Plan(NamedTuple):
+    """How :func:`fused_attention` runs a call on the card."""
+    kernel: str   # "tensor_core" (bf16/f16, mma.sync) or "cuda_core" (f32)
+    staging: str  # "vec16" (16-byte cp.async) or "element" (2- or 4-byte)
+
+
+def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Plan:
+    """The kernel and the staging a call takes: by dtype, then by whether
+    every row q/k/v starts on is 16-byte aligned (the data pointer and the
+    batch, sequence and head strides in bytes) and ``D·itemsize`` is a
+    multiple of 16, as 16-byte ``cp.async`` needs."""
+    if q.dtype == torch.float32:
+        return Plan("cuda_core", "element")
+    size = q.element_size()
+    aligned = (q.shape[-1] * size) % 16 == 0 and all(
+        t.data_ptr() % 16 == 0 and all(st * size % 16 == 0
+                                       for st in t.stride()[:3])
+        for t in (q, k, v))
+    return Plan("tensor_core", "vec16" if aligned else "element")
+
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        from ._build import load_library
+        _lib = load_library("attention")
+    return _lib
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream."""
     global launches
-    from ._build import load_library
-    lib = load_library("attention")
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    strides = [ctypes.c_longlong(x) for t in (q, k, v, out)
-               for x in t.stride()[:3]]
+    lib = _library()
     err = lib.nns_attention_fwd(
-        ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
-        ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        ctypes.c_int(_DTYPE_CODES[q.dtype]), ctypes.c_int(b),
-        ctypes.c_int(s), ctypes.c_int(h), ctypes.c_int(d), *strides,
-        ctypes.c_float(d ** -0.5),
-        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        _DTYPE_CODES[q.dtype], b, s, h, d, *q.stride()[:3],
+        *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        int(plan(q, k, v).staging == "vec16"), d ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         msg = lib.nns_cuda_error_string(err).decode()
         raise RuntimeError(f"fused_attention: CUDA launch failed with "

@@ -112,6 +112,39 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(case):
         port.fused_attention(q, k, v)
 
 
+def _view(kind, shape, dtype):
+    b, s, h, d = shape
+    if kind == "contiguous":
+        return [torch.zeros(shape, dtype=dtype) for _ in range(3)]
+    if kind == "offset1":  # storage offset of one element
+        n = b * s * h * d
+        return [torch.zeros(n + 1, dtype=dtype)[1:].view(shape)
+                for _ in range(3)]
+    if kind == "fused_qkv":  # views of one [B, S, 3, H, D] projection
+        return list(torch.zeros(b, s, 3, h, d, dtype=dtype).unbind(2))
+    # rows D + 1 apart: the head stride is odd
+    return [torch.zeros(b, s, h, d + 1, dtype=dtype)[..., :d]
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("view", ["contiguous", "offset1", "fused_qkv",
+                                  "padded_rows"])
+@pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
+@pytest.mark.parametrize("d", [8, 20, 64, 72, 128])
+def test_plan_routes_by_dtype_and_alignment(d, dtype, view):
+    """The wrapper's routing, decided in Python with no card: f32 takes
+    the CUDA-core kernel; bf16/f16 the tensor-core kernel, staged with
+    16-byte cp.async only where every row starts 16-byte aligned and
+    D*itemsize is a multiple of 16, else with element loads."""
+    q, k, v = _view(view, (2, 5, 2, d), getattr(torch, dtype))
+    got = port.plan(q, k, v)
+    if dtype == "float32":
+        assert got == ("cuda_core", "element")
+        return
+    aligned = view in ("contiguous", "fused_qkv") and d * 2 % 16 == 0
+    assert got == ("tensor_core", "vec16" if aligned else "element")
+
+
 def test_module_imports_no_jax():
     """The port's attention module (and the package) import nothing of
     JAX or of the JAX package, checked in a fresh interpreter."""

@@ -28,12 +28,16 @@ def card():
                                        (torch.float16, 2.0 ** -9),
                                        (torch.float32, 1e-5)])
 @pytest.mark.parametrize("shape", [(1, 196, 12, 64), (2, 1000, 4, 128),
-                                   (1, 7, 2, 8), (3, 33, 5, 72)])
+                                   (1, 7, 2, 8), (3, 33, 5, 72),
+                                   (64, 196, 12, 64), (1, 1, 1, 64),
+                                   (1, 65, 2, 64), (1, 50, 3, 20)])
 def test_kernel_matches_plain(card, shape, dtype, tol):
     """The CUDA kernel against attention_plain on the card. bf16: two bf16
     ulps below 2 in magnitude (the plain version rounds the normalised p
-    before p.v, the kernel keeps it in f32); f16 likewise with 3 more
-    bits; f32: summation order only."""
+    before p.v, the tensor-core kernel the unnormalised p of each key
+    tile); f16 likewise with 3 more bits; f32: summation order only.
+    S=1 and S=65 (one key past a 64-key tile) take the masked tail;
+    D=20 (40-byte rows) takes element staging."""
     rng = np.random.default_rng(7)
     q, k, v = [torch.from_numpy(rng.standard_normal(shape).astype(
         np.float32)).to("cuda", dtype) for _ in range(3)]
@@ -46,12 +50,20 @@ def test_kernel_matches_plain(card, shape, dtype, tol):
     assert (got.float() - want.float()).abs().max().item() <= tol
 
 
-def test_kernel_reads_strided_inputs(card):
+@pytest.mark.parametrize("view,staging", [("fused", "vec16"),
+                                          ("offset1", "element")])
+def test_kernel_reads_strided_inputs(card, view, staging):
     """q/k/v as views of one fused [B, S, 3, H, D] projection: read
-    through their strides, no copies."""
-    qkv = torch.randn(2, 50, 3, 4, 32, device="cuda").bfloat16()
+    through their strides, no copies. ``offset1`` shifts the projection's
+    storage by one element, so no row is 16-byte aligned and the kernel
+    stages with element loads."""
+    shape = (2, 50, 3, 4, 32)
+    n = int(np.prod(shape))
+    flat = torch.randn(n + 1, device="cuda").bfloat16()
+    qkv = (flat[:n] if view == "fused" else flat[1:]).view(shape)
     q, k, v = qkv.unbind(2)
     assert not q.is_contiguous()
+    assert attention.plan(q, k, v) == ("tensor_core", staging)
     got = attention.fused_attention(q, k, v)
     want = attention.attention_plain(q, k, v)
     assert (got.float() - want.float()).abs().max().item() <= 2.0 ** -6
