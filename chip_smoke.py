@@ -43,6 +43,36 @@ Phases, in order; any failure exits non-zero and prints no result line:
               2 warm-up and 4 measured buffers, 12 attention launches a
               buffer, frames/s, and the first buffer's logits against
               attn=stock on the same frames.
+8. ssd      — bench.py's bench_ssd line at full published width (width
+              1.0, 300x300, 91 classes, topk 100, packed=1; seeded random
+              weights), queues of 8 and 32, prefetch-host=true, the
+              bounding_boxes decoder (mobilenet-ssd-postprocess):
+              8 warm-up and 48 measured frames (fps, p50, frames per
+              fetch RPC); the decoded boxes against the module's packed
+              output on the same frames, packed against the quad, and the
+              card's head outputs and top-k scores against the same
+              weights in f32 on the CPU.
+9. posenet  — bench_posenet's line (257x257, decode=device,
+              pose_estimation): 8 + 48 frames; keypoint positions equal
+              the argmax of the heatmap variant's output on the same
+              frames, and that variant's heatmaps of 2 frames agree with
+              the same weights in f32 on the CPU.
+10. deeplab — bench_deeplab's line (257x257, 21 classes, argmax=u8,
+              image_segment): 8 + 48 frames; the logits variant
+              (argmax=0, 5.5 MB of f32 a frame), 8 + 48 frames timed
+              the same way, whose argmax equals the u8 class maps and
+              whose logits of 2 frames agree with the same weights in
+              f32 on the CPU.
+11. video   — the video front end: videotestsrc (RGB 300x300) !
+              tensor_converter ! queue ! the SSD filter ! queue !
+              bounding_boxes ! appsink, 8 + 32 frames; and a device-
+              resident transform line (tensortestsrc device=true !
+              tensor_transform arithmetic ! tensor_transform transpose !
+              appsink) whose chunks stay CUDA tensors until the sink and
+              equal numpy's float32 result within one ulp.
+Phases 8-11 launch neither hand kernel (their models inline their input
+affine, as the JAX models do); their launch counts are read all the
+same and written on the kernels line as 0.
 
 The second-to-last line is the kernels JSON, the last line the result:
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -72,6 +102,10 @@ VIT_BATCH = 64
 VIT_BATCH_WARMUP = 2
 VIT_BATCH_BUFFERS = 4      # measured batch-64 buffers
 LABELED_FRAMES = 16
+DET_WARMUP = 8
+DET_FRAMES = 48            # measured frames of the SSD/PoseNet/DeepLab lines
+VIDEO_FRAMES = 32          # measured frames of the videotestsrc SSD line
+CHECK_FRAMES = 8           # frames held against a second variant
 CAPS = ("other/tensors,format=static,num_tensors=1,types=(string)uint8,"
         "dimensions=(string){dims},framerate=(fraction)0/1")
 
@@ -639,6 +673,277 @@ def phase_normalize_entry(frames):
     return launches
 
 
+def _line_stats(stamps):
+    gaps = np.diff(stamps) * 1e3
+    return ((len(stamps) - 1) / (stamps[-1] - stamps[0]),
+            float(np.percentile(gaps, 50)))
+
+
+def _kernel_launches():
+    from nnstreamer_tpu_torch.ops import attention as A, normalize as N
+    return {"attention": A.launches, "normalize": N.launches}
+
+
+def _reset_launches():
+    from nnstreamer_tpu_torch.ops import attention as A, normalize as N
+    A.launches = N.launches = 0
+
+
+def _bench_line(size, model, tail, n):
+    """bench.py's detection line shape: tensortestsrc ! queue 8 !
+    tensor_filter prefetch-host=true ! queue 32 ! <tail> ! appsink."""
+    return (f"tensortestsrc caps={CAPS.format(dims=f'3:{size}:{size}')} "
+            f"pattern=random seed={SEED} num-buffers={n} "
+            f"! queue max-size-buffers=8 ! tensor_filter name=f "
+            f'framework=torch-cuda model="{model}" latency=1 '
+            "prefetch-host=true ! queue max-size-buffers=32 "
+            f"{tail} ! appsink name=out")
+
+
+def _run_line(name, line, warmup, frames, smi):
+    """One measured run of a line with the kernels' counts zeroed just
+    before it and read just after; returns (pipeline, stats row)."""
+    from nnstreamer_tpu_torch.tensors.transfer import fetch_stats
+    _reset_launches()
+    fetch_stats(reset=True)
+    pipe, stamps = _run_timed(line, warmup, frames)
+    fetch = fetch_stats(reset=True)
+    launches = _kernel_launches()
+    fps, p50 = _line_stats(stamps)
+    row = {"frames": warmup + frames, "measured": frames, "fps": fps,
+           "p50_ms": p50, "fetch": fetch, "kernel_launches": launches}
+    log(f"{name}: {warmup + frames} frames ({frames} measured after "
+        f"{warmup}), steady {fps:.2f} fps, p50 frame time {p50:.3f} ms, "
+        f"fetch {fetch}, kernel launches {launches}; {smi}")
+    return pipe, row
+
+
+SSD_TAIL = ("! tensor_decoder mode=bounding_boxes "
+            "option1=mobilenet-ssd-postprocess option4=300:300 "
+            "option5=300:300")
+
+
+def phase_ssd(smi):
+    from nnstreamer_tpu_torch.models import detection as D, zoo
+
+    line = _bench_line(300, "zoo://ssd_mobilenet_v2?packed=1",
+                       SSD_TAIL, DET_WARMUP + DET_FRAMES)
+    pipe, row = _run_line("ssd", line, DET_WARMUP, DET_FRAMES, smi)
+    bufs = pipe["out"].buffers
+    if bufs[0].chunks[0].shape != (300, 300, 4):
+        sys.exit(f"chip_smoke: ssd overlay is {bufs[0].chunks[0].shape}")
+
+    # the module itself (the zoo's seed-0 weights, as the filter built
+    # them) on the same frames, packed and as the quad
+    frames = _frames(CHECK_FRAMES, (300, 300, 3))
+    apply_packed, module, _, _ = zoo.build("ssd_mobilenet_v2", packed="1")
+    module = module.cuda().eval()
+    with torch.inference_mode():
+        dev = frames.cuda()
+        packed = apply_packed(module, dev).cpu()
+        quad = [o.cpu() for o in D.make_ssd_apply(100, False)(module, dev)]
+        cls, box = (o.float().cpu() for o in module(
+            dev.to(torch.bfloat16) / 127.5 - 1.0))
+        ref = D.SSDMobileNetV2(dtype=torch.float32)
+        ref.load_state_dict(module.state_dict())
+        x = frames[:2].float() / 127.5 - 1.0
+        ref_cls, ref_box = ref.eval()(x)
+        ref_quad = D.ssd_postprocess(ref_cls, ref_box, 100)
+    flat = torch.cat([quad[0].flatten(1), quad[1], quad[2], quad[3]], 1)
+    if packed.shape != (CHECK_FRAMES, 601) or not torch.equal(packed, flat):
+        sys.exit("chip_smoke: ssd packed=1 differs from the flattened quad")
+    if not bool(torch.isfinite(packed).all()) \
+            or not bool((quad[3] == 100).all()):
+        sys.exit("chip_smoke: ssd outputs are not finite or count != 100")
+    # the line's decoded scores are the module's: the module runs the
+    # frames as one batch and the filter one at a time, so cuDNN may
+    # pick other conv algorithms (observed 3.1e-5 on an H100)
+    worst = 0.0
+    for b, scores in zip(bufs, quad[2]):
+        got = torch.tensor([d["score"] for d in b.extras["boxes"]])
+        if got.shape != scores.shape:
+            sys.exit(f"chip_smoke: ssd line decoded {len(got)} of 100 boxes")
+        worst = max(worst, (got - scores).abs().max().item())
+    if worst > 1e-4:
+        sys.exit(f"chip_smoke: ssd line scores differ from the module's on "
+                 f"the same frames by {worst}")
+    # bf16 on the card against f32 on the CPU: the head's conv outputs
+    # within 5 % of their largest magnitude (MobileNet's rule; observed
+    # 2.0-2.5 % on the CPU and 2.7 % on an H100 at full width), and the
+    # top-k scores within a quarter of that (sigmoid's slope is at most
+    # 1/4)
+    diff = max((cls[:2] - ref_cls).abs().max().item(),
+               (box[:2] - ref_box).abs().max().item())
+    scale = max(ref_cls.abs().max().item(), ref_box.abs().max().item())
+    sdiff = (quad[2][:2] - ref_quad[2]).abs().max().item()
+    log(f"ssd: line vs module scores max |diff| {worst:.3g}; packed equals "
+        f"the quad; head card bf16 vs CPU f32 max |diff| {diff:.4g} (max "
+        f"|output| {scale:.4g}, tol {0.05 * scale:.4g}); top-100 scores "
+        f"max |diff| {sdiff:.4g} (tol {0.0125 * scale:.4g})")
+    if not diff <= 0.05 * scale or not sdiff <= 0.0125 * scale:
+        sys.exit("chip_smoke: SSD bf16 outputs on the card disagree with "
+                 "the f32 reference")
+    row.update({"head_vs_f32_max_abs_diff": diff, "head_scale": scale,
+                "scores_vs_f32_max_abs_diff": sdiff})
+    return row
+
+
+def phase_posenet(smi):
+    from nnstreamer_tpu_torch.models import detection as D, zoo
+
+    tail = ("! tensor_decoder mode=pose_estimation option1=257:257 "
+            "option2=257:257")
+    line = _bench_line(257, "zoo://posenet?decode=device", tail,
+                       DET_WARMUP + DET_FRAMES)
+    pipe, row = _run_line("posenet", line, DET_WARMUP, DET_FRAMES, smi)
+    kps = np.array([b.extras["keypoints"] for b in
+                    pipe["out"].buffers[:CHECK_FRAMES]])
+    # the heatmap variant on the same frames, no decoder
+    line = _bench_line(257, "zoo://posenet", "", CHECK_FRAMES)
+    pipe, _ = _run_timed(line, 0, CHECK_FRAMES)
+    hm = np.stack([b.chunks[0].host() for b in pipe["out"].buffers])
+    if hm.shape != (CHECK_FRAMES, 17, 17, 17) \
+            or not np.isfinite(hm).all():
+        sys.exit(f"chip_smoke: posenet heatmaps are {hm.shape} or not "
+                 "finite")
+    flat = hm.reshape(CHECK_FRAMES, -1, 17)
+    idx = flat.argmax(1)
+    want = np.stack([(idx % 17) / 16, (idx // 17) / 16], -1)
+    if kps.shape != (CHECK_FRAMES, 17, 3) \
+            or not np.array_equal(kps[..., :2], want):
+        sys.exit("chip_smoke: decode=device keypoints are not the heatmap "
+                 "argmax positions")
+    score_diff = float(np.abs(kps[..., 2] - np.take_along_axis(
+        flat, idx[:, None], 1)[:, 0]).max())
+    # the line's heatmaps against the f32 twin on the CPU: the head's
+    # conv outputs obey SSD's 5 %-of-max rule, so the sigmoid of them
+    # is within a quarter of it (on the CPU at full width the head was
+    # 2.1 % off and the heatmaps at half their tolerance)
+    _, module, _, _ = zoo.build("posenet")
+    ref = D.PoseNet(dtype=torch.float32)
+    ref.load_state_dict(module.state_dict())
+    with torch.inference_mode():
+        x = _frames(2, (257, 257, 3)).float() / 127.5 - 1.0
+        head = ref.eval().head(ref.backbone(x.permute(0, 3, 1, 2)))
+        ref_hm = torch.sigmoid(head).permute(0, 2, 3, 1).numpy()
+    scale = head.abs().max().item()
+    diff = float(np.abs(hm[:2] - ref_hm).max())
+    log(f"posenet: decode=device keypoints of {CHECK_FRAMES} frames equal "
+        f"the heatmap variant's argmax; scores max |diff| {score_diff:.3g}; "
+        f"heatmaps card bf16 vs CPU f32 max |diff| {diff:.4g} (head max "
+        f"|output| {scale:.4g}, tol {0.0125 * scale:.4g})")
+    if not diff <= 0.0125 * scale:
+        sys.exit("chip_smoke: PoseNet bf16 heatmaps on the card disagree "
+                 "with the f32 reference")
+    row.update({"keypoint_score_max_abs_diff": score_diff,
+                "heatmap_vs_f32_max_abs_diff": diff, "head_scale": scale})
+    return row
+
+
+def phase_deeplab(smi):
+    from nnstreamer_tpu_torch.models import detection as D, zoo
+
+    tail = "! tensor_decoder mode=image_segment option1=tflite-deeplab"
+    line = _bench_line(257, "zoo://deeplab_v3?argmax=u8", tail,
+                       DET_WARMUP + DET_FRAMES)
+    pipe, row = _run_line("deeplab", line, DET_WARMUP, DET_FRAMES, smi)
+    maps = np.stack([b.extras["class_map"] for b in
+                     pipe["out"].buffers[:CHECK_FRAMES]])
+    # the logits variant on the same frames, no decoder, timed as the
+    # u8 line is
+    line = _bench_line(257, "zoo://deeplab_v3?argmax=0", "",
+                       DET_WARMUP + DET_FRAMES)
+    pipe, row["logits"] = _run_line("deeplab logits", line, DET_WARMUP,
+                                    DET_FRAMES, smi)
+    logits = np.stack([b.chunks[0].host() for b in
+                       pipe["out"].buffers[:CHECK_FRAMES]])
+    if logits.shape != (CHECK_FRAMES, 257, 257, 21) \
+            or logits.dtype != np.float32 or not np.isfinite(logits).all():
+        sys.exit(f"chip_smoke: deeplab logits are {logits.shape} "
+                 f"{logits.dtype} or not finite")
+    if not np.array_equal(logits.argmax(-1), maps):
+        agree = float((logits.argmax(-1) == maps).mean())
+        sys.exit(f"chip_smoke: deeplab argmax=u8 maps differ from the "
+                 f"logits' argmax (agreement {agree})")
+    # the line's logits against the f32 twin on the CPU, SSD's 5 %-of-max
+    # rule (observed 3.0 % on the CPU at full width)
+    _, module, _, _ = zoo.build("deeplab_v3")
+    ref = D.DeepLabV3(dtype=torch.float32)
+    ref.load_state_dict(module.state_dict())
+    with torch.inference_mode():
+        x = _frames(2, (257, 257, 3)).float() / 127.5 - 1.0
+        ref_logits = ref.eval()(x).permute(0, 2, 3, 1).numpy()
+    scale = float(np.abs(ref_logits).max())
+    diff = float(np.abs(logits[:2] - ref_logits).max())
+    agree = float((logits[:2].argmax(-1) == ref_logits.argmax(-1)).mean())
+    log(f"deeplab: argmax=u8 maps of {CHECK_FRAMES} frames equal the "
+        f"logits variant's argmax; logits card vs CPU f32 max |diff| "
+        f"{diff:.4g} (max |logit| {scale:.4g}, tol {0.05 * scale:.4g}), "
+        f"class maps agree on {agree:.4f} of pixels")
+    if not diff <= 0.05 * scale:
+        sys.exit("chip_smoke: DeepLab logits on the card disagree with the "
+                 "f32 reference")
+    row.update({"logits_vs_f32_max_abs_diff": diff, "logits_scale": scale,
+                "class_map_vs_f32_agreement": agree})
+    return row
+
+
+def phase_video(smi):
+    import nnstreamer_tpu_torch as pt
+
+    n = DET_WARMUP + VIDEO_FRAMES
+    line = ("videotestsrc pattern=random seed=1 "
+            'caps="video/x-raw,format=RGB,width=300,height=300,'
+            f'framerate=30/1" num-buffers={n} ! tensor_converter ! queue '
+            "! tensor_filter framework=torch-cuda "
+            'model="zoo://ssd_mobilenet_v2?packed=1" prefetch-host=true '
+            f"! queue {SSD_TAIL} ! appsink name=out")
+    pipe, row = _run_line("video ssd", line, DET_WARMUP, VIDEO_FRAMES, smi)
+    boxes = [len(b.extras["boxes"]) for b in pipe["out"].buffers]
+    if set(boxes) != {100}:
+        sys.exit(f"chip_smoke: video ssd line decoded {set(boxes)} boxes")
+
+    # the device-resident transform line: u8 frames on the card, to f32
+    # in [-1, 1], then HWC -> CHW
+    pool = 4
+    line = (f"tensortestsrc caps={CAPS.format(dims='3:224:224')} "
+            f"pattern=random seed={SEED} device=true pool-size={pool} "
+            f"num-buffers={2 * pool} ! tensor_transform mode=arithmetic "
+            "option=typecast:float32,add:-127.5,div:127.5 ! tensor_transform "
+            "mode=transpose option=1:2:0:3 ! appsink name=out")
+    pipe = pt.parse_launch(line)
+    on_card, outs = [], []
+
+    def on_buffer(buf):
+        on_card.append(all(c.is_device for c in buf.chunks))
+        outs.append(buf.chunks[0].host())
+
+    pipe["out"].connect(on_buffer)
+    _reset_launches()
+    pipe.run(timeout=600)
+    launches = _kernel_launches()
+    frames = _frames(pool, (224, 224, 3)).numpy()
+    ulps = 0.0
+    for i, got in enumerate(outs):
+        f = frames[i % pool]
+        want = ((f.astype(np.float32) + np.float32(-127.5))
+                / np.float32(127.5)).transpose(2, 0, 1)
+        if got.shape != (3, 224, 224) or got.dtype != np.float32:
+            sys.exit(f"chip_smoke: transform line gave {got.shape} "
+                     f"{got.dtype}")
+        ulps = max(ulps, float((np.abs(got - want) / np.spacing(
+            np.abs(want))).max()))
+    if len(outs) != 2 * pool or not all(on_card) or ulps > 1:
+        sys.exit(f"chip_smoke: transform line: {len(outs)} buffers, on "
+                 f"the card {on_card}, {ulps} ulps from numpy")
+    log(f"video transform: {len(outs)} buffers stayed on the card to the "
+        f"sink, within {ulps:g} ulp of numpy float32; kernel launches "
+        f"{launches}")
+    row["transform"] = {"buffers": len(outs), "max_ulps": ulps,
+                        "kernel_launches": launches}
+    return row
+
+
 def main():
     smi = phase_device()
     kind = torch.cuda.get_device_name(0)
@@ -650,6 +955,9 @@ def main():
         mobilenet, frames = phase_mobilenet(smi, tmp)
     norm_launches = phase_normalize_entry(frames)
     vit_batch = phase_vit_batch(smi)
+    lines = {"ssd": phase_ssd(smi), "posenet": phase_posenet(smi),
+             "deeplab": phase_deeplab(smi), "video": phase_video(smi)}
+    new_paths = {k: row["kernel_launches"] for k, row in lines.items()}
     main_row = rows[0]
     kernels = [{
         "name": "attention",
@@ -665,7 +973,8 @@ def main():
         "library_ms": main_row["library_ms"],
         "device_ms": main_row["device_ms"],
         "path_launches": {"vit_batch1": run["launches"],
-                          f"vit_batch{VIT_BATCH}": vit_batch["launches"]},
+                          f"vit_batch{VIT_BATCH}": vit_batch["launches"],
+                          **{k: v["attention"] for k, v in new_paths.items()}},
         "shapes": rows,
         "sass_hmma": hmma,
         "card": smi,
@@ -681,11 +990,12 @@ def main():
         "bound_ms": norm_rows[0]["bound_ms"],
         "bound_by": norm_rows[0]["bound_by"],
         "library_ms": None,
+        "path_launches": {k: v["normalize"] for k, v in new_paths.items()},
         "shapes": norm_rows,
         "card": smi,
     }]
     log(json.dumps({"mobilenet": mobilenet, f"vit_batch{VIT_BATCH}": vit_batch,
-                    "card": smi}))
+                    **lines, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,7 +1,7 @@
 """Decoder subplugins: tensors -> media (≙ ext/nnstreamer/tensor_decoder/*).
-Only image_labeling is ported yet."""
+Ported: image_labeling, bounding_boxes, pose_estimation, image_segment."""
 from . import registry
 from .registry import DecoderPlugin, find_decoder, register_decoder
-from . import image_label  # noqa: F401,E402
+from . import bounding_box, image_label, pose, segment  # noqa: F401,E402
 
 __all__ = ["registry", "DecoderPlugin", "find_decoder", "register_decoder"]

@@ -3,5 +3,6 @@ from . import zoo
 from .zoo import build, register_model
 from . import vit  # noqa: F401,E402 — registers zoo://vit
 from . import mobilenet  # noqa: F401,E402 — registers zoo://mobilenet_v2
+from . import detection  # noqa: F401,E402 — ssd_mobilenet_v2, posenet, deeplab_v3
 
-__all__ = ["zoo", "build", "register_model", "vit", "mobilenet"]
+__all__ = ["zoo", "build", "register_model", "vit", "mobilenet", "detection"]

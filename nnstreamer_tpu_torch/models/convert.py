@@ -16,11 +16,15 @@ Layout changes:
 * LayerNorm ``scale`` -> ``weight``; ``pos_embed`` unchanged;
 * MobileNet-v2: conv kernels HWIO -> OIHW (a depthwise ``(3, 3, 1, C)``
   kernel becomes ``(C, 1, 3, 3)``), BatchNorm ``scale``/``bias`` from
-  ``params`` and ``mean``/``var`` from ``batch_stats``.
+  ``params`` and ``mean``/``var`` from ``batch_stats``;
+* the detection models (SSD, PoseNet, DeepLab) as MobileNet-v2 for the
+  backbone and ConvBN blocks, and their biased convs (``Conv_i``) as
+  kernel + bias. Their converters check that every leaf of the JAX tree
+  is used exactly once.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Iterator, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -104,3 +108,107 @@ def mobilenet_params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     _conv_bn("head_conv", p["ConvBN_1"], stats["ConvBN_1"], out)
     _dense("fc", p["Dense_0"], out)
     return out
+
+
+class _Reads(Mapping):
+    """A read-only view of a nested dict that records the path of every
+    leaf read through it, so a converter can prove it used each leaf of
+    the tree exactly once."""
+
+    def __init__(self, tree: Mapping, path: Tuple[str, ...] = (),
+                 log: List[Tuple[str, ...]] = None):
+        self._tree, self._path = tree, path
+        self.log = [] if log is None else log
+
+    def __getitem__(self, key):
+        value = self._tree[key]
+        path = self._path + (key,)
+        if isinstance(value, Mapping):
+            return _Reads(value, path, self.log)
+        self.log.append(path)
+        return value
+
+    def __iter__(self) -> Iterator:
+        return iter(self._tree)
+
+    def __len__(self) -> int:
+        return len(self._tree)
+
+
+def _leaf_paths(tree: Mapping, path: Tuple[str, ...] = ()):
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _leaf_paths(value, path + (key,))
+        else:
+            yield path + (key,)
+
+
+def _check_all_read(tree: Mapping, reads: _Reads, model: str) -> None:
+    want = sorted(_leaf_paths(tree))
+    got = sorted(reads.log)
+    if got != want:
+        unused = sorted(set(want) - set(got))
+        twice = sorted({p for p in got if got.count(p) > 1})
+        raise ValueError(f"{model}: the JAX variables do not map one to one "
+                         f"onto the torch module: unused {unused}, read "
+                         f"more than once {twice}")
+
+
+def _conv(prefix: str, p: Mapping, out: Dict[str, torch.Tensor]) -> None:
+    out[f"{prefix}.weight"] = _t(
+        np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1)))
+    out[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _backbone(p: Mapping, stats: Mapping,
+              out: Dict[str, torch.Tensor]) -> None:
+    """flax ``_Backbone`` -> :class:`..models.detection.Backbone`."""
+    _conv_bn("backbone.stem", p["ConvBN_0"], stats["ConvBN_0"], out)
+    i = 0
+    while f"InvertedResidual_{i}" in p:
+        name = f"InvertedResidual_{i}"
+        j = 0
+        while f"ConvBN_{j}" in p[name]:
+            _conv_bn(f"backbone.blocks.{i}.layers.{j}",
+                     p[name][f"ConvBN_{j}"], stats[name][f"ConvBN_{j}"], out)
+            j += 1
+        i += 1
+
+
+def _detection(variables: Mapping, model: str, head) -> Dict[str, torch.Tensor]:
+    reads = _Reads(variables)
+    p, stats = reads["params"], reads["batch_stats"]
+    out: Dict[str, torch.Tensor] = {}
+    _backbone(p["_Backbone_0"], stats["_Backbone_0"], out)
+    head(p, stats, out)
+    _check_all_read(variables, reads, model)
+    return out
+
+
+def ssd_params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """flax ``SSDMobileNetV2`` variables -> the ``state_dict`` of
+    :class:`..models.detection.SSDMobileNetV2`."""
+    def head(p, stats, out):
+        _conv("cls", p["SSDHead_0"]["Conv_0"], out)
+        _conv("box", p["SSDHead_0"]["Conv_1"], out)
+    return _detection(variables, "ssd_mobilenet_v2", head)
+
+
+def posenet_params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """flax ``PoseNet`` variables -> the ``state_dict`` of
+    :class:`..models.detection.PoseNet`."""
+    def head(p, stats, out):
+        _conv("head", p["Conv_0"], out)
+    return _detection(variables, "posenet", head)
+
+
+def deeplab_params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """flax ``DeepLabV3`` variables -> the ``state_dict`` of
+    :class:`..models.detection.DeepLabV3`: ``ConvBN_0`` is the 1x1
+    branch, ``ConvBN_1`` the pooled branch, ``ConvBN_2`` the fuse,
+    ``Conv_0`` the f32 classifier."""
+    def head(p, stats, out):
+        for i, name in enumerate(("aspp", "pool", "fuse")):
+            _conv_bn(name, p[f"ConvBN_{i}"], stats[f"ConvBN_{i}"], out)
+        _conv("classifier", p["Conv_0"], out)
+    return _detection(variables, "deeplab_v3", head)

@@ -237,3 +237,54 @@ def test_small_mobilenet_line_on_card(card):
         assert isinstance(gh, np.ndarray) and gh.shape == (1001,)
         np.testing.assert_allclose(gh, ch, rtol=0,
                                    atol=0.05 * np.abs(ch).max())
+
+
+# -- slice 4: the detection models' ranks and the transform's device path --
+
+def test_rank_and_argmax_take_the_first_on_ties_on_card(card):
+    """The SSD rank (a stable descending sort) and torch.argmax keep
+    lax.top_k's and jnp.argmax's tie order on the card too."""
+    from nnstreamer_tpu_torch.models import detection as D
+    best = torch.tensor([[1.0, 5.0, 5.0, 2.0, 5.0], [3.0] * 5],
+                        device="cuda")
+    assert D.rank_cells(best, 3).tolist() == [[1, 2, 4], [0, 1, 2]]
+    big = torch.zeros(2, 361, device="cuda")
+    big[:, 7::9] = 1.0
+    assert D.rank_cells(big, 40)[:, :3].tolist() == [[7, 16, 25]] * 2
+    hm = torch.zeros(1, 2, 3, 3, device="cuda")
+    hm[0, 0, 1, 2] = hm[0, 0, 2, 0] = 1.0
+    hm[0, 1] = 0.5
+    assert D.keypoints_of(hm)[0].tolist() == [[1.0, 0.5, 1.0],
+                                              [0.0, 0.0, 0.5]]
+
+
+def test_transform_device_path_on_card(card):
+    """tensor_transform on a CUDA chunk: the result stays on the card,
+    in jnp's dtypes, within one f32 ulp of numpy for the arithmetic
+    (CUDA divides by a scalar through its reciprocal), exact for the
+    data movement, and saturating for float -> int casts."""
+    from nnstreamer_tpu_torch.elements.transform import TORCH
+    from nnstreamer_tpu_torch.pipeline.registry import make_element
+    rng = np.random.default_rng(5)
+    u8 = rng.integers(0, 255, (4, 6, 3), np.uint8, endpoint=True)
+    cases = [("arithmetic", "typecast:float32,add:-127.5,div:127.5", u8),
+             ("arithmetic", "add:1:2:3", u8), ("transpose", "1:2:0:3", u8),
+             ("dimchg", "0:2", u8), ("padding", "1,2,0", u8),
+             ("clamp", "10:200", u8),
+             ("typecast", "uint8",
+              np.array([-3.5, 0.5, 254.7, 300.0, np.nan], np.float32))]
+    for mode, option, arr in cases:
+        el = make_element("tensor_transform", mode=mode, option=option)
+        el.start()
+        out = el.transform(pt.Buffer([pt.Chunk(
+            torch.from_numpy(arr).cuda())])).chunks[0]
+        assert out.is_device, (mode, option)
+        got = out.host()
+        cpu = el._op(torch.from_numpy(arr), TORCH).numpy()
+        assert got.dtype == cpu.dtype and got.shape == cpu.shape
+        if got.dtype == np.float32:
+            spacing = np.spacing(np.abs(cpu).astype(np.float32))
+            assert (np.abs(got - cpu) <= spacing).all(), (mode, option)
+        else:
+            np.testing.assert_array_equal(got, cpu)
+    np.testing.assert_array_equal(got, [0, 0, 254, 255, 0])

@@ -358,3 +358,234 @@ def test_mobilenet_batched_top1_line_on_cpu():
         assert ids.shape == (4, 1) and ids.dtype == np.int32
         np.testing.assert_array_equal(ids[:, 0],
                                       lg.chunks[0].host().argmax(-1))
+
+
+# -- the SSD, PoseNet and DeepLab lines (bench.py's bench_ssd,
+# bench_posenet, bench_deeplab) and the video front end ------------------
+#
+# Width 0.35 at small sizes, one set of JAX variables (BatchNorm
+# statistics drawn from a numpy seed) served to both packages through
+# model files, as for MobileNet above. The tolerances are those of
+# tests/test_torch_detection.py and are stated there.
+
+DET_FRAMES = 4
+SCORE_ATOL = 2.0 ** -7
+BOX_ATOL = 2.0 ** -5
+BF16_ATOL = 2e-2
+
+DET_JAX_PY = '''
+import numpy as np
+from nnstreamer_tpu.models import zoo
+
+
+def get_model():
+    apply_fn, _, in_info, out_info = zoo.build({name!r}, **{kw!r})
+    flat = np.load({npz!r})
+    tree = {{}}
+    for key in flat.files:
+        *path, leaf = key.split("/")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {{}})
+        node[leaf] = flat[key]
+    return apply_fn, tree, in_info, out_info
+'''
+
+DET_PORT_PY = '''
+import numpy as np
+from nnstreamer_tpu_torch.models import convert, zoo
+
+
+def get_model():
+    apply_fn, module, in_info, out_info = zoo.build({name!r}, **{kw!r})
+    flat = np.load({npz!r})
+    tree = {{}}
+    for key in flat.files:
+        *path, leaf = key.split("/")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {{}})
+        node[leaf] = flat[key]
+    module.load_state_dict(getattr(convert, {conv!r})(tree))
+    return apply_fn, module, in_info, out_info
+'''
+
+
+def _det_variables(name, kw, seed):
+    """The JAX zoo model's variables, flattened to ``a/b/c`` keys, with
+    BatchNorm statistics and biases drawn from a numpy seed."""
+    _, variables, _, _ = jax_zoo.build(name, **kw)
+    rng = np.random.default_rng(seed)
+    flat = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(
+            jax.device_get(variables))[0]:
+        key = "/".join(str(k.key) for k in path)
+        leaf = np.asarray(leaf)
+        if key.endswith("/mean"):
+            leaf = rng.normal(0.0, 0.5, leaf.shape).astype(np.float32)
+        elif key.endswith("/var"):
+            leaf = rng.uniform(0.5, 2.0, leaf.shape).astype(np.float32)
+        elif key.endswith("/bias"):
+            leaf = rng.normal(0.0, 0.1, leaf.shape).astype(np.float32)
+        flat[key] = leaf
+    return flat
+
+
+def _det_models(tmp, name, kw, conv, seed):
+    """(JAX model file, port model file, the variables) for ``name``."""
+    flat = _det_variables(name, kw, seed)
+    npz = tmp / f"{name}.npz"
+    np.savez(npz, **flat)
+    files = []
+    for side, text in (("jax", DET_JAX_PY), ("port", DET_PORT_PY)):
+        path = tmp / f"{name}_{side}.py"
+        path.write_text(text.format(name=name, kw=kw, npz=str(npz),
+                                    conv=conv))
+        files.append(str(path))
+    tree = {}
+    for key, leaf in flat.items():
+        *path, last = key.split("/")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = leaf
+    return files[0], files[1], tree
+
+
+def _bench_lines(jax_py, port_py, size, filter_opts, tail, src=None):
+    """A bench.py detection line in both packages: queues of 8 and 32
+    around the filter, prefetch-host=true."""
+    src = src or (f"tensortestsrc caps={MN_CAPS.replace('96:96', f'{size}:{size}')} "
+                  f"pattern=random seed={SEED} num-buffers={DET_FRAMES}")
+    filt = f"{filter_opts} prefetch-host=true ! queue max-size-buffers=32"
+    return (f"{src} ! queue max-size-buffers=8 ! tensor_filter name=f "
+            f"framework=jax model={jax_py} {filt} {tail}",
+            f"{src} ! queue max-size-buffers=8 ! tensor_filter name=f "
+            f"framework=torch-cuda accelerator=true:cpu model={port_py} "
+            f"{filt} {tail}")
+
+
+def _testsrc_frames(size, n=DET_FRAMES):
+    rng = np.random.default_rng(SEED)
+    return np.stack([rng.integers(0, 255, (size, size, 3), np.uint8,
+                                  endpoint=True) for _ in range(n)])
+
+
+def _quad_of(boxes):
+    """A bounding_boxes decoder's ``boxes`` extras -> (boxes as ymin,
+    xmin, ymax, xmax; classes; scores), in rank order."""
+    return (np.array([[b["y"], b["x"], b["y"] + b["h"], b["x"] + b["w"]]
+                      for b in boxes], np.float32).reshape(-1, 4),
+            np.array([b["class"] for b in boxes]),
+            np.array([b["score"] for b in boxes], np.float32))
+
+
+def test_ssd_line_matches_jax(tmp_path):
+    """bench_ssd's line (packed=1, the mobilenet-ssd-postprocess
+    decoder) at width 0.35, 96x96, topk 10: scores rank by rank within
+    2**-7, and each detection of the port matched by a JAX detection of
+    the same class and box whose score lies within 2**-7 of its own."""
+    kw = dict(width="0.35", size="96", topk="10", packed="1")
+    jax_py, port_py, _ = _det_models(tmp_path, "ssd_mobilenet_v2", kw,
+                                     "ssd_params_from_jax", 61)
+    jax_line, port_line = _bench_lines(
+        jax_py, port_py, 96, "latency=1",
+        "! tensor_decoder mode=bounding_boxes "
+        "option1=mobilenet-ssd-postprocess option4=96:96 option5=96:96 "
+        "! appsink name=out")
+    jpipe, ppipe = _run(nt, jax_line), _run(pt, port_line)
+    want, got = jpipe["out"].buffers, ppipe["out"].buffers
+    assert len(got) == len(want) == DET_FRAMES
+    matched = 0
+    for g, w in zip(got, want):
+        assert g.chunks[0].shape == w.chunks[0].shape == (96, 96, 4)
+        gb, gc, gs = _quad_of(g.extras["boxes"])
+        wb, wc, ws = _quad_of(w.extras["boxes"])
+        assert len(gs) == len(ws) == 10
+        np.testing.assert_allclose(gs, ws, rtol=0, atol=SCORE_ATOL)
+        for i in np.nonzero(gs > ws[-1] + SCORE_ATOL)[0]:
+            near = np.abs(ws - gs[i]) <= SCORE_ATOL
+            same = near & (wc == gc[i]) & (
+                np.abs(wb - gb[i]).max(axis=1) <= BOX_ATOL)
+            assert same.any(), (i, g.extras["boxes"][i])
+            matched += 1
+    assert matched >= DET_FRAMES * 5
+    assert str(ppipe["f"].srcpad.caps) == str(jpipe["f"].srcpad.caps)
+
+
+def test_posenet_line_matches_jax(tmp_path):
+    """bench_posenet's line (decode=device, pose_estimation) at width
+    0.35, 129x129: keypoint scores within 2e-2; positions equal for
+    every keypoint whose top-2 JAX heatmap gap exceeds 2e-2, and every
+    position the port picks within 2 x 2e-2 of the JAX heatmap's
+    maximum (both heatmaps agree within 2e-2)."""
+    from nnstreamer_tpu.models.detection import PoseNet as JaxPoseNet
+    kw = dict(width="0.35", size="129", decode="device")
+    jax_py, port_py, tree = _det_models(tmp_path, "posenet", kw,
+                                        "posenet_params_from_jax", 62)
+    jax_line, port_line = _bench_lines(
+        jax_py, port_py, 129, "",
+        "! tensor_decoder mode=pose_estimation option1=129:129 "
+        "option2=129:129 ! appsink name=out")
+    want = _run(nt, jax_line)["out"].buffers
+    got = _run(pt, port_line)["out"].buffers
+    assert len(got) == len(want) == DET_FRAMES
+    frames = _testsrc_frames(129)
+    hm = np.asarray(JaxPoseNet(keypoints=17, width=0.35).apply(
+        tree, jax.numpy.asarray(frames).astype(jax.numpy.bfloat16)
+        / 127.5 - 1.0)).reshape(DET_FRAMES, -1, 17)
+    top2 = np.sort(hm, axis=1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > BF16_ATOL
+    assert clear.any()
+    for i, (g, w) in enumerate(zip(got, want)):
+        gk, wk = np.array(g.extras["keypoints"]), np.array(w.extras["keypoints"])
+        assert gk.shape == wk.shape == (17, 3)
+        np.testing.assert_allclose(gk[:, 2], wk[:, 2], rtol=0, atol=BF16_ATOL)
+        np.testing.assert_array_equal(gk[clear[i], :2], wk[clear[i], :2])
+        cell = np.rint(gk[:, 1] * 8).astype(int) * 9 + np.rint(
+            gk[:, 0] * 8).astype(int)  # the 9x9 heatmap's row-major cell
+        picked = hm[i][cell, np.arange(17)]
+        assert (picked >= hm[i].max(axis=0) - 2 * BF16_ATOL).all()
+        assert g.chunks[0].shape == (129, 129, 4)
+
+
+def test_video_deeplab_segment_line_matches_jax(tmp_path):
+    """videotestsrc ! tensor_converter ! tensor_filter (deeplab_v3,
+    argmax=u8) ! tensor_decoder mode=image_segment ! appsink, at width
+    0.35 and 65x65: class maps equal on >= 99 % of pixels and on every
+    pixel whose top-2 JAX logit gap exceeds 2e-2."""
+    from nnstreamer_tpu.models.detection import DeepLabV3 as JaxDeepLab
+    kw = dict(width="0.35", size="65", argmax="u8")
+    jax_py, port_py, tree = _det_models(tmp_path, "deeplab_v3", kw,
+                                        "deeplab_params_from_jax", 63)
+    src = ("videotestsrc pattern=random seed=4 num-buffers=3 "
+           'caps="video/x-raw,format=RGB,width=65,height=65,'
+           'framerate=30/1" ! tensor_converter')
+    tail = ("! tensor_decoder mode=image_segment option1=tflite-deeplab "
+            "! appsink name=out")
+    # unfused: the JAX package's fused decode leaves out the class map
+    jpipe = _run(nt, f"fuse=false {src} ! tensor_filter framework=jax "
+                     f"model={jax_py} {tail}")
+    want = jpipe["out"].buffers
+    ppipe = _run(pt, f"{src} ! tensor_filter framework=torch-cuda "
+                     f"accelerator=true:cpu model={port_py} {tail}")
+    got = ppipe["out"].buffers
+    assert len(got) == len(want) == 3
+    rng = np.random.default_rng(4)  # videotestsrc's frames
+    frames = np.stack([rng.integers(0, 256, (65, 65, 3), np.uint8)
+                       for _ in range(3)])
+    logits = np.asarray(JaxDeepLab(num_classes=21, width=0.35,
+                                   out_size=65).apply(
+        tree, jax.numpy.asarray(frames).astype(jax.numpy.bfloat16)
+        / 127.5 - 1.0))
+    top2 = np.sort(logits, axis=-1)[..., -2:]
+    clear = top2[..., 1] - top2[..., 0] > BF16_ATOL
+    for i, (g, w) in enumerate(zip(got, want)):
+        gm, wm = g.extras["class_map"], w.extras["class_map"]
+        # the frames re-made right: the JAX line's map is these logits'
+        assert (wm == logits[i].argmax(-1)).mean() >= 0.99
+        assert gm.shape == (65, 65) and (gm == wm).mean() >= 0.99
+        np.testing.assert_array_equal(gm[clear[i]], wm[clear[i]])
+        assert g.chunks[0].shape == w.chunks[0].shape == (65, 65, 4)
+        assert (g.pts, g.duration) == (w.pts, w.duration)
+    assert str(ppipe["out"].sinkpad.caps) == str(jpipe["out"].sinkpad.caps)

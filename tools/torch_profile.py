@@ -1,6 +1,7 @@
-"""Where a frame's time goes in one of the port's labeling lines on a GPU.
+"""Where a frame's time goes in one of the port's model lines on a GPU.
 
-    python3 tools/torch_profile.py [--model vit|mobilenet_v2]
+    python3 tools/torch_profile.py [--model vit|mobilenet_v2|
+                                    ssd_mobilenet_v2|posenet|deeplab_v3]
                                    [--batch B] [--frames N]
 
 Runs chip_smoke.py's line for the model with an ``appsrc`` in place of
@@ -12,9 +13,18 @@ Runs chip_smoke.py's line for the model with an ``appsrc`` in place of
 * ``mobilenet_v2``: the same with model=zoo://mobilenet_v2
   prefetch-host=true (width 1.0, 224x224, 1001 labels) — the headline
   line with its golden decoder;
+* ``ssd_mobilenet_v2``: model="zoo://ssd_mobilenet_v2?packed=1"
+  prefetch-host=true at 300x300 (91 classes, topk 100), then
+  tensor_decoder mode=bounding_boxes (mobilenet-ssd-postprocess) —
+  bench.py's bench_ssd line;
+* ``posenet``: model="zoo://posenet?decode=device" at 257x257, then
+  tensor_decoder mode=pose_estimation — bench_posenet's line;
+* ``deeplab_v3``: model="zoo://deeplab_v3?argmax=u8" at 257x257, then
+  tensor_decoder mode=image_segment — bench_deeplab's line;
 
-seeded random weights. ``--batch B`` (>1) stacks B frames a buffer
-(caps ``3:224:224:B``) and drops the decoder, as the batched line does.
+all at full width with seeded random weights. ``--batch B`` (>1) stacks
+B frames a buffer (caps ``3:S:S:B``) and drops the decoder, as the
+batched line does.
 The frames (made as tensortestsrc makes them, before the run) are pushed
 after the model is open and warm: 4 warm-up buffers, then N buffers
 timed, then N buffers under torch.profiler. Prints the card, the buffer
@@ -42,9 +52,21 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CAPS = ("other/tensors,format=static,num_tensors=1,types=(string)uint8,"
         "dimensions=(string){dims},framerate=(fraction)0/1")
 WARMUP = 4
-MODELS = {  # model property, filter options, labels
-    "vit": ('"zoo://vit?attn=pallas"', "", 1000),
-    "mobilenet_v2": ("zoo://mobilenet_v2", "prefetch-host=true", 1001),
+LABELS = "tensor_decoder mode=image_labeling option1={labels}"
+MODELS = {  # model property, filter options, frame size, decoder, labels
+    "vit": ('"zoo://vit?attn=pallas"', "", 224, LABELS, 1000),
+    "mobilenet_v2": ("zoo://mobilenet_v2", "prefetch-host=true", 224,
+                     LABELS, 1001),
+    "ssd_mobilenet_v2": (
+        '"zoo://ssd_mobilenet_v2?packed=1"', "prefetch-host=true", 300,
+        "tensor_decoder mode=bounding_boxes option1=mobilenet-ssd-postprocess"
+        " option4=300:300 option5=300:300", 0),
+    "posenet": ('"zoo://posenet?decode=device"', "prefetch-host=true", 257,
+                "tensor_decoder mode=pose_estimation option1=257:257 "
+                "option2=257:257", 0),
+    "deeplab_v3": ('"zoo://deeplab_v3?argmax=u8"', "prefetch-host=true", 257,
+                   "tensor_decoder mode=image_segment option1=tflite-deeplab",
+                   0),
 }
 
 
@@ -65,8 +87,9 @@ def main():
     from torch.profiler import ProfilerActivity, profile
 
     n, batch = args.frames, args.batch
-    shape = (224, 224, 3) if batch == 1 else (batch, 224, 224, 3)
-    dims = "3:224:224" if batch == 1 else f"3:224:224:{batch}"
+    model, opts, size, decoder, classes = MODELS[args.model]
+    shape = (size, size, 3) if batch == 1 else (batch, size, size, 3)
+    dims = f"3:{size}:{size}" + ("" if batch == 1 else f":{batch}")
     rng = np.random.default_rng(0)
     frames = [rng.integers(0, 255, shape, np.uint8, endpoint=True)
               for _ in range(WARMUP + 2 * n)]
@@ -86,13 +109,12 @@ def main():
                 sys.exit(f"{len(arrivals)} of {hi} frames arrived")
         return float(np.percentile(np.diff(arrivals[lo:hi]) * 1e3, 50))
 
-    model, opts, classes = MODELS[args.model]
     with tempfile.TemporaryDirectory() as tmp:
         labels = os.path.join(tmp, "labels.txt")
         with open(labels, "w") as f:
             f.write("\n".join(f"class{i}" for i in range(classes)))
         decoder = ("" if batch > 1 else
-                   f"! tensor_decoder mode=image_labeling option1={labels} ")
+                   f"! {decoder.format(labels=labels)} ")
         pipe = pt.parse_launch(
             f"appsrc name=src caps={CAPS.format(dims=dims)} ! tensor_filter "
             f"framework=torch-cuda model={model} {opts} {decoder}"
