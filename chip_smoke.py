@@ -70,9 +70,33 @@ Phases, in order; any failure exits non-zero and prints no result line:
               tensor_transform arithmetic ! tensor_transform transpose !
               appsink) whose chunks stay CUDA tensors until the sink and
               equal numpy's float32 result within one ulp.
-Phases 8-11 launch neither hand kernel (their models inline their input
-affine, as the JAX models do); their launch counts are read all the
-same and written on the kernels line as 0.
+12. graphs  — each zoo model at batch 1 at the variant its line runs
+              (vit attn=pallas, mobilenet_v2, ssd_mobilenet_v2 packed=1,
+              posenet decode=device, deeplab_v3 argmax=u8 and logits)
+              through the torch-cuda backend: the first invoke (eager
+              warm-up, then the CUDA-graph capture) and a replay against
+              an eager apply on the same input, bitwise; one executable
+              each (compile_count 1); ViT's 12 attention launches a frame
+              counted by replay, and attention_fwd_mma_kernel seen in a
+              profiled replay's device trace.
+13. fused   — bench.py's bench_pipeline_fused line (tensortestsrc
+              device=true unique=true ! queue 8 ! DeepLab-v3 logits
+              filter, prefetch-host ! image_segment ! queue ! appsink),
+              8 + 48 frames: exactly one FusedSegment holding the filter
+              and the decoder with jit_misses 1, fps and p50, and the
+              first 8 frames' RGBA bytes equal to a fuse=false twin's.
+14. in-flight — the ViT-B/16 labeling line behind a queue with
+              in-flight=4 and prefetch-host=true, 8 + 48 frames: labels
+              equal the in-flight=1 run's over the same seeded frames in
+              PTS order, 12 attention launches a frame counted by
+              replay, compile_count 1; fps, p50 and the window report.
+Every model line runs through the backend's per-signature executable,
+one captured CUDA graph per input signature: the first frame runs
+eagerly (the capture's warm-up), every later frame is one replay, so a
+hand kernel inside the graph counts once a frame.
+Phases 8-11 and 13 launch neither hand kernel (their models inline their
+input affine, as the JAX models do); their launch counts are read all
+the same and written on the kernels line as 0.
 
 The second-to-last line is the kernels JSON, the last line the result:
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -505,9 +529,12 @@ def phase_normalize():
     return rows, worst
 
 
-def _run_timed(line, warmup, frames, timeout=600):
+def _run_timed(line, warmup, frames, timeout=600, probe=None):
     """Run a line to EOS, materialising every buffer on the host at the
-    sink; returns (pipeline, arrival times of buffers warmup+1..)."""
+    sink; returns (pipeline, arrival times of buffers warmup+1..).
+    ``probe(pipe)``, if given, runs after EOS and before the stop (the
+    filters' backends are still open then); its result is stored on
+    ``pipe.probed``."""
     import nnstreamer_tpu_torch as pt
     pipe = pt.parse_launch(line)
     stamps = []
@@ -517,7 +544,12 @@ def _run_timed(line, warmup, frames, timeout=600):
         stamps.append(time.perf_counter())
 
     pipe["out"].connect(on_buffer)
-    pipe.run(timeout=timeout)
+    pipe.start()
+    try:
+        pipe.wait_eos(timeout)
+        pipe.probed = probe(pipe) if probe is not None else None
+    finally:
+        pipe.stop()
     if len(stamps) != warmup + frames:
         sys.exit(f"chip_smoke: {len(stamps)} of {warmup + frames} buffers "
                  f"arrived: {line[:100]}")
@@ -944,6 +976,166 @@ def phase_video(smi):
     return row
 
 
+def phase_graphs():
+    """Each zoo model's captured graph against an eager run on the same
+    input; returns the rows and ViT's attention launches."""
+    from nnstreamer_tpu_torch.filters.base import FilterProperties
+    from nnstreamer_tpu_torch.filters.torch_cuda_backend import \
+        TorchCudaFilter
+    from nnstreamer_tpu_torch.ops import attention as A
+
+    rows = {}
+    for uri, size in (("zoo://vit?attn=pallas", 224),
+                      ("zoo://mobilenet_v2", 224),
+                      ("zoo://ssd_mobilenet_v2?packed=1", 300),
+                      ("zoo://posenet?decode=device", 257),
+                      ("zoo://deeplab_v3?argmax=u8", 257),
+                      ("zoo://deeplab_v3", 257)):
+        fw = TorchCudaFilter()
+        fw.open(FilterProperties(framework="torch-cuda", model_files=(uri,)))
+        x = _frames(1, (size, size, 3))[0].numpy()
+        _reset_launches()
+        first = fw.invoke([x])
+        replay = fw.invoke([x])
+        torch.cuda.synchronize()
+        launches = A.launches
+        with torch.inference_mode():
+            eager = fw.traceable_fn()(torch.from_numpy(x).cuda())
+        eager = eager if isinstance(eager, (list, tuple)) else [eager]
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, e) and torch.equal(b, e)
+                   for a, b, e in zip(first, replay, eager))
+        diff = max((a.float() - e.float()).abs().max().item()
+                   for a, e in zip(replay, eager))
+        row = {"compile_count": fw.compile_count, "bitwise": same,
+               "max_abs_diff": diff, "attention_launches": launches,
+               "replay_ms": time_ms(lambda: fw.invoke([x]), iters=20,
+                                    warmup=2)}
+        if "vit" in uri:
+            row["replay_attention_device_ms"] = device_ms(
+                lambda: fw.invoke([x]), "attention_fwd_mma_kernel", iters=5)
+            if row["replay_attention_device_ms"] is None:
+                sys.exit("chip_smoke: attention_fwd_mma_kernel is not in a "
+                         "profiled replay's device trace")
+            if launches != 2 * VIT_LAYERS:
+                sys.exit(f"chip_smoke: {launches} attention launches for "
+                         f"one eager frame and one replay, expected "
+                         f"{2 * VIT_LAYERS}")
+        log(f"graph {uri}: {row}")
+        if not same or fw.compile_count != 1:
+            sys.exit(f"chip_smoke: {uri}: the graph replay differs from "
+                     f"the eager run (max |diff| {diff}) or "
+                     f"{fw.compile_count} executables were made")
+        fw.close()
+        rows[uri] = row
+    return rows
+
+
+def _segments(pipe):
+    return [e for e in pipe.elements.values()
+            if getattr(e, "IS_FUSED_SEGMENT", False)]
+
+
+def phase_fused(smi):
+    """bench.py's fused DeepLab line: one FusedSegment (filter +
+    image_segment decoder, one CUDA graph), against its fuse=false
+    twin."""
+    def line(n, fuse):
+        return (("" if fuse else "fuse=false ")
+                + f"tensortestsrc caps={CAPS.format(dims='3:257:257')} "
+                f"pattern=random seed={SEED} device=true unique=true "
+                f"num-buffers={n} ! queue max-size-buffers=8 "
+                "! tensor_filter name=f framework=torch-cuda "
+                "model=zoo://deeplab_v3 prefetch-host=true "
+                "! tensor_decoder name=d mode=image_segment "
+                "option1=tflite-deeplab ! queue max-size-buffers=8 "
+                "! appsink name=out")
+
+    pipe, row = _run_line("fused deeplab", line(DET_WARMUP + DET_FRAMES,
+                                                True),
+                          DET_WARMUP, DET_FRAMES, smi)
+    segs = _segments(pipe)
+    if len(segs) != 1 or [m.name for m in segs[0].members] != ["f", "d"]:
+        sys.exit(f"chip_smoke: the fused line formed segments "
+                 f"{[[m.name for m in s.members] for s in segs]}, "
+                 "expected one of the filter and the decoder")
+    stats = segs[0].stats.snapshot()
+    if stats["jit_misses"] != 1 \
+            or stats["jit_hits"] != DET_WARMUP + DET_FRAMES - 1:
+        sys.exit(f"chip_smoke: fused segment stats {stats}")
+    twin, _ = _run_timed(line(CHECK_FRAMES, False), 0, CHECK_FRAMES)
+    if _segments(twin):
+        sys.exit("chip_smoke: fuse=false formed a segment")
+    got = [b.chunks[0].host() for b in pipe["out"].buffers[:CHECK_FRAMES]]
+    want = [b.chunks[0].host() for b in twin["out"].buffers]
+    same = all(g.shape == w.shape == (257, 257, 4) and g.dtype == np.uint8
+               and g.tobytes() == w.tobytes() for g, w in zip(got, want))
+    log(f"fused deeplab: one segment {[m.name for m in segs[0].members]}, "
+        f"jit_misses {stats['jit_misses']} jit_hits {stats['jit_hits']}; "
+        f"RGBA of {CHECK_FRAMES} frames "
+        f"{'equal' if same else 'DIFFERENT'} to the fuse=false twin's")
+    if not same:
+        sys.exit("chip_smoke: the fused line's RGBA differs from the "
+                 "fuse=false twin's")
+    row.update({"segment": [m.name for m in segs[0].members],
+                "jit_misses": stats["jit_misses"],
+                "jit_hits": stats["jit_hits"],
+                "rgba_equal_unfused": same})
+    return row
+
+
+def phase_vit_inflight(smi, tmp):
+    """The ViT-B/16 labeling line with in-flight=4 against in-flight=1
+    on the same seeded frames."""
+    labels = os.path.join(tmp, "labels.txt")
+    n = DET_WARMUP + DET_FRAMES
+
+    def line(k):
+        return (f"tensortestsrc caps={CAPS.format(dims='3:224:224')} "
+                f"pattern=random seed={SEED} num-buffers={n} "
+                "! queue max-size-buffers=8 ! tensor_filter name=f "
+                'framework=torch-cuda model="zoo://vit?attn=pallas" '
+                f"in-flight={k} prefetch-host=true ! tensor_decoder "
+                f"mode=image_labeling option1={labels} ! appsink name=out")
+
+    def probe(pipe):
+        f = pipe["f"]
+        return {"compile_count": f.fw.compile_count,
+                "window": f.transfer_report(),
+                "jit_recompiles": f.stats.get("jit_recompiles", 0)}
+
+    out = {}
+    for k in (1, 4):
+        _reset_launches()
+        pipe, stamps = _run_timed(line(k), DET_WARMUP, DET_FRAMES,
+                                  probe=probe)
+        launches = _kernel_launches()
+        fps, p50 = _line_stats(stamps)
+        bufs = pipe["out"].buffers
+        out[k] = {"fps": fps, "p50_ms": p50, "kernel_launches": launches,
+                  "labels": [b.extras["label_index"] for b in bufs],
+                  "pts": [b.pts for b in bufs], **pipe.probed}
+        log(f"vit in-flight={k}: {n} frames ({DET_FRAMES} measured after "
+            f"{DET_WARMUP}), steady {fps:.2f} fps, p50 frame time "
+            f"{p50:.3f} ms, kernel launches {launches}, compile_count "
+            f"{pipe.probed['compile_count']}, window "
+            f"{pipe.probed['window']}; {smi}")
+        if launches["attention"] != VIT_LAYERS * n \
+                or pipe.probed["compile_count"] != 1:
+            sys.exit(f"chip_smoke: vit in-flight={k}: {launches} launches "
+                     f"for {n} frames (expected {VIT_LAYERS} a frame), "
+                     f"compile_count {pipe.probed['compile_count']}")
+    if out[4]["labels"] != out[1]["labels"] or out[4]["pts"] != out[1]["pts"] \
+            or out[4]["pts"] != sorted(out[4]["pts"]):
+        sys.exit("chip_smoke: in-flight=4 labels or PTS differ from "
+                 "in-flight=1's")
+    log(f"vit in-flight: {n} labels of in-flight=4 equal in-flight=1's in "
+        "PTS order")
+    for row in out.values():
+        del row["labels"], row["pts"]
+    return out
+
+
 def main():
     smi = phase_device()
     kind = torch.cuda.get_device_name(0)
@@ -957,7 +1149,16 @@ def main():
     vit_batch = phase_vit_batch(smi)
     lines = {"ssd": phase_ssd(smi), "posenet": phase_posenet(smi),
              "deeplab": phase_deeplab(smi), "video": phase_video(smi)}
+    graphs = phase_graphs()
+    lines["fused_deeplab"] = phase_fused(smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        labels = os.path.join(tmp, "labels.txt")
+        with open(labels, "w") as f:
+            f.write("\n".join(f"class{i}" for i in range(1000)))
+        inflight = phase_vit_inflight(smi, tmp)
     new_paths = {k: row["kernel_launches"] for k, row in lines.items()}
+    new_paths.update({f"vit_inflight{k}": row["kernel_launches"]
+                      for k, row in inflight.items()})
     main_row = rows[0]
     kernels = [{
         "name": "attention",
@@ -995,7 +1196,9 @@ def main():
         "card": smi,
     }]
     log(json.dumps({"mobilenet": mobilenet, f"vit_batch{VIT_BATCH}": vit_batch,
-                    **lines, "card": smi}))
+                    **lines, "graphs": graphs,
+                    "vit_inflight": {str(k): v for k, v in inflight.items()},
+                    "vit_batch1": run, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -35,6 +35,14 @@ class DecoderPlugin:
     def decode(self, buf: Buffer) -> Optional[Buffer]:
         raise NotImplementedError
 
+    def device_fn(self, config: Optional[TensorsConfig] = None):
+        """Optional device-side decode: a ``fn(tensors) -> tensors`` of
+        torch ops equivalent to :meth:`decode` for the fusion compiler,
+        specialized to the planned input *config* (shapes are static in a
+        captured graph, so branch on config here, not on tensor values).
+        Default None: the decode stays on the host."""
+        return None
+
 
 def register_decoder(cls: Type[DecoderPlugin]) -> Type[DecoderPlugin]:
     if not cls.NAME:

@@ -1,8 +1,7 @@
 """image_segment decoder: per-pixel class map -> RGBA color overlay.
 
-Port of ``nnstreamer_tpu/decoders/segment.py``, its host path. The JAX
-decoder's ``device_fn`` (the fused decode) comes with the fusion
-planner, which the port does not have yet.
+Port of ``nnstreamer_tpu/decoders/segment.py``: the host path in numpy
+and the fused decode (``device_fn``) in torch.
 
 ≙ ext/nnstreamer/tensor_decoder/tensordec-imagesegment.c
 (tflite-deeplab mode). Input [H, W, C] logits (argmax over C) or [H, W]
@@ -13,6 +12,7 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
 from ..tensors.buffer import Buffer, Chunk
 from ..tensors.caps import Caps
@@ -56,3 +56,38 @@ class ImageSegment(DecoderPlugin):
         b = Buffer([Chunk(np.ascontiguousarray(out))])
         b.extras["class_map"] = classes
         return b
+
+    def device_fn(self, config=None):
+        """Fused decode: argmax + palette gather + alpha select, integer
+        and gather ops only, byte-identical to the numpy path (argmax
+        takes the first index on ties in torch as in numpy). The
+        ``class_map`` extras entry is host-side bookkeeping and is not
+        materialized on the fused path, as in the JAX package; consumers
+        needing it opt out with fuse=false. The palette is copied to a
+        tensor's device at its first call, which runs before any graph
+        capture (the executable warms up eagerly first)."""
+        if config is None or not len(config.info):
+            return None
+        shape = tuple(config.info[0].shape)
+        if len(shape) < 2:
+            return None
+        heatmap = len(shape) >= 3 and shape[-1] > 1
+        alpha, ncolors = self.alpha, len(_COLORS)
+        palettes = {}
+
+        def fn(arrays):
+            arr = arrays[0]
+            colors = palettes.get(arr.device)
+            if colors is None:
+                colors = palettes[arr.device] = torch.from_numpy(
+                    _COLORS).to(arr.device)
+            if heatmap:
+                classes = torch.argmax(arr, dim=-1)
+            else:
+                classes = arr.reshape(arr.shape[0],
+                                      arr.shape[1]).to(torch.int32)
+            rgb = colors[(classes % ncolors).long()]
+            a = torch.where(classes[..., None] > 0, alpha, 0).to(torch.uint8)
+            return [torch.cat([rgb, a], dim=-1)]
+
+        return fn

@@ -4,8 +4,8 @@ Port of ``nnstreamer_tpu/elements/converter.py``: video, audio, text and
 octet streams, other/tensor(s) flexible->static, ``frames-per-tensor``,
 ``input-dim`` / ``input-type`` and the custom converters. The codec
 media types (flatbuf, flexbuf, protobuf) raise
-:class:`~..pipeline.element.NotPortedError`, and the pipelint hook
-(``static_transfer``) waits for pipelint.
+:class:`~..pipeline.element.NotPortedError`. ``static_transfer`` declares
+the out caps for the fusion planner's caps inference.
 
 ≙ gst/nnstreamer/elements/gsttensor_converter.c: video/x-raw, audio/x-raw,
 text/x-raw, application/octet-stream, and flexible->static conversion,
@@ -64,6 +64,18 @@ class TensorConverter(TransformElement):
             cfg = self._declared_out_config(caps)
         self._out_config = cfg
         self.set_src_caps(Caps.from_config(cfg))
+
+    def static_transfer(self, in_caps):
+        """Out config per declared media type (video/audio/text/octet/
+        tensors); custom ``mode`` converters are unknown until runtime."""
+        caps = in_caps.get("sink")
+        if caps is None or caps.any or not caps.structures \
+                or not caps.is_fixed() or self.mode:
+            return {"src": None}
+        cfg = self._declared_out_config(caps)
+        if not len(cfg.info) or not cfg.info.is_valid():
+            return {"src": None}  # dims lock from the first buffer
+        return {"src": Caps.from_config(cfg)}
 
     def _declared_out_config(self, caps: Caps) -> TensorsConfig:
         """The out config for the stream's media type (custom ``mode``

@@ -2,13 +2,15 @@
 
 Port of ``nnstreamer_tpu/elements/decoder.py`` (≙ gst/nnstreamer/elements/
 gsttensor_decoder.c + the GstTensorDecoderDef subplugin ABI,
-include/nnstreamer_plugin_api_decoder.h:38-100).
+include/nnstreamer_plugin_api_decoder.h:38-100), with its static caps
+transfer and the fusion hooks: a mode whose subplugin declares
+``device_fn`` (image_segment) fuses with the filter before it.
 """
 from __future__ import annotations
 
 from typing import Optional
 
-from ..decoders.registry import find_decoder
+from ..decoders.registry import DecoderPlugin, find_decoder
 from ..pipeline.element import TransformElement
 from ..pipeline.pad import Pad
 from ..pipeline.registry import register_element
@@ -43,6 +45,44 @@ class TensorDecoder(TransformElement):
         self._open()
         out = self._decoder.get_out_caps(caps.to_config())
         self.set_src_caps(out)
+
+    def static_transfer(self, in_caps):
+        """The mode subplugin's get_out_caps on the declared config
+        (subplugins declare out caps without touching data)."""
+        if not self.mode:
+            raise ValueError(f"{self.name}: 'mode' property is required")
+        caps = in_caps.get("sink")
+        if caps is None or not caps.is_fixed():
+            return {"src": None}
+        dec = find_decoder(self.mode)()
+        dec.set_options(
+            [getattr(self, f"option{i}") for i in range(1, 10)])
+        return {"src": dec.get_out_caps(caps.to_config())}
+
+    # -- device placement (fusion compiler) --------------------------------
+    DEVICE_FUSIBLE = ("modes whose subplugin declares device_fn "
+                      "(image_segment); others decode on the host")
+
+    def device_veto(self) -> Optional[str]:
+        if not self.mode:
+            return "mode not set"
+        try:
+            dec_cls = find_decoder(self.mode)
+        except ValueError:
+            return f"unknown decoder mode {self.mode!r}"
+        if dec_cls.device_fn is DecoderPlugin.device_fn:
+            return f"decoder mode {self.mode!r} is host-only"
+        return None
+
+    def device_fn(self, ctx=None):
+        if self.device_veto() is not None:
+            return None
+        try:
+            self._open()
+        except Exception:  # noqa: BLE001 -- decline, don't block launch
+            return None
+        cfg = getattr(ctx, "in_config", None) if ctx is not None else None
+        return self._decoder.device_fn(cfg)
 
     def transform(self, buf: Buffer) -> Optional[Buffer]:
         out = self._decoder.decode(buf)

@@ -3,29 +3,36 @@
 Port of ``nnstreamer_tpu/elements/filter.py`` (≙ gst/nnstreamer/
 tensor_filter/tensor_filter.c + tensor_filter_common.c): property parsing,
 framework auto-detection, model-vs-caps verification with batch-dim
-tolerance, the synchronous invoke, ``prefetch-host``, and the rolling
-latency/throughput statistics. Chunks handed to the backend may already
-live on the card; outputs stay there until a host boundary, or, with
-``prefetch-host=true``, leave as :class:`~..tensors.transfer.PendingHost`
-handles whose D2H copy the coalescing fetcher has already started.
+tolerance, the invoke through the backend's per-signature executable (a
+captured CUDA graph on the card), ``prefetch-host``, the K-frame
+in-flight window (``in-flight``, ``reorder``, ``reorder-deadline-ms``:
+elements/overlap.py over the backend's ``dispatch``/``complete``),
+``warmup`` (the executable is made at caps negotiation), the fusion
+hooks (``static_transfer``, ``device_veto``, ``plan_out_caps``,
+``device_fn``) and the rolling latency/throughput statistics. Chunks
+handed to the backend may already live on the card; outputs stay there
+until a host boundary, or, with ``prefetch-host=true``, leave as
+:class:`~..tensors.transfer.PendingHost` handles whose D2H copy the
+coalescing fetcher has already started.
 
-Not ported yet, each refused at start when set (``NOT_PORTED``): the
-in-flight window and its reorder/donation options (and with it the
-windowed path's prefetch), the circuit breaker, warmup,
-invoke-async/invoke-dynamic, suspend, the shared-model key,
-input/output combination and custom properties. QoS
-throttling is not ported either: the port's sinks send no QoS events.
+Not ported yet, each refused at start when set (``NOT_PORTED``): input
+donation, the circuit breaker, invoke-async/invoke-dynamic, suspend,
+the shared-model key and input/output combination; a ``custom=mesh:``
+option raises in the torch-cuda backend. QoS throttling is not ported
+either: the port's sinks send no QoS events.
 """
 from __future__ import annotations
 
 import collections
 import threading
 import time
-from typing import Optional
+from typing import Any, List, Optional
+
+import numpy as np
 
 from ..filters.base import Accelerator, FilterProperties, InvokeDrop
 from ..filters.registry import detect_framework, find_filter
-from ..pipeline.element import Element
+from ..pipeline.element import Element, TransferError
 from ..pipeline.pad import Pad
 from ..pipeline.registry import register_element
 from ..tensors.buffer import Buffer, Chunk
@@ -72,14 +79,33 @@ class TensorFilter(Element):
         "input": "", "inputtype": "", "inputname": "",
         "output": "", "outputtype": "", "outputname": "",
         "accelerator": "",
+        # k:v option string handed to the backend (simlink reads it)
+        "custom": "",
         "latency": 0,            # 1 = enable latency property updates
         "throughput": 0,
         # start each frame's D2H copy right after the invoke, coalesced
         # across frames (tensors/transfer.py)
         "prefetch-host": False,
+        # K-frame in-flight invoke window (elements/overlap.py): keep up
+        # to K frames between dispatch and completion, completing each on
+        # a dedicated completer thread instead of blocking the chain
+        # thread. 1 = synchronous (default). Requires a backend with
+        # async dispatch (SUPPORTS_DISPATCH); otherwise the filter logs
+        # a notice and stays synchronous.
+        "in-flight": 1,
+        # restore PTS order before push() when in-flight > 1 (bounded
+        # reorder buffer with a stall deadline)
+        "reorder": True,
+        # how long the reorder buffer dams the pipeline waiting for a
+        # missing frame before abandoning the gap
+        "reorder-deadline-ms": 1000.0,
+        # run one zero-filled invoke at caps negotiation, so the
+        # signature's executable (a CUDA-graph capture on the card) is
+        # made before the first real frame instead of stalling it. Only
+        # effective on STATIC caps.
+        "warmup": False,
     }
     NOT_PORTED = {
-        "custom": "",
         "invoke-dynamic": False,
         "invoke-async": False,
         "suspend": 0,
@@ -89,11 +115,7 @@ class TensorFilter(Element):
         "breaker-threshold": 0,
         "breaker-reset-ms": 1000.0,
         "breaker-retry-after-ms": 50.0,
-        "in-flight": 1,
-        "reorder": True,
-        "reorder-deadline-ms": 1000.0,
         "donate-input": False,
-        "warmup": False,
     }
 
     def __init__(self, name=None, **props):
@@ -103,7 +125,14 @@ class TensorFilter(Element):
         self._out_info: Optional[TensorsInfo] = None
         self._recent_latency = collections.deque(maxlen=_MAX_RECENT)
         self._invoke_count = 0
+        # dispatch-to-return timing, distinct from dispatch-to-completion
+        # (_recent_latency): under an in-flight window the former is the
+        # chain-thread cost, the latter the frame's real latency
+        self._recent_dispatch = collections.deque(maxlen=_MAX_RECENT)
+        # latency fields are written by the chain thread (sync path) AND
+        # the completer thread (windowed path): one leaf lock covers them
         self._stats_lock = threading.Lock()
+        self._overlap = None               # OverlapExecutor when K > 1
         self._start_time = None
         self._batch: Optional[int] = None  # batched-invoke leading dim
         self._reported_latency_us: Optional[float] = None
@@ -125,6 +154,7 @@ class TensorFilter(Element):
             # an explicit "false"/"true:cpu" opts out
             accelerators=(tuple(Accelerator.parse(self.accelerator))
                           if self.accelerator else (Accelerator.DEFAULT,)),
+            custom_properties=self.custom,
         )
         if self.input and self.inputtype:
             props.input_info = TensorsInfo.make(self.inputtype, self.input)
@@ -137,13 +167,37 @@ class TensorFilter(Element):
         self._in_info = props.input_info or mi_in
         self._out_info = props.output_info or mi_out
 
+    RESTART_SAFE = True  # stop/start re-opens the framework cleanly
+
     def start(self) -> None:
         super().start()
         self._open_fw()
         self._start_time = time.monotonic()
+        self._overlap = None
+        window = int(self.in_flight)
+        if window > 1:
+            if not getattr(self.fw, "SUPPORTS_DISPATCH", False):
+                logger.info("%s: in-flight=%d ignored — framework %s has "
+                            "no async dispatch; staying synchronous",
+                            self.name, window, self.fw.NAME)
+            else:
+                from .overlap import OverlapExecutor
+                self._overlap = OverlapExecutor(
+                    window,
+                    complete_cb=self._complete_frame,
+                    error_cb=self._complete_error,
+                    push_cb=self.push,
+                    name=self.name,
+                    reorder=bool(self.reorder),
+                    reorder_deadline_s=float(self.reorder_deadline_ms) / 1e3)
 
     def stop(self) -> None:
         super().stop()
+        if self._overlap is not None:
+            # settle every in-flight frame before the framework closes;
+            # the (stopped) executor is kept so its report stays readable
+            self._overlap.flush()
+            self._overlap.stop()
         if self.fw is not None:
             self.fw.close()
             self.fw = None
@@ -191,11 +245,163 @@ class TensorFilter(Element):
             out_cfg = TensorsConfig(out_info, TensorFormat.STATIC,
                                     cfg.rate_n, cfg.rate_d)
         self.set_src_caps(Caps.from_config(out_cfg))
+        if self.warmup:
+            if cfg.format != TensorFormat.STATIC:
+                # not silently inert: tell the user WHY nothing warmed
+                logger.info("%s: warmup requested but skipped (non-static "
+                            "stream format) — no fixed invoke signature "
+                            "to warm", self.name)
+            elif len(cfg.info):
+                self._warmup_invoke(cfg.info)
+
+    def static_transfer(self, in_caps):
+        """Model I/O from declared properties only (the framework is
+        never opened): input/inputtype are checked against the stream
+        with batch-dim tolerance; output/outputtype give the out caps,
+        otherwise the output is unknown."""
+        incaps = in_caps.get("sink")
+        cfg = None
+        if incaps is not None and not incaps.any and incaps.structures \
+                and incaps.is_fixed():
+            try:
+                cfg = incaps.to_config()
+            except ValueError as exc:
+                raise TransferError(f"{self.name}: {exc}", pad="sink")
+        rate = (cfg.rate_n, cfg.rate_d) if cfg is not None else (0, 1)
+        batch = None
+        if self.input and self.inputtype and cfg is not None \
+                and cfg.format == TensorFormat.STATIC and len(cfg.info):
+            model_in = TensorsInfo.make(self.inputtype, self.input)
+            sel = cfg.info
+            if len(sel) and not sel.is_equal(model_in):
+                # permissive on batching: SUPPORTS_BATCH is a backend
+                # trait we cannot know without opening the framework
+                batch = infer_batch_dim(sel, model_in)
+                if batch is None:
+                    raise TransferError(
+                        f"{self.name}: model input {model_in!r} does not "
+                        f"match stream caps {sel!r}. Check tensor_"
+                        f"converter/tensor_transform output dims, or the "
+                        f"input/inputtype properties.", pad="sink")
+        if self.invoke_dynamic:
+            out_cfg = TensorsConfig(TensorsInfo(), TensorFormat.FLEXIBLE,
+                                    *rate)
+        elif self.output and self.outputtype:
+            out_info = TensorsInfo.make(self.outputtype, self.output)
+            if batch is not None:
+                out_info = TensorsInfo(
+                    TensorInfo(i.name, i.type, (batch,) + tuple(i.shape))
+                    for i in out_info)
+            out_cfg = TensorsConfig(out_info, TensorFormat.STATIC, *rate)
+        else:
+            return {"src": None}  # model metadata needs the framework
+        return {"src": Caps.from_config(out_cfg)}
+
+    # -- device placement (fusion compiler) --------------------------------
+    DEVICE_FUSIBLE = ("sync torch-cuda invokes on static caps "
+                      "(no invoke-async/dynamic)")
+
+    _TRACEABLE_FRAMEWORKS = ("torch-cuda",)
+
+    def device_veto(self) -> Optional[str]:
+        if self.invoke_async:
+            return "invoke-async: output frames are decoupled from inputs"
+        if self.invoke_dynamic:
+            return "invoke-dynamic: per-frame output shapes (dynamic caps)"
+        fw = (self.framework or "").lower()
+        if fw in ("auto", ""):
+            first = self.model.split(",")[0] if self.model else ""
+            if not first.startswith("zoo://"):
+                return (f"framework auto-detect on {first!r} cannot be "
+                        f"proven to be the torch-cuda backend statically")
+            return None  # zoo:// always resolves to the torch-cuda backend
+        if fw not in self._TRACEABLE_FRAMEWORKS:
+            return f"framework {fw!r} exposes no traceable invoke"
+        return None
+
+    def mesh_spec(self) -> str:
+        """The declared ``mesh:`` custom option, "" when unsharded. The
+        planner breaks runs at mesh-spec boundaries, as the JAX planner
+        does; the port's backend refuses a mesh at open."""
+        for part in str(self.custom or "").split(","):
+            part = part.strip()
+            if part.startswith("mesh:"):
+                return part[len("mesh:"):].strip()
+        return ""
+
+    def plan_out_caps(self, incaps: Caps) -> Optional[Caps]:
+        """Plan-time refinement of :meth:`static_transfer`: opens the
+        framework (the fusion planner runs before start — the one caller
+        allowed to) and answers the same caps :meth:`on_sink_caps` would
+        negotiate, without its side effects."""
+        self._open_fw()
+        cfg = incaps.to_config()
+        if cfg.format != TensorFormat.STATIC or self._out_info is None:
+            return None
+        sel = cfg.info
+        batch = None
+        if self._in_info is not None and len(sel) \
+                and not sel.is_equal(self._in_info):
+            batch = self._infer_batch(sel)
+            if batch is None:
+                return None
+        out_info = self._out_info.copy()
+        if batch is not None:
+            out_info = TensorsInfo(
+                TensorInfo(i.name, i.type, (batch,) + tuple(i.shape))
+                for i in out_info)
+        return Caps.from_config(TensorsConfig(
+            out_info, TensorFormat.STATIC, cfg.rate_n, cfg.rate_d))
+
+    def device_fn(self, ctx=None):
+        """The backend's eager apply closure as a list -> list program.
+        prefetch-host is ignored for MID-segment outputs (activations
+        never leave the device, which is the point); the FusedSegment
+        honors it for the segment's final outputs instead."""
+        if self.device_veto() is not None:
+            return None
+        try:
+            self._open_fw()
+        except Exception:  # noqa: BLE001 -- decline, don't block launch
+            logger.warning("%s: device_fn could not open the framework; "
+                           "staying on the chain path", self.name,
+                           exc_info=True)
+            return None
+        get = getattr(self.fw, "traceable_fn", None)
+        tr = get() if callable(get) else None
+        if tr is None:
+            return None
+
+        def fn(arrays):
+            outs = tr(*arrays)
+            return list(outs) if isinstance(outs, (list, tuple)) else [outs]
+
+        return fn
+
+    def _warmup_invoke(self, sel: TensorsInfo) -> None:
+        """One zero-filled invoke with the NEGOTIATED stream shapes
+        (incl. any batch dim), so the executable for the exact signature
+        real frames will hit is made now (on the card: captured). A
+        failure is not fatal here: real frames surface the same error
+        through the normal path."""
+        try:
+            zeros = [np.zeros(tuple(i.shape), i.type.np_dtype)
+                     for i in sel]
+            self.fw.invoke(zeros)
+            logger.info("%s: warmup invoke compiled %d input(s)",
+                        self.name, len(zeros))
+        except Exception as exc:  # noqa: BLE001
+            logger.warning("%s: warmup invoke failed (ignored): %s",
+                           self.name, exc)
 
     # -- hot path ---------------------------------------------------------
     def do_chain(self, pad: Pad, buf: Buffer) -> None:
         inputs = [c.raw for c in buf.chunks]
+        if self._overlap is not None:
+            self._dispatch_windowed(buf, inputs)
+            return
         t0 = time.perf_counter_ns()
+        c0 = getattr(self.fw, "compile_count", 0)
         try:
             outputs = self.fw.invoke(inputs)
         except InvokeDrop:
@@ -205,12 +411,76 @@ class TensorFilter(Element):
         except Exception as exc:  # noqa: BLE001
             self._account_invoke_error(exc)
             return
-        self._record_latency(time.perf_counter_ns() - t0)
+        self._note_recompiles(c0)
+        # synchronous path: dispatch and completion are the same event
+        dt = time.perf_counter_ns() - t0
+        self._record_dispatch(dt)
+        self._record_latency(dt)
         if self.prefetch_host:
             # the frame leaves carrying PendingHost handles; frames queued
             # while a copy batch is in flight share the next one
             outputs = submit_fetch(outputs)
         self.push(buf.with_chunks([Chunk(o) for o in outputs]))
+
+    # -- in-flight window (overlapped execution) ---------------------------
+    def _dispatch_windowed(self, buf: Buffer, inputs: List[Any]) -> None:
+        """DISPATCHER side of the overlap split: take a window slot
+        (blocking here IS the backpressure — it propagates into the
+        upstream queue exactly like a slow synchronous invoke), enqueue
+        the frame, and hand completion to the completer thread. The
+        chain thread never waits on the device."""
+        t_disp = self._overlap.window.acquire()
+        t0 = time.perf_counter_ns()
+        c0 = getattr(self.fw, "compile_count", 0)
+        try:
+            handle = self.fw.dispatch(inputs)
+        except InvokeDrop:
+            # release FIRST: the completer never sees this frame
+            self._overlap.window.release(t_disp)
+            self.stats.inc("frames_dropped")
+            return
+        except Exception as exc:  # noqa: BLE001
+            self._overlap.window.release(t_disp)
+            self._account_invoke_error(exc)
+            return
+        try:
+            self._note_recompiles(c0)
+            self._record_dispatch(time.perf_counter_ns() - t0)
+            self._overlap.submit(buf, handle, t_disp)
+        except BaseException:
+            # a dispatch-side failure after acquire: the slot would
+            # otherwise leak window depth permanently
+            self._overlap.window.release(t_disp)
+            raise
+
+    def _complete_frame(self, entry) -> Buffer:
+        """COMPLETER side: materialize one frame's results and run the
+        per-frame accounting the sync path does inline. Raises on invoke
+        failure — the executor routes that to :meth:`_complete_error`."""
+        outputs = self.fw.complete(entry.payload)
+        self._record_latency(time.perf_counter_ns() - entry.t_dispatch_ns)
+        if self.prefetch_host:
+            outputs = submit_fetch(outputs)
+        return entry.buf.with_chunks([Chunk(o) for o in outputs])
+
+    def _complete_error(self, entry, exc: BaseException) -> None:
+        """A frame that failed at completion: the same per-frame
+        accounting as a sync invoke failure, though the chain thread
+        returned long ago."""
+        self._account_invoke_error(exc)
+
+    def transfer_report(self) -> dict:
+        """Window occupancy / overlap stats; {} when running
+        synchronously."""
+        return self._overlap.report() if self._overlap is not None else {}
+
+    def handle_event(self, pad: Pad, event) -> None:
+        if self._overlap is not None:
+            # serialized events (EOS, caps, segment) must not overtake
+            # in-flight frames: barrier until the completer has settled
+            # and pushed everything dispatched before this event
+            self._overlap.flush()
+        super().handle_event(pad, event)
 
     def _account_invoke_error(self, exc: BaseException) -> None:
         # invoke failure drops THIS frame but keeps the pipeline alive
@@ -228,9 +498,36 @@ class TensorFilter(Element):
                                      "negotiated caps")
 
     # -- stats ------------------------------------------------------------
+    def _note_recompiles(self, c0: int) -> None:
+        """Frame-path compilations: the backend made an executable for a
+        new signature DURING a frame's invoke/dispatch (warmup does not
+        route through here, so it never counts). A warmed line holds
+        ``jit_recompiles`` at zero."""
+        d = getattr(self.fw, "compile_count", 0) - c0
+        if d > 0:
+            self.stats.add(jit_recompiles=d)
+
+    def _record_dispatch(self, dt_ns: int) -> None:
+        """Record one frame's dispatch-to-RETURN time (the chain-thread
+        cost). Synchronously it equals the completion latency; under a
+        window it is the enqueue alone."""
+        with self._stats_lock:
+            self._recent_dispatch.append(dt_ns)
+
+    def dispatch_average_us(self) -> float:
+        """Rolling dispatch-to-return average over the last 10 frames,
+        µs — the chain-thread cost per frame under the window."""
+        with self._stats_lock:
+            if not self._recent_dispatch:
+                return 0.0
+            return (sum(self._recent_dispatch)
+                    / len(self._recent_dispatch) / 1e3)
+
     def _record_latency(self, dt_ns: int) -> None:
-        """Record one frame's invoke latency; with ``latency=1`` keep the
-        rolling estimate in ``latency_us`` and post it when it drifts."""
+        """Record one frame's dispatch-to-COMPLETION latency (chain
+        thread synchronously, completer thread under a window); with
+        ``latency=1`` keep the rolling estimate in ``latency_us`` and
+        post it when it drifts."""
         report_us = None
         with self._stats_lock:
             self._invoke_count += 1

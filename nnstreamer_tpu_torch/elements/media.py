@@ -5,8 +5,9 @@ videoconvert, filesrc, multifilesrc, filesink and multifilesink, all
 numpy on the host as in the JAX package. Not ported: ``videoscale``,
 ``pngdec`` and ``jpegdec``, which the JAX package builds on PIL; the
 parser refuses them with :class:`~..pipeline.element.NotPortedError`
-(``_PIL_ELEMENTS`` below). The pipelint hooks (``static_transfer``)
-wait for pipelint.
+(``_PIL_ELEMENTS`` below). Sources declare their caps through the
+element base's ``static_src_caps``; videoconvert declares its
+``static_transfer``.
 
 The reference's pipelines are fed by GStreamer core elements
 (videotestsrc, filesrc, multifilesink — e.g. tests/nnstreamer_converter/
@@ -223,6 +224,13 @@ class VideoConvert(TransformElement):
 
     def on_sink_caps(self, pad, caps) -> None:
         self.set_src_caps(self._out_caps(caps))
+
+    def static_transfer(self, in_caps):
+        """Converted colorspace format on the declared video caps."""
+        caps = in_caps.get("sink")
+        if caps is None or not caps.is_fixed():
+            return {"src": None}
+        return {"src": self._out_caps(caps)}
 
     def transform(self, buf: Buffer) -> Optional[Buffer]:
         _, in_fmt = video_frame_shape(self.sinkpad.caps)

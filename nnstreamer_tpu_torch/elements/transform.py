@@ -19,8 +19,11 @@ One ``_op`` serves both paths through a small array namespace:
   float bounds promote an integer tensor to float32, as jnp's weak
   floats do.
 
-Not ported yet: ``device_fn`` and ``device_veto``, the fusion
-compiler's hooks (they come with fusion).
+The fusion hooks (``device_veto``, ``device_fn``, ``_dtype_stable``)
+wrap the same :data:`TORCH` path: a fused segment runs the mode's torch
+ops inside its program, and only configurations whose every step has
+the same dtype on the host (numpy) and in the reference's fused program
+fuse, so fused and unfused runs stay byte-identical.
 """
 from __future__ import annotations
 
@@ -245,6 +248,73 @@ class TensorTransform(TransformElement):
             left, right, ref_dim = toks[i:i + 3]
             pads[ndim - 1 - ref_dim] = (left, right)
         return pads
+
+    # -- device placement (fusion compiler) --------------------------------
+    DEVICE_FUSIBLE = ("typecast/arithmetic/transpose/dimchg/padding (dtype-"
+                      "stable configs); clamp on float32; stand stays host")
+
+    def device_veto(self) -> Optional[str]:
+        if not self.mode:
+            return "mode not set"
+        if not self.acceleration:
+            return "acceleration=false"
+        if self.mode == "stand":
+            return ("stand: float reductions (mean/std) are not byte-"
+                    "stable between host numpy and the device")
+        return None
+
+    def device_fn(self, ctx=None):
+        if self.device_veto() is not None:
+            return None
+        if self._arith is None and self.mode in ("arithmetic", "typecast"):
+            # mirror start(): device_fn may run before the element starts
+            if self.mode == "arithmetic":
+                self._arith = _parse_arith(self.option)
+            else:
+                self._arith = [("typecast",
+                                TensorType.from_string(self.option))]
+        cfg = getattr(ctx, "in_config", None) if ctx is not None else None
+        if not self._dtype_stable(cfg):
+            return None
+        op = self._op
+
+        def fn(arrays):
+            return [op(a, TORCH) for a in arrays]
+
+        return fn
+
+    def _dtype_stable(self, cfg) -> bool:
+        """Byte-parity guard for the fused path: numpy promotes
+        (int array, float scalar) to float64 where the device path stays
+        float32, and float->int casts truncate differently on the host
+        and the device — only fuse configs where every step computes at
+        an exactly matching dtype on both."""
+        if cfg is None:
+            return False
+        if self.mode in ("transpose", "dimchg", "padding"):
+            return True  # dtype-preserving data movement, any dtype
+        floats = (TensorType.FLOAT32, TensorType.FLOAT64,
+                  TensorType.FLOAT16, TensorType.BFLOAT16)
+        for i in range(len(cfg.info)):
+            dt = cfg.info[i].type
+            if self.mode == "clamp":
+                if dt != TensorType.FLOAT32:
+                    return False
+                continue
+            for op, operand in (self._arith or ()):
+                if op == "typecast":
+                    if dt in floats and operand not in floats:
+                        return False  # float->int casts truncate differently
+                    dt = operand
+                    if dt in (TensorType.FLOAT64, TensorType.INT64,
+                              TensorType.UINT64):
+                        return False
+                    continue
+                if isinstance(operand, np.ndarray):
+                    return False  # float64 vector operand promotes differently
+                if dt != TensorType.FLOAT32:
+                    return False
+        return True
 
     # -- dataflow ---------------------------------------------------------
     def transform(self, buf: Buffer) -> Optional[Buffer]:

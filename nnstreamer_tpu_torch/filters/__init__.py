@@ -1,4 +1,5 @@
 """Filter-backend subplugins and their registry."""
+from . import simlink  # noqa: F401  (registers simlink)
 from . import torch_cuda_backend  # noqa: F401  (registers torch-cuda)
 from .base import (Accelerator, FilterFramework, FilterProperties,
                    InvokeDrop)

@@ -4,18 +4,34 @@ Port of ``nnstreamer_tpu/filters/base.py`` (≙ GstTensorFilterFramework v1,
 ref: gst/nnstreamer/include/nnstreamer_plugin_api_filter.h:399-475 —
 open/close/invoke/getModelInfo).
 
-Not ported yet: the event vocabulary (reload, suspend/resume), the
-non-blocking ``dispatch``/``complete`` split behind the element's
-in-flight window, the async generative output path, and custom
-(``custom=``) properties.
+The non-blocking ``dispatch``/``complete`` split behind the element's
+in-flight window is ported, with ``custom=`` option strings (which
+only the ``simlink`` backend reads). Not ported yet: the event
+vocabulary (reload, suspend/resume) and the async generative output
+path.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from ..tensors.info import TensorsInfo
+
+
+def parse_custom_properties(s: str) -> Dict[str, str]:
+    """``k:v,k:v`` custom option string (the reference's custom-prop
+    grammar, e.g. ``custom=rtt:30,svc:2``); a bare key maps to
+    ``"true"``."""
+    out: Dict[str, str] = {}
+    for part in (s or "").split(","):
+        part = part.strip()
+        if ":" in part:
+            k, v = part.split(":", 1)
+            out[k.strip()] = v.strip()
+        elif part:
+            out[part] = "true"
+    return out
 
 
 class InvokeDrop(Exception):
@@ -68,6 +84,7 @@ class FilterProperties:
     input_info: Optional[TensorsInfo] = None
     output_info: Optional[TensorsInfo] = None
     accelerators: Tuple[Accelerator, ...] = (Accelerator.DEFAULT,)
+    custom_properties: str = ""
 
 
 class FilterFramework:
@@ -86,6 +103,12 @@ class FilterFramework:
     # True when invoke() accepts inputs with one extra leading batch dim
     # (the element then negotiates aggregator-stacked streams)
     SUPPORTS_BATCH = False
+    # True when the backend can split invoke into a non-blocking
+    # dispatch() and a blocking complete() — what the element's K-frame
+    # in-flight window (in-flight property) is built on. Backends whose
+    # invoke is inherently synchronous leave this False; the element
+    # then ignores the window and stays synchronous.
+    SUPPORTS_DISPATCH = False
 
     def open(self, props: FilterProperties) -> None:
         raise NotImplementedError
@@ -95,6 +118,32 @@ class FilterFramework:
 
     def invoke(self, inputs: Sequence[Any]) -> List[Any]:
         raise NotImplementedError
+
+    # overlapped execution -------------------------------------------------
+    def dispatch(self, inputs: Sequence[Any], donate: bool = False
+                 ) -> Any:
+        """Enqueue one frame's device program WITHOUT waiting for the
+        results; returns an opaque in-flight handle for
+        :meth:`complete`. ``donate`` is the JAX package's input-donation
+        flag; the port has no donation and ignores it. The default
+        degrades to a synchronous invoke — the handle IS the outputs — so
+        a window of K over a non-async backend is merely useless, never
+        wrong."""
+        return self.invoke(inputs)
+
+    def complete(self, handle: Any) -> List[Any]:
+        """Block until a dispatched frame's outputs are ready to hand
+        downstream; raises if the device program failed. Called from the
+        element's completer thread — implementations must be safe to run
+        concurrently with :meth:`dispatch`."""
+        return handle
+
+    def traceable_fn(self):
+        """A pure ``fn(*inputs) -> outputs`` closure over the loaded
+        model for the fusion compiler to compose into a fused segment's
+        program (fusion/segment.py), or None when the backend has no
+        such function."""
+        return None
 
     def get_model_info(self) -> Tuple[Optional[TensorsInfo], Optional[TensorsInfo]]:
         """(input_info, output_info); either may be None if the backend

@@ -4,8 +4,20 @@ Counterpart of ``nnstreamer_tpu/filters/jax_backend.py``. A model resolves
 to ``(apply_fn, module, input_info, output_info)``: ``module`` is an
 ``nn.Module`` holding the weights, moved once to the filter's device, and
 ``apply_fn(module, *inputs)`` runs one invoke under
-``torch.inference_mode()``. PyTorch runs eagerly, so there is no
-per-signature executable cache to keep.
+``torch.inference_mode()``.
+
+Execution follows the JAX backend's: one executable per input signature
+(each input's shape and dtype), made at the signature's first call and
+counted in ``compile_count``. On the card an executable is one captured
+CUDA graph (filters/executable.py); all signatures of one backend share
+one graph memory pool. On the CPU it is the eager function. ``invoke``
+runs a frame through its executable on the caller's current stream (the
+filter's stream) without blocking the host: host inputs reach the
+graph's static inputs through pinned memory, and the outputs are
+clones the next replay cannot overwrite. ``dispatch`` does the same and
+records a CUDA event; ``complete`` waits for that event, on the
+element's completer thread. ``traceable_fn`` hands the eager
+``apply(module, *xs)`` closure to the fusion compiler.
 
 Model URIs accepted by the ``model`` property:
   * ``zoo://<name>?k=v&...`` — the port's model zoo (models/zoo.py),
@@ -18,20 +30,23 @@ Device: ``cuda:0`` unless ``accelerator`` opts out (``false`` or
 the backend never falls back to the CPU by itself. Outputs stay on the
 filter's device, so chained device elements keep them on the card.
 
-Not ported yet: mesh mode, ``dispatch``/``complete`` (the in-flight
-window), the persistent compile cache, reload and suspend/resume.
+Not ported yet: mesh mode (``custom=mesh:...`` raises
+:class:`~..pipeline.element.NotPortedError`), input donation, the
+persistent compile cache, reload and suspend/resume.
 """
 from __future__ import annotations
 
+import threading
 import urllib.parse
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
 from ..tensors.info import TensorsInfo
 from ..utils.log import logger
-from .base import Accelerator, FilterFramework, FilterProperties
+from .base import (Accelerator, FilterFramework, FilterProperties,
+                   parse_custom_properties)
+from .executable import Executable, signature
 from .registry import register_filter
 
 
@@ -45,12 +60,6 @@ def _device_for(accelerators: Sequence[Accelerator]) -> torch.device:
             "torch-cuda filter: no CUDA device is available; pass "
             "accelerator=true:cpu (or false) to run on the CPU")
     return torch.device("cuda", 0)
-
-
-def _as_tensor(x: Any, device: torch.device) -> torch.Tensor:
-    if isinstance(x, torch.Tensor):
-        return x if x.device == device else x.to(device)
-    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
 
 def load_model(model: str):
@@ -82,6 +91,7 @@ class TorchCudaFilter(FilterFramework):
     NAME = "torch-cuda"
     EXTENSIONS = ("zoo://", ".py")
     SUPPORTS_BATCH = True  # zoo apply fns take a leading batch dim
+    SUPPORTS_DISPATCH = True
 
     def __init__(self):
         self._apply: Optional[Callable] = None
@@ -89,13 +99,30 @@ class TorchCudaFilter(FilterFramework):
         self._in_info: Optional[TensorsInfo] = None
         self._out_info: Optional[TensorsInfo] = None
         self.device: Optional[torch.device] = None
+        self._executables: Dict[Tuple, Executable] = {}
+        self._pool = None
+        # executables made, one per new input signature (≙ the JAX
+        # backend's compile_count)
+        self.compile_count = 0
+        # dispatch runs on the chain thread while complete runs on the
+        # completer: the cache and the capture sit under this lock
+        self._lock = threading.Lock()
 
     def open(self, props: FilterProperties) -> None:
+        if "mesh" in parse_custom_properties(props.custom_properties):
+            from ..pipeline.element import NotPortedError
+            raise NotPortedError(
+                f"custom={props.custom_properties!r}: mesh mode is not "
+                "ported yet")
         self.device = _device_for(props.accelerators)
         if self.device.type == "cuda":
-            # full f32 in every f32 product, as the reference computes
+            # full f32 in every f32 product, as the reference computes;
+            # no cuDNN autotuning, so a graph replays what an eager run
+            # computes
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cudnn.benchmark = False
+            self._pool = torch.cuda.graph_pool_handle()
         model = props.model_files[0] if props.model_files else ""
         (self._apply, module,
          self._in_info, self._out_info) = load_model(model)
@@ -104,17 +131,63 @@ class TorchCudaFilter(FilterFramework):
                     self.device)
 
     def close(self) -> None:
-        self._apply = None
-        self._module = None
+        with self._lock:
+            self._apply = None
+            self._module = None
+            self._executables.clear()
+            self._pool = None
 
     def get_model_info(self):
         return self._in_info, self._out_info
 
-    def invoke(self, inputs: Sequence[Any]) -> List[Any]:
-        xs = [_as_tensor(x, self.device) for x in inputs]
-        with torch.inference_mode():
-            out = self._apply(self._module, *xs)
-        if isinstance(out, (list, tuple)):
-            return list(out)
-        return [out]
+    def _executable(self, sig: Tuple) -> Executable:
+        """One executable per input signature; a new one counts one
+        compile."""
+        exe = self._executables.get(sig)
+        if exe is None:
+            apply_fn, module = self._apply, self._module
+            exe = Executable(lambda xs: apply_fn(module, *xs), self.device,
+                             self._pool)
+            self._executables[sig] = exe
+            self.compile_count += 1
+        return exe
 
+    def invoke(self, inputs: Sequence[Any]) -> List[Any]:
+        with self._lock:
+            return self._executable(signature(inputs))(inputs)
+
+    # -- overlapped execution ---------------------------------------------
+    def dispatch(self, inputs: Sequence[Any], donate: bool = False) -> Any:
+        """Enqueue one frame through its executable and return ``(outputs,
+        event)`` without waiting: the event is recorded on the filter's
+        stream after the outputs' clone (None on the CPU, where the
+        outputs are ready). ``donate`` is ignored: the port does not
+        donate inputs."""
+        outs = self.invoke(inputs)
+        done = None
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+        return outs, done
+
+    def complete(self, handle: Any) -> List[Any]:
+        """Wait for a dispatched frame's event and return its outputs.
+        Takes no lock: runs on the completer thread beside dispatch."""
+        outs, done = handle
+        if done is not None:
+            done.synchronize()
+        return list(outs)
+
+    # -- fusion -----------------------------------------------------------
+    def traceable_fn(self) -> Optional[Callable]:
+        """The eager ``apply(module, *xs)`` closure over the loaded model,
+        for a fused segment to compose into its program."""
+        with self._lock:
+            apply_fn, module = self._apply, self._module
+        if apply_fn is None:
+            return None
+
+        def fn(*xs):
+            return apply_fn(module, *xs)
+
+        return fn

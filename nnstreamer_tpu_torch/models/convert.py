@@ -20,7 +20,9 @@ Layout changes:
 * the detection models (SSD, PoseNet, DeepLab) as MobileNet-v2 for the
   backbone and ConvBN blocks, and their biased convs (``Conv_i``) as
   kernel + bias. Their converters check that every leaf of the JAX tree
-  is used exactly once.
+  is used exactly once;
+* the toy models (``toyseg``, ``toyscale``, ``mlp``) keep the JAX
+  names and layouts.
 """
 from __future__ import annotations
 
@@ -212,3 +214,22 @@ def deeplab_params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
             _conv_bn(name, p[f"ConvBN_{i}"], stats[f"ConvBN_{i}"], out)
         _conv("classifier", p["Conv_0"], out)
     return _detection(variables, "deeplab_v3", head)
+
+
+def toy_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """``toyseg``/``toyscale`` params ``{"scale", "shift"}`` -> the
+    ``state_dict`` of :class:`..models.zoo.Affine`."""
+    reads = _Reads(tree)
+    out = {k: _t(reads[k]) for k in ("scale", "shift")}
+    _check_all_read(tree, reads, "toyseg/toyscale")
+    return out
+
+
+def mlp_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """``mlp`` params ``{"w1", "b1", "w2", "b2"}`` -> the ``state_dict``
+    of :class:`..models.zoo.MLP` (float32 here; bf16 values convert
+    exactly, and ``load_state_dict`` casts to the module's dtype)."""
+    reads = _Reads(tree)
+    out = {k: _t(reads[k]) for k in ("w1", "b1", "w2", "b2")}
+    _check_all_read(tree, reads, "mlp")
+    return out

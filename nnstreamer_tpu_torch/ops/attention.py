@@ -52,7 +52,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
-# kernel launches made by fused_attention (reset it to 0 to count a run)
+from . import _tally
+
+# kernel launches made by fused_attention (reset it to 0 to count a run);
+# a launch inside a captured CUDA graph counts at each replay (_tally.py)
 launches = 0
 
 MAX_HEAD_DIM = 128
@@ -164,7 +167,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         msg = lib.nns_cuda_error_string(err).decode()
         raise RuntimeError(f"fused_attention: CUDA launch failed with "
                            f"error {err} ({msg})")
-    launches += 1
+    if not _tally.captured("attention"):
+        launches += 1
     return out
 
 

@@ -30,7 +30,10 @@ import ctypes
 
 import torch
 
-# kernel launches made by fused_normalize (reset it to 0 to count a run)
+from . import _tally
+
+# kernel launches made by fused_normalize (reset it to 0 to count a run);
+# a launch inside a captured CUDA graph counts at each replay (_tally.py)
 launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
@@ -63,7 +66,8 @@ def _launch(x: torch.Tensor, scale: float, offset: float,
         msg = lib.nns_cuda_error_string(err).decode()
         raise RuntimeError(f"fused_normalize: CUDA launch failed with "
                            f"error {err} ({msg})")
-    launches += 1
+    if not _tally.captured("normalize"):
+        launches += 1
     return out
 
 

@@ -1,7 +1,9 @@
 """Generic plumbing elements: queue, capsfilter, appsrc, appsink, fakesink
 and tensortestsrc.
 
-Port of the matching elements of ``nnstreamer_tpu/pipeline/basic.py``.
+Port of the matching elements of ``nnstreamer_tpu/pipeline/basic.py``,
+with their static caps transfer (the element base's declaration for the
+queue, appsrc and the sinks; capsfilter's and tensortestsrc's below).
 The queue is always a Python ``queue.Queue``: the native C++ ring of the
 JAX package (``backend=native``) is not ported. ``tee`` and ``identity``
 are not ported yet.
@@ -21,7 +23,7 @@ from ..tensors.caps import Caps
 from ..tensors.types import TensorType
 from ..utils.log import logger
 from .element import (Element, NotPortedError, SinkElement, SrcElement,
-                      TransformElement)
+                      TransferError, TransformElement)
 from .events import CapsEvent, Event
 from .pad import FlowError, Pad
 from .registry import register_element
@@ -172,6 +174,16 @@ class CapsFilter(TransformElement):
                 f"{self.name}: caps {incaps} do not satisfy filter {want}")
         return out.fixate() if not out.is_fixed() else out
 
+    def static_transfer(self, in_caps):
+        """Input ∩ ``caps`` property; a fixed caps property alone pins
+        an otherwise-unknown upstream."""
+        if in_caps.get("sink") is None and self.caps:
+            want = Caps(self.caps) if isinstance(self.caps, str) else self.caps
+            if want.is_fixed():
+                return {"src": want}
+            return {"src": None}
+        return super().static_transfer(in_caps)
+
 
 @register_element("appsrc")
 class AppSrc(SrcElement):
@@ -259,6 +271,12 @@ class TensorTestSrc(SrcElement):
         self._count = 0
         self._rng = None
         self._pool = None
+
+    def static_src_caps(self) -> Optional[Caps]:
+        """Fixated ``caps`` property (required for this source)."""
+        if not self.caps:
+            raise TransferError(f"{self.name}: 'caps' property is required")
+        return super().static_src_caps()
 
     def negotiate_src_caps(self) -> Optional[Caps]:
         if not self.caps:

@@ -7,12 +7,16 @@ synchronously within a thread segment, and negotiate caps via in-band
 CAPS events. Thread boundaries are explicit ``queue`` elements and source
 loops. Per-element proctime statistics are built in.
 
+The static hooks the fusion planner reads are ported:
+:meth:`Element.static_transfer` (caps inference without running the
+element), :meth:`Element.device_veto` and :meth:`Element.device_fn`.
+
 Trimmed in the port: the observability spans, the ``on-error`` fault
-policies (skip/retry/restart) and the source supervisor, the static
-analysis (pipelint) and fusion hooks, upstream (QoS) events,
-per-element debug categories, and checkpoint/preempt/drain. A
-failure in ``do_chain`` or ``create`` posts the error and ends the
-stream, which is the JAX package's default ``on-error=fail``.
+policies (skip/retry/restart) and the source supervisor, pipelint's
+rules, upstream (QoS) events, per-element debug categories, and
+checkpoint/preempt/drain. A failure in ``do_chain`` or ``create`` posts
+the error and ends the stream, which is the JAX package's default
+``on-error=fail``.
 
 A property the port accepts but does not implement yet is declared in
 ``NOT_PORTED`` with the one value the port supports; :meth:`Element.start`
@@ -35,6 +39,16 @@ from .pad import FlowError, Pad, PadDirection
 
 class NotPortedError(NotImplementedError):
     """A property value or feature of the JAX package the port lacks."""
+
+
+class TransferError(ValueError):
+    """A declared caps transfer provably cannot succeed (static analog of
+    a runtime negotiation failure). ``pad`` names the sink pad where the
+    contradiction was detected, when known."""
+
+    def __init__(self, message: str, pad: Optional[str] = None):
+        super().__init__(message)
+        self.pad = pad
 
 
 def _coerce(value: str, default: Any) -> Any:
@@ -66,6 +80,9 @@ class Element:
     SRC_TEMPLATES: Dict[str, Optional[str]] = {}
     PROPS: Dict[str, Any] = {}
     NOT_PORTED: Dict[str, Any] = {"on-error": "fail"}
+    # elements declaring that stop()/start() rebuilds them losslessly
+    # (the JAX package's on-error=restart reads it)
+    RESTART_SAFE = False
 
     _anon_counter = [0]
 
@@ -172,6 +189,69 @@ class Element:
     def stop(self) -> None:
         self._started = False
 
+    # -- static analysis --------------------------------------------------
+    def static_src_caps(self) -> Optional[Caps]:
+        """Declared output caps of a source element, computed WITHOUT
+        starting it. Default: the fixated ``caps`` property when the
+        element declares one; None (unknown) otherwise."""
+        caps_str = getattr(self, "caps", None)
+        if isinstance(caps_str, str) and caps_str:
+            try:
+                return Caps(caps_str).fixate()
+            except ValueError as exc:
+                raise TransferError(
+                    f"{self.name}: bad caps property {caps_str!r}: {exc}")
+        return None
+
+    def static_transfer(
+            self, in_caps: Dict[str, Optional[Caps]],
+    ) -> Dict[str, Optional[Caps]]:
+        """Declared caps transfer: map per-sink-pad input caps to per-src-
+        pad output caps without executing the element. ``None`` marks an
+        unknown (gradual typing). Raise :class:`TransferError` for a
+        provable contradiction.
+
+        Default declaration: sources answer :meth:`static_src_caps`,
+        single-sink elements pass their input through to every src pad,
+        and multi-sink elements are unknown (override to say more)."""
+        if not self.sink_pads:
+            caps = self.static_src_caps()
+            return {p: caps for p in self.src_pads}
+        if len(in_caps) == 1:
+            caps = next(iter(in_caps.values()))
+            return {p: caps for p in self.src_pads}
+        return {p: None for p in self.src_pads}
+
+    # -- device placement (fusion compiler) -------------------------------
+    # one-line capability note: None means the element never provides a
+    # device function; a string describes when it does (fusion/planner.py)
+    DEVICE_FUSIBLE: Optional[str] = None
+
+    def device_veto(self) -> Optional[str]:
+        """Static reason this element can NOT provide a device function,
+        or None when :meth:`device_fn` is expected to return a program.
+        Must never open models or devices. The planner still calls
+        :meth:`device_fn` afterwards (which may decline with None for
+        config-specific reasons)."""
+        if type(self).device_fn is Element.device_fn:
+            return "no device function"
+        return None
+
+    def device_fn(self, ctx=None):
+        """Pure device-side body of this element, or None.
+
+        Returns a callable ``fn(tensors: List[Tensor]) -> List[Tensor]``
+        mapping the chunks of one input buffer to the chunks of one
+        output buffer, made of torch ops only (no Python side effects, no
+        host round trips, no host syncs), so that the fusion planner can
+        compose consecutive members' fns into one program that a fused
+        segment captures as one CUDA graph (fusion/segment.py). ``ctx`` is
+        a :class:`fusion.FusionCtx` carrying the statically planned input
+        caps/config. It runs at plan time (before start) and MAY open the
+        element's model; return None to decline, and the element keeps
+        its per-buffer chain path."""
+        return None
+
     # -- dataflow ---------------------------------------------------------
     def chain(self, pad: Pad, item: Union[Buffer, Event]) -> None:
         """Entry point for data arriving on a sink pad."""
@@ -255,6 +335,8 @@ class TransformElement(Element):
 
     SINK_TEMPLATES = {"sink": None}
     SRC_TEMPLATES = {"src": None}
+    # pure per-buffer transforms rebuild losslessly from stop()/start()
+    RESTART_SAFE = True
 
     def do_chain(self, pad: Pad, buf: Buffer) -> None:
         out = self.transform(buf)
@@ -263,6 +345,17 @@ class TransformElement(Element):
 
     def transform(self, buf: Buffer) -> Optional[Buffer]:
         raise NotImplementedError
+
+    def static_transfer(self, in_caps):
+        """Pure ``transform_caps`` on the declared input caps."""
+        incaps = in_caps.get("sink")
+        if incaps is None:
+            return {p: None for p in self.src_pads}
+        out = self.transform_caps(incaps)
+        if out is None:
+            raise TransferError(
+                f"{self.name}: cannot negotiate caps {incaps}", pad="sink")
+        return {p: out for p in self.src_pads}
 
 
 class SrcElement(Element):

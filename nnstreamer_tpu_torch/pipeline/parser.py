@@ -138,15 +138,12 @@ def parse_launch(desc: str, pipeline: Optional[Pipeline] = None) -> Pipeline:
             elem = make_element("capsfilter", caps=_unquote(tok))
         else:
             if m:
-                # pipeline-level props: the JAX package reads a leading
-                # ``fuse=`` as its fusion opt-out. The port always runs
-                # unfused, so ``fuse=false`` is accepted as a no-op and
-                # a request for fusion is refused.
+                # pipeline-level props: a leading KEY=VALUE before any
+                # element configures the Pipeline itself; ``fuse=false``
+                # is the fusion opt-out, ``fuse=true`` the default.
                 if current is None and m.group(1) == "fuse":
-                    if _unquote(m.group(2)).lower() not in (
-                            "false", "0", "no", "off"):
-                        raise _err(i, "fusion is not ported yet; the "
-                                      "port runs every pipeline unfused")
+                    pipe.fuse = _unquote(m.group(2)).lower() not in (
+                        "false", "0", "no", "off")
                     continue
                 raise _err(i, f"property {tok!r} with no element to "
                               f"apply to")

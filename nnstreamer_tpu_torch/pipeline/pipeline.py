@@ -5,10 +5,12 @@ Port of ``nnstreamer_tpu/pipeline/pipeline.py`` (the analog of GstPipeline
 pipeline-level EOS message, and carries error/latency messages
 out-of-band.
 
-The port always runs unfused and unvalidated: the JAX package's
-``Pipeline.start`` runs pipelint and the fusion planner first, and
-neither is ported yet. Also not ported: tracing, drain, and
-checkpoint/restore/preempt.
+``Pipeline.start`` runs the fusion planner first (``fuse``, default
+True, as in the JAX package): maximal runs of device-capable elements
+become one :class:`~..fusion.FusedSegment` each. ``fuse=false`` (a
+leading launch-line property) or ``pipeline.fuse = False`` opts out.
+Pipelint is not ported, so the port starts unvalidated. Also not
+ported: tracing, drain, and checkpoint/restore/preempt.
 """
 from __future__ import annotations
 
@@ -17,7 +19,9 @@ import threading
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
 
+from ..utils.log import logger
 from .element import Element, SinkElement, SrcElement
+from .pad import PadDirection
 
 
 @dataclass
@@ -50,6 +54,11 @@ class Pipeline:
         self._error: Optional[Exception] = None
         self._lock = threading.Lock()
         self.running = False
+        # fusion (fusion/): device-capable runs are collapsed into
+        # FusedSegments at start. ``fuse=false`` as a pipeline-level
+        # launch prop, or this attribute, opts out
+        self.fuse = True
+        self._fusion_plan = None
 
     # -- graph construction ----------------------------------------------
     def add(self, *elements: Element) -> "Pipeline":
@@ -58,6 +67,20 @@ class Pipeline:
                 raise ValueError(f"duplicate element name {e.name!r}")
             self.elements[e.name] = e
             e.pipeline = self
+        return self
+
+    def link(self, *elements: Element) -> "Pipeline":
+        """Link a chain of elements src->sink, requesting pads as needed."""
+        for up, down in zip(elements, elements[1:]):
+            srcpad = next(
+                (p for p in up.src_pads.values() if not p.is_linked), None)
+            if srcpad is None:
+                srcpad = up.request_pad(PadDirection.SRC)
+            sinkpad = next(
+                (p for p in down.sink_pads.values() if not p.is_linked), None)
+            if sinkpad is None:
+                sinkpad = down.request_pad(PadDirection.SINK)
+            srcpad.link(sinkpad)
         return self
 
     def __getitem__(self, name: str) -> Element:
@@ -87,9 +110,17 @@ class Pipeline:
     def start(self) -> "Pipeline":
         """READY->PLAYING: start non-sources first, then source threads.
         Every element checks its properties first, so a property the port
-        does not implement raises before any thread starts."""
+        does not implement raises before any thread starts; then the
+        fusion planner runs (once: the plan is sticky across restarts)."""
         for e in self.elements.values():
             e.check_ported()
+        if self.fuse and self._fusion_plan is None:
+            from ..fusion import fuse_pipeline
+            try:
+                self._fusion_plan = fuse_pipeline(self)
+            except Exception:  # noqa: BLE001 -- never block launch on fusion
+                logger.warning(
+                    "fusion: planner failed; running unfused", exc_info=True)
         self._sinks_eos.clear()
         self._eos_evt.clear()
         self._error = None

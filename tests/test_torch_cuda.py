@@ -288,3 +288,133 @@ def test_transform_device_path_on_card(card):
         else:
             np.testing.assert_array_equal(got, cpu)
     np.testing.assert_array_equal(got, [0, 0, 254, 255, 0])
+
+
+# -- slice 5: one CUDA graph per input signature, the in-flight window ----
+
+def _backend(uri):
+    from nnstreamer_tpu_torch.filters.base import FilterProperties
+    from nnstreamer_tpu_torch.filters.torch_cuda_backend import \
+        TorchCudaFilter
+    fw = TorchCudaFilter()
+    fw.open(FilterProperties(framework="torch-cuda", model_files=(uri,)))
+    return fw
+
+
+SMALL_VIT = ("zoo://vit?size=64&d_model=64&layers=2&heads=4&classes=10"
+             "&attn=pallas")
+
+
+@pytest.mark.parametrize("uri,shape,dtype", [
+    ("zoo://toyseg?height=16&width=16", (16, 16), np.float32),
+    (SMALL_VIT, (64, 64, 3), np.uint8)])
+def test_graph_replay_matches_eager(card, uri, shape, dtype):
+    """The first invoke (eager warm-up, then the capture) and a replay
+    equal an eager run on the same input bit for bit (cuDNN autotuning
+    off, so the graph replays the eager algorithms); one executable for
+    the signature, a second for a new one. ViT's 2 attention launches
+    count once for the eager frame and once for each replay."""
+    rng = np.random.default_rng(11)
+    x = (rng.integers(0, 255, shape, dtype, endpoint=True)
+         if dtype == np.uint8 else rng.standard_normal(shape).astype(dtype))
+    fw = _backend(uri)
+    before = attention.launches
+    first, replay = fw.invoke([x])[0], fw.invoke([x])[0]
+    torch.cuda.synchronize()
+    launched = attention.launches - before
+    with torch.inference_mode():
+        eager = fw.traceable_fn()(torch.from_numpy(x).cuda())
+    assert torch.equal(first, eager) and torch.equal(replay, eager)
+    assert fw.compile_count == 1
+    assert launched == (4 if "vit" in uri else 0)
+    fw.invoke([np.stack([x, x])])
+    assert fw.compile_count == 2
+    fw.close()
+
+
+def test_inflight_outputs_survive_later_replays_with_prefetch(card):
+    """A window of 4 with prefetch-host: every frame's output is its own
+    (a clone out of the graph's pool), not a later replay's, though the
+    sink holds all of them and a queue lets the source run ahead."""
+    caps = ("other/tensors,format=static,num_tensors=1,types=float32,"
+            "dimensions=16:16,framerate=0/1")
+    model = '"zoo://toyseg?height=16&width=16"'
+    line = (f"tensortestsrc caps={caps} pattern=counter num-buffers=24 "
+            "! queue max-size-buffers=8 ! tensor_filter name=f "
+            f"framework=torch-cuda model={model} in-flight=4 "
+            "prefetch-host=true ! queue ! appsink name=out")
+    pipe = pt.parse_launch(line)
+    pipe.start()
+    assert pipe.wait_eos(120)
+    report = pipe["f"].transfer_report()
+    fw = pipe["f"].fw
+    compiles = fw.compile_count
+    fn = fw.traceable_fn()
+    bufs = pipe["out"].buffers
+    with torch.inference_mode():
+        want = [fn(torch.full((16, 16), float(i), device="cuda")).cpu()
+                for i in range(24)]
+    pipe.stop()
+    assert len(bufs) == 24 and compiles == 1
+    assert report["window"] == 4 and report["completed"] == 24
+    assert [b.pts for b in bufs] == sorted(b.pts for b in bufs)
+    for i, b in enumerate(bufs):
+        np.testing.assert_array_equal(b.chunks[0].host(), want[i].numpy())
+
+
+def test_vit_line_counts_launches_by_replay(card):
+    """In a line, the first frame runs eagerly and every later frame is
+    one replay: 2 blocks x 6 frames = 12 attention launches, in-flight
+    or not, with one executable."""
+    caps = ("other/tensors,format=static,num_tensors=1,types=uint8,"
+            "dimensions=3:64:64,framerate=0/1")
+    for k in (1, 3):
+        attention.launches = 0
+        pipe = pt.parse_launch(
+            f"tensortestsrc caps={caps} pattern=random num-buffers=6 "
+            f'! tensor_filter name=f framework=torch-cuda model="{SMALL_VIT}" '
+            f"in-flight={k} ! appsink name=out")
+        pipe.start()
+        assert pipe.wait_eos(120)
+        compiles = pipe["f"].fw.compile_count
+        pipe.stop()
+        assert attention.launches == 2 * 6 and compiles == 1
+
+
+def test_capture_alongside_copy_stream_fetch(card):
+    """A capture (thread_local mode) while another thread keeps the
+    fetcher's copy stream busy: the capture succeeds and its replays
+    equal eager runs; every fetch resolves to its own values."""
+    import threading
+
+    from nnstreamer_tpu_torch.tensors import transfer as T
+    stop = threading.Event()
+    errors, fetched = [], []
+
+    def fetch_loop():
+        i = 0
+        try:
+            while not stop.is_set():
+                a = torch.full((1 << 20,), float(i), device="cuda")
+                got = T.resolve(T.submit_fetch([a])[0])
+                fetched.append(bool((got == float(i)).all()))
+                i += 1
+        except Exception as exc:  # noqa: BLE001 -- reported below
+            errors.append(exc)
+
+    t = threading.Thread(target=fetch_loop, daemon=True)
+    t.start()
+    try:
+        rng = np.random.default_rng(3)
+        x = rng.integers(0, 255, (64, 64, 3), np.uint8, endpoint=True)
+        for _ in range(3):
+            fw = _backend(SMALL_VIT)
+            outs = [fw.invoke([x])[0] for _ in range(3)]
+            with torch.inference_mode():
+                eager = fw.traceable_fn()(torch.from_numpy(x).cuda())
+            assert all(torch.equal(o, eager) for o in outs)
+            fw.close()
+    finally:
+        stop.set()
+        t.join(30)
+    assert not errors and fetched and all(fetched)

@@ -201,8 +201,8 @@ def test_auto_framework_resolves_zoo_to_torch_cuda():
 
 
 @pytest.mark.parametrize("prop", [
-    "in-flight=2", "donate-input=true", "breaker-threshold=3",
-    "warmup=true", "invoke-async=true", "on-error=skip",
+    "invoke-dynamic=true", "donate-input=true", "breaker-threshold=3",
+    "suspend=100", "invoke-async=true", "on-error=skip",
     "custom=mesh:2x1x1"])
 def test_unported_filter_properties_raise_at_start(prop):
     pipe = pt.parse_launch(
@@ -214,13 +214,19 @@ def test_unported_filter_properties_raise_at_start(prop):
 
 
 def test_fusion_request_is_refused_and_opt_out_accepted():
-    with pytest.raises(ValueError, match="fusion"):
-        pt.parse_launch(f"fuse=true tensortestsrc caps={CAPS} ! fakesink")
+    """Fusion is ported: a leading ``fuse=true`` is accepted as the
+    default it is, and ``fuse=false`` is the opt-out, as in the JAX
+    package's parser."""
+    pipe = pt.parse_launch(f"fuse=true tensortestsrc caps={CAPS} ! fakesink")
+    assert pipe.fuse is True and nt.parse_launch(
+        f"fuse=true tensortestsrc caps={CAPS} ! fakesink").fuse is True
     pipe = pt.parse_launch(
         f"fuse=false tensortestsrc caps={CAPS} num-buffers=2 ! queue "
         "! appsink name=out")
+    assert pipe.fuse is False
     pipe.run(timeout=30)
     assert len(pipe["out"].buffers) == 2
+    assert pipe._fusion_plan is None
 
 
 # -- the MobileNet-v2 headline line (bench.py's bench_mobilenet) -----------
@@ -563,12 +569,13 @@ def test_video_deeplab_segment_line_matches_jax(tmp_path):
            'framerate=30/1" ! tensor_converter')
     tail = ("! tensor_decoder mode=image_segment option1=tflite-deeplab "
             "! appsink name=out")
-    # unfused: the JAX package's fused decode leaves out the class map
+    # unfused in both packages: the fused decode leaves out the class map
     jpipe = _run(nt, f"fuse=false {src} ! tensor_filter framework=jax "
                      f"model={jax_py} {tail}")
     want = jpipe["out"].buffers
-    ppipe = _run(pt, f"{src} ! tensor_filter framework=torch-cuda "
-                     f"accelerator=true:cpu model={port_py} {tail}")
+    ppipe = _run(pt, f"fuse=false {src} ! tensor_filter "
+                     f"framework=torch-cuda accelerator=true:cpu "
+                     f"model={port_py} {tail}")
     got = ppipe["out"].buffers
     assert len(got) == len(want) == 3
     rng = np.random.default_rng(4)  # videotestsrc's frames
@@ -589,3 +596,137 @@ def test_video_deeplab_segment_line_matches_jax(tmp_path):
         assert g.chunks[0].shape == w.chunks[0].shape == (65, 65, 4)
         assert (g.pts, g.duration) == (w.pts, w.duration)
     assert str(ppipe["out"].sinkpad.caps) == str(jpipe["out"].sinkpad.caps)
+
+
+# -- slice 5: the filter's compiled execution (tests/test_filter.py's
+# jax-backend cases, and the ViT line with an in-flight window) -----------
+
+MLP_CAPS = ("other/tensors,format=static,num_tensors=1,types=(string)float32,"
+            "dimensions=(string)64,framerate=(fraction)0/1")
+# one bf16 ulp of an output in [1, 2): the two packages round the bf16
+# products and sums at other points (observed at most 4e-4)
+MLP_ATOL = 2.0 ** -7
+
+MLP_PORT_PY = '''
+import numpy as np
+from nnstreamer_tpu_torch.models import convert, zoo
+
+
+def get_model():
+    apply_fn, module, in_info, out_info = zoo.build("mlp")
+    flat = np.load({npz!r})
+    module.load_state_dict(convert.mlp_params_from_jax(
+        {{k: flat[k].astype(np.float32) for k in flat.files}}))
+    return apply_fn, module, in_info, out_info
+'''
+
+
+@pytest.fixture(scope="module")
+def mlp_model(tmp_path_factory):
+    """A port model file serving the JAX zoo's mlp weights (bf16, stored
+    as float32: exact)."""
+    tmp = tmp_path_factory.mktemp("mlp")
+    _, params, _, _ = jax_zoo.build("mlp")
+    npz = tmp / "mlp.npz"
+    np.savez(npz, **{k: np.asarray(v, dtype=np.float32)
+                     for k, v in params.items()})
+    path = tmp / "mlp.py"
+    path.write_text(MLP_PORT_PY.format(npz=str(npz)))
+    return str(path)
+
+
+def test_zoo_mlp_line_matches_jax(mlp_model):
+    """tensortestsrc ! tensor_filter (mlp) ! appsink: [10] float32 a
+    frame, within bf16 rounding of the JAX line on the same weights."""
+    src = (f"tensortestsrc caps={MLP_CAPS} num-buffers=3 pattern=random "
+           f"seed={SEED}")
+    want = _run(nt, f"{src} ! tensor_filter framework=jax model=zoo://mlp "
+                    "! appsink name=out")["out"].buffers
+    got = _run(pt, f"{src} ! tensor_filter framework=torch-cuda "
+                   f"accelerator=true:cpu model={mlp_model} "
+                   "! appsink name=out")["out"].buffers
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert g.chunks[0].shape == (10,)
+        np.testing.assert_allclose(g.chunks[0].host(), w.chunks[0].host(),
+                                   rtol=0, atol=MLP_ATOL)
+
+
+def test_executable_cache_reused_as_jax():
+    """One executable per input signature, counted as the JAX backend
+    counts its jit cache: a second frame of the same signature reuses
+    it, a batched one makes another."""
+    from nnstreamer_tpu.filters.base import FilterProperties as JaxProps
+    from nnstreamer_tpu.filters.jax_backend import JaxFilter
+    from nnstreamer_tpu_torch.filters.base import FilterProperties
+    from nnstreamer_tpu_torch.filters.base import Accelerator
+    from nnstreamer_tpu_torch.filters.torch_cuda_backend import \
+        TorchCudaFilter
+    ours = TorchCudaFilter()
+    ours.open(FilterProperties(framework="torch-cuda",
+                               model_files=("zoo://mlp",),
+                               accelerators=(Accelerator.CPU,)))
+    theirs = JaxFilter()
+    theirs.open(JaxProps(framework="jax", model_files=("zoo://mlp",)))
+    x = np.random.default_rng(0).random(64).astype(np.float32)
+    counts = []
+    for inputs in ([x], [x * 2], [np.stack([x, x])]):
+        ours.invoke(inputs)
+        theirs.invoke(inputs)
+        counts.append((ours.compile_count, len(ours._executables),
+                       theirs.compile_count, len(theirs._jit_cache)))
+    assert counts == [(1, 1, 1, 1), (1, 1, 1, 1), (2, 2, 2, 2)]
+    ours.close()
+    theirs.close()
+
+
+def test_warmup_compiles_before_first_frame():
+    """warmup=true: the negotiated signature is invoked once with zeros
+    at caps time, so the first streamed frame reuses the executable and
+    no frame counts a recompile."""
+    import threading
+    import time
+
+    capsq = f'"{MLP_CAPS}"'
+    pipe = pt.parse_launch(
+        f"appsrc name=in caps={capsq} ! tensor_filter name=f "
+        "framework=torch-cuda accelerator=true:cpu model=zoo://mlp "
+        "warmup=true ! appsink name=out")
+    got, done = [], threading.Event()
+    pipe["out"].connect(lambda b: (got.append(b), done.set()))
+    pipe.start()
+    f = pipe["f"]
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline:
+        if f.fw is not None and f.fw.compile_count == 1:
+            break
+        time.sleep(0.02)
+    assert f.fw.compile_count == 1
+    pipe["in"].push_buffer(pt.Buffer.from_arrays([np.zeros(64, np.float32)]))
+    assert done.wait(30)
+    compiled = f.fw.compile_count
+    pipe["in"].end_stream()
+    pipe.stop()
+    assert len(got) == 1 and compiled == 1
+    assert f.stats.get("jit_recompiles", 0) == 0
+
+
+def test_vit_in_flight_labels_match_jax(port_model):
+    """The reduced ViT line behind a queue with in-flight=4 in both
+    packages: identical labels, in PTS order."""
+    model, labels = port_model
+    src = (f"tensortestsrc caps={CAPS} pattern=random seed={SEED} "
+           "num-buffers=8 ! queue max-size-buffers=4")
+    tail = (f"in-flight=4 ! tensor_decoder mode=image_labeling "
+            f"option1={labels} ! appsink name=out")
+    want = _run(nt, f'{src} ! tensor_filter name=f framework=jax '
+                    f'model="{JAX_MODEL}" {tail}')
+    got = _run(pt, f"{src} ! tensor_filter name=f framework=torch-cuda "
+                   f"accelerator=true:cpu model={model} {tail}")
+    wb, gb = want["out"].buffers, got["out"].buffers
+    assert len(gb) == len(wb) == 8
+    assert [b.extras["label"] for b in gb] == [b.extras["label"] for b in wb]
+    assert [b.pts for b in gb] == [b.pts for b in wb] == sorted(
+        b.pts for b in gb)
+    rep = got["f"].transfer_report()
+    assert rep["window"] == 4 and rep["completed"] == 8
