@@ -90,13 +90,48 @@ Phases, in order; any failure exits non-zero and prints no result line:
               equal the in-flight=1 run's over the same seeded frames in
               PTS order, 12 attention launches a frame counted by
               replay, compile_count 1; fps, p50 and the window report.
+15. ensemble — MobileNet-v2 and ViT-B/16 (attn=pallas) on the same
+              seeded frames: tensortestsrc ! tee, each leg a queue and a
+              filter on its own thread, tensor_mux sync-mode=slowest,
+              tensor_demux, a queue and an appsink per model; 8 + 48
+              frames, traced: every frame at both sinks in PTS order,
+              each model's outputs against its own line on the same
+              frames (bitwise expected, else the f32-twin tolerance), 12
+              attention launches a frame, fps, p50 and the tracer's
+              per-element report.
+16. aggregated — tensortestsrc ! tensor_aggregator frames-out=32
+              concat=false (frames stacked on a new outer dim, so the
+              filter sees 3:224:224:32 and makes one graph) ! queue 4 !
+              MobileNet-v2, prefetch-host ! queue 8 ! tensor_aggregator
+              frames-in=32 frames-out=1 frames-dim=1 ! appsink; 2 + 8
+              batches: per-frame logits against the batch-1 headline
+              line's on the same frames (5 % of the largest logit),
+              frames/s, traced.
+17. crop    — videotestsrc (RGB 300x300) ! tensor_converter ! tee; one
+              leg the packed SSD filter ! tensor_decoder tensor_region
+              (top 4) ! tensor_crop's info pad, the other a queue to its
+              raw pad; 8 + 32 frames: each frame's regions equal the
+              bounding_boxes decoder's top 4 on the same SSD output, every
+              crop byte-equal to the numpy slice of the same frame; fps,
+              p50 and the tracer's report.
+18. throttled — ViT-B/16 on a 60/1 stream into tensor_rate
+              framerate=15/1 throttle=true and a tensor_if gate, 64
+              frames: the filter drops frames before the invoke on the
+              rate's QoS events (invokes + qos_dropped = 64, attention
+              launches = 12 x invokes, the sink's count = the rate's
+              out); then appsink qos=true behind a 25 ms render sends
+              QoS events and the filter drops frames.
+Then the tracer on phase 8's SSD line and phase 10's DeepLab line (a
+queue between filter and decoder: unfused): host time a frame by element.
 Every model line runs through the backend's per-signature executable,
 one captured CUDA graph per input signature: the first frame runs
 eagerly (the capture's warm-up), every later frame is one replay, so a
 hand kernel inside the graph counts once a frame.
-Phases 8-11 and 13 launch neither hand kernel (their models inline their
-input affine, as the JAX models do); their launch counts are read all
-the same and written on the kernels line as 0.
+Phases 8-11, 13, 16 and 17 launch neither hand kernel (their models
+inline their input affine, as the JAX models do); their launch counts
+are read all the same and written on the kernels line as 0. The
+tracer's times are host times: a filter's proctime is its dispatch
+(staging and the graph launch), not the device time.
 
 The second-to-last line is the kernels JSON, the last line the result:
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -130,6 +165,9 @@ DET_WARMUP = 8
 DET_FRAMES = 48            # measured frames of the SSD/PoseNet/DeepLab lines
 VIDEO_FRAMES = 32          # measured frames of the videotestsrc SSD line
 CHECK_FRAMES = 8           # frames held against a second variant
+FRAME_DIMS = "3:224:224"   # the ViT / MobileNet frame of phases 15-18
+SSD_SIZE = 300             # the SSD frame of phase 17 and the traced line
+SEG_SIZE = 257             # the DeepLab frame of the traced line
 CAPS = ("other/tensors,format=static,num_tensors=1,types=(string)uint8,"
         "dimensions=(string){dims},framerate=(fraction)0/1")
 
@@ -529,25 +567,31 @@ def phase_normalize():
     return rows, worst
 
 
-def _run_timed(line, warmup, frames, timeout=600, probe=None):
+def _run_timed(line, warmup, frames, timeout=600, probe=None, trace=False):
     """Run a line to EOS, materialising every buffer on the host at the
     sink; returns (pipeline, arrival times of buffers warmup+1..).
     ``probe(pipe)``, if given, runs after EOS and before the stop (the
     filters' backends are still open then); its result is stored on
-    ``pipe.probed``."""
+    ``pipe.probed``. ``trace`` runs the line with the tracer on and
+    stores its condensed report on ``pipe.trace``."""
     import nnstreamer_tpu_torch as pt
     pipe = pt.parse_launch(line)
+    tracer = pipe.enable_tracing() if trace else None
+    steady = _Steady(pipe, warmup)
     stamps = []
 
     def on_buffer(buf):
         buf.host_arrays()
         stamps.append(time.perf_counter())
+        steady.frame()
 
     pipe["out"].connect(on_buffer)
     pipe.start()
     try:
         pipe.wait_eos(timeout)
         pipe.probed = probe(pipe) if probe is not None else None
+        pipe.trace = (_trace_table(tracer.report(pipe), steady.us())
+                      if trace else None)
     finally:
         pipe.stop()
     if len(stamps) != warmup + frames:
@@ -703,6 +747,64 @@ def phase_normalize_entry(frames):
     log(f"normalize entry: {launches} launches for {len(dev)} frames and "
         "their stack, bitwise equal to normalize_plain")
     return launches
+
+
+class _Steady:
+    """Each element's host proctime a buffer over the buffers it chained
+    after the warm-up, the window the line's fps is measured over. The
+    tracer's proctime average is over the whole run: the first frame
+    runs eagerly and captures the graph (hundreds of ms), and while the
+    queues fill behind it the threads contend for the interpreter.
+    ``frame()`` is called at a sink; the elements' stats are read when
+    the ``warmup``-th frame arrives there (at least the second, so every
+    chain call of the first frame has returned, the ones the sink itself
+    runs inside of too) and again at the end (``us()``). An element that
+    had chained every buffer by then (the source side of a deep queue)
+    has no steady figure."""
+
+    def __init__(self, pipe, warmup):
+        self.pipe, self.seen, self.base = pipe, 0, None
+        self.warmup = max(2, warmup)
+
+    def _read(self):
+        return {name: (st["proctime_ns"], st["buffers"])
+                for name, st in self.pipe.stats().items()}
+
+    def frame(self):
+        self.seen += 1
+        if self.seen == self.warmup:
+            self.base = self._read()
+
+    def us(self):
+        out = {}
+        for name, (ns, n) in self._read().items():
+            ns0, n0 = (self.base or {}).get(name, (0, 0))
+            if n > n0:
+                out[name] = (ns - ns0) / (n - n0) / 1e3
+        return out
+
+
+def _trace_table(report, steady):
+    """The tracer's report cut to what PERF.md reads: per element its
+    buffers, host proctime a buffer (µs) over the whole run and after the
+    first frame (``steady_us``, from :class:`_Steady`), interlatency
+    p50/p95 (µs) and, for queues, the level at the report; the fusion and
+    transfer blocks as they are. A proctime holds every element after
+    it on the same thread and any wait on a full queue there."""
+    keep = {"buffers": "buffers", "proctime_us_avg": "proctime_us",
+            "interlatency_us_p50": "il_p50_us",
+            "interlatency_us_p95": "il_p95_us", "queue_level": "queue"}
+    out = {}
+    for name, entry in report.items():
+        if name in ("fusion", "transfer"):
+            out[name] = entry
+            continue
+        out[name] = {short: (round(entry[k], 2) if isinstance(entry[k], float)
+                             else entry[k])
+                     for k, short in keep.items() if k in entry}
+        if name in steady:
+            out[name]["steady_us"] = round(steady[name], 2)
+    return out
 
 
 def _line_stats(stamps):
@@ -1136,6 +1238,380 @@ def phase_vit_inflight(smi, tmp):
     return out
 
 
+def _caps_at(dims, rate="0/1"):
+    return CAPS.format(dims=dims).replace("(fraction)0/1",
+                                          f"(fraction){rate}")
+
+
+def _max_diff(got, want):
+    """(largest |diff|, largest |diff| over the largest |want|)."""
+    diff = float(np.abs(got - want).max())
+    return diff, diff / float(np.abs(want).max())
+
+
+def _model_outputs(model, n):
+    """One model's own batch-1 line on the seeded frames: its per-frame
+    outputs on the host, stacked."""
+    line = (f"tensortestsrc caps={_caps_at(FRAME_DIMS)} pattern=random "
+            f"seed={SEED} num-buffers={n} ! queue max-size-buffers=8 ! "
+            f'tensor_filter framework=torch-cuda model="{model}" '
+            "! appsink name=out")
+    pipe, _ = _run_timed(line, 0, n)
+    return np.stack([b.chunks[0].host() for b in pipe["out"].buffers])
+
+
+def phase_ensemble(smi):
+    """MobileNet-v2 and ViT-B/16 on the same frames: tee into two
+    filters on their own queue threads, tensor_mux sync-mode=slowest,
+    tensor_demux, two sinks; traced."""
+    import nnstreamer_tpu_torch as pt
+    n = DET_WARMUP + DET_FRAMES
+    line = ("tensor_mux name=m sync-mode=slowest ! tensor_demux name=d "
+            "d.src_0 ! queue name=qa ! appsink name=a "
+            "d.src_1 ! queue name=qb ! appsink name=b "
+            f"tensortestsrc name=src caps={_caps_at(FRAME_DIMS)} "
+            f"pattern=random seed={SEED} num-buffers={n} ! tee name=t "
+            "t. ! queue name=q0 ! tensor_filter name=mnv2 "
+            "framework=torch-cuda model=zoo://mobilenet_v2 ! m.sink_0 "
+            "t. ! queue name=q1 ! tensor_filter name=vit "
+            'framework=torch-cuda model="zoo://vit?attn=pallas" ! m.sink_1')
+    pipe = pt.parse_launch(line)
+    tracer = pipe.enable_tracing()
+    steady = _Steady(pipe, 2 * DET_WARMUP)  # both sinks count
+    arrivals = {"a": {}, "b": {}}
+
+    def sink_cb(name):
+        def on_buffer(buf):
+            buf.host_arrays()
+            arrivals[name][buf.pts] = time.perf_counter()
+            steady.frame()
+        return on_buffer
+
+    for name in arrivals:
+        pipe[name].connect(sink_cb(name))
+    _reset_launches()
+    pipe.start()
+    try:
+        pipe.wait_eos(600)
+        trace = _trace_table(tracer.report(pipe), steady.us())
+    finally:
+        pipe.stop()
+    launches = _kernel_launches()
+    src_pts = list(range(n))  # framerate 0/1: the PTS is the count
+    outs = {}
+    for name in ("a", "b"):
+        bufs = pipe[name].buffers
+        pts = [b.pts for b in bufs]
+        if pts != src_pts:
+            sys.exit(f"chip_smoke: ensemble sink {name} got {len(bufs)} of "
+                     f"{n} frames or out of PTS order: {pts[:10]}")
+        outs[name] = np.stack([b.chunks[0].host() for b in bufs])
+    done = [max(arrivals["a"][p], arrivals["b"][p]) for p in src_pts]
+    fps, p50 = _line_stats(done[DET_WARMUP:])
+    if launches["attention"] != VIT_LAYERS * n:
+        sys.exit(f"chip_smoke: ensemble: {launches['attention']} attention "
+                 f"launches for {n} frames (expected {VIT_LAYERS} a frame)")
+    row = {"frames": n, "measured": DET_FRAMES, "fps": fps, "p50_ms": p50,
+           "kernel_launches": launches, "trace": trace}
+    for name, model, width in (("a", "zoo://mobilenet_v2", 1001),
+                               ("b", "zoo://vit?attn=pallas", 1000)):
+        if outs[name].shape != (n, width) \
+                or not np.isfinite(outs[name]).all():
+            sys.exit(f"chip_smoke: ensemble sink {name} outputs "
+                     f"{outs[name].shape}, expected ({n}, {width}) finite")
+        alone = _model_outputs(model, n)
+        diff, rel = _max_diff(outs[name], alone)
+        # bitwise expected: each filter has its own graph of the same
+        # signature; else the f32-twin tolerance of phases 5 and 8-10
+        how = "bitwise" if diff == 0 else "within 5 % of the largest output"
+        log(f"ensemble {model}: {n} frames vs the model's own line max "
+            f"|diff| {diff:.4g} (relative {rel:.3g}): {how}")
+        if rel > 0.05:
+            sys.exit(f"chip_smoke: ensemble {model} differs from its own "
+                     "line")
+        row[f"{name}_max_abs_diff"] = diff
+        row[f"{name}_equal"] = how
+    log(f"ensemble: {n} frames ({DET_FRAMES} measured after {DET_WARMUP}) "
+        f"at both sinks in PTS order, steady {fps:.2f} fps, p50 frame time "
+        f"{p50:.3f} ms, kernel launches {launches}; {smi}")
+    log(f"ensemble trace: {json.dumps(trace)}")
+    return row
+
+
+def phase_aggregated(smi):
+    """MobileNet-v2 batched by tensor_aggregator (32 frames stacked on a
+    new outer dim: 3:224:224:32) and split back per frame, against the
+    batch-1 headline line on the same frames."""
+    n = BATCH * BATCH_BUFFERS
+    warm = 2 * BATCH
+    line = (f"tensortestsrc caps={_caps_at(FRAME_DIMS)} pattern=random "
+            f"seed={SEED} num-buffers={n} ! tensor_aggregator name=g "
+            f"frames-out={BATCH} frames-dim=3 concat=false "
+            "! queue max-size-buffers=4 ! tensor_filter name=f "
+            "framework=torch-cuda model=zoo://mobilenet_v2 "
+            "prefetch-host=true ! queue max-size-buffers=8 "
+            f"! tensor_aggregator name=s frames-in={BATCH} frames-out=1 "
+            "frames-dim=1 ! appsink name=out")
+
+    def probe(pipe):
+        cfg = pipe["f"].sinkpad.caps.to_config()
+        return {"filter_dims": cfg.info.dims_string(),
+                "compile_count": pipe["f"].fw.compile_count}
+
+    _reset_launches()
+    pipe, stamps = _run_timed(line, warm, n - warm, probe=probe, trace=True)
+    launches = _kernel_launches()
+    fps, p50 = _line_stats(stamps)
+    got = np.stack([b.chunks[0].host() for b in pipe["out"].buffers])
+    if pipe.probed["filter_dims"] != f"{FRAME_DIMS}:{BATCH}" \
+            or pipe.probed["compile_count"] != 1:
+        sys.exit(f"chip_smoke: aggregated line: the filter saw "
+                 f"{pipe.probed}, expected {FRAME_DIMS}:{BATCH} and one graph")
+    if got.shape != (n, 1, 1001):
+        sys.exit(f"chip_smoke: aggregated line gave {got.shape}")
+    line1 = (f"tensortestsrc caps={_caps_at(FRAME_DIMS)} pattern=random "
+             f"seed={SEED} num-buffers={n} ! queue max-size-buffers=8 ! "
+             "tensor_filter framework=torch-cuda model=zoo://mobilenet_v2 "
+             "prefetch-host=true ! queue max-size-buffers=32 "
+             "! appsink name=out")
+    one, _ = _run_timed(line1, 0, n)
+    want = np.stack([b.chunks[0].host() for b in one["out"].buffers])
+    diff, rel = _max_diff(got[:, 0], want)
+    log(f"aggregated: {n} frames in {BATCH_BUFFERS} batches of {BATCH} "
+        f"({n - warm} measured), filter caps {pipe.probed['filter_dims']}, "
+        f"compile_count {pipe.probed['compile_count']}, {fps:.2f} frames/s; "
+        f"per-frame logits vs the batch-1 line max |diff| {diff:.4g}, "
+        f"relative {rel:.3g} (tol 0.05); {smi}")
+    log(f"aggregated trace: {json.dumps(pipe.trace)}")
+    # batched convolutions may take other cuDNN algorithms than batch 1:
+    # the f32-twin tolerance of phases 5 and 8-10
+    if rel > 0.05:
+        sys.exit("chip_smoke: aggregated per-frame logits differ from the "
+                 "batch-1 line's")
+    return {"frames": n, "measured": n - warm, "frames_per_s": fps,
+            "p50_ms": p50, "max_abs_diff": diff, "max_rel_diff": rel,
+            "kernel_launches": launches, "trace": pipe.trace,
+            **pipe.probed}
+
+
+def phase_crop(smi):
+    """SSD detections -> tensor_region -> tensor_crop of the same video
+    frames, through a tee."""
+    import nnstreamer_tpu_torch as pt
+    from nnstreamer_tpu_torch.decoders.registry import find_decoder
+    n = DET_WARMUP + VIDEO_FRAMES
+    video = ("videotestsrc pattern=random seed=1 "
+             f'caps="video/x-raw,format=RGB,width={SSD_SIZE},'
+             f'height={SSD_SIZE},framerate=30/1" num-buffers={n} '
+             "! tensor_converter")
+    line = ("tensor_crop name=c ! appsink name=out "
+            f"{video} ! tee name=t t. ! queue name=q0 ! tensor_filter "
+            'name=f framework=torch-cuda model="zoo://ssd_mobilenet_v2?'
+            'packed=1" ! tensor_decoder name=r mode=tensor_region '
+            f"option1=4 option3={SSD_SIZE}:{SSD_SIZE} ! c.info "
+            "t. ! queue name=q1 ! c.raw")
+    pipe = pt.parse_launch(line)
+    tracer = pipe.enable_tracing()
+    region = pipe["r"]
+    decoded = []
+    transform = region.transform
+
+    def recording(buf):  # keep each SSD output and its regions
+        out = transform(buf)
+        decoded.append((buf, out))
+        return out
+
+    region.transform = recording
+    steady = _Steady(pipe, DET_WARMUP)
+    stamps = []
+
+    def on_buffer(buf):
+        buf.host_arrays()
+        stamps.append(time.perf_counter())
+        steady.frame()
+
+    pipe["out"].connect(on_buffer)
+    _reset_launches()
+    pipe.start()
+    try:
+        pipe.wait_eos(600)
+        trace = _trace_table(tracer.report(pipe), steady.us())
+    finally:
+        pipe.stop()
+    launches = _kernel_launches()
+    frames = pt.parse_launch(f"{video} ! appsink name=out")
+    frames.run(timeout=600)
+    raw = {b.pts: b.chunks[0].host() for b in frames["out"].buffers}
+    if len(decoded) != n or len(raw) != n:
+        sys.exit(f"chip_smoke: crop line decoded {len(decoded)} of {n}")
+    bb = find_decoder("bounding_boxes")()
+    wh = f"{SSD_SIZE}:{SSD_SIZE}"
+    bb.set_options(["mobilenet-ssd-postprocess", "", "", wh, wh,
+                    "", "", "", ""])
+    want_out = {}
+    for ssd, out in decoded:
+        boxes = sorted(bb.decode(ssd).extras["boxes"],
+                       key=lambda b: -b["score"])[:4]
+        want = np.zeros((4, 4), np.uint32)
+        for i, b in enumerate(boxes):
+            want[i] = [max(0, int(b["x"] * SSD_SIZE)),
+                       max(0, int(b["y"] * SSD_SIZE)),
+                       int(b["w"] * SSD_SIZE), int(b["h"] * SSD_SIZE)]
+        got = out.chunks[0].host()
+        if got.dtype != np.uint32 or not np.array_equal(got, want):
+            sys.exit(f"chip_smoke: frame {ssd.pts}: regions {got.tolist()} "
+                     f"differ from bounding_boxes' top 4 {want.tolist()}")
+        crops = []
+        frame = raw[ssd.pts]
+        for x, y, w, h in want.astype(np.int64):
+            x0, y0 = max(0, x), max(0, y)
+            x1, y1 = min(SSD_SIZE, x0 + w), min(SSD_SIZE, y0 + h)
+            if w > 0 and h > 0 and x1 > x0 and y1 > y0:
+                crops.append(frame[y0:y1, x0:x1])
+        if crops:
+            want_out[ssd.pts] = crops
+    bufs = pipe["out"].buffers
+    if [b.pts for b in bufs] != sorted(want_out):
+        sys.exit(f"chip_smoke: crop line emitted {len(bufs)} buffers for "
+                 f"{len(want_out)} frames with regions")
+    n_crops = 0
+    for b in bufs:
+        want = want_out[b.pts]
+        got = [c.host() for c in b.chunks]
+        if len(got) != len(want) or any(
+                g.shape != w.shape or g.tobytes() != w.tobytes()
+                for g, w in zip(got, want)):
+            sys.exit(f"chip_smoke: frame {b.pts}: crops differ from the "
+                     "numpy slices of the frame")
+        n_crops += len(got)
+    fps, p50 = _line_stats(stamps[DET_WARMUP:])
+    log(f"crop: {n} frames ({VIDEO_FRAMES} measured after {DET_WARMUP}), "
+        f"regions equal bounding_boxes' top 4 on every frame, {n_crops} "
+        f"crops byte-equal to numpy slices, steady {fps:.2f} fps, p50 "
+        f"frame time {p50:.3f} ms, kernel launches {launches}; {smi}")
+    log(f"crop trace: {json.dumps(trace)}")
+    return {"frames": n, "measured": VIDEO_FRAMES, "fps": fps, "p50_ms": p50,
+            "crops": n_crops, "kernel_launches": launches, "trace": trace}
+
+
+def phase_throttled(smi):
+    """ViT-B/16 on a 60/1 stream into tensor_rate framerate=15/1
+    throttle=true and a tensor_if gate: QoS makes the filter skip
+    invokes. Then appsink qos=true behind a render the script slows."""
+    import nnstreamer_tpu_torch as pt
+    n = 64
+    caps = _caps_at(FRAME_DIMS, "60/1")
+    vit = ('tensor_filter name=f framework=torch-cuda '
+           'model="zoo://vit?attn=pallas"')
+    line = (f"tensortestsrc caps={caps} pattern=random seed={SEED} "
+            f"num-buffers={n} ! {vit} ! tensor_rate name=r framerate=15/1 "
+            "throttle=true ! tensor_if compared-value=TENSOR_AVERAGE_VALUE "
+            "operator=GT supplied-value=-1e30 then=PASSTHROUGH else=SKIP "
+            "! appsink name=out")
+
+    def probe(pipe):
+        f, r = pipe["f"], pipe["r"]
+        return {"invokes": f._invoke_count,
+                "qos_dropped": f.stats["qos_dropped"],
+                "rate": {k: r.stats[k] for k in ("in", "out", "dup", "drop")}}
+
+    pipe = pt.parse_launch(line)
+    tracer = pipe.enable_tracing()
+    steady = _Steady(pipe, 2)  # after the first (capturing) frame
+    stamps = []
+
+    def on_buffer(buf):
+        buf.host_arrays()
+        stamps.append(time.perf_counter())
+        steady.frame()
+
+    pipe["out"].connect(on_buffer)
+    _reset_launches()
+    pipe.start()
+    try:
+        pipe.wait_eos(600)
+        got = probe(pipe)
+        trace = _trace_table(tracer.report(pipe), steady.us())
+    finally:
+        pipe.stop()
+    launches = _kernel_launches()
+    sunk = len(pipe["out"].buffers)
+    if not (got["qos_dropped"] > 0
+            and got["invokes"] + got["qos_dropped"] == n
+            and launches["attention"] == VIT_LAYERS * got["invokes"]
+            and sunk == got["rate"]["out"]):
+        sys.exit(f"chip_smoke: throttled line {got}, attention launches "
+                 f"{launches['attention']}, {sunk} buffers at the sink")
+    fps, p50 = _line_stats(stamps)
+    log(f"throttled: {n} frames, {got['invokes']} invoked and "
+        f"{got['qos_dropped']} dropped by QoS before the invoke, rate "
+        f"{got['rate']}, {sunk} at the sink, attention launches "
+        f"{launches['attention']} (12 x invokes), steady {fps:.2f} fps, "
+        f"p50 {p50:.3f} ms; {smi}")
+    log(f"throttled trace: {json.dumps(trace)}")
+    row = {"frames": n, "fps": fps, "p50_ms": p50, "sunk": sunk,
+           "kernel_launches": launches, "trace": trace, **got}
+
+    # appsink qos=true: a 25 ms render against 16.7 ms frames
+    pipe = pt.parse_launch(f"tensortestsrc caps={caps} pattern=random "
+                           f"seed={SEED} num-buffers={n} ! {vit} "
+                           "! appsink name=out qos=true")
+    events = []
+    f = pipe["f"]
+    upstream = f.handle_upstream_event
+
+    def counted(pad, event):
+        events.append((event.proportion, event.period_ns))
+        upstream(pad, event)
+
+    f.handle_upstream_event = counted
+
+    def slow_render(buf):
+        buf.host_arrays()
+        time.sleep(0.025)
+
+    pipe["out"].connect(slow_render)
+    _reset_launches()
+    pipe.start()
+    try:
+        pipe.wait_eos(600)
+        got = {"invokes": f._invoke_count,
+               "qos_dropped": f.stats["qos_dropped"]}
+    finally:
+        pipe.stop()
+    launches = _kernel_launches()
+    if not events or got["qos_dropped"] <= 0 \
+            or got["invokes"] + got["qos_dropped"] != n \
+            or launches["attention"] != VIT_LAYERS * got["invokes"]:
+        sys.exit(f"chip_smoke: appsink qos=true: events {events}, "
+                 f"{got}, attention launches {launches['attention']}")
+    log(f"throttled appsink qos=true: {len(events)} QoS events "
+        f"{events}, {got['invokes']} invoked, {got['qos_dropped']} dropped "
+        f"before the invoke, attention launches {launches['attention']}")
+    row["appsink_qos"] = {"events": len(events), "kernel_launches": launches,
+                          **got}
+    return row
+
+
+def phase_traces(smi):
+    """The tracer on phase 8's SSD line and phase 10's DeepLab line
+    (queue between the filter and the decoder, so unfused): host time a
+    frame by element."""
+    out = {}
+    for name, size, model, tail in (
+            ("ssd", SSD_SIZE, "zoo://ssd_mobilenet_v2?packed=1", SSD_TAIL),
+            ("deeplab", SEG_SIZE, "zoo://deeplab_v3?argmax=u8",
+             "! tensor_decoder mode=image_segment option1=tflite-deeplab")):
+        line = _bench_line(size, model, tail, DET_WARMUP + DET_FRAMES)
+        pipe, stamps = _run_timed(line, DET_WARMUP, DET_FRAMES, trace=True)
+        fps, p50 = _line_stats(stamps)
+        log(f"trace {name}: steady {fps:.2f} fps, p50 {p50:.3f} ms "
+            f"(traced); {smi}")
+        log(f"trace {name}: {json.dumps(pipe.trace)}")
+        out[name] = {"fps": fps, "p50_ms": p50, "trace": pipe.trace}
+    return out
+
+
 def main():
     smi = phase_device()
     kind = torch.cuda.get_device_name(0)
@@ -1156,6 +1632,11 @@ def main():
         with open(labels, "w") as f:
             f.write("\n".join(f"class{i}" for i in range(1000)))
         inflight = phase_vit_inflight(smi, tmp)
+    lines["ensemble"] = phase_ensemble(smi)
+    lines["aggregated"] = phase_aggregated(smi)
+    lines["crop"] = phase_crop(smi)
+    lines["throttled"] = phase_throttled(smi)
+    traces = phase_traces(smi)
     new_paths = {k: row["kernel_launches"] for k, row in lines.items()}
     new_paths.update({f"vit_inflight{k}": row["kernel_launches"]
                       for k, row in inflight.items()})
@@ -1198,7 +1679,7 @@ def main():
     log(json.dumps({"mobilenet": mobilenet, f"vit_batch{VIT_BATCH}": vit_batch,
                     **lines, "graphs": graphs,
                     "vit_inflight": {str(k): v for k, v in inflight.items()},
-                    "vit_batch1": run, "card": smi}))
+                    "vit_batch1": run, "traces": traces, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -7,5 +7,10 @@ from . import converter  # noqa: F401  (tensor_converter)
 from . import transform  # noqa: F401  (tensor_transform)
 from . import decoder  # noqa: F401  (tensor_decoder)
 from . import sinks  # noqa: F401  (tensor_sink/tensor_debug)
+from . import combiner  # noqa: F401  (tensor_mux/tensor_merge/join)
+from . import splitter  # noqa: F401  (tensor_demux/tensor_split)
+from . import aggregator  # noqa: F401  (tensor_aggregator)
+from . import crop  # noqa: F401  (tensor_crop)
+from . import flowctl  # noqa: F401  (tensor_if/tensor_rate)
 
 __all__: list = []

@@ -9,7 +9,9 @@ in-flight window (``in-flight``, ``reorder``, ``reorder-deadline-ms``:
 elements/overlap.py over the backend's ``dispatch``/``complete``),
 ``warmup`` (the executable is made at caps negotiation), the fusion
 hooks (``static_transfer``, ``device_veto``, ``plan_out_caps``,
-``device_fn``) and the rolling latency/throughput statistics. Chunks
+``device_fn``), QoS throttling (a downstream ``QosEvent`` makes the
+filter drop frames before their invoke, ``stats["qos_dropped"]``) and
+the rolling latency/throughput statistics. Chunks
 handed to the backend may already live on the card; outputs stay there
 until a host boundary, or, with ``prefetch-host=true``, leave as
 :class:`~..tensors.transfer.PendingHost` handles whose D2H copy the
@@ -18,8 +20,7 @@ coalescing fetcher has already started.
 Not ported yet, each refused at start when set (``NOT_PORTED``): input
 donation, the circuit breaker, invoke-async/invoke-dynamic, suspend,
 the shared-model key and input/output combination; a ``custom=mesh:``
-option raises in the torch-cuda backend. QoS throttling is not ported
-either: the port's sinks send no QoS events.
+option raises in the torch-cuda backend.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ import numpy as np
 from ..filters.base import Accelerator, FilterProperties, InvokeDrop
 from ..filters.registry import detect_framework, find_filter
 from ..pipeline.element import Element, TransferError
+from ..pipeline.events import Event, FlushEvent, QosEvent, SegmentEvent
 from ..pipeline.pad import Pad
 from ..pipeline.registry import register_element
 from ..tensors.buffer import Buffer, Chunk
@@ -136,7 +138,10 @@ class TensorFilter(Element):
         self._start_time = None
         self._batch: Optional[int] = None  # batched-invoke leading dim
         self._reported_latency_us: Optional[float] = None
-        self.stats.update({"invoke_errors": 0, "frames_dropped": 0})
+        self._throttle_period_ns = 0       # from downstream QoS events
+        self._next_accept_ts: Optional[int] = None
+        self.stats.update({"invoke_errors": 0, "frames_dropped": 0,
+                           "qos_dropped": 0})
 
     # -- framework lifecycle ---------------------------------------------
     def _open_fw(self) -> None:
@@ -396,6 +401,12 @@ class TensorFilter(Element):
 
     # -- hot path ---------------------------------------------------------
     def do_chain(self, pad: Pad, buf: Buffer) -> None:
+        if self._qos_should_drop(buf):
+            # downstream can't keep up: skip the invoke (and the window
+            # slot) entirely, so the card does no wasted work
+            # (≙ throttling check, tensor_filter.c:532-584)
+            self.stats.inc("qos_dropped")
+            return
         inputs = [c.raw for c in buf.chunks]
         if self._overlap is not None:
             self._dispatch_windowed(buf, inputs)
@@ -474,13 +485,42 @@ class TensorFilter(Element):
         synchronously."""
         return self._overlap.report() if self._overlap is not None else {}
 
-    def handle_event(self, pad: Pad, event) -> None:
+    def handle_event(self, pad: Pad, event: Event) -> None:
         if self._overlap is not None:
             # serialized events (EOS, caps, segment) must not overtake
             # in-flight frames: barrier until the completer has settled
             # and pushed everything dispatched before this event
             self._overlap.flush()
+        if isinstance(event, (SegmentEvent, FlushEvent)):
+            # new segment / flush = PTS discontinuity: stale throttle state
+            # would otherwise qos-drop every post-restart frame forever
+            self._throttle_period_ns = 0
+            self._next_accept_ts = None
         super().handle_event(pad, event)
+
+    # -- QoS throttling ----------------------------------------------------
+    def _qos_should_drop(self, buf: Buffer) -> bool:
+        if self._throttle_period_ns <= 0 or buf.pts is None:
+            return False
+        if self._next_accept_ts is not None and buf.pts < self._next_accept_ts:
+            return True
+        self._next_accept_ts = buf.pts + self._throttle_period_ns
+        return False
+
+    def handle_upstream_event(self, pad: Pad, event: Event) -> None:
+        if isinstance(event, QosEvent):
+            # keep the larger of the downstream-requested spacing and our
+            # own sustainable cadence: the invoke latency synchronously,
+            # latency/K under a K-frame window (K completions in flight)
+            window = self._overlap.window.limit \
+                if self._overlap is not None else 1
+            lat_ns = int(self.latency_average_us() * 1e3) // max(1, window)
+            self._throttle_period_ns = max(event.period_ns, lat_ns) \
+                if event.proportion > 1.0 else 0
+            if self._throttle_period_ns == 0:
+                self._next_accept_ts = None
+            return  # consumed: the filter is the throttling point
+        super().handle_upstream_event(pad, event)
 
     def _account_invoke_error(self, exc: BaseException) -> None:
         # invoke failure drops THIS frame but keeps the pipeline alive

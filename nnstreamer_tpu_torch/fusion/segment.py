@@ -28,6 +28,10 @@ their host copy). A completion error is latched and re-raised on the
 next frame's chain, so ``Element.chain`` applies the segment's policy
 on the chain thread.
 
+With tracing on, each frame's host dispatch time (the executable's
+lookup, input staging and the graph launch) is observed as the series
+``fusion/<name>``, which the tracer folds into its fusion block.
+
 Not ported: the mesh branch, the circuit breaker and the on-error
 policies other than ``fail`` (the port has only ``fail``), and the
 persistent compile cache.
@@ -35,6 +39,7 @@ persistent compile cache.
 from __future__ import annotations
 
 import threading
+import time
 from typing import Callable, List, Optional
 
 import torch
@@ -171,6 +176,7 @@ class FusedSegment(TransformElement):
         arrays = [c.raw for c in buf.chunks]
         device = self._device(arrays)
         sig = (signature(arrays), str(device))
+        t0 = time.perf_counter_ns()
         exe = self._programs.get(sig)
         if exe is None:
             self.stats.inc("jit_misses")
@@ -181,8 +187,10 @@ class FusedSegment(TransformElement):
             self.stats.inc("jit_hits")
         if self._overlap is not None:
             t_disp = self._overlap.window.acquire()
+            t0 = time.perf_counter_ns()  # the dispatch, not the wait
             try:
                 outs = exe(arrays)
+                self._observe_dispatch(t0)
                 done = None
                 if device.type == "cuda":
                     done = torch.cuda.Event()
@@ -196,8 +204,14 @@ class FusedSegment(TransformElement):
                 raise
             return
         outs = exe(arrays)
+        self._observe_dispatch(t0)
         self._programs[sig] = exe
         self.push(buf.with_chunks(self._out_chunks(outs)))
+
+    def _observe_dispatch(self, t0: int) -> None:
+        tracer = getattr(self.pipeline, "tracer", None)
+        if tracer is not None:
+            tracer.observe(f"fusion/{self.name}", time.perf_counter_ns() - t0)
 
     def _out_chunks(self, outs) -> List[Chunk]:
         if self._prefetch:

@@ -7,7 +7,9 @@ graph is replayed. So a wrapper that launches during a capture taken
 under :func:`recording` adds the launch to the capture's tally instead
 of its count, and the executable that owns the graph hands the tally to
 :func:`replayed` after every replay. The counts then say how often each
-kernel really ran, whether it ran eagerly or inside a graph.
+kernel really ran, whether it ran eagerly or inside a graph. Every
+count goes through one lock: several pipeline threads may launch or
+replay the same kernel at once.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from typing import Counter, Iterator
 import torch
 
 _local = threading.local()
+_count_lock = threading.Lock()
 
 
 @contextlib.contextmanager
@@ -33,20 +36,28 @@ def recording() -> Iterator[Counter]:
         _local.tally = prev
 
 
-def captured(name: str) -> bool:
-    """True, and the launch tallied, when this thread is capturing a graph
-    under :func:`recording`; False when the launch runs now and the
-    wrapper counts it itself."""
+def launched(name: str) -> None:
+    """Count one launch of the kernel ``name``: into this thread's
+    capture tally while it captures a graph under :func:`recording` (the
+    launch runs at each replay), else into the kernel module's
+    ``launches`` now."""
     tally = getattr(_local, "tally", None)
-    if tally is None or not torch.cuda.is_current_stream_capturing():
-        return False
-    tally[name] += 1
-    return True
+    if tally is not None and torch.cuda.is_current_stream_capturing():
+        tally[name] += 1
+    else:
+        _add(name, 1)
 
 
 def replayed(tally: Counter) -> None:
     """Count one replay of a graph whose capture tallied ``tally``."""
-    from . import attention, normalize
     for name, n in tally.items():
-        module = {"attention": attention, "normalize": normalize}[name]
+        _add(name, n)
+
+
+def _add(name: str, n: int) -> None:
+    # pipeline threads replay graphs (and launch eagerly) concurrently;
+    # ``launches += n`` is a read-modify-write, so it takes the lock
+    from . import attention, normalize
+    module = {"attention": attention, "normalize": normalize}[name]
+    with _count_lock:
         module.launches += n

@@ -151,7 +151,6 @@ def _library() -> ctypes.CDLL:
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream."""
-    global launches
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
@@ -167,8 +166,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         msg = lib.nns_cuda_error_string(err).decode()
         raise RuntimeError(f"fused_attention: CUDA launch failed with "
                            f"error {err} ({msg})")
-    if not _tally.captured("attention"):
-        launches += 1
+    _tally.launched("attention")
     return out
 
 

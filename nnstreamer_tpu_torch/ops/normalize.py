@@ -50,7 +50,6 @@ def normalize_plain(x: torch.Tensor, scale: float = 1.0 / 127.5,
 def _launch(x: torch.Tensor, scale: float, offset: float,
             dtype: torch.dtype) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream."""
-    global launches
     from ._build import load_library
     x = x.contiguous()
     out = torch.empty(x.shape, dtype=dtype, device=x.device)
@@ -66,8 +65,7 @@ def _launch(x: torch.Tensor, scale: float, offset: float,
         msg = lib.nns_cuda_error_string(err).decode()
         raise RuntimeError(f"fused_normalize: CUDA launch failed with "
                            f"error {err} ({msg})")
-    if not _tally.captured("normalize"):
-        launches += 1
+    _tally.launched("normalize")
     return out
 
 

@@ -1,12 +1,13 @@
-"""Generic plumbing elements: queue, capsfilter, appsrc, appsink, fakesink
-and tensortestsrc.
+"""Generic plumbing elements: queue, tee, capsfilter, identity, appsrc,
+appsink, fakesink and tensortestsrc.
 
 Port of the matching elements of ``nnstreamer_tpu/pipeline/basic.py``,
 with their static caps transfer (the element base's declaration for the
 queue, appsrc and the sinks; capsfilter's and tensortestsrc's below).
 The queue is always a Python ``queue.Queue``: the native C++ ring of the
-JAX package (``backend=native``) is not ported. ``tee`` and ``identity``
-are not ported yet.
+JAX package (``backend=native``) is not ported. ``tee`` shares each
+buffer among its branches (no copy), so CUDA chunks stay on the card
+through it, as ``identity`` passes them.
 """
 from __future__ import annotations
 
@@ -101,6 +102,11 @@ class Queue(Element):
         if isinstance(item, Event):
             self._q.put(item)  # events are serialized: never dropped
             return
+        # the queue bypasses Element.chain (no do_chain), so the tracing
+        # hook fires here (stats['buffers'] is counted by the worker on pop)
+        tracer = getattr(self.pipeline, "tracer", None)
+        if tracer is not None:
+            tracer.record(self, item)
         if self.leaky == "upstream":
             # GStreamer leaky=upstream: drop the incoming buffer when full
             try:
@@ -155,6 +161,23 @@ class Queue(Element):
                 break
 
 
+@register_element("tee")
+class Tee(Element):
+    """1-to-N fan-out. Buffers are shared, not copied: chunks are
+    immutable by convention."""
+
+    SINK_TEMPLATES = {"sink": None}
+    SRC_TEMPLATES = {"src_%u": None}
+
+    def do_chain(self, pad: Pad, buf: Buffer) -> None:
+        for p in self.src_pads.values():
+            if p.is_linked:
+                p.push(buf)
+
+    def on_sink_caps(self, pad: Pad, caps: Caps) -> None:
+        self.set_src_caps(caps)
+
+
 @register_element("capsfilter")
 class CapsFilter(TransformElement):
     """Pass-through that restricts negotiation to its ``caps`` property."""
@@ -183,6 +206,17 @@ class CapsFilter(TransformElement):
                 return {"src": want}
             return {"src": None}
         return super().static_transfer(in_caps)
+
+
+@register_element("identity")
+class Identity(TransformElement):
+    PROPS = {"silent": True}
+
+    def transform(self, buf: Buffer) -> Buffer:
+        if not self.silent:
+            logger.info("%s: buffer pts=%s chunks=%d", self.name, buf.pts,
+                        len(buf))
+        return buf
 
 
 @register_element("appsrc")

@@ -13,10 +13,9 @@ element), :meth:`Element.device_veto` and :meth:`Element.device_fn`.
 
 Trimmed in the port: the observability spans, the ``on-error`` fault
 policies (skip/retry/restart) and the source supervisor, pipelint's
-rules, upstream (QoS) events, per-element debug categories, and
-checkpoint/preempt/drain. A failure in ``do_chain`` or ``create`` posts
-the error and ends the stream, which is the JAX package's default
-``on-error=fail``.
+rules, per-element debug categories, and checkpoint/preempt/drain. A
+failure in ``do_chain`` or ``create`` posts the error and ends the
+stream, which is the JAX package's default ``on-error=fail``.
 
 A property the port accepts but does not implement yet is declared in
 ``NOT_PORTED`` with the one value the port supports; :meth:`Element.start`
@@ -33,7 +32,8 @@ from ..tensors.buffer import Buffer
 from ..tensors.caps import Caps
 from ..utils.atomic import Counters
 from ..utils.log import logger
-from .events import (CapsEvent, EosEvent, Event, SegmentEvent, StreamStart)
+from .events import (CapsEvent, EosEvent, Event, QosEvent, SegmentEvent,
+                     StreamStart)
 from .pad import FlowError, Pad, PadDirection
 
 
@@ -259,6 +259,9 @@ class Element:
             self.stats.inc("events")
             self.handle_event(pad, item)
             return
+        tracer = getattr(self.pipeline, "tracer", None)
+        if tracer is not None:
+            tracer.record(self, item)
         t0 = time.perf_counter_ns()
         try:
             self.do_chain(pad, item)
@@ -313,6 +316,20 @@ class Element:
         for p in self.src_pads.values():
             if p.is_linked:
                 p.push(event)
+
+    # -- upstream events ---------------------------------------------------
+    def send_upstream_event(self, event: Event) -> None:
+        """Send an out-of-band event upstream (≙ gst_pad_push_event on a
+        sink pad — the QoS path). Travels sink-pad → upstream element's
+        ``handle_upstream_event`` directly, bypassing queues, like
+        GStreamer's non-serialized upstream events."""
+        for p in self.sink_pads.values():
+            if p.is_linked:
+                p.peer.element.handle_upstream_event(p.peer, event)
+
+    def handle_upstream_event(self, pad: Pad, event: Event) -> None:
+        """Default: keep propagating toward the source."""
+        self.send_upstream_event(event)
 
     # -- push helpers -----------------------------------------------------
     def push(self, buf: Buffer, pad: Optional[Pad] = None) -> None:
@@ -417,6 +434,9 @@ class SrcElement(Element):
             buf = self.create()
             if buf is None:
                 break
+            tracer = getattr(self.pipeline, "tracer", None)
+            if tracer is not None:
+                tracer.stamp(buf)
             self.srcpad.push(buf)
             self._pushed += 1
         self.srcpad.push(EosEvent())
@@ -425,13 +445,52 @@ class SrcElement(Element):
 class SinkElement(Element):
     """Terminal element (≙ GstBaseSink); notifies the pipeline on EOS.
 
-    Not ported yet: ``qos=true`` (render-time QoS feedback upstream)."""
+    ``qos=true`` measures each render against the stream's frame
+    duration and sends QoS events upstream when the sink falls behind
+    (≙ GstBaseSink's "qos" property + gst_base_sink_send_qos): an
+    upstream tensor_filter then drops frames before its invoke. Needs
+    timestamped streams (a framerate, hence ``buf.duration``); untimed
+    streams already self-limit through bounded-queue backpressure.
+    Render time includes whatever the sink's render waits for, e.g. a
+    CUDA chunk's copy to the host."""
 
     SINK_TEMPLATES = {"sink": None}
-    NOT_PORTED = {"qos": False}
+    PROPS = {"qos": False}
+
+    def __init__(self, name: Optional[str] = None, **props):
+        super().__init__(name, **props)
+        self._qos_avg_ns = 0.0
+        self._qos_throttling = False
+        self._qos_sent_ns = 0.0
 
     def do_chain(self, pad: Pad, buf: Buffer) -> None:
+        if not self.qos or not buf.duration:
+            self.render(buf)
+            return
+        t0 = time.perf_counter_ns()
         self.render(buf)
+        dt = time.perf_counter_ns() - t0
+        # EWMA over ~8 frames: tolerant of a one-frame spike, fast
+        # enough to catch a drifting render cost
+        self._qos_avg_ns += (dt - self._qos_avg_ns) * 0.125
+        proportion = self._qos_avg_ns / buf.duration
+        if proportion > 1.0:
+            # one event per throttle episode, re-sent only when the
+            # sustainable period has drifted >25% — not one per slow frame
+            drift = abs(self._qos_avg_ns - self._qos_sent_ns) \
+                > 0.25 * self._qos_sent_ns
+            if not self._qos_throttling or drift:
+                self._qos_throttling = True
+                self._qos_sent_ns = self._qos_avg_ns
+                self.send_upstream_event(QosEvent(
+                    proportion=proportion,
+                    period_ns=int(self._qos_avg_ns), timestamp=buf.pts))
+        elif self._qos_throttling and proportion < 0.8:
+            # recovered (hysteresis): release the throttle
+            self._qos_throttling = False
+            self._qos_sent_ns = 0.0
+            self.send_upstream_event(QosEvent(
+                proportion=1.0, period_ns=0, timestamp=buf.pts))
 
     def render(self, buf: Buffer) -> None:
         raise NotImplementedError

@@ -9,8 +9,9 @@ out-of-band.
 True, as in the JAX package): maximal runs of device-capable elements
 become one :class:`~..fusion.FusedSegment` each. ``fuse=false`` (a
 leading launch-line property) or ``pipeline.fuse = False`` opts out.
-Pipelint is not ported, so the port starts unvalidated. Also not
-ported: tracing, drain, and checkpoint/restore/preempt.
+``enable_tracing()`` attaches the tracer (utils/trace.py). Pipelint is
+not ported, so the port starts unvalidated. Also not ported: drain and
+checkpoint/restore/preempt.
 """
 from __future__ import annotations
 
@@ -54,11 +55,19 @@ class Pipeline:
         self._error: Optional[Exception] = None
         self._lock = threading.Lock()
         self.running = False
+        self.tracer = None  # set by enable_tracing()
         # fusion (fusion/): device-capable runs are collapsed into
         # FusedSegments at start. ``fuse=false`` as a pipeline-level
         # launch prop, or this attribute, opts out
         self.fuse = True
         self._fusion_plan = None
+
+    def enable_tracing(self):
+        """Attach a Tracer (≙ GstShark proctime/interlatency/framerate
+        tracers); returns it for ``report()``."""
+        from ..utils.trace import Tracer
+        self.tracer = Tracer()
+        return self.tracer
 
     # -- graph construction ----------------------------------------------
     def add(self, *elements: Element) -> "Pipeline":

@@ -145,6 +145,38 @@ def test_plan_routes_by_dtype_and_alignment(d, dtype, view):
     assert got == ("tensor_core", "vec16" if aligned else "element")
 
 
+def test_launch_counts_survive_concurrent_replays(monkeypatch):
+    """Pipeline threads replay graphs (and launch eagerly) at once; each
+    count goes through one lock, so no launch is lost: 8 threads x 2000
+    replays of a 12-launch tally and 2000 eager launches each, with a
+    short switch interval to force interleaving."""
+    import collections
+    import sys
+    import threading
+
+    from nnstreamer_tpu_torch.ops import _tally
+    monkeypatch.setattr(port, "launches", 0)
+    tally = collections.Counter({"attention": 12})
+
+    def work():
+        for _ in range(2000):
+            _tally.replayed(tally)
+            _tally.launched("attention")
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert port.launches == 8 * 2000 * 13
+
+
 def test_module_imports_no_jax():
     """The port's attention module (and the package) import nothing of
     JAX or of the JAX package, checked in a fresh interpreter."""

@@ -418,3 +418,96 @@ def test_capture_alongside_copy_stream_fetch(card):
         stop.set()
         t.join(30)
     assert not errors and fetched and all(fetched)
+
+
+# -- slice 6: two graphs on two threads, stream shaping on the card -------
+
+def test_two_threads_capture_and_replay_at_once(card):
+    """Two backends of the same ViT on two threads, each capturing while
+    the other may already replay (the process-wide capture lock, the
+    thread_local capture mode, output clones from the caching allocator):
+    every replay equals its eager run bitwise, and no attention launch is
+    lost in the shared count (2 threads x (8 frames + the eager run) x 2
+    blocks)."""
+    import sys
+    import threading
+
+    rng = np.random.default_rng(12)
+    xs = [rng.integers(0, 255, (64, 64, 3), np.uint8, endpoint=True)
+          for _ in range(2)]
+    results, errors = {}, []
+
+    def leg(i):
+        try:
+            fw = _backend(SMALL_VIT)
+            outs = [fw.invoke([xs[i]])[0] for _ in range(8)]
+            torch.cuda.current_stream().synchronize()
+            with torch.inference_mode():
+                eager = fw.traceable_fn()(torch.from_numpy(xs[i]).cuda())
+            results[i] = (all(torch.equal(o, eager) for o in outs),
+                          fw.compile_count)
+            fw.close()
+        except Exception as exc:  # noqa: BLE001 -- reported below
+            errors.append(exc)
+
+    attention.launches = 0
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=leg, args=(i,)) for i in (0, 1)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not errors and not any(t.is_alive() for t in threads)
+    assert results == {0: (True, 1), 1: (True, 1)}
+    assert attention.launches == 2 * (8 + 1) * 2
+
+
+def test_mux_pairs_cuda_chunks_from_two_threads(card):
+    """tee into two filter legs on their own queue threads, tensor_mux
+    pairing their CUDA outputs, tensor_demux splitting them again: the
+    chunks stay on the card through tee, mux and demux, and the sinks'
+    host copies see each leg's completed data for every frame."""
+    caps = ("other/tensors,format=static,num_tensors=1,types=float32,"
+            "dimensions=16:16,framerate=30/1")
+    model = '"zoo://toyseg?height=16&width=16"'
+    pipe = pt.parse_launch(
+        "tensor_mux name=m sync-mode=slowest ! tensor_demux name=d "
+        "d.src_0 ! queue ! appsink name=a d.src_1 ! queue ! appsink name=b "
+        f"tensortestsrc caps={caps} pattern=counter num-buffers=12 "
+        "! tee name=t "
+        f"t. ! queue ! tensor_filter name=f0 framework=torch-cuda "
+        f"model={model} ! m.sink_0 "
+        "t. ! queue ! tensor_filter name=f1 framework=torch-cuda "
+        'model="zoo://toyseg?height=16&width=16&seed=1" '
+        "! tensor_if compared-value=A_VALUE "
+        "operator=GE supplied-value=-1e30 ! m.sink_1")
+    pipe.start()
+    assert pipe.wait_eos(120)
+    fns = [pipe[f].fw.traceable_fn() for f in ("f0", "f1")]
+    bufs = {s: pipe[s].buffers for s in ("a", "b")}
+    with torch.inference_mode():
+        want = [[fn(torch.full((16, 16), float(i), device="cuda")).cpu()
+                 for i in range(12)] for fn in fns]
+    pipe.stop()
+    for leg, sink in enumerate(("a", "b")):
+        assert len(bufs[sink]) == 12
+        assert all(b.chunks[0].is_device for b in bufs[sink])
+        assert [b.pts for b in bufs[sink]] == sorted(b.pts for b in bufs[sink])
+        for i, b in enumerate(bufs[sink]):
+            np.testing.assert_array_equal(b.chunks[0].host(),
+                                          want[leg][i].numpy())
+
+
+def test_tensor_if_reads_one_element_on_the_card(card):
+    """A_VALUE on a CUDA chunk compares the element numpy's host read
+    gives, and the chunk passes on still on the card."""
+    from nnstreamer_tpu_torch.tensors.buffer import Buffer, Chunk
+    el = pt.make_element("tensor_if", compared_value="A_VALUE",
+                         compared_value_option="2:1,0")
+    x = torch.arange(12, dtype=torch.float32, device="cuda").reshape(3, 4)
+    buf = Buffer([Chunk(x)])
+    assert el._compared_value(buf) == float(x.cpu().numpy()[1, 2]) == 6.0

@@ -221,3 +221,39 @@ def test_image_segment_matches_jax(dtype, dims):
         "image_segment", ["tflite-deeplab", "0.5"], [arr],
         types=types[dtype], dims=dims))
     assert got.chunks[0].shape == (12, 16, 4)
+
+
+def test_decoder_tensor_region():
+    """The reference's case: one box of the ssd-postprocess quad at
+    (0.25, 0.25)-(0.75, 0.75) on a 64x64 image is the region (16, 16,
+    32, 32); the second of N=2 rows stays zero. Equal bytes, equal
+    ``regions`` extra."""
+    boxes = np.array([[0.25, 0.25, 0.75, 0.75]], np.float32)
+    got = _assert_same(_decode_both(
+        "tensor_region", ["2", "", "64:64"],
+        [boxes, np.array([1], np.float32), np.array([0.8], np.float32),
+         np.array([1], np.float32)], types="float32", dims="4:1"))
+    regions = got.extras["regions"]
+    assert regions.shape == (2, 4) and regions.dtype == np.uint32
+    assert tuple(regions[0]) == (16, 16, 32, 32)
+    assert tuple(regions[1]) == (0, 0, 0, 0)
+
+
+@pytest.mark.parametrize("form", ["quad", "packed"])
+def test_tensor_region_top_n_by_score(form):
+    """The packed [6K+1] layout and the quad give the same regions: the
+    N highest scores above the 0.25 threshold, in pixels of option3."""
+    quad = _ssd_quad(np.random.default_rng(8))
+    arrays = quad if form == "quad" else \
+        [np.concatenate([quad[0].reshape(-1)] + quad[1:])]
+    got = _assert_same(_decode_both("tensor_region", ["4", "", "300:300"],
+                                    arrays))
+    regions = got.extras["regions"]
+    assert regions.shape == (4, 4) and (regions[:, 2:] > 0).all()
+    boxes, _, scores, count = quad
+    keep = [i for i in np.argsort(-scores[:int(count[0])], kind="stable")
+            if scores[i] >= 0.25][:4]
+    want = [(int(boxes[i, 1] * 300), int(boxes[i, 0] * 300),
+             int((boxes[i, 3] - boxes[i, 1]) * 300),
+             int((boxes[i, 2] - boxes[i, 0]) * 300)) for i in keep]
+    assert [tuple(r) for r in regions] == want

@@ -10,10 +10,12 @@ decoder chain runs the JAX zoo's ``toyseg`` weights in both packages
 (converted through models/convert.py), and its RGBA bytes equal the JAX
 package's fused line and the port's unfused run, exactly.
 
-Not mirrored, for want of their modules in the port (ROADMAP.md): the
-multi-pad boundaries (tensor_mux, tensor_crop), on-error policies other
-than fail (skip, the policy-change split), the circuit breaker, the
-tracer's fusion block and pipelint's fusion rules.
+The multi-pad boundaries (tensor_mux, tensor_crop, tee) are planned
+and run here too; the tracer's fusion block is held against the JAX
+package's in tests/test_torch_trace.py. Not mirrored, for want of their
+modules in the port (ROADMAP.md): on-error policies other than fail
+(skip, the policy-change split), the circuit breaker and pipelint's
+fusion rules.
 """
 import numpy as np
 import pytest
@@ -164,6 +166,21 @@ class TestPlannerBoundaries:
         assert plan.segments == []
         assert "byte-stable" in plan.vetoes["s"]
 
+    def test_multi_pad_elements_are_structural_boundaries(self):
+        plan = plan_fusion(pt.parse_launch(
+            "tensor_mux name=m ! appsink name=out "
+            f"tensortestsrc caps={CAPS_F32} ! m.sink_0 "
+            f"tensortestsrc caps={CAPS_F32} ! m.sink_1"))
+        assert "1-in/1-out" in plan.vetoes["m"]
+
+    def test_dynamic_caps_break_downstream_of_crop(self):
+        # crop emits FLEXIBLE caps: transforms after it cannot join a
+        # static program
+        plan = plan_fusion(pt.parse_launch(PLAN_LINES["crop_dynamic"]))
+        assert plan.segments == []
+        assert "1-in/1-out" in plan.vetoes["c"]  # structural veto first
+        assert "a" in plan.vetoes
+
     def test_simlink_filter_exposes_no_traceable_invoke(self):
         plan = plan_fusion(pt.parse_launch(
             f"tensortestsrc caps={CAPS_F32} ! tensor_filter name=f "
@@ -218,6 +235,28 @@ PLAN_LINES = {
                      "tensor_converter name=conv ! tensor_transform name=t "
                      "mode=typecast option=float32 ! tensor_transform "
                      "name=r mode=dimchg option=0:2 ! appsink name=out",
+    "multi_pad": "tensor_mux name=m ! appsink name=out "
+                 f"tensortestsrc name=s0 caps={CAPS_F32} ! m.sink_0 "
+                 f"tensortestsrc name=s1 caps={CAPS_F32} ! m.sink_1",
+    "crop_dynamic": f"tensortestsrc name=s0 caps={CAPS_F32} ! tensor_crop "
+                    "name=c c.src ! tensor_transform name=a mode=arithmetic "
+                    "option=mul:2 ! tensor_transform name=b mode=arithmetic "
+                    "option=add:1 ! appsink name=out "
+                    "tensortestsrc name=s1 caps=other/tensors,format=static,"
+                    "num_tensors=1,types=(string)uint32,dimensions=(string)4,"
+                    "framerate=(fraction)0/1 ! c.info",
+    "tee_filters_mux": "tensor_mux name=m ! tensor_demux name=d "
+                       "d.src_0 ! appsink name=o0 d.src_1 ! appsink name=o1 "
+                       f"tensortestsrc name=src caps={CAPS_SEG} ! tee name=t "
+                       "t. ! queue name=q0 ! tensor_filter name=f {fw} "
+                       "model=zoo://toyseg ! m.sink_0 "
+                       "t. ! queue name=q1 ! tensor_filter name=g {fw} "
+                       "model=zoo://toyseg ! tensor_transform name=a "
+                       "mode=arithmetic option=mul:2 ! m.sink_1",
+    "aggregator": f"tensortestsrc name=src caps={CAPS_F32} ! {RUN2} ! "
+                  "tensor_aggregator name=g frames-out=2 ! tensor_transform "
+                  "name=c mode=arithmetic option=add:1 ! tensor_transform "
+                  "name=e mode=arithmetic option=mul:3 ! appsink name=out",
 }
 
 
@@ -320,6 +359,45 @@ class TestParity:
             "tensor_transform mode=arithmetic option=mul:2,add:1 ! "
             "tensor_transform mode=transpose option=1:0:2 ! "
             "appsink name=out", min_frames=4)
+
+    def test_mux_and_transform_chain(self):
+        # mux itself stays on the host; the transform run after it fuses
+        p = assert_parity(
+            "tensor_mux name=m ! "
+            "tensor_transform name=a mode=typecast option=float32 ! "
+            "tensor_transform name=b mode=arithmetic option=div:2 ! "
+            "appsink name=out "
+            f"tensortestsrc caps={CAPS_U8} num-buffers=3 ! m.sink_0 "
+            f"tensortestsrc caps={CAPS_U8} num-buffers=3 ! m.sink_1",
+            min_frames=3)
+        assert p._fusion_plan.summary()["segments"] == [["a", "b"]]
+
+    def test_crop_fed_by_fused_transforms(self):
+        # transforms upstream of the (host-side) crop fuse; the cropped
+        # bytes must be identical either way
+        p = assert_parity(
+            "tensor_crop name=c ! appsink name=out "
+            f"tensortestsrc caps={CAPS_U8} num-buffers=5 ! "
+            "tensor_transform name=a mode=typecast option=float32 ! "
+            "tensor_transform name=b mode=arithmetic option=mul:2 ! "
+            "c.raw "
+            "tensortestsrc caps=other/tensors,format=static,num_tensors=1,"
+            "types=(string)uint32,dimensions=(string)4,"
+            "framerate=(fraction)0/1 num-buffers=5 ! c.info")
+        assert len(_segments_of(p)) == 1
+
+    def test_tee_legs_fuse_apart(self, toy_models):
+        """Each leg of a tee after its queue plans on its own: the second
+        leg's filter and transform fuse, the first leg's lone filter does
+        not; the legs' outputs equal the JAX line's, byte for byte."""
+        line = PLAN_LINES["tee_filters_mux"] \
+            .replace("tensortestsrc name=src",
+                     "tensortestsrc name=src num-buffers=3")
+        port_line = line.replace("{fw}", PORT_FILTER).replace(
+            "model=zoo://toyseg", f"model={toy_models['toyseg']}")
+        p = assert_parity(port_line, sink="o1", min_frames=3,
+                          jax_desc=line.replace("{fw}", "framework=jax"))
+        assert [s.members for s in _segments_of(p)] == [[p["g"], p["a"]]]
 
     def test_typecast_to_uint8_parity(self):
         assert_parity(

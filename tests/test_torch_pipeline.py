@@ -730,3 +730,49 @@ def test_vit_in_flight_labels_match_jax(port_model):
         b.pts for b in gb)
     rep = got["f"].transfer_report()
     assert rep["window"] == 4 and rep["completed"] == 8
+
+
+# -- tee and identity (slice 6) ------------------------------------------
+
+CAPS_U8_4 = ("other/tensors,format=static,num_tensors=1,types=uint8,"
+             "dimensions=4:4,framerate=0/1")
+
+
+def _host_frames(sink):
+    return [(b.pts, np.ascontiguousarray(b.chunks[0].host()).tobytes())
+            for b in sink.buffers]
+
+
+def test_tee_fanout():
+    """tests/test_pipeline.py's tee case in both packages: every frame on
+    both branches, bytes and PTS equal to the JAX line's; the port's
+    branches share one buffer's chunks (no copy)."""
+    line = (f"tensortestsrc caps={CAPS_U8_4} num-buffers=4 pattern=random "
+            "! tee name=t t. ! queue ! appsink name=a "
+            "t. ! queue ! identity ! appsink name=b")
+    want, got = _run(nt, line), _run(pt, line)
+    for sink in ("a", "b"):
+        assert len(got[sink].buffers) == 4
+        assert _host_frames(got[sink]) == _host_frames(want[sink])
+    assert all(x.chunks[0] is y.chunks[0] for x, y in
+               zip(got["a"].buffers, got["b"].buffers))
+
+
+def test_tee_rereference_adds_branch():
+    """``t.`` re-references the tee: each branch takes the next request
+    pad, in both packages."""
+    line = (f"tensortestsrc caps={CAPS_U8_4} num-buffers=1 ! tee name=t "
+            "! queue name=q1 ! fakesink t. ! queue name=q2 ! fakesink")
+    for pkg in (nt, pt):
+        t = pkg.parse_launch(line)["t"]
+        assert set(t.src_pads) == {"src_0", "src_1"}
+        assert t.src_pads["src_0"].peer.element.name == "q1"
+        assert t.src_pads["src_1"].peer.element.name == "q2"
+
+
+def test_named_pad_targets_specific_leg():
+    for pkg in (nt, pt):
+        p = pkg.parse_launch(
+            "tensor_mux name=m ! appsink name=out "
+            f"tensortestsrc name=s1 caps={CAPS_U8_4} ! m.sink_1")
+        assert p["m"].sink_pads["sink_1"].peer.element.name == "s1"
