@@ -123,11 +123,46 @@ Phases, in order; any failure exits non-zero and prints no result line:
               QoS events and the filter drops frames.
 Then the tracer on phase 8's SSD line and phase 10's DeepLab line (a
 queue between filter and decoder: unfused): host time a frame by element.
+19. policies — the headline MobileNet-v2 line (queues of 8 and 32,
+              prefetch-host=true) with a tensor_fault between the first
+              queue and the filter, 64 seeded frames each, against a clean
+              run of the same frames: mode=transient every=5
+              on-error=retry(2,0.01) (every frame arrives), mode=raise
+              every=5 on-error=skip (exactly 64 - 12 arrive, every 5th
+              missing), mode=transient every=5 on-error=restart(32,60)
+              (every frame arrives; start() resets the schedule, so a
+              fault every 4 frames after the first), each frame's logits
+              bitwise equal to the clean run's at its PTS; the retry
+              variant with image_labeling (labels equal the clean argmax);
+              the default on-error=fail aborts the run. fps and p50 of the
+              clean, retry, skip and restart runs.
+20. segment faults — a device-capable test element (chip_capture_fault)
+              fused after the MobileNet-v2 filter, whose program raises a
+              TransientError during its first k CUDA-graph captures:
+              k = 2 under on-error=retry(4,0.01) (2 retries) and k = 1
+              under restart(8,30) (1 restart: restart re-runs the frame
+              once, so two failures in a row escalate, as in the JAX
+              package), every frame bitwise equal to the clean run's;
+              every capture failing under on-error=skip, without and
+              with breaker-threshold=2 (every frame dropped; the breaker
+              opens and sheds), memory_reserved() after 48 failing frames
+              within 20 MiB of its value after 8; restart_element on the
+              plain filter five times mid-stream (on the filter's own
+              thread, between frames): one more compile each, every frame
+              bitwise equal to the clean run's, memory_reserved() after
+              the fifth restart within 10 % of its value after the
+              first; then a clean line that still matches.
+21. pipelint — Pipeline.validate() on every launch line phases 1-20 ran:
+              0 errors and 0 crashed rules, with the host ms a line; a
+              line with a caps contradiction after a device=true source,
+              ahead of a torch-cuda filter, refused at start() by
+              PipelineValidationError with memory_allocated() unchanged
+              and no model loaded.
 Every model line runs through the backend's per-signature executable,
 one captured CUDA graph per input signature: the first frame runs
 eagerly (the capture's warm-up), every later frame is one replay, so a
 hand kernel inside the graph counts once a frame.
-Phases 8-11, 13, 16 and 17 launch neither hand kernel (their models
+Phases 8-11, 13, 16, 17, 19 and 20 launch neither hand kernel (their models
 inline their input affine, as the JAX models do); their launch counts
 are read all the same and written on the kernels line as 0. The
 tracer's times are host times: a filter's proctime is its dispatch
@@ -1612,9 +1647,351 @@ def phase_traces(smi):
     return out
 
 
+# -- phases 19-21: the fault layer and pipelint -------------------------
+
+FAULT_FRAMES = 64          # frames of each phase-19 variant
+SEG_FRAMES = 49            # frames of each phase-20 failing line
+RESTART_EVERY = 8          # phase 20: a filter restart every 8 frames
+
+
+def _headline_line(n, mid="", tail="", fuse=True, extra=""):
+    """bench.py's headline MobileNet-v2 line (queues of 8 and 32,
+    prefetch-host=true), ``mid`` between the first queue and the filter,
+    ``tail`` between the second queue and the sink."""
+    return (("" if fuse else "fuse=false ")
+            + f"tensortestsrc caps={CAPS.format(dims=FRAME_DIMS)} "
+            f"pattern=random seed={SEED} num-buffers={n} "
+            f"! queue max-size-buffers=8 {'! ' + mid if mid else ''}"
+            "! tensor_filter name=f "
+            "framework=torch-cuda model=zoo://mobilenet_v2 latency=1 "
+            f"prefetch-host=true {extra}! queue max-size-buffers=32 "
+            f"{tail}! appsink name=out")
+
+
+def _by_pts(pipe):
+    return {b.pts: b.chunks[0].host() for b in pipe["out"].buffers}
+
+
+def _bitwise(got, clean):
+    """Every delivered frame's bytes equal the clean run's at its PTS."""
+    return all(k in clean and v.dtype == clean[k].dtype
+               and v.tobytes() == clean[k].tobytes() for k, v in got.items())
+
+
+def phase_policies(smi, labels):
+    """Phase 19: tensor_fault between the source's queue and the
+    MobileNet-v2 filter of the headline line, against a clean run on the
+    same seeded frames."""
+    import nnstreamer_tpu_torch as pt
+    n, warm = FAULT_FRAMES, 8
+    out = {}
+    pipe, row = _run_line("policies clean", _headline_line(n), warm,
+                          n - warm, smi)
+    clean = _by_pts(pipe)
+    out["clean"] = row
+    fault = "tensor_fault name=flt mode={mode} every=5 on-error={policy} "
+    variants = (("retry", "transient", "retry(2,0.01)", n),
+                ("skip", "raise", "skip", n - n // 5),
+                ("restart", "transient", "restart(32,60)", n))
+    for name, mode, policy, arrive in variants:
+        line = _headline_line(n, fault.format(mode=mode, policy=policy))
+        pipe, row = _run_line(f"policies {name}", line, warm, arrive - warm,
+                              smi)
+        got = _by_pts(pipe)
+        st = pipe["flt"].stats.snapshot()
+        row.update({k: st[k] for k in ("faults", "retries", "dropped",
+                                       "restarts")})
+        row["arrived"] = len(got)
+        row["bitwise_equal_clean"] = _bitwise(got, clean)
+        log(f"policies {name}: {len(got)} of {n} frames arrived, "
+            f"faults {st['faults']} retries {st['retries']} dropped "
+            f"{st['dropped']} restarts {st['restarts']}, logits "
+            f"{'equal' if row['bitwise_equal_clean'] else 'DIFFERENT'} to "
+            f"the clean run's at each PTS; {smi}")
+        if len(got) != arrive or not row["bitwise_equal_clean"]:
+            sys.exit(f"chip_smoke: on-error={policy}: {len(got)} frames "
+                     f"arrived (expected {arrive}) or logits differ")
+        if name == "skip" and (st["dropped"] != n // 5 or sorted(got) !=
+                               sorted(k for i, k in enumerate(sorted(clean))
+                                      if (i + 1) % 5)):
+            sys.exit(f"chip_smoke: skip dropped {st['dropped']} frames, "
+                     "not every 5th")
+        if name == "retry" and st["retries"] != st["faults"]:
+            sys.exit(f"chip_smoke: retry: {st['retries']} retries for "
+                     f"{st['faults']} faults")
+        if name == "restart" and not n // 5 - 2 <= st["restarts"] <= 32:
+            sys.exit(f"chip_smoke: restart: {st['restarts']} restarts")
+        out[name] = row
+    # the golden variant under retry: labels equal the clean logits' argmax
+    line = _headline_line(
+        n, fault.format(mode="transient", policy="retry(2,0.01)"),
+        f"! tensor_decoder mode=image_labeling option1={labels} ")
+    pipe, _ = _run_timed(line, 0, n)
+    got = {b.pts: b.extras["label_index"] for b in pipe["out"].buffers}
+    want = {k: int(np.argmax(v)) for k, v in clean.items()}
+    log(f"policies retry, image_labeling: {len(got)} labels "
+        f"{'equal' if got == want else 'DIFFERENT'} to the clean argmax")
+    if got != want:
+        sys.exit("chip_smoke: labels under on-error=retry differ")
+    # the default policy: the same schedule aborts the run
+    pipe = pt.parse_launch(_headline_line(
+        n, "tensor_fault mode=transient every=5 "))
+    pipe.start()
+    try:
+        pipe.wait_eos(300)
+        raised = None
+    except Exception as exc:  # noqa: BLE001 -- the abort is the result
+        raised = exc
+    finally:
+        pipe.stop()
+    log(f"policies fail: the run raised {type(raised).__name__}: {raised}")
+    if type(raised).__name__ != "FaultInjected":
+        sys.exit("chip_smoke: on-error=fail did not abort the run")
+    out["fail"] = {"raised": type(raised).__name__}
+    return out, clean
+
+
+def _define_fault_elements():
+    """The test elements of phase 20, registered once: a device-capable
+    pass-through whose program raises a TransientError during its first
+    ``fail-captures`` CUDA-graph captures (-1: every capture), and a
+    pass-through tap that runs ``on_frame`` before each frame."""
+    import nnstreamer_tpu_torch as pt
+    from nnstreamer_tpu_torch.fault import TransientError
+    from nnstreamer_tpu_torch.pipeline.element import TransformElement
+    from nnstreamer_tpu_torch.pipeline.registry import element_names
+    if "chip_capture_fault" in element_names():
+        return
+
+    @pt.register_element("chip_capture_fault")
+    class CaptureFault(TransformElement):
+        PROPS = {"fail-captures": 0}
+        DEVICE_FUSIBLE = "always (a pass-through program)"
+
+        def __init__(self, name=None, **props):
+            super().__init__(name, **props)
+            self.captures = 0
+
+        def transform(self, buf):
+            return buf
+
+        def device_fn(self, ctx=None):
+            def fn(arrays):
+                if torch.cuda.is_current_stream_capturing():
+                    self.captures += 1
+                    k = int(self.fail_captures)
+                    if k < 0 or self.captures <= k:
+                        raise TransientError(
+                            f"{self.name}: capture {self.captures} refused")
+                return list(arrays)
+            return fn
+
+    @pt.register_element("chip_tap")
+    class Tap(TransformElement):
+        def __init__(self, name=None, **props):
+            super().__init__(name, **props)
+            self.seen = 0
+            self.on_frame = None
+
+        def transform(self, buf):
+            if self.on_frame is not None:
+                self.on_frame(self.seen)
+            self.seen += 1
+            return buf
+
+
+def _run_tapped(line, arrive, on_frame=None, timeout=600):
+    """Run a line with a ``chip_tap name=tap``; ``on_frame(pipe, i)``
+    runs before frame i passes the tap. Returns the pipeline, stopped."""
+    import nnstreamer_tpu_torch as pt
+    pipe = pt.parse_launch(line)
+    if on_frame is not None:
+        pipe["tap"].on_frame = lambda i: on_frame(pipe, i)
+    pipe.start()
+    try:
+        pipe.wait_eos(timeout)
+        pipe.probed = {name: e.stats.snapshot()
+                       for name, e in pipe.elements.items()}
+    finally:
+        pipe.stop()
+    if len(pipe["out"].buffers) != arrive:
+        sys.exit(f"chip_smoke: {len(pipe['out'].buffers)} of {arrive} "
+                 f"buffers arrived: {line[:100]}")
+    return pipe
+
+
+def phase_segment_faults(smi, clean):
+    """Phase 20: failed captures, restarts and the breaker on a fused
+    segment (the MobileNet-v2 filter and a capture-fault element), and
+    five restarts of the plain filter mid-stream."""
+    from nnstreamer_tpu_torch.fault import restart_element
+    _define_fault_elements()
+    n = CHECK_FRAMES * 2
+    out = {}
+
+    def seg_line(frames, policy, fail, extra="", tap=""):
+        return _headline_line(
+            frames, tap, extra=f"on-error={policy} {extra}! "
+            f"chip_capture_fault name=cf fail-captures={fail} "
+            f"on-error={policy} ")
+
+    for name, policy, fail, counter, want in (
+            ("retry", "retry(4,0.01)", 2, "retries", 2),
+            ("restart", "restart(8,30)", 1, "restarts", 1)):
+        _reset_launches()
+        pipe = _run_tapped(seg_line(n, policy, fail), n)
+        segs = _segments(pipe)
+        if len(segs) != 1 or [m.name for m in segs[0].members] != ["f", "cf"]:
+            sys.exit("chip_smoke: the capture-fault line did not fuse the "
+                     "filter and the fault element")
+        st = segs[0].stats.snapshot()
+        got = _by_pts(pipe)
+        same = len(got) == n and _bitwise(got, clean)
+        out[name] = {"arrived": len(got), counter: st[counter],
+                     "captures": pipe["cf"].captures,
+                     "jit_misses": st["jit_misses"],
+                     "bitwise_equal_clean": same,
+                     "kernel_launches": _kernel_launches()}
+        log(f"segment {name}: {out[name]}; {smi}")
+        if not same or st[counter] != want:
+            sys.exit(f"chip_smoke: segment on-error={policy}: "
+                     f"{out[name]}, expected {want} {counter} and every "
+                     "frame equal to the clean run's")
+
+    # every capture fails: skip, with and without the breaker. The tap
+    # reads the reserved memory after 8 and after 48 failing frames.
+    for name, extra in (("skip", ""),
+                        ("breaker", "breaker-threshold=2 ")):
+        reserved = {}
+
+        def on_frame(pipe, i, reserved=reserved):
+            if i in (8, 48):
+                reserved[i] = torch.cuda.memory_reserved()
+
+        _reset_launches()
+        pipe = _run_tapped(seg_line(SEG_FRAMES, "skip", -1, extra,
+                                    "chip_tap name=tap "), 0, on_frame)
+        st = _segments(pipe)[0].stats.snapshot()
+        grew = (reserved[48] - reserved[8]) / 2 ** 20
+        row = {k: st[k] for k in ("dropped", "shed", "breaker_opened",
+                                  "jit_misses")}
+        row.update({"failed_captures": pipe["cf"].captures,
+                    "reserved_mib_after_8": reserved[8] / 2 ** 20,
+                    "reserved_mib_after_48": reserved[48] / 2 ** 20,
+                    "kernel_launches": _kernel_launches()})
+        out[name] = row
+        log(f"segment {name}: {row}; reserved grew {grew:.1f} MiB over "
+            f"frames 8-48; {smi}")
+        if st["dropped"] != SEG_FRAMES or grew > 20:
+            sys.exit(f"chip_smoke: segment {name}: {row}")
+        if name == "breaker" and (st["breaker_opened"] < 1
+                                  or st["shed"] < 1):
+            sys.exit(f"chip_smoke: the segment's breaker did not open and "
+                     f"shed: {row}")
+
+    # five restarts of the plain filter, each between two frames on the
+    # filter's own thread (the tap sits right before it)
+    reserved = []
+
+    def restart(pipe, i):
+        if i and i % RESTART_EVERY == 0:
+            reserved.append(torch.cuda.memory_reserved())
+            if len(reserved) <= 5:
+                restart_element(pipe["f"])
+
+    _reset_launches()
+    frames = RESTART_EVERY * 6 + 1
+    pipe = _run_tapped(_headline_line(frames, "chip_tap name=tap "),
+                       frames, restart)
+    got = _by_pts(pipe)
+    compiles = pipe.probed["f"]["jit_recompiles"]
+    same = _bitwise(got, clean)
+    ratio = reserved[-1] / reserved[1]
+    out["filter_restarts"] = {
+        "restarts": 5, "compiles": compiles, "bitwise_equal_clean": same,
+        "reserved_mib": [r / 2 ** 20 for r in reserved],
+        "kernel_launches": _kernel_launches()}
+    log(f"filter restarts: {out['filter_restarts']}; reserved after the "
+        f"fifth restart / after the first {ratio:.4f}; {smi}")
+    if not same or compiles != 6 or not ratio <= 1.1:
+        sys.exit("chip_smoke: filter restarts: outputs differ, compiles "
+                 f"{compiles} != 6, or reserved memory grew {ratio:.3f}x")
+
+    # a clean line afterwards: no capture was left open
+    pipe, _ = _run_timed(_headline_line(CHECK_FRAMES), 0, CHECK_FRAMES)
+    same = _bitwise(_by_pts(pipe), clean)
+    log(f"clean line after the faults: {CHECK_FRAMES} frames "
+        f"{'equal' if same else 'DIFFERENT'} to the first clean run")
+    if not same or torch.cuda.is_current_stream_capturing():
+        sys.exit("chip_smoke: the clean line after the fault phases "
+                 "differs")
+    out["clean_after"] = {"bitwise_equal_clean": same}
+    return out
+
+
+def phase_pipelint(smi, lines):
+    """Phase 21: Pipeline.validate() on every launch line phases 1-20
+    ran (0 errors, 0 crashed rules), and a defective line refused at
+    start() before anything is allocated on the card."""
+    import nnstreamer_tpu_torch as pt
+    from nnstreamer_tpu_torch.analysis import PipelineValidationError
+    rows = []
+    for line in lines:
+        pipe = pt.parse_launch(line)
+        t0 = time.perf_counter()
+        report = pipe.validate()
+        ms = (time.perf_counter() - t0) * 1e3
+        infos = len(report.findings) - len(report.errors) \
+            - len(report.warnings)
+        rows.append({"line": line[:60], "errors": len(report.errors),
+                     "warnings": len(report.warnings), "infos": infos,
+                     "crashed": list(report.crashed), "ms": ms})
+        if report.errors or report.crashed:
+            sys.exit(f"chip_smoke: pipelint on {line[:100]}: "
+                     f"{report.to_text()} crashed {report.crashed}")
+    ms = [r["ms"] for r in rows]
+    log(f"pipelint: {len(rows)} launch lines, 0 errors, 0 crashed rules, "
+        f"{sum(r['warnings'] for r in rows)} warnings, "
+        f"{sum(r['infos'] for r in rows)} infos; validate() "
+        f"{np.median(ms):.3f} ms median, {max(ms):.3f} ms max (host); {smi}")
+    bad = (f"tensortestsrc caps={CAPS.format(dims=FRAME_DIMS)} device=true "
+           "num-buffers=4 ! other/tensors,format=sparse ! tensor_filter "
+           "name=f framework=torch-cuda model=zoo://mobilenet_v2 "
+           "! fakesink")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    pipe = pt.parse_launch(bad)
+    try:
+        pipe.start()
+        pipe.stop()
+        sys.exit("chip_smoke: the defective line started")
+    except PipelineValidationError as exc:
+        refused = sorted({f.rule for f in exc.report.errors})
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    log(f"pipelint gate: the defective line refused at start() by "
+        f"{refused}; memory_allocated {before} -> {after} bytes, model "
+        f"{'not ' if pipe['f'].fw is None else ''}loaded")
+    if after != before or pipe["f"].fw is not None:
+        sys.exit("chip_smoke: the refused line allocated on the card")
+    return {"lines": len(rows), "ms_median": float(np.median(ms)),
+            "ms_max": float(max(ms)), "rows": rows, "refused_by": refused,
+            "allocated_before": before, "allocated_after": after}
+
+
 def main():
     smi = phase_device()
     kind = torch.cuda.get_device_name(0)
+    # every launch line the phases parse, for phase 21's validate()
+    import nnstreamer_tpu_torch as pt
+    launched = []
+    parse = pt.parse_launch
+
+    def parse_recorded(desc, *args, **kwargs):
+        launched.append(desc)
+        return parse(desc, *args, **kwargs)
+
+    pt.parse_launch = parse_recorded
     hmma = phase_build()
     rows = phase_kernels()
     norm_rows, norm_err = phase_normalize()
@@ -1637,6 +2014,18 @@ def main():
     lines["crop"] = phase_crop(smi)
     lines["throttled"] = phase_throttled(smi)
     traces = phase_traces(smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        labels = os.path.join(tmp, "labels1001.txt")
+        with open(labels, "w") as f:
+            f.write("\n".join(f"class{i}" for i in range(1001)))
+        policies, clean = phase_policies(smi, labels)
+    segment = phase_segment_faults(smi, clean)
+    pt.parse_launch = parse
+    pipelint = phase_pipelint(smi, list(dict.fromkeys(launched)))
+    for k in ("clean", "retry", "skip", "restart"):
+        lines[f"policies_{k}"] = policies[k]
+    for k in ("retry", "restart", "skip", "breaker", "filter_restarts"):
+        lines[f"segment_{k}"] = segment[k]
     new_paths = {k: row["kernel_launches"] for k, row in lines.items()}
     new_paths.update({f"vit_inflight{k}": row["kernel_launches"]
                       for k, row in inflight.items()})
@@ -1679,7 +2068,10 @@ def main():
     log(json.dumps({"mobilenet": mobilenet, f"vit_batch{VIT_BATCH}": vit_batch,
                     **lines, "graphs": graphs,
                     "vit_inflight": {str(k): v for k, v in inflight.items()},
-                    "vit_batch1": run, "traces": traces, "card": smi}))
+                    "vit_batch1": run, "traces": traces,
+                    "policies_fail": policies["fail"],
+                    "segment_clean_after": segment["clean_after"],
+                    "pipelint": pipelint, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

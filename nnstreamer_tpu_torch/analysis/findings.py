@@ -1,9 +1,9 @@
 """Finding/severity/report model for pipelint.
 
-A copy of ``nnstreamer_tpu/analysis/findings.py``. The port carries it
-for the caps inference (:mod:`.infer`) that the fusion planner reads;
-pipelint's rules are not ported, so nothing raises
-:class:`PipelineValidationError` yet.
+A copy of ``nnstreamer_tpu/analysis/findings.py``, with one addition:
+``Report.crashed`` lists the ids of rules that raised during
+:func:`~.rules.analyze` (which skips them, so a broken rule never blocks
+a launch, but a caller can still refuse to hide the crash).
 
 A ``Finding`` pins a defect to an element (and, when known, the pad
 where it was detected). A ``Report`` aggregates findings and maps them
@@ -57,6 +57,7 @@ class Finding:
 class Report:
     findings: List[Finding] = field(default_factory=list)
     num_elements: int = 0
+    crashed: List[str] = field(default_factory=list)
 
     @property
     def errors(self) -> List[Finding]:

@@ -12,5 +12,6 @@ from . import splitter  # noqa: F401  (tensor_demux/tensor_split)
 from . import aggregator  # noqa: F401  (tensor_aggregator)
 from . import crop  # noqa: F401  (tensor_crop)
 from . import flowctl  # noqa: F401  (tensor_if/tensor_rate)
+from ..fault import element as fault  # noqa: F401  (tensor_fault)
 
 __all__: list = []

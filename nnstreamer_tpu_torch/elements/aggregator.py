@@ -33,6 +33,7 @@ from .combiner import host_concat, host_contiguous, host_stack
 class TensorAggregator(TransformElement):
     PROPS = {"frames-in": 1, "frames-out": 1, "frames-flush": 0,
              "frames-dim": 3, "concat": True, "silent": True}
+    STRIPS_META = True  # output windows are fresh buffers, N inputs -> 1
     RESTART_SAFE = False  # a restart would drop the aggregation window
 
     def __init__(self, name=None, **props):

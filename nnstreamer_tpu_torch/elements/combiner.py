@@ -82,6 +82,7 @@ class _CollectBase(Element):
 
     SINK_TEMPLATES = {"sink_%u": "other/tensors"}
     SRC_TEMPLATES = {"src": "other/tensors"}
+    STRIPS_META = True  # combined output is a fresh buffer, N legs -> 1
     PROPS = {"sync-mode": "slowest", "sync-option": ""}
 
     # -- device placement (fusion compiler) --------------------------------

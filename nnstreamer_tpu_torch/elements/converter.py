@@ -37,6 +37,7 @@ _CODEC_MEDIA = ("other/flatbuf-tensor", "other/flexbuf",
 class TensorConverter(TransformElement):
     SINK_TEMPLATES = {"sink": None}
     SRC_TEMPLATES = {"src": "other/tensors"}
+    STRIPS_META = True  # mints fresh tensor buffers from media frames
     PROPS = {
         "frames-per-tensor": 1,
         "input-dim": "",     # required for octet / text streams

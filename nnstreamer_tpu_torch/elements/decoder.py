@@ -22,6 +22,7 @@ from ..tensors.caps import Caps
 class TensorDecoder(TransformElement):
     SINK_TEMPLATES = {"sink": "other/tensors"}
     SRC_TEMPLATES = {"src": None}
+    STRIPS_META = True  # decoded media buffers carry no tensor meta
     # mode + option1..option9, the reference's property surface
     PROPS = {"mode": "", **{f"option{i}": "" for i in range(1, 10)}}
 

@@ -10,7 +10,10 @@ elements/overlap.py over the backend's ``dispatch``/``complete``),
 ``warmup`` (the executable is made at caps negotiation), the fusion
 hooks (``static_transfer``, ``device_veto``, ``plan_out_caps``,
 ``device_fn``), QoS throttling (a downstream ``QosEvent`` makes the
-filter drop frames before their invoke, ``stats["qos_dropped"]``) and
+filter drop frames before their invoke, ``stats["qos_dropped"]``), the
+circuit breaker (``breaker-threshold``, ``breaker-reset-ms``,
+``breaker-retry-after-ms``: fault/breaker.py, fed by the chain thread
+synchronously and by the completer thread under ``in-flight``) and
 the rolling latency/throughput statistics. Chunks
 handed to the backend may already live on the card; outputs stay there
 until a host boundary, or, with ``prefetch-host=true``, leave as
@@ -18,9 +21,11 @@ until a host boundary, or, with ``prefetch-host=true``, leave as
 coalescing fetcher has already started.
 
 Not ported yet, each refused at start when set (``NOT_PORTED``): input
-donation, the circuit breaker, invoke-async/invoke-dynamic, suspend,
-the shared-model key and input/output combination; a ``custom=mesh:``
-option raises in the torch-cuda backend.
+donation, invoke-async/invoke-dynamic, suspend, the shared-model key
+and input/output combination; a ``custom=mesh:`` option raises in the
+torch-cuda backend. A breaker-open shed answers no serve rows (the
+serve elements are not ported) and emits no observability event (nor
+does a breaker transition: ``obs/`` is not ported).
 """
 from __future__ import annotations
 
@@ -31,7 +36,9 @@ from typing import Any, List, Optional
 
 import numpy as np
 
+from ..fault.breaker import element_breaker, shed_frame
 from ..filters.base import Accelerator, FilterProperties, InvokeDrop
+from ..filters.executable import GraphPool
 from ..filters.registry import detect_framework, find_filter
 from ..pipeline.element import Element, TransferError
 from ..pipeline.events import Event, FlushEvent, QosEvent, SegmentEvent
@@ -106,6 +113,15 @@ class TensorFilter(Element):
         # made before the first real frame instead of stalling it. Only
         # effective on STATIC caps.
         "warmup": False,
+        # circuit breaker on the backend path (fault/breaker.py):
+        # breaker-threshold consecutive invoke failures open it — frames
+        # are then SHED (upstream throttled via QosEvent spaced by
+        # breaker-retry-after-ms) instead of each paying a doomed
+        # invoke; after breaker-reset-ms one probe half-opens it.
+        # 0 = disabled (default).
+        "breaker-threshold": 0,
+        "breaker-reset-ms": 1000.0,
+        "breaker-retry-after-ms": 50.0,
     }
     NOT_PORTED = {
         "invoke-dynamic": False,
@@ -114,9 +130,6 @@ class TensorFilter(Element):
         "shared-tensor-filter-key": "",
         "input-combination": "",
         "output-combination": "",
-        "breaker-threshold": 0,
-        "breaker-reset-ms": 1000.0,
-        "breaker-retry-after-ms": 50.0,
         "donate-input": False,
     }
 
@@ -140,8 +153,13 @@ class TensorFilter(Element):
         self._reported_latency_us: Optional[float] = None
         self._throttle_period_ns = 0       # from downstream QoS events
         self._next_accept_ts: Optional[int] = None
+        self._breaker = None
+        # the graphs of every backend this element opens capture into it:
+        # a restart recaptures into the same blocks; Pipeline.stop frees it
+        self._graph_pool = GraphPool()
         self.stats.update({"invoke_errors": 0, "frames_dropped": 0,
-                           "qos_dropped": 0})
+                           "qos_dropped": 0, "shed": 0,
+                           "breaker_opened": 0})
 
     # -- framework lifecycle ---------------------------------------------
     def _open_fw(self) -> None:
@@ -160,6 +178,7 @@ class TensorFilter(Element):
             accelerators=(tuple(Accelerator.parse(self.accelerator))
                           if self.accelerator else (Accelerator.DEFAULT,)),
             custom_properties=self.custom,
+            graph_pool=self._graph_pool,
         )
         if self.input and self.inputtype:
             props.input_info = TensorsInfo.make(self.inputtype, self.input)
@@ -178,6 +197,8 @@ class TensorFilter(Element):
         super().start()
         self._open_fw()
         self._start_time = time.monotonic()
+        self._breaker = element_breaker(
+            self, lambda: {"invoke_errors": self.stats["invoke_errors"]})
         self._overlap = None
         window = int(self.in_flight)
         if window > 1:
@@ -206,6 +227,10 @@ class TensorFilter(Element):
         if self.fw is not None:
             self.fw.close()
             self.fw = None
+
+    def teardown(self) -> None:
+        """Free the graph pool the element kept across restarts."""
+        self._graph_pool.release()
 
     # -- negotiation ------------------------------------------------------
     def _infer_batch(self, sel: TensorsInfo) -> Optional[int]:
@@ -407,6 +432,12 @@ class TensorFilter(Element):
             # (≙ throttling check, tensor_filter.c:532-584)
             self.stats.inc("qos_dropped")
             return
+        if self._breaker is not None and not self._breaker.allow():
+            # breaker OPEN: the backend is currently only producing
+            # errors — shed without invoking (fail fast) and tell
+            # upstream when to come back
+            shed_frame(self, buf)
+            return
         inputs = [c.raw for c in buf.chunks]
         if self._overlap is not None:
             self._dispatch_windowed(buf, inputs)
@@ -416,12 +447,17 @@ class TensorFilter(Element):
         try:
             outputs = self.fw.invoke(inputs)
         except InvokeDrop:
-            # subplugin-signaled drop (≙ invoke result > 0): silent
+            # subplugin-signaled drop (≙ invoke result > 0): silent.
+            # A deliberate drop is a WORKING backend for the breaker.
+            if self._breaker is not None:
+                self._breaker.record_success()
             self.stats.inc("frames_dropped")
             return
         except Exception as exc:  # noqa: BLE001
             self._account_invoke_error(exc)
             return
+        if self._breaker is not None:
+            self._breaker.record_success()
         self._note_recompiles(c0)
         # synchronous path: dispatch and completion are the same event
         dt = time.perf_counter_ns() - t0
@@ -448,6 +484,8 @@ class TensorFilter(Element):
         except InvokeDrop:
             # release FIRST: the completer never sees this frame
             self._overlap.window.release(t_disp)
+            if self._breaker is not None:
+                self._breaker.record_success()
             self.stats.inc("frames_dropped")
             return
         except Exception as exc:  # noqa: BLE001
@@ -469,6 +507,8 @@ class TensorFilter(Element):
         per-frame accounting the sync path does inline. Raises on invoke
         failure — the executor routes that to :meth:`_complete_error`."""
         outputs = self.fw.complete(entry.payload)
+        if self._breaker is not None:
+            self._breaker.record_success()
         self._record_latency(time.perf_counter_ns() - entry.t_dispatch_ns)
         if self.prefetch_host:
             outputs = submit_fetch(outputs)
@@ -476,8 +516,9 @@ class TensorFilter(Element):
 
     def _complete_error(self, entry, exc: BaseException) -> None:
         """A frame that failed at completion: the same per-frame
-        accounting as a sync invoke failure, though the chain thread
-        returned long ago."""
+        accounting as a sync invoke failure (invoke_errors /
+        frames_dropped / breaker), though the chain thread returned long
+        ago: the breaker records it from the completer thread."""
         self._account_invoke_error(exc)
 
     def transfer_report(self) -> dict:
@@ -528,6 +569,8 @@ class TensorFilter(Element):
         # rate-limited warning (1, 2, 4, 8, ... then every 64th)
         n = self.stats.inc("invoke_errors")
         self.stats.inc("frames_dropped")
+        if self._breaker is not None:
+            self._breaker.record_failure()
         logger.warning("%s: invoke failed (frame dropped, pipeline "
                        "kept): %s", self.name, exc)
         if n & (n - 1) == 0 or n % 64 == 0:

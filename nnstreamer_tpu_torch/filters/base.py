@@ -85,6 +85,10 @@ class FilterProperties:
     output_info: Optional[TensorsInfo] = None
     accelerators: Tuple[Accelerator, ...] = (Accelerator.DEFAULT,)
     custom_properties: str = ""
+    # the element's GraphPool (filters/executable.py), kept across the
+    # element's restarts: a backend that captures CUDA graphs captures
+    # into it, and makes its own when opened without one
+    graph_pool: Any = None
 
 
 class FilterFramework:

@@ -7,8 +7,8 @@ executables (``filters/jax_backend.py`` ``_executable``,
 function ``fn(tensors) -> tensors`` for one signature (each input's
 shape and dtype, :func:`signature`):
 
-* on the card its first call runs ``fn`` eagerly on a side stream for
-  that call's frame — the warm-up PyTorch asks for before a capture:
+* on the card its first call runs ``fn`` eagerly on the capture stream
+  for that call's frame — the warm-up PyTorch asks for before a capture:
   lazy library set-up such as the attention kernel's
   ``cudaFuncSetAttribute`` and cuBLAS/cuDNN handles happens there —
   and then captures one run of ``fn`` into a ``torch.cuda.CUDAGraph``
@@ -24,18 +24,34 @@ shape and dtype, :func:`signature`):
 * on the CPU it is ``fn`` itself, run eagerly under
   ``torch.inference_mode()``; the CPU tests count it all the same.
 
+A capture that fails — ``fn`` raising during the warm-up or the
+capture, or a CUDA error ending it — leaves no stream capturing
+(``capture_end`` runs before the error propagates) and no executable
+behind: the caller makes a new one for the next try. The graphs of one
+element share a :class:`GraphPool`, which holds the pool alive from
+the first capture until ``Pipeline.stop`` releases it, so a failed
+capture's blocks, and a restarted backend's, go back to that pool and
+the next capture reuses them; without the hold, PyTorch's allocator
+refuses a capture into a pool whose last graph is gone.
+
 Captures use ``capture_error_mode="thread_local"``: other pipeline
 threads (the fetcher's copy stream, a ``device=true`` source staging its
 pool, another filter) go on making CUDA calls while one thread captures.
-One capture runs at a time in the process. cuDNN's autotuner stays off
-(the backend sets it), so the eager warm-up and the captured graph pick
-the same algorithms and a replay equals an eager run bit for bit.
+One capture runs at a time in the process, always on the device's one
+capture stream: the allocator keys cached blocks, and cuBLAS its
+workspace, by stream, so a fresh side stream per capture would leave a
+workspace and a set of blocks behind on each of PyTorch's pooled
+streams in turn (``tools/torch_capture_memory.py`` measures both).
+cuDNN's autotuner stays off (the backend sets it), so the eager warm-up
+and the captured graph pick the same algorithms and a replay equals an
+eager run bit for bit.
 """
 from __future__ import annotations
 
 import collections
 import threading
-from typing import Any, Callable, Counter, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Counter, Dict, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -43,6 +59,19 @@ import torch
 from ..ops import _tally
 
 _capture_lock = threading.Lock()
+# device index -> the side stream every capture on that device runs on;
+# made at the first capture, read and written under _capture_lock
+_capture_streams: Dict[int, torch.cuda.Stream] = {}
+
+
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """The device's capture stream; the caller holds ``_capture_lock``."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    stream = _capture_streams.get(index)
+    if stream is None:
+        stream = _capture_streams[index] = torch.cuda.Stream(device)
+    return stream
 
 
 def _torch_dtype(x: Any) -> torch.dtype:
@@ -66,9 +95,52 @@ def _as_list(out: Any) -> List[torch.Tensor]:
     return list(out) if isinstance(out, (list, tuple)) else [out]
 
 
+class GraphPool:
+    """One CUDA-graph memory pool for the graphs of one element (a
+    ``tensor_filter``, which hands it to each backend it opens, or a
+    fused segment), kept across the element's ``stop()``/``start()`` so
+    that a restart recaptures into the blocks the old graphs held. It is
+    made without touching the card: the pool itself comes at the first
+    :meth:`handle_for`, with a one-kernel keeper graph captured into it
+    that holds the allocator's use count, so the pool survives a failed
+    capture and a closed backend's graphs. :meth:`release` (at
+    ``Pipeline.stop``) drops the keeper; the pool's memory then returns
+    to PyTorch's allocator once the element's last graph is gone."""
+
+    def __init__(self):
+        self._handle: Optional[Any] = None
+        self._keeper: Optional[torch.cuda.CUDAGraph] = None
+
+    def handle_for(self, device: torch.device) -> Any:
+        """The pool's handle, making the pool on ``device`` at the first
+        call."""
+        with _capture_lock:
+            if self._keeper is None:
+                handle = torch.cuda.graph_pool_handle()
+                current = torch.cuda.current_stream(device)
+                keeper = torch.cuda.CUDAGraph()
+                side = _capture_stream(device)
+                side.wait_stream(current)
+                with torch.cuda.stream(side):
+                    keeper.capture_begin(pool=handle,
+                                         capture_error_mode="thread_local")
+                    torch.zeros(1, device=device)
+                    keeper.capture_end()
+                current.wait_stream(side)
+                self._handle, self._keeper = handle, keeper
+            return self._handle
+
+    def release(self) -> None:
+        """Drop the hold; the next :meth:`handle_for` makes a new pool.
+        Under the capture lock, so no capture runs while the keeper
+        graph is destroyed."""
+        with _capture_lock:
+            self._handle = self._keeper = None
+
+
 class Executable:
-    """``fn`` for one input signature on ``device``; graphs of one owner
-    share the memory ``pool`` (``torch.cuda.graph_pool_handle()``)."""
+    """``fn`` for one input signature on ``device``; graphs of one element
+    share the memory ``pool`` (their :meth:`GraphPool.handle_for`)."""
 
     def __init__(self, fn: Callable[[List[torch.Tensor]], Any],
                  device: torch.device, pool: Optional[Any] = None):
@@ -104,31 +176,32 @@ class Executable:
                 dst.copy_(_host_tensor(x).pin_memory(), non_blocking=True)
 
     def _capture(self, inputs: Sequence[Any]) -> List[torch.Tensor]:
-        """Run the first frame eagerly on a side stream, capture the
+        """Run the first frame eagerly on the capture stream, capture the
         graph there, and return the first frame's outputs."""
         dev = self.device
         self.static_in = [torch.empty(tuple(x.shape), dtype=_torch_dtype(x),
                                       device=dev) for x in inputs]
         self._stage(inputs)
         current = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(current)
         graph = torch.cuda.CUDAGraph()
-        with _capture_lock, torch.cuda.stream(side), torch.inference_mode():
-            first = [o.clone()
-                     for o in _as_list(self.fn(list(self.static_in)))]
-            with _tally.recording() as tally:
-                graph.capture_begin(pool=self.pool,
-                                    capture_error_mode="thread_local")
-                try:
-                    out = self.fn(list(self.static_in))
-                except BaseException:
+        with _capture_lock:
+            side = _capture_stream(dev)
+            side.wait_stream(current)
+            with torch.cuda.stream(side), torch.inference_mode():
+                first = [o.clone()
+                         for o in _as_list(self.fn(list(self.static_in)))]
+                with _tally.recording() as tally:
+                    graph.capture_begin(pool=self.pool,
+                                        capture_error_mode="thread_local")
                     try:
-                        graph.capture_end()
-                    except RuntimeError:
-                        pass  # the capture is void; fn's error says why
-                    raise
-                graph.capture_end()
+                        out = self.fn(list(self.static_in))
+                    except BaseException:
+                        try:
+                            graph.capture_end()
+                        except RuntimeError:
+                            pass  # the capture is void; fn's error says why
+                        raise
+                    graph.capture_end()
         current.wait_stream(side)
         for o in first:
             o.record_stream(current)  # made on the side stream, used here

@@ -10,7 +10,16 @@ Execution follows the JAX backend's: one executable per input signature
 (each input's shape and dtype), made at the signature's first call and
 counted in ``compile_count``. On the card an executable is one captured
 CUDA graph (filters/executable.py); all signatures of one backend share
-one graph memory pool. On the CPU it is the eager function. ``invoke``
+one graph memory pool. On the CPU it is the eager function. An
+executable enters the cache only once its first call (on the card: the
+capture) succeeded, so a failed capture leaves no half-built entry and
+the next frame of that signature tries afresh. The graphs capture into
+the element's :class:`GraphPool` (``FilterProperties.graph_pool``),
+which outlives the backend: ``close`` frees the module and the graphs
+into PyTorch's allocator cache and the pool, so a ``stop()``/``start()``
+(on-error=restart) re-opens the model into those same blocks and the
+reserved device memory does not climb per restart. A backend opened
+without a pool makes its own and releases it at ``close``. ``invoke``
 runs a frame through its executable on the caller's current stream (the
 filter's stream) without blocking the host: host inputs reach the
 graph's static inputs through pinned memory, and the outputs are
@@ -46,7 +55,7 @@ from ..tensors.info import TensorsInfo
 from ..utils.log import logger
 from .base import (Accelerator, FilterFramework, FilterProperties,
                    parse_custom_properties)
-from .executable import Executable, signature
+from .executable import Executable, GraphPool, signature
 from .registry import register_filter
 
 
@@ -100,7 +109,8 @@ class TorchCudaFilter(FilterFramework):
         self._out_info: Optional[TensorsInfo] = None
         self.device: Optional[torch.device] = None
         self._executables: Dict[Tuple, Executable] = {}
-        self._pool = None
+        self._pool: Optional[GraphPool] = None
+        self._own_pool = False
         # executables made, one per new input signature (≙ the JAX
         # backend's compile_count)
         self.compile_count = 0
@@ -115,6 +125,8 @@ class TorchCudaFilter(FilterFramework):
                 f"custom={props.custom_properties!r}: mesh mode is not "
                 "ported yet")
         self.device = _device_for(props.accelerators)
+        self._own_pool = props.graph_pool is None
+        self._pool = GraphPool() if self._own_pool else props.graph_pool
         if self.device.type == "cuda":
             # full f32 in every f32 product, as the reference computes;
             # no cuDNN autotuning, so a graph replays what an eager run
@@ -122,7 +134,6 @@ class TorchCudaFilter(FilterFramework):
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cudnn.benchmark = False
-            self._pool = torch.cuda.graph_pool_handle()
         model = props.model_files[0] if props.model_files else ""
         (self._apply, module,
          self._in_info, self._out_info) = load_model(model)
@@ -135,26 +146,31 @@ class TorchCudaFilter(FilterFramework):
             self._apply = None
             self._module = None
             self._executables.clear()
+            if self._own_pool and self._pool is not None:
+                self._pool.release()
             self._pool = None
 
     def get_model_info(self):
         return self._in_info, self._out_info
 
-    def _executable(self, sig: Tuple) -> Executable:
-        """One executable per input signature; a new one counts one
-        compile."""
-        exe = self._executables.get(sig)
-        if exe is None:
+    def invoke(self, inputs: Sequence[Any]) -> List[Any]:
+        """Run one frame through its signature's executable; a new
+        signature makes one (one compile) and keeps it once its first
+        call succeeded."""
+        sig = signature(inputs)
+        with self._lock:
+            exe = self._executables.get(sig)
+            if exe is not None:
+                return exe(inputs)
+            pool = self._pool.handle_for(self.device) \
+                if self.device.type == "cuda" else None
             apply_fn, module = self._apply, self._module
             exe = Executable(lambda xs: apply_fn(module, *xs), self.device,
-                             self._pool)
-            self._executables[sig] = exe
+                             pool)
             self.compile_count += 1
-        return exe
-
-    def invoke(self, inputs: Sequence[Any]) -> List[Any]:
-        with self._lock:
-            return self._executable(signature(inputs))(inputs)
+            outs = exe(inputs)
+            self._executables[sig] = exe
+            return outs
 
     # -- overlapped execution ---------------------------------------------
     def dispatch(self, inputs: Sequence[Any], donate: bool = False) -> Any:

@@ -28,13 +28,21 @@ their host copy). A completion error is latched and re-raised on the
 next frame's chain, so ``Element.chain`` applies the segment's policy
 on the chain thread.
 
+Fault integration: the segment adopts the run's (uniform) ``on-error``
+policy and the strongest member circuit-breaker settings. A failure in
+the program — the capture, the eager warm-up before it, or a replay —
+records on the breaker and re-raises, so ``Element.chain`` applies the
+policy exactly as it would for a member; an open breaker sheds frames
+with the filter's QosEvent retry-after convention. A ``restart`` drops
+the executables and keeps the segment's graph pool, so the next frame
+recaptures into the blocks the old graphs held; ``Pipeline.stop``
+frees the pool (``teardown``), as it does a filter's.
+
 With tracing on, each frame's host dispatch time (the executable's
 lookup, input staging and the graph launch) is observed as the series
 ``fusion/<name>``, which the tracer folds into its fusion block.
 
-Not ported: the mesh branch, the circuit breaker and the on-error
-policies other than ``fail`` (the port has only ``fail``), and the
-persistent compile cache.
+Not ported: the mesh branch and the persistent compile cache.
 """
 from __future__ import annotations
 
@@ -44,12 +52,14 @@ from typing import Callable, List, Optional
 
 import torch
 
-from ..filters.executable import Executable, signature
+from ..fault.breaker import element_breaker, shed_frame
+from ..filters.executable import Executable, GraphPool, signature
 from ..pipeline.element import TransformElement
 from ..pipeline.events import CapsEvent
 from ..pipeline.pad import Pad
 from ..tensors.buffer import Buffer, Chunk
 from ..tensors.transfer import is_device_tensor, submit_fetch
+from ..utils.log import logger
 
 
 class FusedSegment(TransformElement):
@@ -64,13 +74,17 @@ class FusedSegment(TransformElement):
     SINK_TEMPLATES = {"sink": None}
     SRC_TEMPLATES = {"src": None}
     # stop()/start() drops only the executables; programs rebuild from
-    # the bound member fns
+    # the bound member fns, so on-error=restart is lossless
     RESTART_SAFE = True
     IS_FUSED_SEGMENT = True
 
     def __init__(self, members: List, fns: List[Callable],
                  name: Optional[str] = None, **props):
         assert len(members) == len(fns) and members, "empty fused run"
+        # the run has a uniform policy (planner breaks runs otherwise);
+        # adopt it so chain-level error handling matches the members'
+        props.setdefault("on-error", str(getattr(members[0], "on_error",
+                                                 "fail")))
         super().__init__(name, **props)
         self.members = list(members)
         self._fns = list(fns)
@@ -83,9 +97,22 @@ class FusedSegment(TransformElement):
         # per-caps-signature executables; only the segment's streaming
         # thread touches it (one segment = one thread)
         self._programs: dict = {}
-        self._pool = None
-        self.stats.update(jit_hits=0, jit_misses=0, dropped=0,
-                          fused_elements=len(members))
+        # kept across restarts, freed by teardown (filters/executable.py)
+        self._pool = GraphPool()
+        self.stats.update(jit_hits=0, jit_misses=0, shed=0,
+                          breaker_opened=0, fused_elements=len(members))
+        # strongest member breaker settings win; 0 threshold = no breaker
+        self._breaker = None
+        self.breaker_threshold = max(
+            (int(getattr(m, "breaker_threshold", 0) or 0) for m in members),
+            default=0)
+        resets = [float(getattr(m, "breaker_reset_ms", 0) or 0)
+                  for m in members
+                  if int(getattr(m, "breaker_threshold", 0) or 0) > 0]
+        self.breaker_reset_ms = min(resets) if resets else 1000.0
+        retries = [float(getattr(m, "breaker_retry_after_ms", 0) or 0)
+                   for m in members]
+        self.breaker_retry_after_ms = max(retries) if retries else 100.0
         # overlapped execution: the widest member window wins (the run
         # was device-capable end to end, so one window governs the fused
         # program); reorder stays on unless EVERY member opted out
@@ -107,6 +134,7 @@ class FusedSegment(TransformElement):
     # -- lifecycle --------------------------------------------------------
     def start(self) -> None:
         super().start()
+        self._breaker = element_breaker(self)
         self._overlap = None
         if int(self.in_flight) > 1:
             from ..elements.overlap import OverlapExecutor
@@ -124,8 +152,12 @@ class FusedSegment(TransformElement):
         if self._overlap is not None:
             self._overlap.flush()
             self._overlap.stop()
+        # the graph pool stays: a restart recaptures into its blocks
         self._programs.clear()
-        self._pool = None
+
+    def teardown(self) -> None:
+        """Free the graph pool the segment kept across restarts."""
+        self._pool.release()
 
     # -- negotiation ------------------------------------------------------
     def on_sink_caps(self, pad: Pad, caps) -> None:
@@ -173,6 +205,9 @@ class FusedSegment(TransformElement):
                 err, self._pending_error = self._pending_error, None
             if err is not None:
                 raise err
+        if self._breaker is not None and not self._breaker.allow():
+            shed_frame(self, buf)
+            return
         arrays = [c.raw for c in buf.chunks]
         device = self._device(arrays)
         sig = (signature(arrays), str(device))
@@ -180,16 +215,16 @@ class FusedSegment(TransformElement):
         exe = self._programs.get(sig)
         if exe is None:
             self.stats.inc("jit_misses")
-            if device.type == "cuda" and self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
-            exe = Executable(self._program, device, self._pool)
+            exe = Executable(self._program, device,
+                             self._pool.handle_for(device)
+                             if device.type == "cuda" else None)
         else:
             self.stats.inc("jit_hits")
         if self._overlap is not None:
             t_disp = self._overlap.window.acquire()
             t0 = time.perf_counter_ns()  # the dispatch, not the wait
             try:
-                outs = exe(arrays)
+                outs = self._run(exe, arrays)
                 self._observe_dispatch(t0)
                 done = None
                 if device.type == "cuda":
@@ -203,10 +238,25 @@ class FusedSegment(TransformElement):
                 self._overlap.window.release(t_disp)
                 raise
             return
-        outs = exe(arrays)
+        outs = self._run(exe, arrays)
         self._observe_dispatch(t0)
         self._programs[sig] = exe
+        if self._breaker is not None:
+            self._breaker.record_success()
         self.push(buf.with_chunks(self._out_chunks(outs)))
+
+    def _run(self, exe: Executable, arrays) -> List[torch.Tensor]:
+        """One call of the program. A failure (the capture or its eager
+        warm-up, or a replay) counts on the breaker, then
+        Element.chain applies the segment's on-error policy — exactly the
+        member path's fault flow. A failed capture leaves nothing in
+        ``_programs``: the next frame captures afresh in the same pool."""
+        try:
+            return exe(arrays)
+        except Exception:
+            if self._breaker is not None:
+                self._breaker.record_failure()
+            raise
 
     def _observe_dispatch(self, t0: int) -> None:
         tracer = getattr(self.pipeline, "tracer", None)
@@ -224,12 +274,18 @@ class FusedSegment(TransformElement):
         outs, done = entry.payload
         if done is not None:
             done.synchronize()
+        if self._breaker is not None:
+            self._breaker.record_success()
         return entry.buf.with_chunks(self._out_chunks(outs))
 
     def _complete_error(self, entry, exc: BaseException) -> None:
         """Per-frame accounting for a failure at completion, then latch
         the error for the chain thread to re-raise."""
+        if self._breaker is not None:
+            self._breaker.record_failure()
         self.stats.inc("dropped")
+        logger.warning("%s: fused program failed at completion (frame "
+                       "dropped): %s", self.name, exc)
         with self._err_lock:
             if self._pending_error is None:
                 self._pending_error = exc

@@ -11,11 +11,16 @@ The static hooks the fusion planner reads are ported:
 :meth:`Element.static_transfer` (caps inference without running the
 element), :meth:`Element.device_veto` and :meth:`Element.device_fn`.
 
-Trimmed in the port: the observability spans, the ``on-error`` fault
-policies (skip/retry/restart) and the source supervisor, pipelint's
-rules, per-element debug categories, and checkpoint/preempt/drain. A
-failure in ``do_chain`` or ``create`` posts the error and ends the
-stream, which is the JAX package's default ``on-error=fail``.
+Every element takes ``on-error`` (fault/policy.py): ``fail`` (the
+default) posts the error and ends the stream, ``skip``, ``retry`` and
+``restart`` consume or recover the failing buffer, and a source's
+streaming loop runs under a fault.Supervisor applying the same policy.
+``trace-export`` on a source declares intent only (pipelint's
+trace-export rule reads it and ``STRIPS_META``); the port records no
+spans.
+
+Trimmed in the port: the observability spans, per-element debug
+categories, and checkpoint/preempt/drain.
 
 A property the port accepts but does not implement yet is declared in
 ``NOT_PORTED`` with the one value the port supports; :meth:`Element.start`
@@ -78,11 +83,19 @@ class Element:
 
     SINK_TEMPLATES: Dict[str, Optional[str]] = {}
     SRC_TEMPLATES: Dict[str, Optional[str]] = {}
-    PROPS: Dict[str, Any] = {}
-    NOT_PORTED: Dict[str, Any] = {"on-error": "fail"}
-    # elements declaring that stop()/start() rebuilds them losslessly
-    # (the JAX package's on-error=restart reads it)
+    # every element accepts on-error (fault/policy.py grammar):
+    # fail | skip | retry[(n[,backoff_s[,jitter]])] |
+    # restart[(budget[,window_s])]. The default aborts the pipeline on
+    # any chain exception.
+    PROPS: Dict[str, Any] = {"on-error": "fail"}
+    NOT_PORTED: Dict[str, Any] = {}
+    # elements opting into on_error=restart declare that stop()/start()
+    # rebuilds them losslessly (pipelint errors on restart otherwise)
     RESTART_SAFE = False
+    # elements that mint FRESH output buffers without copying the input
+    # buffer's extras declare it: pipelint's trace-export rule warns when
+    # such an element sits downstream of a trace-exporting source
+    STRIPS_META = False
 
     _anon_counter = [0]
 
@@ -96,8 +109,15 @@ class Element:
         self.src_pads: Dict[str, Pad] = {}
         self._eos_seen: set = set()
         self._started = False
+        # atomic counter map: chain threads, the fault supervisor and the
+        # filter's completer thread mutate these while Pipeline.stats()
+        # and the tracer read them from the user thread
         self.stats = Counters({"buffers": 0, "bytes": 0, "proctime_ns": 0,
-                               "events": 0})
+                               "events": 0,
+                               # fault-policy accounting (fault/policy.py):
+                               # buffers skipped/shed, retried, and how
+                               # often on-error=restart bounced the element
+                               "dropped": 0, "retries": 0, "restarts": 0})
         # merged property table from the full class hierarchy
         self._prop_defaults: Dict[str, Any] = {}
         self._not_ported: Dict[str, Any] = {}
@@ -189,6 +209,12 @@ class Element:
     def stop(self) -> None:
         self._started = False
 
+    def teardown(self) -> None:
+        """``Pipeline.stop``'s last step, after every element stopped:
+        free what the element keeps across its own ``stop()``/``start()``
+        (an on-error restart), such as a CUDA-graph pool. Default:
+        nothing."""
+
     # -- static analysis --------------------------------------------------
     def static_src_caps(self) -> Optional[Caps]:
         """Declared output caps of a source element, computed WITHOUT
@@ -267,10 +293,13 @@ class Element:
             self.do_chain(pad, item)
         except FlowError:
             raise
-        except Exception as exc:  # noqa: BLE001 -- becomes a pipeline error
-            logger.exception("%s: error in chain", self.name)
-            self.post_error(exc)
-            raise FlowError(f"{self.name}: {exc}") from exc
+        except Exception as exc:  # noqa: BLE001 -- apply the element's on-error policy
+            # fail (default) posts the error and raises FlowError;
+            # skip/retry/restart may consume or recover the buffer
+            # (fault/policy.py)
+            from ..fault.policy import handle_chain_error
+            if not handle_chain_error(self, pad, item, exc):
+                return  # buffer consumed by the policy (skipped)
         dt = time.perf_counter_ns() - t0
         self.stats.add(buffers=1, bytes=item.nbytes, proctime_ns=dt)
 
@@ -375,16 +404,40 @@ class TransformElement(Element):
         return {p: out for p in self.src_pads}
 
 
+class _StreamRestart(Exception):
+    """Control flow: a supervised create() failure was decided RESTART
+    inside _stream; _loop replays the preamble without re-handling."""
+
+    def __init__(self, cause: Exception):
+        super().__init__(str(cause))
+        self.cause = cause
+
+
+class _StreamEscalate(Exception):
+    """Control flow: a supervised create() failure exhausted its policy
+    inside _stream; _loop posts the pipeline error without re-handling."""
+
+    def __init__(self, cause: Exception):
+        super().__init__(str(cause))
+        self.cause = cause
+
+
 class SrcElement(Element):
     """Source with its own streaming thread (≙ GstBaseSrc).
 
     Subclasses implement ``negotiate_src_caps()`` (fixed caps for the
-    stream) and ``create()`` returning a Buffer or None for EOS.
+    stream) and ``create()`` returning a Buffer or None for EOS. The
+    thread runs supervised: see :meth:`_loop` and fault/supervisor.py.
     """
 
     SRC_TEMPLATES = {"src": None}
-    PROPS = {"num-buffers": -1}
-    NOT_PORTED = {"trace-export": False}
+    # trace-export declares INTENT that this source's frame traces
+    # survive to the sinks (pipelint's trace-export rule checks that
+    # nothing downstream strips the context); the port records no spans
+    PROPS = {"num-buffers": -1, "trace-export": False}
+    # restart for a source is a loop-level stream replay (on_restart
+    # hook + preamble), which every source supports by construction
+    RESTART_SAFE = True
 
     def __init__(self, name=None, **props):
         super().__init__(name, **props)
@@ -412,16 +465,55 @@ class SrcElement(Element):
             self._thread.join(timeout=5.0)
             self._thread = None
 
-    def _loop(self) -> None:
-        try:
-            self._stream()
-        except FlowError:
-            return  # error already posted by the failing element
-        except Exception as exc:  # noqa: BLE001 -- becomes a pipeline error
-            logger.exception("%s: error in src loop", self.name)
-            self.post_error(exc)
+    def on_restart(self) -> None:
+        """Hook for supervised stream restarts (on-error=restart):
+        re-acquire whatever resource the stream reads from. The preamble
+        — StreamStart, caps, segment — is replayed by the loop itself."""
 
-    def _stream(self) -> None:
+    def _loop(self) -> None:
+        """Supervised streaming loop: failures escaping the stream body
+        go through a fault.Supervisor applying the element's on-error
+        policy (backoff + jitter, restart budget) before the
+        escalate-to-pipeline-error path (fault/supervisor.py)."""
+        from ..fault.supervisor import CONTINUE, RESTART, Supervisor
+        try:
+            sup = Supervisor(self)
+        except Exception as exc:  # noqa: BLE001 — unparseable on-error spec
+            logger.exception("%s: bad on-error policy", self.name)
+            self.post_error(exc)
+            return
+        while not self._stop_evt.is_set():
+            try:
+                self._stream(sup)
+                return
+            except FlowError:
+                return  # error already posted by the failing element
+            except _StreamRestart:
+                try:
+                    self.on_restart()
+                    continue  # replay preamble: caps re-negotiated
+                except Exception as exc:  # noqa: BLE001
+                    logger.exception("%s: restart hook failed", self.name)
+                    self.post_error(exc)
+                    return
+            except Exception as exc:  # noqa: BLE001
+                if isinstance(exc, _StreamEscalate):
+                    exc = exc.cause
+                else:
+                    decision = sup.handle(exc, where="src-loop")
+                    if decision == RESTART:
+                        try:
+                            self.on_restart()
+                            continue
+                        except Exception as exc2:  # noqa: BLE001
+                            exc = exc2
+                    elif decision == CONTINUE:
+                        continue
+                logger.exception("%s: error in src loop", self.name)
+                self.post_error(exc)
+                return
+
+    def _stream(self, sup=None) -> None:
         """One full streaming pass: preamble, create() loop, EOS."""
         self.srcpad.push(StreamStart(stream_id=self.name))
         caps = self.negotiate_src_caps()
@@ -431,7 +523,24 @@ class SrcElement(Element):
         while not self._stop_evt.is_set():
             if 0 <= self.num_buffers <= self._pushed:
                 break
-            buf = self.create()
+            try:
+                buf = self.create()
+            except FlowError:
+                raise
+            except Exception as exc:  # noqa: BLE001 — per-frame policy site
+                if sup is None:
+                    raise
+                from ..fault.supervisor import CONTINUE, RESTART
+                decision = sup.handle(exc, where="create")
+                if decision == CONTINUE:
+                    continue  # frame skipped or retry backoff elapsed
+                # the decision (budget slot, backoff, bus warning) is
+                # already made — _loop must honor it, not re-handle
+                if decision == RESTART:
+                    raise _StreamRestart(exc) from exc
+                raise _StreamEscalate(exc) from exc
+            if sup is not None:
+                sup.ok()
             if buf is None:
                 break
             tracer = getattr(self.pipeline, "tracer", None)

@@ -9,16 +9,19 @@ out-of-band.
 True, as in the JAX package): maximal runs of device-capable elements
 become one :class:`~..fusion.FusedSegment` each. ``fuse=false`` (a
 leading launch-line property) or ``pipeline.fuse = False`` opts out.
-``enable_tracing()`` attaches the tracer (utils/trace.py). Pipelint is
-not ported, so the port starts unvalidated. Also not ported: drain and
-checkpoint/restore/preempt.
+``enable_tracing()`` attaches the tracer (utils/trace.py). Before that,
+``Pipeline.start`` validates the graph (``validate_on_start``, default
+True): pipelint's error findings raise
+:class:`~..analysis.PipelineValidationError` before any element starts,
+so no model is loaded and nothing is allocated on the card; warnings
+are logged. Not ported: drain and checkpoint/restore/preempt.
 """
 from __future__ import annotations
 
 import queue as _queue
 import threading
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 from ..utils.log import logger
 from .element import Element, SinkElement, SrcElement
@@ -44,6 +47,15 @@ class Bus:
         except _queue.Empty:
             return None
 
+    def drain(self) -> List[Message]:
+        """Every message posted so far, without waiting."""
+        out = []
+        while True:
+            try:
+                out.append(self._q.get_nowait())
+            except _queue.Empty:
+                return out
+
 
 class Pipeline:
     def __init__(self, name: str = "pipeline0"):
@@ -56,6 +68,9 @@ class Pipeline:
         self._lock = threading.Lock()
         self.running = False
         self.tracer = None  # set by enable_tracing()
+        # pre-PLAYING static validation gate (pipelint); set False to
+        # launch a pipeline the analyzer rejects (escape hatch)
+        self.validate_on_start = True
         # fusion (fusion/): device-capable runs are collapsed into
         # FusedSegments at start. ``fuse=false`` as a pipeline-level
         # launch prop, or this attribute, opts out
@@ -115,14 +130,30 @@ class Pipeline:
             self.post_message("eos")
             self._eos_evt.set()
 
+    # -- static analysis ---------------------------------------------------
+    def validate(self):
+        """Run pipelint (caps/shape inference + graph rules) over the
+        unstarted graph; returns the :class:`analysis.Report`."""
+        from ..analysis import analyze
+        return analyze(self)
+
     # -- state ------------------------------------------------------------
     def start(self) -> "Pipeline":
         """READY->PLAYING: start non-sources first, then source threads.
         Every element checks its properties first, so a property the port
         does not implement raises before any thread starts; then the
+        graph is validated (``validate_on_start``): error findings raise
+        :class:`PipelineValidationError`, warnings are logged; then the
         fusion planner runs (once: the plan is sticky across restarts)."""
         for e in self.elements.values():
             e.check_ported()
+        if self.validate_on_start:
+            from ..analysis import PipelineValidationError
+            report = self.validate()
+            if report.errors:
+                raise PipelineValidationError(report)
+            for f in report.warnings:
+                logger.warning("pipelint: %s", f)
         if self.fuse and self._fusion_plan is None:
             from ..fusion import fuse_pipeline
             try:
@@ -151,6 +182,8 @@ class Pipeline:
         for e in self.elements.values():
             if not isinstance(e, SrcElement):
                 e.stop()
+        for e in self.elements.values():
+            e.teardown()
         self.running = False
         return self
 

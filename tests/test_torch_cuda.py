@@ -511,3 +511,204 @@ def test_tensor_if_reads_one_element_on_the_card(card):
     x = torch.arange(12, dtype=torch.float32, device="cuda").reshape(3, 4)
     buf = Buffer([Chunk(x)])
     assert el._compared_value(buf) == float(x.cpu().numpy()[1, 2]) == 6.0
+
+
+# -- the fault layer on the card: failed captures and restarts -----------
+
+def _fail_first_captures(k):
+    """A program that raises a TransientError during its first k CUDA
+    graph captures (its eager warm-up runs clean)."""
+    from nnstreamer_tpu_torch.fault import TransientError
+    state = {"captures": 0}
+
+    def fn(xs):
+        y = xs[0] @ xs[0]
+        if torch.cuda.is_current_stream_capturing():
+            state["captures"] += 1
+            if state["captures"] <= k:
+                raise TransientError(f"capture {state['captures']} refused")
+        return [y * 2.0]
+    return fn
+
+
+def test_retry_after_a_failed_capture(card):
+    """A capture that fails leaves no stream capturing and nothing
+    behind; a new executable in the same pool captures, and its replay
+    equals the eager result."""
+    from nnstreamer_tpu_torch.filters.executable import Executable, GraphPool
+    dev = torch.device("cuda", 0)
+    x = torch.randn(256, 256, device=dev)
+    fn = _fail_first_captures(2)
+    pool = GraphPool()
+    failures = 0
+    for _ in range(3):
+        exe = Executable(fn, dev, pool.handle_for(dev))
+        try:
+            first = exe([x])
+            break
+        except RuntimeError:
+            failures += 1
+            assert not torch.cuda.is_current_stream_capturing()
+            assert exe.graph is None
+    assert failures == 2 and exe.graph is not None
+    again = exe([x])
+    torch.cuda.synchronize()
+    want = (x @ x) * 2.0
+    assert torch.equal(first[0], want) and torch.equal(again[0], want)
+    pool.release()
+
+
+def test_failed_captures_leave_reserved_memory_flat(card):
+    """40 more failing captures in one pool reserve no more memory than
+    the first 8 did: each failure's blocks go back to the pool (and
+    every capture runs on the one capture stream)."""
+    from nnstreamer_tpu_torch.filters.executable import Executable, GraphPool
+    dev = torch.device("cuda", 0)
+    x = torch.randn(512, 512, device=dev)
+    fn = _fail_first_captures(10 ** 6)
+    pool = GraphPool()
+    reserved = []
+    for i in range(48):
+        with pytest.raises(RuntimeError):
+            Executable(fn, dev, pool.handle_for(dev))([x])
+        if i in (7, 47):
+            torch.cuda.synchronize()
+            reserved.append(torch.cuda.memory_reserved())
+    pool.release()
+    assert reserved[1] - reserved[0] <= 20 * 2 ** 20
+
+
+def test_backend_close_beside_a_capture(card):
+    """Backends opened and closed, each with a pool of its own that its
+    close releases, while another thread captures graphs into a second
+    pool: neither side fails, and every capture replays the eager
+    result."""
+    import threading
+    from nnstreamer_tpu_torch.filters.base import FilterProperties
+    from nnstreamer_tpu_torch.filters.executable import Executable, GraphPool
+    from nnstreamer_tpu_torch.filters.torch_cuda_backend import \
+        TorchCudaFilter
+    dev = torch.device("cuda", 0)
+    x = torch.randn(256, 256, device=dev)
+    pool = GraphPool()
+    errors, done = [], threading.Event()
+
+    def capture():
+        try:
+            while not done.is_set():
+                exe = Executable(lambda xs: [xs[0] @ xs[0]], dev,
+                                 pool.handle_for(dev))
+                exe([x])
+                assert torch.equal(exe([x])[0], x @ x)
+        except BaseException as e:  # noqa: BLE001 -- reported below
+            errors.append(e)
+
+    t = threading.Thread(target=capture)
+    t.start()
+    frame = np.zeros((96, 96, 3), np.uint8)
+    try:
+        for _ in range(4):
+            fw = TorchCudaFilter()
+            fw.open(FilterProperties(
+                framework="torch-cuda",
+                model_files=("zoo://mobilenet_v2?width=0.35&size=96",)))
+            fw.invoke([frame])
+            fw.close()
+    finally:
+        done.set()
+        t.join()
+    pool.release()
+    assert errors == []
+
+
+def test_filter_restarts_keep_reserved_memory_flat(card):
+    """restart_element on a torch-cuda filter mid-stream: each restart
+    re-opens the model and recaptures (one more compile), outputs equal
+    an eager run of the same weights, and the reserved memory after the
+    fifth restart is within 10 % of its value after the first: every
+    backend the element opens captures into the element's one graph
+    pool, which Pipeline.stop frees. The test drives the filter's chain
+    on its own thread, so each restart falls between two frames."""
+    from nnstreamer_tpu_torch.fault import restart_element
+    from nnstreamer_tpu_torch.models import zoo
+    from nnstreamer_tpu_torch.pipeline.events import CapsEvent, EosEvent
+    from nnstreamer_tpu_torch.tensors.buffer import Buffer
+    caps = ("other/tensors,format=static,num_tensors=1,types=uint8,"
+            "dimensions=3:96:96,framerate=0/1")
+    pipe = pt.Pipeline()
+    filt = pt.make_element(
+        "tensor_filter", name="f", framework="torch-cuda",
+        model="zoo://mobilenet_v2?width=0.35&size=96")
+    sink = pt.make_element("appsink", name="out")
+    pipe.add(filt, sink)
+    pipe.link(filt, sink)
+    pipe.start()
+    frames = np.random.default_rng(0).integers(0, 255, (12, 96, 96, 3),
+                                               dtype=np.uint8)
+
+    def push(i):
+        filt.chain(filt.sinkpad, Buffer.from_arrays([frames[i]], pts=i))
+
+    filt.chain(filt.sinkpad, CapsEvent(pt.Caps(caps)))
+    push(0)
+    push(1)
+    reserved = []
+    for r in range(5):
+        restart_element(filt)
+        push(2 + 2 * r)
+        push(3 + 2 * r)
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved())
+    compiles = filt.stats["jit_recompiles"]
+    filt.chain(filt.sinkpad, EosEvent())
+    assert pipe.wait_eos(60)
+    got = [b.chunks[0].host() for b in pipe["out"].buffers]
+    pipe.stop()
+    assert len(got) == 12 and compiles == 6
+    apply_fn, module, _, _ = zoo.build("mobilenet_v2", width="0.35",
+                                       size="96")
+    module = module.cuda().eval()
+    with torch.inference_mode():
+        want = [apply_fn(module, torch.from_numpy(f).cuda()).cpu().numpy()
+                for f in frames]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert reserved[-1] <= 1.1 * reserved[0]
+
+
+def test_device_source_restart_keeps_its_frame_pool(card):
+    """tensortestsrc device=true under on-error=restart: a failed read
+    restarts the stream (preamble replayed) without staging a second
+    pool of frames on the card, and the frames go on from where they
+    stopped."""
+    from nnstreamer_tpu_torch.fault import TransientError
+    caps = ("other/tensors,format=static,num_tensors=1,types=float32,"
+            "dimensions=64:64,framerate=0/1")
+    pipe = pt.parse_launch(
+        f"tensortestsrc name=src caps={caps} device=true pattern=counter "
+        "num-buffers=8 pool-size=4 on-error=restart(3,30) ! "
+        "appsink name=out")
+    src, seen = pipe["src"], {}
+    create = src.create
+
+    def flaky():
+        if src._count == 5 and "pool" not in seen:
+            seen["pool"] = src._pool
+            torch.cuda.synchronize()
+            seen["allocated"] = torch.cuda.memory_allocated()
+            raise TransientError("flaky read")
+        return create()
+
+    src.create = flaky
+    pipe.start()
+    assert pipe.wait_eos(60)
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    bufs = pipe["out"].buffers
+    pipe.stop()
+    assert src.stats["restarts"] == 1 and src._pool is seen["pool"]
+    assert len(bufs) == 8 and all(b.chunks[0].is_device for b in bufs)
+    assert [float(b.chunks[0].host().flat[0]) for b in bufs] == \
+        [float(i % 4) for i in range(8)]
+    # the frames held at the sink are views of the one pool
+    assert allocated == seen["allocated"]

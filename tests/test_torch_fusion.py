@@ -12,10 +12,10 @@ package's fused line and the port's unfused run, exactly.
 
 The multi-pad boundaries (tensor_mux, tensor_crop, tee) are planned
 and run here too; the tracer's fusion block is held against the JAX
-package's in tests/test_torch_trace.py. Not mirrored, for want of their
-modules in the port (ROADMAP.md): on-error policies other than fail
-(skip, the policy-change split), the circuit breaker and pipelint's
-fusion rules.
+package's in tests/test_torch_trace.py. The segment's on-error
+policies and circuit breaker are held against the JAX package in
+tests/test_torch_fault.py (``TestSegmentFaults``), pipelint's fusion
+rules in tests/test_torch_analysis.py (``TestLintRules``).
 """
 import numpy as np
 import pytest

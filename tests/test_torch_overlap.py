@@ -5,9 +5,10 @@ Mirrors tests/test_async.py: the reorder buffer and the in-flight
 window's semantics, the overlap executor, the ``simlink`` pipeline at
 in-flight 1 and K (same bytes as the JAX package's line, in order), the
 PTS order under a straggler, the accounting of completion failures, the
-split dispatch/completion latency, and upload coalescing. The breaker,
-the tracer's transfer block and the racecheck roles have no module in
-the port yet (ROADMAP.md).
+split dispatch/completion latency, and upload coalescing. The breaker
+fed from the completer thread is held against the JAX package in
+tests/test_torch_fault.py (``TestAsyncBreaker``); the racecheck roles
+have no module in the port yet (ROADMAP.md).
 """
 import time
 

@@ -201,9 +201,9 @@ def test_auto_framework_resolves_zoo_to_torch_cuda():
 
 
 @pytest.mark.parametrize("prop", [
-    "invoke-dynamic=true", "donate-input=true", "breaker-threshold=3",
-    "suspend=100", "invoke-async=true", "on-error=skip",
-    "custom=mesh:2x1x1"])
+    "invoke-dynamic=true", "donate-input=true",
+    "shared-tensor-filter-key=k", "suspend=100", "invoke-async=true",
+    "input-combination=0", "custom=mesh:2x1x1"])
 def test_unported_filter_properties_raise_at_start(prop):
     pipe = pt.parse_launch(
         f"tensortestsrc caps={CAPS} num-buffers=1 ! tensor_filter "
