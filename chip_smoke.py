@@ -162,9 +162,10 @@ Every model line runs through the backend's per-signature executable,
 one captured CUDA graph per input signature: the first frame runs
 eagerly (the capture's warm-up), every later frame is one replay, so a
 hand kernel inside the graph counts once a frame.
-Phases 8-11, 13, 16, 17, 19 and 20 launch neither hand kernel (their models
-inline their input affine, as the JAX models do); their launch counts
-are read all the same and written on the kernels line as 0. The
+Phases 8-11, 13, 16, 17, 19, 20, 22 and 24 launch neither hand kernel
+(their models inline their input affine, as the JAX models do); their
+launch counts are read all the same and written on the kernels line as
+0. The
 tracer's times are host times: a filter's proctime is its dispatch
 (staging and the graph launch), not the device time.
 
@@ -1929,8 +1930,410 @@ def phase_segment_faults(smi, clean):
     return out
 
 
+# -- phases 22-24: the among-device layer ------------------------------
+
+FANOUT_CLIENTS = 4         # bench.py:417 bench_query_fanout's config 5
+FANOUT_BATCH = 4           # the server's micro-batch (serversrc batch=K)
+FANOUT_WINDOW = 32         # each client's max-request
+FANOUT_WARMUP = 8          # frames a client before the measured ones
+FANOUT_FRAMES = 100        # measured frames a client
+QUERY_DISTINCT = 16        # distinct seeded frames the clients cycle over
+# a batched reply against the batch-1 headline logits of its frame: max
+# |diff| over max |logit|. Batch 4 and batch 1 run other convolution
+# blockings, which move the logits by summation order only (read 2.29e-7
+# on the H100); a bf16 rounding on the path moves them by ~4e-3.
+FANOUT_REL_TOL = 1e-4
+EDGE_FRAMES = 48           # frames of each phase-24 pub/sub run
+
+
+def _frame_shape():
+    """FRAME_DIMS (innermost first) as a numpy HWC shape."""
+    c, w, h = (int(x) for x in FRAME_DIMS.split(":"))
+    return (h, w, c)
+
+
+def _free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _query_server(port, batch, model, extra=""):
+    import nnstreamer_tpu_torch as pt
+    server = pt.parse_launch(
+        f"tensor_query_serversrc name=qs port={port} id={port} "
+        f"batch={batch} ! tensor_filter name=qf framework=torch-cuda "
+        f'model="{model}" {extra}! queue max-size-buffers=32 '
+        f"! tensor_query_serversink name=qk id={port}")
+    server.start()
+    return server
+
+
+def _query_client(port, frames, order, replies, sent, arrived, on_reply):
+    """One client pipeline: appsrc ! tensor_query_client ! appsink. The
+    client element's do_chain is wrapped to stamp when each frame leaves
+    for the server; ``order`` lists the frame index of each request."""
+    import nnstreamer_tpu_torch as pt
+    client = pt.parse_launch(
+        f"appsrc name=in caps={_caps_at(FRAME_DIMS)} ! tensor_query_client "
+        f"name=qc port={port} timeout=120 max-request={FANOUT_WINDOW} "
+        "! appsink name=out")
+    qc = client["qc"]
+    chain = qc.do_chain
+
+    def stamped(pad, buf):
+        sent[buf.pts] = time.perf_counter()
+        chain(pad, buf)
+
+    qc.do_chain = stamped
+
+    def on_buffer(buf):
+        arrived[buf.pts] = time.perf_counter()
+        replies.append((buf.pts, buf.chunks[0].host()))
+        on_reply()
+
+    client["out"].connect(on_buffer)
+    client.start()
+    for i, k in enumerate(order):
+        client["in"].push_buffer(pt.Buffer.from_arrays([frames[k]], pts=i))
+    client["in"].end_stream()
+    return client
+
+
+def _peak_in_flight(sent, arrived):
+    """Most requests a client had sent and not yet had answered at once,
+    from its send and arrival stamps."""
+    steps = sorted([(t, 1) for t in sent.values()]
+                   + [(t, -1) for t in arrived.values()])
+    peak = now = 0
+    for _, step in steps:
+        now += step
+        peak = max(peak, now)
+    return peak
+
+
+def _min_frame_gap(logits):
+    """Smallest max |diff| between two different frames' logits, over
+    the largest |logit|: what a reply of the wrong frame would read."""
+    scale = max(float(np.abs(v).max()) for v in logits)
+    return min(float(np.abs(a - b).max())
+               for i, a in enumerate(logits) for b in logits[i + 1:]) / scale
+
+
+def _headline_logits(clean, n):
+    """The local headline line's logits (phase 19's clean run) of the
+    first ``n`` seeded frames, in frame order."""
+    return [clean[k] for k in sorted(clean)[:n]]
+
+
+def phase_query_fanout(smi, clean):
+    """Phase 22: BASELINE config 5 — four clients, one micro-batching
+    MobileNet-v2 server; then a batch=0 client whose replies must equal
+    the local headline line bit for bit."""
+    import threading
+    from nnstreamer_tpu_torch.tensors.transfer import PendingHost, fetch_stats
+    frames = _frames(QUERY_DISTINCT, _frame_shape()).numpy()
+    want = _headline_logits(clean, QUERY_DISTINCT)
+    # the check below tells frames apart only if their logits lie
+    # further apart than its tolerance: a padded row or another
+    # frame's row sent under a reply's pts must fail it
+    gap = _min_frame_gap(want)
+    if not gap > 100 * FANOUT_REL_TOL:
+        sys.exit(f"chip_smoke: fan-out: two frames' headline logits lie "
+                 f"{gap:.3g} apart (relative), too close for tol "
+                 f"{FANOUT_REL_TOL}")
+    n_each = FANOUT_WARMUP + FANOUT_FRAMES
+    n_warm, n_all = FANOUT_WARMUP * FANOUT_CLIENTS, n_each * FANOUT_CLIENTS
+    port = _free_port()
+    _reset_launches()
+    fetch_stats(reset=True)
+    server = _query_server(port, FANOUT_BATCH, "zoo://mobilenet_v2",
+                           "prefetch-host=true ")
+    # what the serversink is handed: PendingHost chunks (the filter's
+    # fetch already in flight) or anything else
+    at_sink = {"pending": 0, "other": 0}
+    render = server["qk"].render
+
+    def counted(buf):
+        for c in buf.chunks:
+            at_sink["pending" if isinstance(c._data, PendingHost)
+                    else "other"] += 1
+        render(buf)
+
+    server["qk"].render = counted
+    lock = threading.Lock()
+    total = {"n": 0, "t0": None, "t1": None}
+    done = threading.Event()
+
+    def on_reply():
+        with lock:
+            total["n"] += 1
+            if total["n"] == n_warm:
+                total["t0"] = time.perf_counter()
+            if total["n"] == n_all:
+                total["t1"] = time.perf_counter()
+                done.set()
+
+    clients, results = [], []
+    try:
+        for c in range(FANOUT_CLIENTS):
+            order = [(c * 4 + i) % QUERY_DISTINCT for i in range(n_each)]
+            res = {"order": order, "replies": [], "sent": {},
+                   "arrived": {}}
+            results.append(res)
+            clients.append(_query_client(port, frames, order,
+                                         res["replies"], res["sent"],
+                                         res["arrived"], on_reply))
+        if not done.wait(600):
+            sys.exit(f"chip_smoke: fan-out: {total['n']} of {n_all} "
+                     "replies arrived")
+        for client in clients:
+            client.wait_eos(120)
+        compiles = server["qf"].fw.compile_count
+        invokes = server["qf"].stats["buffers"]
+        links = server["qs"].stats.snapshot()
+    finally:
+        for client in clients:
+            client.stop()
+        server.stop()
+    fetch = fetch_stats(reset=True)
+    launches = _kernel_launches()
+    fps = (n_all - n_warm) / (total["t1"] - total["t0"])
+    p50s, peaks, worst, worst_rel, top1_same = [], [], 0.0, 0.0, 0
+    for c, res in enumerate(results):
+        pts = [p for p, _ in res["replies"]]
+        if pts != list(range(n_each)):
+            sys.exit(f"chip_smoke: fan-out client {c}: replies {pts[:12]}"
+                     f"... not each frame once in order")
+        rtt = [(res["arrived"][i] - res["sent"][i]) * 1e3
+               for i in range(FANOUT_WARMUP, n_each)]
+        p50s.append(float(np.percentile(rtt, 50)))
+        peaks.append(_peak_in_flight(res["sent"], res["arrived"]))
+        for i, got in res["replies"]:
+            ref = want[res["order"][i]]
+            diff, rel = _max_diff(got, ref)
+            worst, worst_rel = max(worst, diff), max(worst_rel, rel)
+            top1_same += int(int(np.argmax(got)) == int(np.argmax(ref)))
+    row = {"clients": FANOUT_CLIENTS, "batch": FANOUT_BATCH,
+           "window": FANOUT_WINDOW, "frames_per_client": n_each,
+           "measured": n_all - n_warm, "fps": fps, "p50_rtt_ms": p50s,
+           "peak_in_flight": peaks,
+           "compile_count": compiles, "invokes": invokes,
+           "rows_per_invoke": n_all / invokes, "fetch": fetch,
+           "d2h_arrays_per_batch": fetch["arrays"] / invokes,
+           "sink_chunks": at_sink, "max_abs_diff": worst,
+           "max_rel_diff": worst_rel, "min_frame_gap_rel": gap,
+           "top1_equal": top1_same,
+           "link_errors": links.get("link_errors", 0),
+           "kernel_launches": launches}
+    log(f"query fan-out: {FANOUT_CLIENTS} clients x {n_each} frames "
+        f"({FANOUT_FRAMES} measured after {FANOUT_WARMUP}), server "
+        f"batch={FANOUT_BATCH}, max-request={FANOUT_WINDOW}: aggregate "
+        f"{fps:.2f} fps; p50 round trip a client "
+        f"{', '.join(f'{p:.3f}' for p in p50s)} ms, peak requests in "
+        f"flight a client {peaks}; server filter "
+        f"{compiles} graph(s) over {invokes} invokes "
+        f"({n_all / invokes:.2f} rows an invoke); D2H {fetch['arrays']} "
+        f"arrays in {fetch['rpcs']} fetch RPCs = "
+        f"{fetch['arrays'] / invokes:.2f} a batch; sink chunks {at_sink}; "
+        f"every reply once and in order; vs the headline line max |diff| "
+        f"{worst:.4g}, relative {worst_rel:.3g} (tol {FANOUT_REL_TOL}; two "
+        f"frames' logits lie at least {gap:.3g} apart), top-1 equal "
+        f"{top1_same}/{n_all}; kernel launches {launches}; {smi}")
+    if compiles != 1 or top1_same != n_all or worst_rel > FANOUT_REL_TOL \
+            or at_sink["other"] or fetch["arrays"] != invokes:
+        sys.exit(f"chip_smoke: fan-out: {row}")
+
+    # batch=0, one client: the wire is lossless on the card
+    port = _free_port()
+    server = _query_server(port, 0, "zoo://mobilenet_v2",
+                           "prefetch-host=true ")
+    res = {"replies": [], "sent": {}, "arrived": {}}
+    try:
+        client = _query_client(port, frames, list(range(QUERY_DISTINCT)),
+                               res["replies"], res["sent"], res["arrived"],
+                               lambda: None)
+        client.wait_eos(300)
+        compiles0 = server["qf"].fw.compile_count
+    finally:
+        client.stop()
+        server.stop()
+    same = [p for p, _ in res["replies"]] == list(range(QUERY_DISTINCT)) \
+        and all(g.dtype == w.dtype and g.tobytes() == w.tobytes()
+                for (_, g), w in zip(res["replies"], want))
+    log(f"query batch=0: {len(res['replies'])} replies "
+        f"{'bitwise equal' if same else 'NOT EQUAL'} to the local headline "
+        f"line's logits; {compiles0} graph(s); {smi}")
+    if not same:
+        sys.exit("chip_smoke: batch=0 query replies differ from the local "
+                 "headline line")
+    row["batch0_bitwise_equal"] = same
+    return row
+
+
+def phase_query_vit(smi):
+    """Phase 23: the ViT-B/16 line of phases 1 and 4 behind the query
+    link: one client, 16 frames, the attention kernel on the server."""
+    frames = _frames(FRAMES, _frame_shape()).numpy()
+    model = 'zoo://vit?attn=pallas'
+    # the local line on the same frames: appsrc ! filter ! appsink
+    import nnstreamer_tpu_torch as pt
+    local = pt.parse_launch(
+        f"appsrc name=in caps={_caps_at(FRAME_DIMS)} ! tensor_filter "
+        f'framework=torch-cuda model="{model}" ! appsink name=out')
+    local.start()
+    try:
+        for i, f in enumerate(frames):
+            local["in"].push_buffer(pt.Buffer.from_arrays([f], pts=i))
+        local["in"].end_stream()
+        local.wait_eos(300)
+    finally:
+        local.stop()
+    want = [b.chunks[0].host() for b in local["out"].buffers]
+    port = _free_port()
+    _reset_launches()
+    server = _query_server(port, 0, model)
+    res = {"replies": [], "sent": {}, "arrived": {}}
+    try:
+        client = _query_client(port, frames, list(range(FRAMES)),
+                               res["replies"], res["sent"], res["arrived"],
+                               lambda: None)
+        client.wait_eos(300)
+    finally:
+        client.stop()
+        server.stop()
+    launches = _kernel_launches()
+    rtt = [(res["arrived"][i] - res["sent"][i]) * 1e3 for i in range(FRAMES)]
+    same = [p for p, _ in res["replies"]] == list(range(FRAMES)) and all(
+        g.tobytes() == w.tobytes() for (_, g), w in zip(res["replies"], want))
+    peak = _peak_in_flight(res["sent"], res["arrived"])
+    row = {"frames": FRAMES, "p50_rtt_ms": float(np.percentile(rtt, 50)),
+           "peak_in_flight": peak, "bitwise_equal_local": same,
+           "kernel_launches": launches}
+    log(f"query vit: {FRAMES} frames over the query link, attention "
+        f"launches {launches['attention']} "
+        f"({launches['attention'] / FRAMES:.0f} a frame), replies "
+        f"{'bitwise equal' if same else 'NOT EQUAL'} to the local line; "
+        f"p50 round trip {row['p50_rtt_ms']:.3f} ms, at most {peak} of "
+        f"{FRAMES} requests in flight at once (max-request "
+        f"{FANOUT_WINDOW}); {smi}")
+    if not same or launches["attention"] != VIT_LAYERS * FRAMES:
+        sys.exit(f"chip_smoke: query vit: {row}")
+    return row
+
+
+def _edge_run(frames, sink_props, src_tail="", timeout=120):
+    """One pub/sub run: appsrc ! queue ! MobileNet-v2 (prefetch-host) !
+    queue ! edgesink name=p <sink_props>, and edgesrc name=s session=true
+    <src_tail> ! appsink. Returns (delivered (pts, host logits), the
+    publisher's stats, the subscriber's, the stats of a tensor_fault
+    named k in the subscriber ({} without one), frames/s)."""
+    import nnstreamer_tpu_torch as pt
+    port = _free_port()
+    pub = pt.parse_launch(
+        f"appsrc name=in caps={_caps_at(FRAME_DIMS)} ! queue "
+        "max-size-buffers=8 ! tensor_filter framework=torch-cuda "
+        "model=zoo://mobilenet_v2 prefetch-host=true ! queue "
+        f"max-size-buffers=32 ! edgesink name=p port={port} topic=t "
+        f"session=true {sink_props}")
+    sub = pt.parse_launch(
+        f"edgesrc name=s dest-port={port} topic=t session=true ack-every=4 "
+        f"timeout=30 ! {src_tail}appsink name=out")
+    pub.start()
+    try:
+        sub.start()
+        deadline = time.monotonic() + timeout
+        while pub["p"].session_info().get("sessions") != 1:
+            if time.monotonic() > deadline:
+                sys.exit("chip_smoke: edge subscriber never attached")
+            time.sleep(0.01)
+        t0 = time.perf_counter()
+        for i, f in enumerate(frames):
+            pub["in"].push_buffer(pt.Buffer.from_arrays([f], pts=i))
+        while len(sub["out"].buffers) < len(frames):
+            if time.monotonic() > deadline:
+                break
+            time.sleep(0.005)
+        dt = time.perf_counter() - t0
+        ps, ss = pub["p"].stats.snapshot(), sub["s"].stats.snapshot()
+        fault = sub["k"].stats.snapshot() if "k" in sub.elements else {}
+        got = [(b.pts, b.chunks[0].host()) for b in sub["out"].buffers]
+    finally:
+        pub["in"].end_stream()
+        pub.wait_eos(60)
+        pub.stop()
+        sub.stop()
+    return got, ps, ss, fault, len(frames) / dt
+
+
+def phase_edge_pubsub(smi):
+    """Phase 24: MobileNet-v2 logits published through edgesink
+    (session, shuffle-zlib, coalesce-frames=4) to an edgesrc subscriber;
+    a kill-link mid-stream against a clean run, and wire-precision=bf16
+    against the sender's logits downcast on the host."""
+    frames = _frames(EDGE_FRAMES, _frame_shape()).numpy()
+    sink = "wire-codec=shuffle-zlib coalesce-frames=4 coalesce-ms=5 "
+    out = {}
+    _reset_launches()
+    clean, ps, ss, _, fps = _edge_run(frames, sink)
+    out["clean"] = {"fps": fps, "delivered": len(clean),
+                    "compress_ratio": ps["wire_raw_bytes_out"]
+                    / ps["wire_enc_bytes_out"],
+                    "frames_per_msg": ps["wire_frames_out"]
+                    / ps["wire_msgs_out"]}
+    ok = [p for p, _ in clean] == list(range(EDGE_FRAMES))
+    log(f"edge clean: {len(clean)} of {EDGE_FRAMES} frames in order "
+        f"{ok}, {fps:.2f} fps, shuffle-zlib ratio "
+        f"{out['clean']['compress_ratio']:.3f}, "
+        f"{out['clean']['frames_per_msg']:.2f} frames a message; {smi}")
+    if not ok:
+        sys.exit("chip_smoke: the clean edge run lost or reordered frames")
+    ref = dict(clean)
+    got, ps, ss, fault, fps = _edge_run(
+        frames, sink, "tensor_fault name=k mode=kill-link target=s "
+        f"every={EDGE_FRAMES // 3} max-faults=1 ! ")
+    same = [p for p, _ in got] == list(range(EDGE_FRAMES)) and all(
+        g.tobytes() == ref[p].tobytes() for p, g in got)
+    out["killed"] = {"fps": fps, "delivered": len(got),
+                     "kills": fault.get("faults", 0),
+                     "replayed": ps["session_replayed"],
+                     "dup_drops": ss["session_dup_drops"],
+                     "declared_lost": ss["session_declared_lost"],
+                     "reconnects": ss["reconnects"],
+                     "bitwise_equal_clean": same}
+    log(f"edge kill-link: {len(got)} of {EDGE_FRAMES} frames delivered "
+        f"once and in order across {out['killed']['kills']} kill(s), "
+        f"{ps['session_replayed']} replayed, {ss['session_dup_drops']} "
+        f"duplicates dropped, {ss['session_declared_lost']} declared "
+        f"lost, every buffer {'bytewise equal' if same else 'NOT EQUAL'} "
+        f"to the clean run's; {fps:.2f} fps; {smi}")
+    if not same or out["killed"]["kills"] != 1 \
+            or ss["session_declared_lost"] or ss["reconnects"] != 1:
+        sys.exit(f"chip_smoke: edge kill-link: {out['killed']}")
+    got, ps, ss, _, fps = _edge_run(frames, sink + "wire-precision=bf16 ")
+    # torch's own round to nearest even, not the wire's bit code
+    want = {p: torch.from_numpy(v).to(torch.bfloat16).float().numpy()
+            for p, v in ref.items()}
+    same = [p for p, _ in got] == list(range(EDGE_FRAMES)) and all(
+        g.tobytes() == want[p].tobytes() for p, g in got)
+    out["bf16"] = {"fps": fps, "delivered": len(got),
+                   "equal_host_downcast": same,
+                   "wire_bytes_out": ps["wire_bytes_out"]}
+    log(f"edge wire-precision=bf16: {len(got)} frames "
+        f"{'equal' if same else 'NOT EQUAL'} to the sender's logits "
+        f"downcast on the host; {fps:.2f} fps; {smi}")
+    if not same:
+        sys.exit("chip_smoke: bf16 edge frames differ from the host "
+                 "downcast")
+    out["kernel_launches"] = _kernel_launches()
+    return out
+
+
 def phase_pipelint(smi, lines):
-    """Phase 21: Pipeline.validate() on every launch line phases 1-20
+    """Phase 21: Pipeline.validate() on every launch line phases 1-24
     ran (0 errors, 0 crashed rules), and a defective line refused at
     start() before anything is allocated on the card."""
     import nnstreamer_tpu_torch as pt
@@ -2020,6 +2423,9 @@ def main():
             f.write("\n".join(f"class{i}" for i in range(1001)))
         policies, clean = phase_policies(smi, labels)
     segment = phase_segment_faults(smi, clean)
+    lines["query_fanout"] = phase_query_fanout(smi, clean)
+    lines["query_vit"] = phase_query_vit(smi)
+    lines["edge_pubsub"] = phase_edge_pubsub(smi)
     pt.parse_launch = parse
     pipelint = phase_pipelint(smi, list(dict.fromkeys(launched)))
     for k in ("clean", "retry", "skip", "restart"):

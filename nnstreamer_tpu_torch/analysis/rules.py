@@ -1,21 +1,22 @@
 """pipelint graph rules.
 
 Port of ``nnstreamer_tpu/analysis/rules.py``: the rules whose elements
-the port has (12 of the reference's 28). Each :class:`Rule` inspects the
+the port has (16 of the reference's 28). Each :class:`Rule` inspects the
 parsed-but-unstarted pipeline plus the caps inference result and yields
 findings with element/pad locations. Rules never execute elements and
 never raise past :func:`analyze` — a broken rule must not block a
 launch; :func:`analyze` lists the ids of rules that raised on the
 report's ``crashed``.
 
-The reference's other 16 rules inspect elements the port does not have
+The reference's other 12 rules inspect elements the port does not have
 yet; each comes with the slice that ports its elements (ROADMAP.md,
 queue A).
 Rules keyed on kind names of such elements (``tensor_serve_src``,
-``tensor_trainer``) keep those branches and stay silent until then.
+``tensor_trainer``, ``mqttsrc``) keep those branches and stay silent until then.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Iterable, List, Optional, Set
 
@@ -318,6 +319,28 @@ class ShedNoRetryAfterRule(Rule):
                     e.name)
 
 
+class LinkResilienceRule(Rule):
+    """Network-edge elements with no timeout or with reconnection
+    disabled turn a transient peer outage into a permanent hang or a
+    silent EOS."""
+
+    id = "link-resilience"
+    severity = Severity.WARNING
+
+    def check(self, ctx: LintContext):
+        for e in ctx.of_kind("tensor_query_client", "edgesrc", "mqttsrc"):
+            if float(getattr(e, "timeout", 0.0)) <= 0:
+                yield self.finding(
+                    "timeout<=0 on a network element: a dead peer hangs "
+                    "the stream forever", e.name)
+            if kind_of(e) in ("edgesrc", "mqttsrc") \
+                    and not bool(getattr(e, "reconnect", True)):
+                yield self.finding(
+                    "reconnect=false: a dropped link ends the stream as "
+                    "EOS instead of re-dialing with backoff", e.name,
+                    severity=Severity.INFO)
+
+
 class ErrorPolicyRule(Rule):
     """on-error specs are parsed lazily at the first fault — a typo'd
     spec or an impossible policy (restart of a stateful element) must
@@ -348,6 +371,60 @@ class ErrorPolicyRule(Rule):
                     f"on-error=restart on {kind_of(e)}: element is not "
                     f"restart-safe (a restart discards internal state)",
                     e.name, severity=Severity.ERROR)
+
+
+class WireConfigRule(Rule):
+    """Wire-v2 link properties are negotiated strings: a typo'd codec
+    silently degrades to raw (the peer clamps it), so it must surface at
+    lint time; and a lossy on-wire downcast feeding a trainer corrupts
+    gradients silently — the operator must opt in knowingly."""
+
+    id = "wire-config"
+    severity = Severity.ERROR
+
+    def check(self, ctx: LintContext):
+        from ..edge.wire import CODECS, PRECISIONS
+        for e in ctx.of_kind("tensor_query_client", "edgesink"):
+            codec = str(getattr(e, "wire_codec", "raw"))
+            if codec not in CODECS:
+                yield self.finding(
+                    f"invalid wire-codec {codec!r}; valid: "
+                    f"{', '.join(CODECS)}", e.name)
+            precision = str(getattr(e, "wire_precision", "none"))
+            if precision not in PRECISIONS:
+                yield self.finding(
+                    f"invalid wire-precision {precision!r}; valid: "
+                    f"{', '.join(PRECISIONS)}", e.name)
+            elif precision != "none" and kind_of(e) == "tensor_query_client":
+                # lossy downcast + a trainer consuming the results =
+                # silently degraded gradients; warn loudly
+                seen: Set[str] = set()
+                stack = list(ctx.downstream(e))
+                while stack:
+                    d = stack.pop()
+                    if d.name in seen:
+                        continue
+                    seen.add(d.name)
+                    if kind_of(d) == "tensor_trainer":
+                        yield self.finding(
+                            f"wire-precision={precision} is lossy and the "
+                            f"results feed trainer '{d.name}': gradients "
+                            f"see fp32-rounded activations",
+                            e.name, severity=Severity.WARNING)
+                        break
+                    stack.extend(ctx.downstream(d))
+        for e in ctx.of_kind("edgesink"):
+            frames = int(getattr(e, "coalesce_frames", 1))
+            if frames < 1:
+                yield self.finding(
+                    f"coalesce-frames={frames} is not a batch size; "
+                    f"use 1 to disable coalescing", e.name)
+            elif frames > 1 and float(getattr(e, "coalesce_ms", 0.0)) <= 0:
+                yield self.finding(
+                    "coalesce-frames>1 with coalesce-ms<=0: a partial "
+                    "batch below the size threshold stalls until more "
+                    "frames arrive (no age flush)", e.name,
+                    severity=Severity.WARNING)
 
 
 class FusionBreakRule(Rule):
@@ -420,6 +497,64 @@ class FusionTransferRule(Rule):
                         f"({dcaps}) disagrees with the chain path's "
                         f"transform_caps ({runtime}); a fused segment "
                         f"would break byte parity", e.name, pname)
+
+
+class SessionReplayBudgetRule(Rule):
+    """An edgesink replay ring smaller than ONE coalesced batch cannot
+    replay even the minimal unit of loss: the very first reconnect gap
+    is guaranteed to contain declared-lost frames. That configuration
+    can never deliver the zero-loss promise session=true makes, so it
+    is an error, not a tuning warning."""
+
+    id = "session-replay-budget"
+    severity = Severity.ERROR
+
+    def check(self, ctx: LintContext):
+        for e in ctx.of_kind("edgesink"):
+            if not bool(getattr(e, "session", False)):
+                continue
+            ring_bytes = int(getattr(e, "session_ring_kb", 0)) * 1024
+            frames = max(1, int(getattr(e, "coalesce_frames", 1)))
+            pad = e.sink_pads.get("sink")
+            if pad is None or pad.peer is None:
+                continue
+            cfg = config_of(ctx.inference.pad_caps.get(pad.peer))
+            if cfg is None or cfg.format != TensorFormat.STATIC \
+                    or not len(cfg.info):
+                continue  # gradual typing: only fire on provable frames
+            # element_size, not the numpy itemsize: bfloat16 has no
+            # numpy dtype in the port
+            frame_bytes = sum(math.prod(i.shape) * i.type.element_size
+                              for i in cfg.info)
+            batch_bytes = frames * frame_bytes
+            if frame_bytes > 0 and ring_bytes < batch_bytes:
+                yield self.finding(
+                    f"session replay ring ({ring_bytes} B) is smaller than "
+                    f"one coalesced batch ({frames} frame(s) x "
+                    f"{frame_bytes} B = {batch_bytes} B): the first "
+                    f"reconnect gap is GUARANTEED to declare lost frames; "
+                    f"raise session-ring-kb or lower coalesce-frames",
+                    e.name, "sink")
+
+
+class SessionNoReconnectRule(Rule):
+    """session=true buys replay-on-RESUME — but RESUME only happens on a
+    re-dial. With reconnect=false a dropped link just ends the stream as
+    EOS and the session's replay ring never gets asked, so the operator
+    is paying for acks with no delivery guarantee in return."""
+
+    id = "session-no-reconnect"
+    severity = Severity.WARNING
+
+    def check(self, ctx: LintContext):
+        for e in ctx.of_kind("edgesrc"):
+            if bool(getattr(e, "session", False)) \
+                    and not bool(getattr(e, "reconnect", True)):
+                yield self.finding(
+                    "session=true with reconnect=false: a dropped link "
+                    "ends the stream before any RESUME can replay the "
+                    "gap — the session guarantees nothing; enable "
+                    "reconnect or drop the session overhead", e.name)
 
 
 class AsyncWindowRule(Rule):
@@ -531,8 +666,9 @@ class TraceExportRule(Rule):
 ALL_RULES: List[Rule] = [
     DanglingPadRule(), CycleRule(), TeeNoQueueRule(), JitSignatureRule(),
     SinklessBranchRule(), CombinerDtypeRule(), ShedNoRetryAfterRule(),
-    ErrorPolicyRule(), FusionBreakRule(), FusionTransferRule(),
-    AsyncWindowRule(), TraceExportRule(),
+    LinkResilienceRule(), ErrorPolicyRule(), WireConfigRule(),
+    FusionBreakRule(), FusionTransferRule(), SessionReplayBudgetRule(),
+    SessionNoReconnectRule(), AsyncWindowRule(), TraceExportRule(),
 ]
 
 def analyze(pipeline, rules: Optional[List[Rule]] = None) -> Report:

@@ -12,6 +12,8 @@ from . import splitter  # noqa: F401  (tensor_demux/tensor_split)
 from . import aggregator  # noqa: F401  (tensor_aggregator)
 from . import crop  # noqa: F401  (tensor_crop)
 from . import flowctl  # noqa: F401  (tensor_if/tensor_rate)
+from . import query  # noqa: F401  (tensor_query_*)
+from . import edge  # noqa: F401  (edgesrc/edgesink)
 from ..fault import element as fault  # noqa: F401  (tensor_fault)
 
 __all__: list = []

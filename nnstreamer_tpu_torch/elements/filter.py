@@ -11,7 +11,9 @@ elements/overlap.py over the backend's ``dispatch``/``complete``),
 hooks (``static_transfer``, ``device_veto``, ``plan_out_caps``,
 ``device_fn``), QoS throttling (a downstream ``QosEvent`` makes the
 filter drop frames before their invoke, ``stats["qos_dropped"]``), the
-circuit breaker (``breaker-threshold``, ``breaker-reset-ms``,
+padded rows of a micro-batched frame (``batch_valid_rows``, set by the
+query serversrc's ``batch=K``: host outputs are trimmed, card outputs
+ship padded), the circuit breaker (``breaker-threshold``, ``breaker-reset-ms``,
 ``breaker-retry-after-ms``: fault/breaker.py, fed by the chain thread
 synchronously and by the completer thread under ``in-flight``) and
 the rolling latency/throughput statistics. Chunks
@@ -24,8 +26,7 @@ Not ported yet, each refused at start when set (``NOT_PORTED``): input
 donation, invoke-async/invoke-dynamic, suspend, the shared-model key
 and input/output combination; a ``custom=mesh:`` option raises in the
 torch-cuda backend. A breaker-open shed answers no serve rows (the
-serve elements are not ported) and emits no observability event (nor
-does a breaker transition: ``obs/`` is not ported).
+serve elements are not ported).
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ import time
 from typing import Any, List, Optional
 
 import numpy as np
+import torch
 
 from ..fault.breaker import element_breaker, shed_frame
 from ..filters.base import Accelerator, FilterProperties, InvokeDrop
@@ -47,7 +49,7 @@ from ..pipeline.registry import register_element
 from ..tensors.buffer import Buffer, Chunk
 from ..tensors.caps import Caps
 from ..tensors.info import TensorInfo, TensorsConfig, TensorsInfo
-from ..tensors.transfer import submit_fetch
+from ..tensors.transfer import is_device_tensor, submit_fetch
 from ..tensors.types import TensorFormat
 from ..utils.log import logger
 
@@ -463,6 +465,7 @@ class TensorFilter(Element):
         dt = time.perf_counter_ns() - t0
         self._record_dispatch(dt)
         self._record_latency(dt)
+        outputs = self._trim_padded_rows(buf, outputs)
         if self.prefetch_host:
             # the frame leaves carrying PendingHost handles; frames queued
             # while a copy batch is in flight share the next one
@@ -510,6 +513,7 @@ class TensorFilter(Element):
         if self._breaker is not None:
             self._breaker.record_success()
         self._record_latency(time.perf_counter_ns() - entry.t_dispatch_ns)
+        outputs = self._trim_padded_rows(entry.buf, outputs)
         if self.prefetch_host:
             outputs = submit_fetch(outputs)
         return entry.buf.with_chunks([Chunk(o) for o in outputs])
@@ -520,6 +524,28 @@ class TensorFilter(Element):
         frames_dropped / breaker), though the chain thread returned long
         ago: the breaker records it from the completer thread."""
         self._account_invoke_error(exc)
+
+    @staticmethod
+    def _trim_padded_rows(buf: Buffer, outputs: List[Any]) -> List[Any]:
+        """Drop the padded rows of a micro-batched frame's HOST outputs.
+
+        An upstream that pads a stack to a fixed signature (query
+        serversrc ``batch=K``) says how many rows are real in
+        ``batch_valid_rows``. Host outputs (ndarrays, CPU tensors) whose
+        leading dim is the padded batch lose the padding (a view); any
+        other output (flat vectors, detection tables) passes through.
+        Outputs on the card ship padded: slicing them costs a device op
+        a frame, and the one copy of the stack to the host stays one
+        copy; the consumer reads the real rows only."""
+        nv = buf.extras.get("batch_valid_rows")
+        if nv is None or not buf.chunks:
+            return outputs
+        pad = buf.chunks[0].shape[0] if buf.chunks[0].shape else None
+        return [o[:nv] if not is_device_tensor(o)
+                and isinstance(o, (np.ndarray, torch.Tensor))
+                and o.ndim >= 1 and pad is not None
+                and o.shape[0] == pad and pad > nv else o
+                for o in outputs]
 
     def transfer_report(self) -> dict:
         """Window occupancy / overlap stats; {} when running

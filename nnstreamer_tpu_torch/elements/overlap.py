@@ -1,7 +1,7 @@
 """K-frame in-flight invoke window: dispatcher/completer split.
 
 Port of ``nnstreamer_tpu/elements/overlap.py`` without its observability
-spans (``obs/`` is not ported). The synchronous chain path pays H2D +
+spans (the port records no pipeline spans yet). The synchronous chain path pays H2D +
 invoke + D2H serially per frame; the backend's ``dispatch`` only
 enqueues the frame's graph on the card and records an event, so the fix
 is to stop blocking the chain thread on completion:

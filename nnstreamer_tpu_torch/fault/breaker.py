@@ -31,6 +31,7 @@ import threading
 import time
 from typing import Any, Callable, Dict, Optional
 
+from ..obs import events as _obs_events
 from ..pipeline.events import QosEvent
 from ..utils.atomic import Counters
 from ..utils.log import logger
@@ -127,7 +128,8 @@ def element_breaker(element, message_extra: Optional[
             element.stats.inc("breaker_opened")
         logger.warning("%s: circuit breaker %s -> %s", element.name, old,
                        new)
-        # obs event "breaker" (obs/ is not ported yet)
+        _obs_events.emit("breaker", source=element.name, element=element,
+                         old=old, new=new)
         extra = message_extra() if message_extra is not None else {}
         element.post_message(
             "warning", breaker=new, breaker_from=old, **extra,
@@ -145,7 +147,8 @@ def shed_frame(element, buf) -> None:
     their on_shed callback: the serve elements are not ported.)"""
     element.stats.inc("shed")
     element.stats.inc("dropped")
-    # obs event "shed" (obs/ is not ported yet)
+    _obs_events.emit("shed", source=element.name, element=element,
+                     reason="breaker-open", pts=buf.pts)
     element.send_upstream_event(QosEvent(
         proportion=2.0,
         period_ns=int(float(element.breaker_retry_after_ms) * 1e6),

@@ -3,10 +3,10 @@
 Port of ``nnstreamer_tpu/fault/element.py``. ``corrupt`` goes through
 the host as in the JAX package: the first chunk comes back as a host
 array with every byte inverted, whether it arrived on the card or not,
-so the output bytes and the chunk's residency match the reference. No
-element of the port has a ``kill_link()`` hook yet (the network
-elements are not ported), so ``kill-link`` raises as the reference does
-for a target without one.
+so the output bytes and the chunk's residency match the reference.
+``kill-link`` targets the port's network elements (``tensor_query_client``,
+``tensor_query_serversrc``, ``edgesink``, ``edgesrc``), each of which has
+a ``kill_link()`` hook; a target without one raises as in the reference.
 
 A passthrough element that injects failures into a live pipeline on a
 seeded, reproducible schedule — the chaos harness's hand on the wheel::
@@ -24,7 +24,7 @@ Modes:
 * ``drop``       — swallow the buffer (counted in ``stats['dropped']``)
 * ``kill-link``  — call ``kill_link()`` on the element named by
                    ``target`` (edgesrc/edgesink, query client,
-                   serversrc, servesrc): force-close its live
+                   serversrc): force-close its live
                    socket(s) mid-stream, then pass the buffer through.
                    The session layer's reconnect + resume must absorb
                    it with zero loss — that is the chaos assertion.

@@ -32,8 +32,13 @@ device time shows up in that element's proctime and in the
 interlatency of the elements after it; interlatency at a sink includes
 device completion only where the sink materialises the frame.
 
-Not ported: the per-link ``wire`` and ``session`` blocks (the edge
-transport), the serve router's block and the discovery broker's
+A networked element (``tensor_query_*``, ``edgesink``/``edgesrc``)
+adds a per-link ``wire`` block (bytes and messages each way, the codec's
+compression ratio, pack time, frames per message) and a ``session``
+block (sent/delivered, replays, duplicate drops, declared losses, acks,
+heartbeat RTT and the element's live ring gauges).
+
+Not ported: the serve router's block and the discovery broker's
 counters; their modules are not in the port yet.
 """
 from __future__ import annotations
@@ -47,6 +52,58 @@ from typing import Any, Dict, Optional, Sequence
 # bounded per-series sample budget: 512 f64 samples = 4 KB per element,
 # enough for +/- a few percent on p99 at streaming rates
 _RESERVOIR_K = 512
+
+
+def _wire_summary(st: Dict[str, Any]) -> Dict[str, Any]:
+    """Condense an element's wire_* counters (edge/wire.py) into the
+    per-link block report() exposes; {} when the element never touched
+    a socket, so non-networked elements stay uncluttered."""
+    out: Dict[str, Any] = {}
+    for key in ("wire_bytes_out", "wire_bytes_in",
+                "wire_msgs_out", "wire_msgs_in"):
+        if st.get(key):
+            out[key[5:]] = st[key]
+    raw, enc = st.get("wire_raw_bytes_out", 0), st.get("wire_enc_bytes_out", 0)
+    if raw and enc:
+        out["compress_ratio"] = round(raw / enc, 3)
+    frames_out = st.get("wire_frames_out", 0)
+    if frames_out:
+        out["frames_out"] = frames_out
+        out["pack_us_avg"] = round(
+            st.get("wire_pack_ns", 0) / frames_out / 1e3, 2)
+        msgs = st.get("wire_msgs_out", 0)
+        if msgs:
+            out["frames_per_msg"] = round(frames_out / msgs, 2)
+    if st.get("wire_frames_in"):
+        out["frames_in"] = st["wire_frames_in"]
+    return out
+
+
+def _session_summary(st: Dict[str, Any], el=None) -> Dict[str, Any]:
+    """Condense an element's session_* counters (edge/session.py) into
+    the per-link delivery-guarantee block: sent/delivered, replays,
+    dup-drops, DECLARED losses, ack traffic, heartbeat RTT. {} for
+    sessionless elements so existing reports are unchanged. The numbers
+    are exact by construction — the chaos harness asserts
+    sent == delivered + declared_lost (+ in-flight) from this block."""
+    out: Dict[str, Any] = {}
+    for key, val in st.items():
+        if key.startswith("session_") and val:
+            out[key[8:]] = val
+    pongs = st.get("session_pongs", 0)
+    if pongs:
+        out["rtt_us_avg"] = round(
+            st.get("session_rtt_ns", 0) / pongs / 1e3, 1)
+        out.pop("rtt_ns", None)
+    # live (non-counter) gauges: ring fill, attached sessions, frames
+    # awaiting a correlated result — whatever the element exposes
+    info = getattr(el, "session_info", None)
+    if callable(info):
+        try:
+            out.update(info() or {})
+        except Exception:  # noqa: BLE001 — reporting must never raise
+            pass
+    return out
 
 
 def _percentiles(samples, qs: Sequence[int]) -> Dict[str, float]:
@@ -215,6 +272,12 @@ class Tracer:
                 for key in ("dropped", "retries", "restarts", "shed"):
                     if st.get(key):
                         entry[key] = st[key]
+                w = _wire_summary(st)
+                if w:
+                    entry["wire"] = w
+                s = _session_summary(st, el)
+                if s:
+                    entry["session"] = s
                 q = getattr(el, "_q", None)
                 if q is not None and hasattr(q, "qsize"):
                     entry["queue_level"] = q.qsize()

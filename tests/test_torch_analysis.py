@@ -1,7 +1,7 @@
 """The port's pipelint (nnstreamer_tpu_torch/analysis/) against the JAX
 package's, on the CPU.
 
-Mirrors the tests/test_analysis.py cases of the twelve rules the port
+Mirrors the tests/test_analysis.py cases of the sixteen rules the port
 has (``TestRules``), ``TestStartGate``, ``TestReport`` and
 ``TestTraceExportRule``, and tests/test_fusion.py's ``TestLintRules``.
 Each description is parsed by both packages and analyzed without
@@ -49,9 +49,7 @@ FILTER = "tensor_filter name=f framework=simlink"
 DEFERRED = {
     "sharding-divisibility", "serve-mesh-divisibility", "mesh-colocation",
     "unbounded-admission", "router-no-replicas",
-    "router-affinity-sessionless", "link-resilience", "wire-config",
-    "session-replay-budget", "session-no-reconnect",
-    "llm-decode-no-kv-budget", "llm-prefix-cache-lossy-link",
+    "router-affinity-sessionless", "llm-decode-no-kv-budget", "llm-prefix-cache-lossy-link",
     "delta-no-keyframe-interval", "delta-lossy-gate-feeds-trainer",
     "autoscaler-config", "stateful-no-checkpoint",
 }
@@ -75,7 +73,7 @@ def findings_for(desc, rule=None):
 
 def test_rule_ids_are_the_reference_minus_the_deferred():
     assert {r.id for r in ALL_RULES} == {r.id for r in NT_RULES} - DEFERRED
-    assert len(ALL_RULES) == 12
+    assert len(ALL_RULES) == 16
 
 
 class TestCapsInference:
@@ -252,6 +250,78 @@ class TestRules:
         assert findings_for(ok, "async-window") == []
 
 
+CAPS_U8_FRAME = ("other/tensors,format=static,num_tensors=1,"
+                 "types=(string)uint8,dimensions=(string)3:224:224,"
+                 "framerate=(fraction)0/1")
+CAPS_BF16 = ("other/tensors,format=static,num_tensors=1,"
+             "types=(string)bfloat16,dimensions=(string)64:64,"
+             "framerate=(fraction)0/1")
+
+
+class TestAmongDeviceRules:
+    """link-resilience, wire-config, session-replay-budget and
+    session-no-reconnect: the same findings in both packages (checked by
+    ``findings_for``) on the reference's cases."""
+
+    def test_link_resilience(self):
+        bad = (  # pipelint: skip — no timeout, no reconnect
+            "edgesrc name=e timeout=0 reconnect=false ! fakesink "
+            f"tensortestsrc caps={CAPS_F32} ! tensor_query_client name=q "
+            "timeout=0 ! fakesink")
+        got = findings_for(bad, "link-resilience")
+        assert sorted((f.element, f.severity) for f in got) == [
+            ("e", Severity.INFO), ("e", Severity.WARNING),
+            ("q", Severity.WARNING)]
+
+    def test_wire_config_typos_and_coalescing(self):
+        bad = (  # pipelint: skip — typo'd codec/precision, bad coalescing
+            f"tensortestsrc caps={CAPS_F32} ! tee name=t "
+            "t. ! queue ! tensor_query_client name=q wire-codec=lz4 "
+            "wire-precision=fp8 ! fakesink "
+            "t. ! queue ! edgesink name=z coalesce-frames=0 "
+            "t. ! queue ! edgesink name=w coalesce-frames=4 coalesce-ms=0")
+        got = findings_for(bad, "wire-config")
+        assert sorted((f.element, f.severity) for f in got) == [
+            ("q", Severity.ERROR), ("q", Severity.ERROR),
+            ("w", Severity.WARNING), ("z", Severity.ERROR)]
+
+    def test_wire_config_accepts_the_reference_codec_names(self):
+        ok = (f"tensortestsrc caps={CAPS_F32} ! edgesink "
+              "wire-codec=delta wire-precision=bf16")
+        assert findings_for(ok, "wire-config") == []
+
+    @pytest.mark.parametrize("caps,ring_kb,frames,want", [
+        (CAPS_U8_FRAME, 64, 4, True), (CAPS_U8_FRAME, 8192, 4, False),
+        (CAPS_BF16, 16, 4, True), (CAPS_BF16, 32, 4, False),
+        (CAPS_FLEX, 1, 4, False)],
+        ids=["u8-small", "u8-default", "bf16-small", "bf16-fits", "flex"])
+    def test_session_replay_budget(self, caps, ring_kb, frames, want):
+        desc = (  # pipelint: skip — some rings are smaller than a batch
+            f"tensortestsrc caps={caps} ! edgesink name=z session=true "
+            f"session-ring-kb={ring_kb} coalesce-frames={frames}")
+        got = findings_for(desc, "session-replay-budget")
+        assert [(f.element, f.pad, f.severity) for f in got] == \
+            ([("z", "sink", Severity.ERROR)] if want else [])
+
+    def test_session_no_reconnect(self):
+        bad = (  # pipelint: skip — a session nothing can resume
+            "edgesrc name=e session=true reconnect=false ! fakesink "
+            "edgesrc name=ok session=true ! fakesink")
+        got = findings_for(bad, "session-no-reconnect")
+        assert [(f.element, f.severity) for f in got] == \
+            [("e", Severity.WARNING)]
+
+    def test_query_server_batch_bounds_the_signatures(self):
+        lines = {
+            0: ("tensor_query_serversrc ! " + FILTER +
+                " ! tensor_query_serversink"),
+            4: ("tensor_query_serversrc batch=4 ! " + FILTER +
+                " ! tensor_query_serversink")}
+        assert [f.element for f in findings_for(
+            lines[0], "jit-signatures")] == ["f"]
+        assert findings_for(lines[4], "jit-signatures") == []
+
+
 CLEAN_CORPUS = [
     # straight converter chain on fixed caps
     f"tensortestsrc caps={CAPS_U8} num-buffers=2 ! "
@@ -275,6 +345,15 @@ CLEAN_CORPUS = [
     "every=5 on-error=retry(2,0.01) ! tensor_filter framework=simlink "
     "breaker-threshold=2 in-flight=4 on-error=skip ! queue ! "
     "appsink name=out",
+    # the among-device lines: a micro-batching query server, a client,
+    # and a session pub/sub pair
+    "tensor_query_serversrc batch=4 ! tensor_filter framework=simlink ! "
+    "queue ! tensor_query_serversink",
+    f"tensortestsrc caps={CAPS_F32} ! tensor_query_client "
+    "wire-codec=shuffle-zlib ! appsink name=out",
+    f"tensortestsrc caps={CAPS_F32} ! edgesink session=true "
+    "coalesce-frames=4 wire-codec=shuffle-zlib",
+    "edgesrc session=true heartbeat-ms=50 ! appsink name=out",
 ]
 
 

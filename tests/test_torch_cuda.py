@@ -712,3 +712,59 @@ def test_device_source_restart_keeps_its_frame_pool(card):
         [float(i % 4) for i in range(8)]
     # the frames held at the sink are views of the one pool
     assert allocated == seen["allocated"]
+
+
+# -- slice 9: the query server on the card ---------------------------------
+
+def test_query_server_captures_one_graph_while_clients_stream(card):
+    """A batch=4 MobileNet-v2 server (width 0.35, 96x96, prefetch-host)
+    captures its first graph while three clients stream into it: the
+    server's reader threads only unpack into host arrays, the stack goes
+    to the card in the filter's staging, so the one capture succeeds and
+    every frame is answered once, in order, with finite logits."""
+    import socket
+    import threading
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    caps = ("other/tensors,format=static,num_tensors=1,types=uint8,"
+            "dimensions=3:96:96,framerate=0/1")
+    server = pt.parse_launch(
+        f"tensor_query_serversrc port={port} id={port} batch=4 "
+        "! tensor_filter name=f framework=torch-cuda "
+        'model="zoo://mobilenet_v2?width=0.35&size=96" prefetch-host=true '
+        f"! queue max-size-buffers=32 ! tensor_query_serversink id={port}")
+    server.start()
+    rng = np.random.default_rng(5)
+    frames = [rng.integers(0, 255, (96, 96, 3), np.uint8, endpoint=True)
+              for _ in range(24)]
+    got = {}
+
+    def client(c):
+        line = pt.parse_launch(
+            f"appsrc name=in caps={caps} ! tensor_query_client port={port} "
+            "timeout=60 max-request=8 ! appsink name=out")
+        line.start()
+        for i, f in enumerate(frames):
+            line["in"].push_buffer(pt.Buffer.from_arrays([f], pts=i))
+        line["in"].end_stream()
+        line.wait_eos(120)
+        got[c] = [(b.pts, b.chunks[0].host()) for b in line["out"].buffers]
+        line.stop()
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(3)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(180)
+        compiles = server["f"].fw.compile_count
+    finally:
+        server.stop()
+    assert not any(t.is_alive() for t in threads)
+    assert compiles == 1
+    for c in range(3):
+        assert [p for p, _ in got[c]] == list(range(24))
+        assert all(h.shape == (1001,) and np.isfinite(h).all()
+                   for _, h in got[c])
