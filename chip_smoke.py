@@ -158,11 +158,45 @@ queue between filter and decoder: unfused): host time a frame by element.
               ahead of a torch-cuda filter, refused at start() by
               PipelineValidationError with memory_allocated() unchanged
               and no model loaded.
+22-24. among devices — BASELINE config 5's query fan-out, the ViT line
+              behind the query link, edge pub/sub across a killed link.
+              Phases 22-28 run before phase 21, whose validate() reads
+              their lines too.
+25. shared vit — tensortestsrc ! tee into two ViT-B/16 legs (queue,
+              filter, appsink) under one shared-tensor-filter-key, 16
+              frames: one backend and one graph, 24 attention launches a
+              frame, both legs bitwise equal to the lone line;
+              memory_allocated() with the pair running against a pair
+              under two keys: lower by at least 0.9x the weights' bytes.
+26. suspend/reload — the headline line fed by appsrc with suspend=200:
+              16 frames, 600 ms idle (memory_allocated() falls by at
+              least the weights' bytes), 16 frames (one recapture, bitwise
+              equal to the clean run); reload_model(seed=1) while frames
+              stream 5 ms apart (a prefix bitwise equal to seed 0's line,
+              the rest to seed 1's, none lost); the filter fused with a
+              tensor_transform keeps serving seed 0 after the reload and a
+              suspend.
+27. combination — output-combination=i0,o0 on the headline line (the
+              frame and the logits, bitwise); a two-tensor stream with
+              input-combination=1; in-flight=4 donate-input=true (host
+              and card frames bitwise equal to in-flight=1, the card
+              frames unwritten, what donation did); an invoke-dynamic
+              custom-easy filter (indices of the logits above the mean,
+              FLEXIBLE caps) equal to numpy's.
+28. plain backends — framework=pytorch on a .pt traced from the seeded
+              MobileNet-v2 (fps and host launches a frame against the
+              torch-cuda line in the same call, logits within 1e-2 of
+              the largest |logit|); framework=custom on
+              csrc/custom_scaler.cc built with g++ into build/custom/
+              (equal to numpy); a python3 script after the card filter
+              (equal to numpy); SingleShot("zoo://vit?attn=pallas"): CUDA
+              outputs, 12 attention launches a call, bitwise equal to the
+              pipeline's.
 Every model line runs through the backend's per-signature executable,
 one captured CUDA graph per input signature: the first frame runs
 eagerly (the capture's warm-up), every later frame is one replay, so a
 hand kernel inside the graph counts once a frame.
-Phases 8-11, 13, 16, 17, 19, 20, 22 and 24 launch neither hand kernel
+Phases 8-11, 13, 16, 17, 19, 20, 22, 24, 26 and 27 launch neither hand kernel
 (their models inline their input affine, as the JAX models do); their
 launch counts are read all the same and written on the kernels line as
 0. The
@@ -2332,6 +2366,600 @@ def phase_edge_pubsub(smi):
     return out
 
 
+# -- phases 25-28: the rest of tensor_filter, the plain backends --------
+
+SUSPEND_MS = 200           # phase 26's suspend window
+SWAP_FRAMES = 16           # phase 26's frames around a reload
+# phase 28: the pytorch line's logits against the torch-cuda line's, as a
+# share of the largest |logit|. TorchScript runs the same bf16 model
+# through its own graph executor and fuser, which round at other points:
+# 0.57 % read on an H100 80GB HBM3 (700 W), on the first frames and the
+# steady ones alike; 1 % is about 2.5 bf16 ulps of the largest logit
+PT_TOL_REL = 1e-2
+
+
+def _weights_bytes(fw):
+    """Bytes of a torch-cuda backend's parameters and buffers."""
+    m = fw._module
+    return sum(t.numel() * t.element_size()
+               for t in list(m.parameters()) + list(m.buffers()))
+
+
+def _allocated():
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def _push_all(pipe, frames, gap_s=0.0, start=0):
+    import nnstreamer_tpu_torch as pt
+    for i, f in enumerate(frames):
+        pipe["in"].push_buffer(pt.Buffer.from_arrays([f], pts=start + i))
+        if gap_s:
+            time.sleep(gap_s)
+
+
+def _wait_frames(pipe, n, what, timeout=300):
+    deadline = time.monotonic() + timeout
+    while len(pipe["out"].buffers) < n:
+        if time.monotonic() > deadline:
+            sys.exit(f"chip_smoke: {what}: {len(pipe['out'].buffers)} of "
+                     f"{n} frames arrived")
+        time.sleep(0.002)
+
+
+def phase_shared_vit(smi):
+    """Phase 25: tensortestsrc ! tee into two ViT-B/16 legs (queue,
+    filter, appsink each) under one shared-tensor-filter-key, against
+    the lone line and against a pair under two keys; returns the row
+    and the lone line's logits."""
+    import nnstreamer_tpu_torch as pt
+    model = "zoo://vit?attn=pallas"
+    want = _model_outputs(model, FRAMES)
+
+    def pair(keys):
+        legs = " ".join(
+            f"t. ! queue max-size-buffers=8 ! tensor_filter name={leg} "
+            f'framework=torch-cuda model="{model}" '
+            f"shared-tensor-filter-key={key} ! appsink name=o{leg}"
+            for leg, key in zip("ab", keys))
+        pipe = pt.parse_launch(
+            f"tensortestsrc caps={_caps_at(FRAME_DIMS)} pattern=random "
+            f"seed={SEED} num-buffers={FRAMES} ! tee name=t {legs}")
+        _reset_launches()
+        pipe.start()
+        try:
+            if not pipe.wait_eos(600):
+                sys.exit(f"chip_smoke: shared vit {keys}: no EOS")
+            row = {"allocated": _allocated(),
+                   "same_backend": pipe["a"].fw is pipe["b"].fw,
+                   "compile_count": [pipe["a"].fw.compile_count,
+                                     pipe["b"].fw.compile_count],
+                   "weights_bytes": _weights_bytes(pipe["a"].fw),
+                   "kernel_launches": _kernel_launches()}
+        finally:
+            pipe.stop()
+        legs = {leg: np.stack([b.chunks[0].host()
+                               for b in pipe[f"o{leg}"].buffers])
+                for leg in "ab"}
+        row["bitwise_equal_lone"] = all(
+            v.shape == want.shape and v.tobytes() == want.tobytes()
+            for v in legs.values())
+        return row
+
+    shared = pair(("vit", "vit"))
+    apart = pair(("vit_a", "vit_b"))
+    saved = apart["allocated"] - shared["allocated"]
+    weights = shared["weights_bytes"]
+    launches = shared["kernel_launches"]["attention"]
+    row = {"frames": FRAMES, "allocated_shared": shared["allocated"],
+           "allocated_two_keys": apart["allocated"], "saved_bytes": saved,
+           "weights_bytes": weights, "shared": shared, "two_keys": apart,
+           "kernel_launches": shared["kernel_launches"]}
+    log(f"shared vit: two legs under one key share one backend "
+        f"({shared['same_backend']}), graphs {shared['compile_count']}, "
+        f"attention launches {launches} ({launches / FRAMES:.0f} a frame), "
+        f"legs {'bitwise equal' if shared['bitwise_equal_lone'] else 'NOT EQUAL'}"
+        f" to the lone line; memory_allocated {shared['allocated']} B "
+        f"shared vs {apart['allocated']} B under two keys: "
+        f"{saved / 2**20:.1f} MiB saved, ViT-B/16 weights "
+        f"{weights / 2**20:.1f} MiB; {smi}")
+    if not shared["same_backend"] or shared["compile_count"] != [1, 1] \
+            or not shared["bitwise_equal_lone"] \
+            or not apart["bitwise_equal_lone"] \
+            or launches != 2 * VIT_LAYERS * FRAMES \
+            or saved < 0.9 * weights:
+        sys.exit(f"chip_smoke: shared vit: {row}")
+    return row, want
+
+
+def _suspend_line(fused):
+    """The headline MobileNet-v2 line fed by appsrc with suspend; fused,
+    the filter runs in one segment with a tensor_transform after it."""
+    mid = ("! tensor_transform name=x mode=arithmetic option=mul:2 "
+           if fused else "")
+    return (f"appsrc name=in caps={_caps_at(FRAME_DIMS)} ! queue "
+            "max-size-buffers=8 ! tensor_filter name=f framework=torch-cuda "
+            "model=zoo://mobilenet_v2 latency=1 prefetch-host=true "
+            f"suspend={SUSPEND_MS} {mid}! queue max-size-buffers=32 "
+            "! appsink name=out")
+
+
+def _swap_split(got, before, after):
+    """The index where the outputs switch from ``before`` to ``after``:
+    a prefix bitwise equal to ``before``, the rest to ``after``; None
+    when they are not."""
+    split = 0
+    while split < len(got) and got[split].tobytes() == \
+            before[split].tobytes():
+        split += 1
+    ok = all(got[i].tobytes() == after[i].tobytes()
+             for i in range(split, len(got)))
+    return split if ok else None
+
+
+def phase_suspend_reload(smi, clean):
+    """Phase 26: suspend=200 on the headline line (16 frames, 3 windows
+    idle, 16 frames) and reload_model to seed 1 mid-stream; then the
+    same reload on the filter fused with the transform after it."""
+    import nnstreamer_tpu_torch as pt
+    from nnstreamer_tpu_torch.filters.base import FilterEvent
+    n = SWAP_FRAMES
+    frames = _frames(2 * n, _frame_shape()).numpy()
+    seed0 = _headline_logits(clean, 2 * n)
+    line1 = _headline_line(n).replace(
+        "model=zoo://mobilenet_v2", "model=zoo://mobilenet_v2?seed=1")
+    seed1, _ = _run_timed(line1, 0, n)
+    seed1 = [b.chunks[0].host() for b in seed1["out"].buffers]
+    out = {}
+    _reset_launches()
+    pipe = pt.parse_launch(_suspend_line(False))
+    pipe.start()
+    try:
+        f = pipe["f"]
+        _push_all(pipe, frames[:n])
+        _wait_frames(pipe, n, "suspend, first frames")
+        weights = _weights_bytes(f.fw)
+        busy = _allocated()
+        time.sleep(3 * SUSPEND_MS / 1e3)
+        suspended = f.fw._host_module is not None
+        idle = _allocated()
+        compiles = f.fw.compile_count
+        t0 = time.perf_counter()
+        _push_all(pipe, frames[n:n + 1], start=n)
+        _wait_frames(pipe, n + 1, "suspend, first frame after the resume")
+        first_ms = (time.perf_counter() - t0) * 1e3
+        _push_all(pipe, frames[n + 1:], start=n + 1)
+        _wait_frames(pipe, 2 * n, "suspend, frames after the resume")
+        resumed = f.fw.compile_count
+        # a steady frame for scale: one more, pushed and awaited alone
+        t0 = time.perf_counter()
+        _push_all(pipe, frames[:1], start=2 * n)
+        _wait_frames(pipe, 2 * n + 1, "suspend, a steady frame")
+        steady_ms = (time.perf_counter() - t0) * 1e3
+        # reload mid-stream: a thread pushes frames 5 ms apart from
+        # before the reload starts until SWAP_FRAMES after it returned,
+        # while this one loads the seed-1 model and swaps it in
+        import threading
+        base = 2 * n + 1
+        stop, pushed = threading.Event(), [0]
+
+        def feed():
+            while not stop.is_set():
+                i = pushed[0]
+                pipe["in"].push_buffer(pt.Buffer.from_arrays(
+                    [frames[i % n]], pts=base + i))
+                pushed[0] = i + 1
+                time.sleep(0.005)
+
+        feeder = threading.Thread(target=feed)
+        feeder.start()
+        time.sleep(0.05)
+        t0 = time.perf_counter()
+        f.reload_model("zoo://mobilenet_v2?seed=1")
+        reload_ms = (time.perf_counter() - t0) * 1e3
+        at_swap = pushed[0]
+        while pushed[0] < at_swap + n:
+            time.sleep(0.005)
+        stop.set()
+        feeder.join()
+        sent = pushed[0]
+        _wait_frames(pipe, base + sent, "reload")
+        pipe["in"].end_stream()
+        pipe.wait_eos(60)
+    finally:
+        pipe.stop()
+    launches = _kernel_launches()
+    got = [b.chunks[0].host() for b in pipe["out"].buffers]
+    across = all(g.tobytes() == w.tobytes()
+                 for g, w in zip(got[:2 * n], seed0))
+    split = _swap_split(got[base:], [seed0[i % n] for i in range(sent)],
+                        [seed1[i % n] for i in range(sent)])
+    out["plain"] = {
+        "weights_bytes": weights, "allocated_busy": busy,
+        "allocated_idle": idle, "freed_bytes": busy - idle,
+        "suspended": suspended, "compile_count_before": compiles,
+        "compile_count_after_resume": resumed,
+        "first_frame_after_resume_ms": first_ms,
+        "steady_frame_ms": steady_ms, "bitwise_across_resume": across,
+        "reload_ms": reload_ms, "reload_sent": sent, "reload_split": split,
+        "frames": len(got), "kernel_launches": launches}
+    log(f"suspend: {n} frames, {3 * SUSPEND_MS} ms idle (suspended "
+        f"{suspended}), memory_allocated {busy} -> {idle} B "
+        f"({(busy - idle) / 2**20:.2f} MiB freed; weights "
+        f"{weights / 2**20:.2f} MiB), {n} frames after the resume "
+        f"{'bitwise equal' if across else 'NOT EQUAL'} to the clean run, "
+        f"graphs {compiles} -> {resumed}; first frame after the resume "
+        f"{first_ms:.2f} ms, a steady frame {steady_ms:.2f} ms (pushed and "
+        f"awaited alone); {smi}")
+    log(f"reload: reload_model(seed=1) took {reload_ms:.1f} ms while "
+        f"frames streamed 5 ms apart; {len(got) - base} of {sent} arrived, "
+        f"the first {split} bitwise equal to seed 0's and the rest to seed "
+        f"1's; {smi}")
+    if not suspended or busy - idle < weights or not across \
+            or resumed != compiles + 1 or split is None \
+            or not 0 < split < sent or len(got) != base + sent:
+        sys.exit(f"chip_smoke: suspend/reload: {out['plain']}")
+
+    # fused with the transform after it: the segment keeps the weights
+    # it was planned with across the reload (as the JAX package's does)
+    _reset_launches()
+    pipe = pt.parse_launch(_suspend_line(True))
+    pipe.start()
+    try:
+        segs = _segments(pipe)
+        _push_all(pipe, frames[:n // 2])
+        _wait_frames(pipe, n // 2, "fused reload, first frames")
+        pipe["f"].reload_model("zoo://mobilenet_v2?seed=1")
+        pipe["f"].fw.handle_event(FilterEvent.SUSPEND)
+        _push_all(pipe, frames[n // 2:n], start=n // 2)
+        _wait_frames(pipe, n, "fused reload, frames after it")
+        pipe["in"].end_stream()
+        pipe.wait_eos(60)
+    finally:
+        pipe.stop()
+    launches = _kernel_launches()
+    got = [b.chunks[0].host() for b in pipe["out"].buffers]
+    twice = [(w * 2).astype(np.float32) for w in seed0[:n]]
+    serves = "seed 0" if all(g.tobytes() == w.tobytes()
+                             for g, w in zip(got, twice)) else "other"
+    out["fused"] = {"segments": [[m.name for m in s.members] for s in segs],
+                    "frames": len(got), "serves_after_reload": serves,
+                    "kernel_launches": launches}
+    log(f"fused reload: segment {out['fused']['segments']}; after "
+        f"reload_model(seed=1) and a suspend the fused line serves "
+        f"{serves}'s weights ({len(got)} frames, each 2x the seed-0 "
+        f"logits bitwise), as the JAX package's fused segment does; {smi}")
+    if out["fused"]["segments"] != [["f", "x"]] or serves != "seed 0":
+        sys.exit(f"chip_smoke: fused reload: {out['fused']}")
+    return out
+
+
+def phase_combination(smi, clean):
+    """Phase 27: output-combination=i0,o0 on the headline line, a
+    two-tensor stream with input-combination=1, in-flight=4 with
+    donate-input=true, and an invoke-dynamic custom-easy filter."""
+    import nnstreamer_tpu_torch as pt
+    from nnstreamer_tpu_torch.filters import (register_custom_easy,
+                                              unregister_custom_easy)
+    from nnstreamer_tpu_torch.filters.torch_cuda_backend import \
+        DONATION_NOTE
+    n = SWAP_FRAMES
+    frames = _frames(n, _frame_shape()).numpy()
+    want = _headline_logits(clean, n)
+    out = {}
+    _reset_launches()
+    pipe, _ = _run_timed(_headline_line(n, extra="output-combination=i0,o0 "),
+                         0, n)
+    launches = _kernel_launches()
+    bufs = pipe["out"].buffers
+    ok = all(len(b.chunks) == 2 and b.chunks[0].host().tobytes()
+             == f.tobytes() and b.chunks[1].host().tobytes() == w.tobytes()
+             for b, f, w in zip(bufs, frames, want))
+    out["output_combination"] = {"frames": len(bufs), "equal": ok,
+                                 "caps": str(pipe["out"].sinkpad.caps),
+                                 "kernel_launches": launches}
+    log(f"output-combination=i0,o0: {len(bufs)} frames, each the u8 frame "
+        f"and the logits, {'bitwise equal' if ok else 'NOT EQUAL'} to the "
+        f"input and the headline line's; caps {out['output_combination']['caps']}")
+    if not ok:
+        sys.exit("chip_smoke: output-combination differs")
+    # two tensors a frame: noise, then the frame; the model takes tensor 1
+    noise = np.random.default_rng(SEED).random((n, 10)).astype(np.float32)
+    caps = ('other/tensors,format=static,num_tensors=2,types=(string)'
+            f'"float32,uint8",dimensions=(string)"10,{FRAME_DIMS}",'
+            'framerate=(fraction)0/1')
+    _reset_launches()
+    pipe = pt.parse_launch(
+        f"appsrc name=in caps={caps} ! queue max-size-buffers=8 ! "
+        "tensor_filter framework=torch-cuda model=zoo://mobilenet_v2 "
+        "input-combination=1 output-combination=o0,i0 ! appsink name=out")
+    pipe.start()
+    try:
+        for i in range(n):
+            pipe["in"].push_buffer(pt.Buffer.from_arrays(
+                [noise[i], frames[i]], pts=i))
+        pipe["in"].end_stream()
+        pipe.wait_eos(300)
+    finally:
+        pipe.stop()
+    launches = _kernel_launches()
+    bufs = pipe["out"].buffers
+    ok = len(bufs) == n and all(
+        b.chunks[0].host().tobytes() == w.tobytes()
+        and b.chunks[1].host().tobytes() == z.tobytes()
+        for b, w, z in zip(bufs, want, noise))
+    out["input_combination"] = {"frames": len(bufs), "equal": ok,
+                                "kernel_launches": launches}
+    log(f"input-combination=1 on a two-tensor stream: {len(bufs)} frames, "
+        f"logits {'bitwise equal' if ok else 'NOT EQUAL'} to the headline "
+        "line's, tensor 0 passed through")
+    if not ok:
+        sys.exit("chip_smoke: input-combination differs")
+
+    # in-flight=4 with donate-input: host frames, then frames on the card
+    _reset_launches()
+    pipe, _ = _run_timed(_headline_line(
+        n, extra="in-flight=4 donate-input=true "), 0, n)
+    out["donate_host"] = {"kernel_launches": _kernel_launches()}
+    got = _by_pts(pipe)
+    host_ok = _bitwise(got, clean) and len(got) == n
+    dev = [torch.from_numpy(f).cuda() for f in frames]
+    kept = [d.clone() for d in dev]
+    _reset_launches()
+    pipe = pt.parse_launch(_suspend_line(False).replace(
+        f"suspend={SUSPEND_MS}", "in-flight=4 donate-input=true"))
+    pipe.start()
+    try:
+        _push_all(pipe, dev)
+        pipe["in"].end_stream()
+        pipe.wait_eos(300)
+        fw = pipe["f"].fw
+        noted = fw._donation_noted
+    finally:
+        pipe.stop()
+    launches = _kernel_launches()
+    torch.cuda.synchronize()
+    intact = all(torch.equal(d, k) for d, k in zip(dev, kept))
+    dev_ok = len(pipe["out"].buffers) == n and all(
+        b.chunks[0].host().tobytes() == w.tobytes()
+        for b, w in zip(pipe["out"].buffers, want))
+    out["donate"] = {"host_bitwise": host_ok, "device_bitwise": dev_ok,
+                     "upstream_intact": intact, "noted": noted,
+                     "note": DONATION_NOTE, "kernel_launches": launches}
+    out["donate_host"]["bitwise"] = host_ok
+    log(f"in-flight=4 donate-input=true: logits of {n} host frames "
+        f"{'bitwise equal' if host_ok else 'NOT EQUAL'} to in-flight=1, of "
+        f"{n} frames pushed on the card "
+        f"{'bitwise equal' if dev_ok else 'NOT EQUAL'}, every upstream CUDA "
+        f"frame {'intact' if intact else 'WRITTEN'}; what donation did: "
+        f"{DONATION_NOTE}")
+    if not (host_ok and dev_ok and intact and noted):
+        sys.exit(f"chip_smoke: donate-input: {out['donate']}")
+
+    # invoke-dynamic: the indices of the logits above the frame's mean
+    def above_mean(x):
+        return np.nonzero(x > x.mean())[0].astype(np.int32)
+
+    register_custom_easy("above_mean", above_mean)
+    _reset_launches()
+    try:
+        pipe, _ = _run_timed(_headline_line(
+            n, tail="! tensor_filter framework=custom-easy model=above_mean "
+                    "invoke-dynamic=true "), 0, n)
+    finally:
+        unregister_custom_easy("above_mean")
+    launches = _kernel_launches()
+    got = [b.chunks[0].host() for b in pipe["out"].buffers]
+    ok = len(got) == n and all(
+        g.dtype == np.int32 and np.array_equal(g, above_mean(w))
+        for g, w in zip(got, want))
+    caps = pipe["out"].sinkpad.caps.to_config()
+    out["dynamic"] = {"frames": len(got), "equal": ok,
+                      "lengths": [int(g.shape[0]) for g in got],
+                      "format": caps.format.name,
+                      "kernel_launches": launches}
+    log(f"invoke-dynamic: {len(got)} frames of {sorted(set(out['dynamic']['lengths']))[:4]}"
+        f"... indices, caps format {caps.format.name}, each "
+        f"{'equal' if ok else 'NOT EQUAL'} to numpy's on the headline "
+        f"logits; {smi}")
+    if not ok or caps.format.name != "FLEXIBLE":
+        sys.exit(f"chip_smoke: invoke-dynamic: {out['dynamic']}")
+    return out
+
+
+PY3_SOFTMAX = """
+import numpy as np
+
+
+def invoke(inputs):
+    x = np.asarray(inputs[0], dtype=np.float32)
+    e = np.exp(x - x.max())
+    return [(e / e.sum()).astype(np.float32)]
+"""
+
+
+def _host_launches(fn, calls):
+    """Kernel launches the host makes per call of ``fn``
+    (cudaLaunchKernel and its variants in torch.profiler's trace)."""
+    from torch.profiler import ProfilerActivity, profile
+    names = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+             "cuLaunchKernelEx")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.key in names) / calls
+
+
+def _build_custom_scaler():
+    """csrc/custom_scaler.cc built with g++ into build/custom/; returns
+    (the .so's path, build seconds)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    so_dir = os.path.join(root, "build", "custom")
+    os.makedirs(so_dir, exist_ok=True)
+    so = os.path.join(so_dir, "libcustom_scaler.so")
+    t0 = time.perf_counter()
+    subprocess.run(["g++", "-shared", "-fPIC", "-O2", "-I",
+                    os.path.join(root, "csrc"),
+                    os.path.join(root, "csrc", "custom_scaler.cc"),
+                    "-o", so], check=True, timeout=300)
+    return so, time.perf_counter() - t0
+
+
+def phase_plain_backends(smi, clean, vit, tmp):
+    """Phase 28: framework=pytorch on a .pt traced from the seeded
+    MobileNet-v2, framework=custom on csrc/custom_scaler.cc built with
+    g++, a python3 script after the card filter, and SingleShot on the
+    ViT line's model against the lone line's logits ``vit``."""
+    import nnstreamer_tpu_torch as pt
+    from nnstreamer_tpu_torch.filters import find_filter
+    from nnstreamer_tpu_torch.filters.base import FilterProperties
+    from nnstreamer_tpu_torch.models import zoo
+    from nnstreamer_tpu_torch.tensors.info import TensorsInfo
+    out = {}
+    n = MOBILENET_WARMUP + MOBILENET_FRAMES
+    frames = _frames(SWAP_FRAMES, _frame_shape()).numpy()
+    want = _headline_logits(clean, SWAP_FRAMES)
+
+    # -- pytorch: the zoo's seed-0 MobileNet-v2 behind a u8-frame wrapper
+    apply_fn, module, _, _ = zoo.build("mobilenet_v2")
+
+    class Frame(torch.nn.Module):
+        def __init__(self, m):
+            super().__init__()
+            self.m = m
+
+        def forward(self, x):
+            return apply_fn(self.m, x)
+
+    path = os.path.join(tmp, "mobilenet_v2.pt")
+    with torch.no_grad():
+        torch.jit.trace(Frame(module.cuda().eval()),
+                        torch.from_numpy(frames[0]).cuda()).save(path)
+    del module
+    pt_line = _headline_line(n).replace(
+        "framework=torch-cuda model=zoo://mobilenet_v2",
+        f"framework=pytorch model={path} input={FRAME_DIMS} inputtype=uint8")
+    rows = {}
+    for name, line in (("torch-cuda", _headline_line(n)),
+                       ("pytorch", pt_line)):
+        pipe, row = _run_line(f"plain {name}", line, MOBILENET_WARMUP,
+                              MOBILENET_FRAMES, smi)
+        rows[name] = (row, [b.chunks[0].host() for b in pipe["out"].buffers])
+    scale = max(float(np.abs(w).max()) for w in want)
+    diffs = [float(np.abs(g - w).max())
+             for g, w in zip(rows["pytorch"][1], rows["torch-cuda"][1])]
+    fw = find_filter("pytorch")()
+    fw.open(FilterProperties(model_files=(path,),
+                             input_info=TensorsInfo.make("uint8",
+                                                         FRAME_DIMS)))
+    x = torch.from_numpy(frames[0]).cuda()
+    launches = _host_launches(lambda: fw.invoke([x]), 8)
+    fw.close()
+    r = out["pytorch"] = {
+        "fps": rows["pytorch"][0]["fps"],
+        "p50_ms": rows["pytorch"][0]["p50_ms"],
+        "torch_cuda_fps": rows["torch-cuda"][0]["fps"],
+        "torch_cuda_p50_ms": rows["torch-cuda"][0]["p50_ms"],
+        "host_launches_a_frame": launches,
+        "max_abs_diff_first2": max(diffs[:2]),
+        "max_abs_diff_steady": max(diffs[2:]),
+        "bitwise_frames": sum(d == 0 for d in diffs), "frames": len(diffs),
+        "max_abs_logit": scale, "tol": PT_TOL_REL * scale,
+        "torch_cuda_bitwise_clean": all(
+            g.tobytes() == w.tobytes()
+            for g, w in zip(rows["torch-cuda"][1], want)),
+        "kernel_launches": rows["pytorch"][0]["kernel_launches"]}
+    out["torch_cuda"] = rows["torch-cuda"][0]
+    log(f"pytorch (TorchScript, eager): {r['fps']:.2f} fps, p50 "
+        f"{r['p50_ms']:.3f} ms, {launches:.1f} host launches a frame, "
+        f"against torch-cuda {r['torch_cuda_fps']:.2f} fps, p50 "
+        f"{r['torch_cuda_p50_ms']:.3f} ms in the same call; logits vs the "
+        f"torch-cuda line: max |diff| first 2 frames "
+        f"{r['max_abs_diff_first2']:.4g}, frames 3..{len(diffs)} "
+        f"{r['max_abs_diff_steady']:.4g} ({r['bitwise_frames']} of "
+        f"{len(diffs)} bitwise; tol {r['tol']:.4g} = {PT_TOL_REL} of max "
+        f"|logit| {scale:.4g}); {smi}")
+    if max(diffs) > r["tol"] or not r["torch_cuda_bitwise_clean"]:
+        sys.exit(f"chip_smoke: pytorch line: {r}")
+
+    # -- custom: csrc/custom_scaler.cc, built with g++ at first use
+    so, build_s = _build_custom_scaler()
+    f32 = np.random.default_rng(SEED).random(
+        (SWAP_FRAMES,) + _frame_shape()).astype(np.float32)
+    caps = _caps_at(FRAME_DIMS).replace("uint8", "float32")
+    _reset_launches()
+    pipe = pt.parse_launch(
+        f"appsrc name=in caps={caps} ! tensor_filter framework=custom "
+        f"model={so} custom=2.5 ! appsink name=out")
+    pipe.start()
+    try:
+        _push_all(pipe, f32)
+        pipe["in"].end_stream()
+        pipe.wait_eos(120)
+    finally:
+        pipe.stop()
+    launches = _kernel_launches()
+    got = [b.chunks[0].host() for b in pipe["out"].buffers]
+    ok = len(got) == SWAP_FRAMES and all(
+        g.tobytes() == (x * np.float32(2.5)).tobytes()
+        for g, x in zip(got, f32))
+    out["custom"] = {"frames": len(got), "equal_numpy": ok,
+                     "build_s": build_s, "kernel_launches": launches}
+    log(f"custom .so (g++ {build_s:.2f} s): {len(got)} f32 frames "
+        f"{'equal' if ok else 'NOT EQUAL'} to numpy's x * 2.5")
+    if not ok:
+        sys.exit("chip_smoke: the custom .so differs from numpy")
+
+    # -- python3: softmax in numpy after the MobileNet filter's CUDA output
+    script = os.path.join(tmp, "softmax.py")
+    with open(script, "w") as f:
+        f.write(PY3_SOFTMAX)
+    _reset_launches()
+    pipe, _ = _run_timed(_headline_line(
+        SWAP_FRAMES, tail=f"! tensor_filter framework=python3 "
+        f"model={script} "), 0, SWAP_FRAMES)
+    launches = _kernel_launches()
+    got = [b.chunks[0].host() for b in pipe["out"].buffers]
+    ns = {}
+    exec(PY3_SOFTMAX, ns)  # noqa: S102 - the same script as the filter's
+    ok = len(got) == SWAP_FRAMES and all(
+        g.tobytes() == ns["invoke"]([w])[0].tobytes()
+        for g, w in zip(got, want))
+    out["python3"] = {"frames": len(got), "equal_numpy": ok,
+                      "kernel_launches": launches}
+    log(f"python3: {len(got)} softmax frames after the card filter "
+        f"{'equal' if ok else 'NOT EQUAL'} to numpy's on the headline "
+        "logits")
+    if not ok:
+        sys.exit("chip_smoke: the python3 filter differs from numpy")
+
+    # -- SingleShot on the ViT line's model
+    vframes = _frames(FRAMES, _frame_shape()).numpy()
+    _reset_launches()
+    with pt.SingleShot("zoo://vit?attn=pallas") as shot:
+        outs = [shot.invoke([f])[0] for f in vframes]
+        torch.cuda.synchronize()
+    single = _kernel_launches()
+    on_card = all(o.is_cuda for o in outs)
+    same = all(o.cpu().numpy().tobytes() == v.tobytes()
+               for o, v in zip(outs, vit))
+    out["single_shot"] = {"calls": FRAMES, "cuda_outputs": on_card,
+                          "kernel_launches": single,
+                          "bitwise_equal_pipeline": same}
+    log(f"SingleShot(zoo://vit?attn=pallas): {FRAMES} calls, outputs on "
+        f"the card {on_card}, attention launches {single['attention']} "
+        f"({single['attention'] / FRAMES:.0f} a call), logits "
+        f"{'bitwise equal' if same else 'NOT EQUAL'} to the pipeline's; "
+        f"{smi}")
+    if not on_card or not same or single["attention"] != VIT_LAYERS * FRAMES:
+        sys.exit(f"chip_smoke: SingleShot: {out['single_shot']}")
+    return out
+
+
 def phase_pipelint(smi, lines):
     """Phase 21: Pipeline.validate() on every launch line phases 1-24
     ran (0 errors, 0 crashed rules), and a defective line refused at
@@ -2426,6 +3054,12 @@ def main():
     lines["query_fanout"] = phase_query_fanout(smi, clean)
     lines["query_vit"] = phase_query_vit(smi)
     lines["edge_pubsub"] = phase_edge_pubsub(smi)
+    lines["shared_vit"], vit = phase_shared_vit(smi)
+    # phases 26-28 run several lines each: one row, and one count, a line
+    multi = {"suspend_reload": phase_suspend_reload(smi, clean),
+             "combination": phase_combination(smi, clean)}
+    with tempfile.TemporaryDirectory() as tmp:
+        multi["plain_backends"] = phase_plain_backends(smi, clean, vit, tmp)
     pt.parse_launch = parse
     pipelint = phase_pipelint(smi, list(dict.fromkeys(launched)))
     for k in ("clean", "retry", "skip", "restart"):
@@ -2433,6 +3067,9 @@ def main():
     for k in ("retry", "restart", "skip", "breaker", "filter_restarts"):
         lines[f"segment_{k}"] = segment[k]
     new_paths = {k: row["kernel_launches"] for k, row in lines.items()}
+    new_paths.update({f"{k}_{line}": row["kernel_launches"]
+                      for k, rows in multi.items()
+                      for line, row in rows.items()})
     new_paths.update({f"vit_inflight{k}": row["kernel_launches"]
                       for k, row in inflight.items()})
     main_row = rows[0]
@@ -2472,7 +3109,7 @@ def main():
         "card": smi,
     }]
     log(json.dumps({"mobilenet": mobilenet, f"vit_batch{VIT_BATCH}": vit_batch,
-                    **lines, "graphs": graphs,
+                    **lines, **multi, "graphs": graphs,
                     "vit_inflight": {str(k): v for k, v in inflight.items()},
                     "vit_batch1": run, "traces": traces,
                     "policies_fail": policies["fail"],

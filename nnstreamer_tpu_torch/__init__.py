@@ -19,9 +19,10 @@ from . import elements  # noqa: F401  (registers tensor_* elements)
 from . import decoders  # noqa: F401  (registers decoder modes)
 from . import filters  # noqa: F401  (registers filter backends)
 from . import models  # noqa: F401  (registers zoo models)
+from .single import SingleShot
 
 __all__ = [
     "Buffer", "Chunk", "Caps", "TensorInfo", "TensorsInfo", "TensorsConfig",
     "TensorType", "TensorFormat", "Pipeline", "parse_launch", "make_element",
-    "register_element", "NotPortedError", "__version__",
+    "register_element", "NotPortedError", "SingleShot", "__version__",
 ]

@@ -15,16 +15,26 @@ padded rows of a micro-batched frame (``batch_valid_rows``, set by the
 query serversrc's ``batch=K``: host outputs are trimmed, card outputs
 ship padded), the circuit breaker (``breaker-threshold``, ``breaker-reset-ms``,
 ``breaker-retry-after-ms``: fault/breaker.py, fed by the chain thread
-synchronously and by the completer thread under ``in-flight``) and
-the rolling latency/throughput statistics. Chunks
-handed to the backend may already live on the card; outputs stay there
-until a host boundary, or, with ``prefetch-host=true``, leave as
-:class:`~..tensors.transfer.PendingHost` handles whose D2H copy the
-coalescing fetcher has already started.
+synchronously and by the completer thread under ``in-flight``),
+``suspend`` (a watchdog fed at each invoke and completion unloads the
+model after that many idle ms; the next invoke brings it back),
+:meth:`TensorFilter.reload_model`, ``shared-tensor-filter-key`` (filters
+with one key share one opened backend: one copy of the weights, one
+executable a signature, released with the last of them),
+``input-combination``/``output-combination`` (≙ tensor_filter.c:972-1076:
+the inputs handed to the model, and the output buffer mixing input
+passthrough ``iN`` and model outputs ``oN``; the src caps list the
+combined tensors), ``invoke-dynamic`` (FLEXIBLE out caps, per-frame
+output shapes), ``donate-input`` (handed to the backend's ``dispatch``
+under ``in-flight``) and the rolling latency/throughput statistics.
+Chunks handed to the backend may already live on the card; a backend
+declaring ``HOST_INPUTS`` (custom-easy, python3, custom) gets them on the
+host. Outputs stay on the card until a host boundary, or, with
+``prefetch-host=true``, leave as :class:`~..tensors.transfer.PendingHost`
+handles whose D2H copy the coalescing fetcher has already started.
 
-Not ported yet, each refused at start when set (``NOT_PORTED``): input
-donation, invoke-async/invoke-dynamic, suspend, the shared-model key
-and input/output combination; a ``custom=mesh:`` option raises in the
+Not ported yet: ``invoke-async`` (``NOT_PORTED``, refused at start: only
+the LLM backend implements it); a ``custom=mesh:`` option raises in the
 torch-cuda backend. A breaker-open shed answers no serve rows (the
 serve elements are not ported).
 """
@@ -39,9 +49,12 @@ import numpy as np
 import torch
 
 from ..fault.breaker import element_breaker, shed_frame
-from ..filters.base import Accelerator, FilterProperties, InvokeDrop
+from ..filters.base import (Accelerator, FilterEvent, FilterProperties,
+                            InvokeDrop)
 from ..filters.executable import GraphPool
-from ..filters.registry import detect_framework, find_filter
+from ..filters.registry import (detect_framework, find_filter,
+                                shared_model_get, shared_model_insert,
+                                shared_model_release)
 from ..pipeline.element import Element, TransferError
 from ..pipeline.events import Event, FlushEvent, QosEvent, SegmentEvent
 from ..pipeline.pad import Pad
@@ -52,6 +65,7 @@ from ..tensors.info import TensorInfo, TensorsConfig, TensorsInfo
 from ..tensors.transfer import is_device_tensor, submit_fetch
 from ..tensors.types import TensorFormat
 from ..utils.log import logger
+from ..utils.watchdog import Watchdog
 
 # rolling window for the latency property
 # (≙ GST_TF_STAT_MAX_RECENT, tensor_filter.c)
@@ -78,6 +92,28 @@ def infer_batch_dim(sel: TensorsInfo, model: TensorsInfo) -> Optional[int]:
         elif int(s.shape[0]) != b:
             return None
     return b
+
+
+def _batched(info: TensorsInfo, batch: Optional[int]) -> TensorsInfo:
+    """``info`` with a leading ``batch`` dim on every tensor (a copy)."""
+    if batch is None:
+        return info.copy()
+    return TensorsInfo(TensorInfo(i.name, i.type, (batch,) + tuple(i.shape))
+                       for i in info)
+
+
+def _combi_tokens(prop: str) -> Optional[List[str]]:
+    """``output-combination``'s tokens (``["i0", "o0"]``), None unset."""
+    return [t.strip() for t in prop.split(",")] if prop else None
+
+
+def _combined_info(tokens: List[str], stream: TensorsInfo,
+                   outputs: TensorsInfo) -> TensorsInfo:
+    """The tensors of an output buffer under ``output-combination``:
+    ``iN`` is the stream's tensor N passed through, ``oN`` the model's
+    output N (≙ the combined out info, tensor_filter_common.c)."""
+    return TensorsInfo(stream[int(t[1:])] if t[0] == "i"
+                       else outputs[int(t[1:])] for t in tokens)
 
 
 @register_element("tensor_filter")
@@ -124,20 +160,29 @@ class TensorFilter(Element):
         "breaker-threshold": 0,
         "breaker-reset-ms": 1000.0,
         "breaker-retry-after-ms": 50.0,
+        "invoke-dynamic": False,
+        "suspend": 0,            # idle ms before the model is unloaded; 0 = off
+        "shared-tensor-filter-key": "",
+        # "1,0": the stream tensors handed to the model, in that order
+        "input-combination": "",
+        # "i0,o0": the output buffer — input passthrough iN, output oN
+        "output-combination": "",
+        # ask the backend to reuse the staging memory of host inputs it
+        # staged itself for the outputs (in-flight dispatch only; never
+        # an upstream tensor); the torch-cuda backend has none to reuse
+        # and says so once
+        "donate-input": False,
     }
     NOT_PORTED = {
-        "invoke-dynamic": False,
         "invoke-async": False,
-        "suspend": 0,
-        "shared-tensor-filter-key": "",
-        "input-combination": "",
-        "output-combination": "",
-        "donate-input": False,
     }
 
     def __init__(self, name=None, **props):
         super().__init__(name, **props)
         self.fw = None
+        self._watchdog: Optional[Watchdog] = None
+        self._in_combi: Optional[List[int]] = None
+        self._out_combi: Optional[List[str]] = None
         self._in_info: Optional[TensorsInfo] = None
         self._out_info: Optional[TensorsInfo] = None
         self._recent_latency = collections.deque(maxlen=_MAX_RECENT)
@@ -172,6 +217,7 @@ class TensorFilter(Element):
         fw_name = self.framework
         if fw_name in ("auto", ""):
             fw_name = detect_framework(models)
+        key = self.shared_tensor_filter_key or None
         props = FilterProperties(
             framework=fw_name,
             model_files=models,
@@ -180,18 +226,36 @@ class TensorFilter(Element):
             accelerators=(tuple(Accelerator.parse(self.accelerator))
                           if self.accelerator else (Accelerator.DEFAULT,)),
             custom_properties=self.custom,
-            graph_pool=self._graph_pool,
+            shared_key=key,
+            # a shared backend owns its graph pool, which lives until the
+            # last release: stopping one filter must not free the graphs
+            # the others replay
+            graph_pool=None if key else self._graph_pool,
         )
         if self.input and self.inputtype:
             props.input_info = TensorsInfo.make(self.inputtype, self.input)
         if self.output and self.outputtype:
             props.output_info = TensorsInfo.make(self.outputtype, self.output)
-        fw = find_filter(fw_name)()
-        fw.open(props)
+        # consult the shared table BEFORE loading: one copy of the weights
+        fw = shared_model_get(key) if key else None
+        if fw is None:
+            fw = find_filter(fw_name)()
+            fw.open(props)
+            if key:
+                shared = shared_model_insert(key, fw)
+                if shared is not fw:  # another filter opened it first
+                    fw.close()
+                    fw = shared
         self.fw = fw
         mi_in, mi_out = fw.get_model_info()
         self._in_info = props.input_info or mi_in
         self._out_info = props.output_info or mi_out
+        if self.suspend > 0:
+            self._watchdog = Watchdog(self.suspend / 1000.0, self._on_idle)
+        if self.input_combination:
+            self._in_combi = [int(i) for i in
+                              self.input_combination.split(",")]
+        self._out_combi = _combi_tokens(self.output_combination)
 
     RESTART_SAFE = True  # stop/start re-opens the framework cleanly
 
@@ -226,8 +290,14 @@ class TensorFilter(Element):
             # the (stopped) executor is kept so its report stays readable
             self._overlap.flush()
             self._overlap.stop()
+        if self._watchdog is not None:
+            self._watchdog.destroy()
+            self._watchdog = None
         if self.fw is not None:
-            self.fw.close()
+            if self.shared_tensor_filter_key:
+                shared_model_release(self.shared_tensor_filter_key)
+            else:
+                self.fw.close()
             self.fw = None
 
     def teardown(self) -> None:
@@ -249,8 +319,8 @@ class TensorFilter(Element):
         self._open_fw()
         cfg = caps.to_config()
         self._batch = None
+        sel = self._selected(cfg.info)
         if self._in_info is not None and cfg.format == TensorFormat.STATIC:
-            sel = cfg.info
             if len(sel) and not sel.is_equal(self._in_info):
                 self._batch = self._infer_batch(sel)
                 if self._batch is None:
@@ -261,36 +331,38 @@ class TensorFilter(Element):
                         "properties explicitly.")
         elif self._in_info is None:
             # push-path: derive model info from caps (SET_INPUT_INFO analog)
-            self._in_info = cfg.info
-            out = self.fw.set_input_info(cfg.info)
+            self._in_info = sel
+            out = self.fw.set_input_info(sel)
             if out is not None:
                 self._out_info = out
-        if self._out_info is None:
+        if self.invoke_dynamic or self._out_info is None:
             out_cfg = TensorsConfig(TensorsInfo(), TensorFormat.FLEXIBLE,
                                     cfg.rate_n, cfg.rate_d)
         else:
-            out_info = self._out_info.copy()
-            if self._batch is not None:
-                out_info = TensorsInfo(
-                    TensorInfo(i.name, i.type, (self._batch,) + tuple(i.shape))
-                    for i in out_info)
+            out_info = _batched(self._out_info, self._batch)
+            if self._out_combi:
+                out_info = _combined_info(self._out_combi, cfg.info,
+                                          out_info)
             out_cfg = TensorsConfig(out_info, TensorFormat.STATIC,
                                     cfg.rate_n, cfg.rate_d)
         self.set_src_caps(Caps.from_config(out_cfg))
         if self.warmup:
-            if cfg.format != TensorFormat.STATIC:
+            if self.invoke_dynamic or cfg.format != TensorFormat.STATIC:
                 # not silently inert: tell the user WHY nothing warmed
-                logger.info("%s: warmup requested but skipped (non-static "
-                            "stream format) — no fixed invoke signature "
-                            "to warm", self.name)
-            elif len(cfg.info):
-                self._warmup_invoke(cfg.info)
+                logger.info("%s: warmup requested but skipped (%s) — no "
+                            "fixed invoke signature to warm", self.name,
+                            "invoke-dynamic" if self.invoke_dynamic
+                            else "non-static stream format")
+            elif len(sel):
+                self._warmup_invoke(sel)
 
     def static_transfer(self, in_caps):
         """Model I/O from declared properties only (the framework is
         never opened): input/inputtype are checked against the stream
-        with batch-dim tolerance; output/outputtype give the out caps,
-        otherwise the output is unknown."""
+        (the tensors input-combination selects) with batch-dim
+        tolerance; invoke-dynamic or output/outputtype (combined as
+        output-combination says) give the out caps, otherwise the output
+        is unknown."""
         incaps = in_caps.get("sink")
         cfg = None
         if incaps is not None and not incaps.any and incaps.structures \
@@ -301,10 +373,13 @@ class TensorFilter(Element):
                 raise TransferError(f"{self.name}: {exc}", pad="sink")
         rate = (cfg.rate_n, cfg.rate_d) if cfg is not None else (0, 1)
         batch = None
-        if self.input and self.inputtype and cfg is not None \
-                and cfg.format == TensorFormat.STATIC and len(cfg.info):
+        static = cfg is not None and cfg.format == TensorFormat.STATIC
+        if self.input and self.inputtype and static and len(cfg.info):
             model_in = TensorsInfo.make(self.inputtype, self.input)
             sel = cfg.info
+            if self.input_combination:
+                sel = TensorsInfo(cfg.info[int(i)] for i in
+                                  self.input_combination.split(","))
             if len(sel) and not sel.is_equal(model_in):
                 # permissive on batching: SUPPORTS_BATCH is a backend
                 # trait we cannot know without opening the framework
@@ -319,11 +394,13 @@ class TensorFilter(Element):
             out_cfg = TensorsConfig(TensorsInfo(), TensorFormat.FLEXIBLE,
                                     *rate)
         elif self.output and self.outputtype:
-            out_info = TensorsInfo.make(self.outputtype, self.output)
-            if batch is not None:
-                out_info = TensorsInfo(
-                    TensorInfo(i.name, i.type, (batch,) + tuple(i.shape))
-                    for i in out_info)
+            out_info = _batched(
+                TensorsInfo.make(self.outputtype, self.output), batch)
+            tokens = _combi_tokens(self.output_combination)
+            if tokens:
+                if not static:
+                    return {"src": None}  # iN needs the stream's caps
+                out_info = _combined_info(tokens, cfg.info, out_info)
             out_cfg = TensorsConfig(out_info, TensorFormat.STATIC, *rate)
         else:
             return {"src": None}  # model metadata needs the framework
@@ -370,26 +447,25 @@ class TensorFilter(Element):
         cfg = incaps.to_config()
         if cfg.format != TensorFormat.STATIC or self._out_info is None:
             return None
-        sel = cfg.info
+        sel = self._selected(cfg.info)
         batch = None
         if self._in_info is not None and len(sel) \
                 and not sel.is_equal(self._in_info):
             batch = self._infer_batch(sel)
             if batch is None:
                 return None
-        out_info = self._out_info.copy()
-        if batch is not None:
-            out_info = TensorsInfo(
-                TensorInfo(i.name, i.type, (batch,) + tuple(i.shape))
-                for i in out_info)
+        out_info = _batched(self._out_info, batch)
+        if self._out_combi:
+            out_info = _combined_info(self._out_combi, cfg.info, out_info)
         return Caps.from_config(TensorsConfig(
             out_info, TensorFormat.STATIC, cfg.rate_n, cfg.rate_d))
 
     def device_fn(self, ctx=None):
-        """The backend's eager apply closure as a list -> list program.
-        prefetch-host is ignored for MID-segment outputs (activations
-        never leave the device, which is the point); the FusedSegment
-        honors it for the segment's final outputs instead."""
+        """The backend's eager apply closure as a list -> list program,
+        wrapped with the input/output-combination wiring. prefetch-host
+        is ignored for MID-segment outputs (activations never leave the
+        device, which is the point); the FusedSegment honors it for the
+        segment's final outputs instead."""
         if self.device_veto() is not None:
             return None
         try:
@@ -404,9 +480,16 @@ class TensorFilter(Element):
         if tr is None:
             return None
 
+        in_combi, out_combi = self._in_combi, self._out_combi
+
         def fn(arrays):
-            outs = tr(*arrays)
-            return list(outs) if isinstance(outs, (list, tuple)) else [outs]
+            xs = [arrays[i] for i in in_combi] if in_combi else arrays
+            outs = tr(*xs)
+            outs = list(outs) if isinstance(outs, (list, tuple)) else [outs]
+            if out_combi:
+                outs = [arrays[int(t[1:])] if t[0] == "i"
+                        else outs[int(t[1:])] for t in out_combi]
+            return outs
 
         return fn
 
@@ -420,6 +503,13 @@ class TensorFilter(Element):
             zeros = [np.zeros(tuple(i.shape), i.type.np_dtype)
                      for i in sel]
             self.fw.invoke(zeros)
+            if self._watchdog is not None and self.fused_in is None:
+                # a long warmup capture must not be answered by an
+                # immediate idle-suspend that drops what it built. A
+                # fused filter's dog stays unarmed: its chain never runs
+                # to feed it, and a suspend would free nothing there
+                # (the segment's program keeps the weights on the card)
+                self._watchdog.feed()
             logger.info("%s: warmup invoke compiled %d input(s)",
                         self.name, len(zeros))
         except Exception as exc:  # noqa: BLE001
@@ -440,7 +530,12 @@ class TensorFilter(Element):
             # upstream when to come back
             shed_frame(self, buf)
             return
-        inputs = [c.raw for c in buf.chunks]
+        chunks = buf.chunks if not self._in_combi \
+            else [buf.chunks[i] for i in self._in_combi]
+        if getattr(self.fw, "HOST_INPUTS", False):
+            inputs = [c.host() for c in chunks]
+        else:
+            inputs = [c.raw for c in chunks]
         if self._overlap is not None:
             self._dispatch_windowed(buf, inputs)
             return
@@ -465,12 +560,14 @@ class TensorFilter(Element):
         dt = time.perf_counter_ns() - t0
         self._record_dispatch(dt)
         self._record_latency(dt)
+        if self._watchdog is not None:
+            self._watchdog.feed()
         outputs = self._trim_padded_rows(buf, outputs)
         if self.prefetch_host:
             # the frame leaves carrying PendingHost handles; frames queued
             # while a copy batch is in flight share the next one
             outputs = submit_fetch(outputs)
-        self.push(buf.with_chunks([Chunk(o) for o in outputs]))
+        self.push(buf.with_chunks(self._combine_outputs(buf, outputs)))
 
     # -- in-flight window (overlapped execution) ---------------------------
     def _dispatch_windowed(self, buf: Buffer, inputs: List[Any]) -> None:
@@ -483,7 +580,8 @@ class TensorFilter(Element):
         t0 = time.perf_counter_ns()
         c0 = getattr(self.fw, "compile_count", 0)
         try:
-            handle = self.fw.dispatch(inputs)
+            handle = self.fw.dispatch(inputs,
+                                      donate=bool(self.donate_input))
         except InvokeDrop:
             # release FIRST: the completer never sees this frame
             self._overlap.window.release(t_disp)
@@ -513,10 +611,13 @@ class TensorFilter(Element):
         if self._breaker is not None:
             self._breaker.record_success()
         self._record_latency(time.perf_counter_ns() - entry.t_dispatch_ns)
+        if self._watchdog is not None:
+            self._watchdog.feed()
         outputs = self._trim_padded_rows(entry.buf, outputs)
         if self.prefetch_host:
             outputs = submit_fetch(outputs)
-        return entry.buf.with_chunks([Chunk(o) for o in outputs])
+        return entry.buf.with_chunks(
+            self._combine_outputs(entry.buf, outputs))
 
     def _complete_error(self, entry, exc: BaseException) -> None:
         """A frame that failed at completion: the same per-frame
@@ -546,6 +647,22 @@ class TensorFilter(Element):
                 and o.ndim >= 1 and pad is not None
                 and o.shape[0] == pad and pad > nv else o
                 for o in outputs]
+
+    def _selected(self, stream: TensorsInfo) -> TensorsInfo:
+        """The stream tensors the model is handed (input-combination)."""
+        if not self._in_combi:
+            return stream
+        return TensorsInfo(stream[i] for i in self._in_combi)
+
+    def _combine_outputs(self, inbuf: Buffer,
+                         outputs: List[Any]) -> List[Chunk]:
+        """The output buffer's chunks: the outputs, or what
+        output-combination mixes — ``iN`` passes the input chunk through
+        (≙ out-combination, tensor_filter.c:972-1076)."""
+        if not self._out_combi:
+            return [Chunk(o) for o in outputs]
+        return [inbuf.chunks[int(t[1:])] if t[0] == "i"
+                else Chunk(outputs[int(t[1:])]) for t in self._out_combi]
 
     def transfer_report(self) -> dict:
         """Window occupancy / overlap stats; {} when running
@@ -668,3 +785,22 @@ class TensorFilter(Element):
             return 0.0
         dt = time.monotonic() - self._start_time
         return self._invoke_count / dt if dt > 0 else 0.0
+
+    # -- suspend and reload -----------------------------------------------
+    def _on_idle(self) -> None:
+        """The watchdog's callback, on its own thread: ``suspend`` ms
+        without an invoke unload the model (the backend serialises the
+        unload against its invokes)."""
+        fw = self.fw
+        if fw is not None:
+            logger.info("%s: idle %dms, suspending model", self.name,
+                        self.suspend)
+            fw.handle_event(FilterEvent.SUSPEND)
+
+    def reload_model(self, model: Optional[str] = None) -> bool:
+        """Hot-swap the model (≙ RELOAD_MODEL / is-updatable path): the
+        backend serves the old one until the new one is loaded."""
+        if model:
+            self.model = model
+        data = {"model_files": tuple(self.model.split(","))} if model else None
+        return self.fw.handle_event(FilterEvent.RELOAD_MODEL, data)

@@ -5,10 +5,11 @@ ref: gst/nnstreamer/include/nnstreamer_plugin_api_filter.h:399-475 —
 open/close/invoke/getModelInfo).
 
 The non-blocking ``dispatch``/``complete`` split behind the element's
-in-flight window is ported, with ``custom=`` option strings (which
-only the ``simlink`` backend reads). Not ported yet: the event
-vocabulary (reload, suspend/resume) and the async generative output
-path.
+in-flight window is ported, with ``custom=`` option strings and the
+reference's RELOAD_MODEL, SUSPEND and RESUME events
+(:class:`FilterEvent`). Not ported yet: the async
+generative output path (``invoke_async``, which only the LLM backend
+implements).
 """
 from __future__ import annotations
 
@@ -37,6 +38,16 @@ def parse_custom_properties(s: str) -> Dict[str, str]:
 class InvokeDrop(Exception):
     """Raised by a backend's ``invoke`` to signal "drop this frame, keep
     the pipeline" (≙ invoke result > 0, tensor_filter.c:961-963)."""
+
+
+class FilterEvent(enum.Enum):
+    """The events the port sends (ref: event_ops enum,
+    nnstreamer_plugin_api_filter.h:205-217; the JAX package lists the
+    rest, which no port element sends yet)."""
+
+    RELOAD_MODEL = "reload_model"
+    SUSPEND = "suspend"
+    RESUME = "resume"
 
 
 class Accelerator(enum.Enum):
@@ -85,6 +96,8 @@ class FilterProperties:
     output_info: Optional[TensorsInfo] = None
     accelerators: Tuple[Accelerator, ...] = (Accelerator.DEFAULT,)
     custom_properties: str = ""
+    # shared-tensor-filter-key: instances with one key share one backend
+    shared_key: Optional[str] = None
     # the element's GraphPool (filters/executable.py), kept across the
     # element's restarts: a backend that captures CUDA graphs captures
     # into it, and makes its own when opened without one
@@ -113,6 +126,11 @@ class FilterFramework:
     # invoke is inherently synchronous leave this False; the element
     # then ignores the window and stays synchronous.
     SUPPORTS_DISPATCH = False
+    # True when invoke() must be handed host arrays that numpy can read:
+    # the element then fetches chunks that live on the card once before
+    # the invoke (a user's numpy function cannot read a CUDA tensor; the
+    # JAX package hands such functions jax.Arrays, which numpy reads)
+    HOST_INPUTS = False
 
     def open(self, props: FilterProperties) -> None:
         raise NotImplementedError
@@ -128,8 +146,10 @@ class FilterFramework:
                  ) -> Any:
         """Enqueue one frame's device program WITHOUT waiting for the
         results; returns an opaque in-flight handle for
-        :meth:`complete`. ``donate`` is the JAX package's input-donation
-        flag; the port has no donation and ignores it. The default
+        :meth:`complete`. ``donate`` permits reusing the staging memory
+        of inputs the backend itself staged (never an upstream tensor);
+        a backend with nothing to reuse says so once and ignores it. The
+        default
         degrades to a synchronous invoke — the handle IS the outputs — so
         a window of K over a non-async backend is merely useless, never
         wrong."""
@@ -158,3 +178,11 @@ class FilterFramework:
         """Negotiation push-path: given input info, return output info
         (≙ getModelInfo SET_INPUT_INFO, nnstreamer_plugin_api_filter.h:439)."""
         return None
+
+    def handle_event(self, event: FilterEvent,
+                     data: Optional[dict] = None) -> bool:
+        """Return True if handled. RELOAD_MODEL (``data`` may carry new
+        ``model_files``), SUSPEND and RESUME arrive here; SUSPEND comes
+        from the element's watchdog thread, so a backend that answers it
+        serialises it against its own invokes."""
+        return False

@@ -39,12 +39,34 @@ Device: ``cuda:0`` unless ``accelerator`` opts out (``false`` or
 the backend never falls back to the CPU by itself. Outputs stay on the
 filter's device, so chained device elements keep them on the card.
 
+Events (``handle_event``, the counterpart of the JAX backend's):
+``SUSPEND`` (from the element's ``suspend`` watchdog thread) waits for
+the card to finish the work already queued, drops every executable and
+only then takes the weights off the card; the first invoke after it
+brings them back and captures afresh into the same graph pool
+(``compile_count`` counts the recapture). ``RELOAD_MODEL`` builds the
+new model beside the old one, which keeps serving until the swap; the
+swap waits for the card as a suspend does and drops the executables.
+Both work on copies: ``Module.to`` swaps the tensors of the module it is
+called on, and a fused segment's program (``traceable_fn``) holds that
+module, so a fused filter keeps serving the weights it was planned with,
+on the card, across a suspend or a reload — as the JAX backend's
+closure keeps the params it captured by value.
+
+Input donation (``dispatch(donate=True)``) has nothing to reuse here:
+a host input is staged into the captured graph's static input, which
+every replay reuses, and the outputs are clones out of the graph's pool
+(on the CPU there is no staging at all). The backend accepts the request
+and says so once in an INFO log; no tensor handed to it is written.
+
 Not ported yet: mesh mode (``custom=mesh:...`` raises
-:class:`~..pipeline.element.NotPortedError`), input donation, the
-persistent compile cache, reload and suspend/resume.
+:class:`~..pipeline.element.NotPortedError`) and the persistent compile
+cache.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 import threading
 import urllib.parse
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -53,22 +75,42 @@ import torch
 
 from ..tensors.info import TensorsInfo
 from ..utils.log import logger
-from .base import (Accelerator, FilterFramework, FilterProperties,
-                   parse_custom_properties)
+from .base import (Accelerator, FilterEvent, FilterFramework,
+                   FilterProperties, parse_custom_properties)
 from .executable import Executable, GraphPool, signature
 from .registry import register_filter
 
 
-def _device_for(accelerators: Sequence[Accelerator]) -> torch.device:
+def device_for(accelerators: Sequence[Accelerator]) -> torch.device:
     """``cpu`` for an explicit opt-out (``false``, ``true:cpu``), else the
     first CUDA device; raises when CUDA is wanted and missing."""
     if accelerators and accelerators[0] in (Accelerator.CPU, Accelerator.NONE):
         return torch.device("cpu")
     if not torch.cuda.is_available():
         raise RuntimeError(
-            "torch-cuda filter: no CUDA device is available; pass "
+            "no CUDA device is available; pass "
             "accelerator=true:cpu (or false) to run on the CPU")
     return torch.device("cuda", 0)
+
+
+def _moved(module: torch.nn.Module,
+           device: torch.device) -> torch.nn.Module:
+    """A copy of ``module`` whose parameters and buffers live on
+    ``device``, leaving ``module`` and its tensors as they are."""
+    memo: Dict[int, Any] = {}
+    for p in module.parameters():
+        memo[id(p)] = torch.nn.Parameter(p.detach().to(device),
+                                         requires_grad=p.requires_grad)
+    for b in module.buffers():
+        memo[id(b)] = b.to(device)
+    return copy.deepcopy(module, memo)
+
+
+DONATION_NOTE = (
+    "donate-input: nothing to donate — on the card a host input is staged "
+    "into the captured graph's static input, which every replay reuses, "
+    "and the outputs are clones out of the graph's pool; on the CPU "
+    "nothing is staged; no input is written")
 
 
 def load_model(model: str):
@@ -94,8 +136,9 @@ def load_model(model: str):
 
 @register_filter
 class TorchCudaFilter(FilterFramework):
-    """framework=torch-cuda. Distinct from the JAX package's TorchScript
-    ``pytorch`` compat backend, which the port does not carry."""
+    """framework=torch-cuda, the counterpart of the JAX package's ``jax``
+    backend (TorchScript files go to ``pytorch``,
+    filters/torch_backend.py)."""
 
     NAME = "torch-cuda"
     EXTENSIONS = ("zoo://", ".py")
@@ -111,6 +154,11 @@ class TorchCudaFilter(FilterFramework):
         self._executables: Dict[Tuple, Executable] = {}
         self._pool: Optional[GraphPool] = None
         self._own_pool = False
+        self._props: Optional[FilterProperties] = None
+        # SUSPEND keeps the weights here, off the card, until the next
+        # invoke; None otherwise
+        self._host_module: Optional[torch.nn.Module] = None
+        self._donation_noted = False
         # executables made, one per new input signature (≙ the JAX
         # backend's compile_count)
         self.compile_count = 0
@@ -124,7 +172,8 @@ class TorchCudaFilter(FilterFramework):
             raise NotPortedError(
                 f"custom={props.custom_properties!r}: mesh mode is not "
                 "ported yet")
-        self.device = _device_for(props.accelerators)
+        self._props = props
+        self.device = device_for(props.accelerators)
         self._own_pool = props.graph_pool is None
         self._pool = GraphPool() if self._own_pool else props.graph_pool
         if self.device.type == "cuda":
@@ -134,17 +183,21 @@ class TorchCudaFilter(FilterFramework):
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cudnn.benchmark = False
+        (self._apply, self._module,
+         self._in_info, self._out_info) = self._load(props)
+        logger.info("torch-cuda filter opened model=%s on %s",
+                    props.model_files[:1], self.device)
+
+    def _load(self, props: FilterProperties):
+        """``(apply_fn, module on the device, in_info, out_info)``."""
         model = props.model_files[0] if props.model_files else ""
-        (self._apply, module,
-         self._in_info, self._out_info) = load_model(model)
-        self._module = module.to(self.device).eval()
-        logger.info("torch-cuda filter opened model=%s on %s", model,
-                    self.device)
+        apply_fn, module, in_info, out_info = load_model(model)
+        return apply_fn, module.to(self.device).eval(), in_info, out_info
 
     def close(self) -> None:
         with self._lock:
             self._apply = None
-            self._module = None
+            self._module = self._host_module = None
             self._executables.clear()
             if self._own_pool and self._pool is not None:
                 self._pool.release()
@@ -159,6 +212,8 @@ class TorchCudaFilter(FilterFramework):
         call succeeded."""
         sig = signature(inputs)
         with self._lock:
+            if self._host_module is not None:
+                self._resume()
             exe = self._executables.get(sig)
             if exe is not None:
                 return exe(inputs)
@@ -177,8 +232,12 @@ class TorchCudaFilter(FilterFramework):
         """Enqueue one frame through its executable and return ``(outputs,
         event)`` without waiting: the event is recorded on the filter's
         stream after the outputs' clone (None on the CPU, where the
-        outputs are ready). ``donate`` is ignored: the port does not
-        donate inputs."""
+        outputs are ready). ``donate`` has nothing to reuse (see the
+        module's docstring): the first request logs why."""
+        if donate and not self._donation_noted:
+            self._donation_noted = True
+            logger.info("torch-cuda filter on %s: %s", self.device,
+                        DONATION_NOTE)
         outs = self.invoke(inputs)
         done = None
         if self.device.type == "cuda":
@@ -197,8 +256,12 @@ class TorchCudaFilter(FilterFramework):
     # -- fusion -----------------------------------------------------------
     def traceable_fn(self) -> Optional[Callable]:
         """The eager ``apply(module, *xs)`` closure over the loaded model,
-        for a fused segment to compose into its program."""
+        for a fused segment to compose into its program. It holds the
+        module it was made with: a later suspend or reload leaves that
+        module, and so the fused program, as it is."""
         with self._lock:
+            if self._host_module is not None:
+                self._resume()
             apply_fn, module = self._apply, self._module
         if apply_fn is None:
             return None
@@ -207,3 +270,49 @@ class TorchCudaFilter(FilterFramework):
             return apply_fn(module, *xs)
 
         return fn
+
+    # -- events -----------------------------------------------------------
+    def handle_event(self, event: FilterEvent, data=None) -> bool:
+        if event == FilterEvent.RELOAD_MODEL:
+            # keep serving the old model while the new one loads
+            # (≙ is-updatable reload, nnstreamer_plugin_api_filter.h:359-365)
+            props = self._props if not data else \
+                dataclasses.replace(self._props, **data)
+            fresh = self._load(props)
+            with self._lock:
+                self._settle()
+                (self._apply, self._module,
+                 self._in_info, self._out_info) = fresh
+                self._host_module = None
+                self._props = props
+            return True
+        if event == FilterEvent.SUSPEND:
+            # (≙ suspend watchdog unload, tensor_filter.c:1078-1090)
+            with self._lock:
+                if self._module is not None:
+                    self._settle()
+                    self._host_module = _moved(self._module,
+                                               torch.device("cpu"))
+                    self._module = None
+            return True
+        if event == FilterEvent.RESUME:
+            with self._lock:
+                if self._host_module is not None:
+                    self._resume()
+            return True
+        return False
+
+    def _settle(self) -> None:
+        """Wait for every replay already queued on the card, then drop
+        the executables: a captured graph reads the weights at raw
+        addresses, so none may replay once they move. The caller holds
+        the lock and lets go of the old module after this."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._executables.clear()
+
+    def _resume(self) -> None:
+        """Bring suspended weights back onto the device; the next invoke
+        of each signature captures afresh. The caller holds the lock."""
+        self._module = _moved(self._host_module, self.device)
+        self._host_module = None

@@ -87,6 +87,8 @@ class FusedSegment(TransformElement):
                                                  "fail")))
         super().__init__(name, **props)
         self.members = list(members)
+        for m in self.members:
+            m.fused_in = self.name
         self._fns = list(fns)
         # a member asking for prefetch-host meant "ship my output via
         # the coalescing fetcher"; mid-segment outputs no longer leave

@@ -252,6 +252,10 @@ class Element:
     # one-line capability note: None means the element never provides a
     # device function; a string describes when it does (fusion/planner.py)
     DEVICE_FUSIBLE: Optional[str] = None
+    # the name of the FusedSegment that runs this element's device
+    # function in its place (set when the plan is applied; the plan is
+    # sticky, so it stays set across restarts); None when unfused
+    fused_in: Optional[str] = None
 
     def device_veto(self) -> Optional[str]:
         """Static reason this element can NOT provide a device function,

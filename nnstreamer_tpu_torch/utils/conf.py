@@ -14,9 +14,6 @@ Tiers, lowest to highest precedence:
      (the default): ``NNS_TPU_FRAMEWORK_PRIORITY``,
      ``NNS_TPU_FRAMEWORK_PRIORITY_<EXT>``, ``NNS_TPU_FILTER_ALIASES``
      ("alias=target,...") and ``NNS_TPU_RESTRICTED_ELEMENTS``.
-
-Not ported yet: the custom-filter search paths (no custom C filters in
-the port).
 """
 from __future__ import annotations
 
@@ -27,8 +24,14 @@ from typing import Dict, List, Optional
 
 _DEFAULT_PATHS = ("./nnstreamer_tpu.ini", "/etc/nnstreamer_tpu.ini")
 
-# the port's one backend is the default auto-detect choice
-DEFAULT_PRIORITY = ["torch-cuda"]
+# the JAX package's default order with its native backend ("jax") swapped
+# for the port's, so a ``.py`` model resolves to torch-cuda where the JAX
+# package picks jax; the importers it lists are not ported
+DEFAULT_PRIORITY = ["torch-cuda", "custom-easy", "python3"]
+
+# the aliases the JAX package registers at import (``torch`` for its
+# TorchScript backend); [filter-aliases] and the variable override them
+DEFAULT_ALIASES = {"torch": "pytorch"}
 
 
 def _split(s: str) -> List[str]:
@@ -105,7 +108,7 @@ class Conf:
 
     def filter_aliases(self) -> Dict[str, str]:
         """(≙ [filter-aliases] section)"""
-        out: Dict[str, str] = {}
+        out: Dict[str, str] = dict(DEFAULT_ALIASES)
         if self._ini.has_section("filter-aliases"):
             out.update({k: v for k, v in self._ini.items("filter-aliases")})
         v = self._env("NNS_TPU_FILTER_ALIASES")

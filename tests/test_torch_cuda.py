@@ -768,3 +768,227 @@ def test_query_server_captures_one_graph_while_clients_stream(card):
         assert [p for p, _ in got[c]] == list(range(24))
         assert all(h.shape == (1001,) and np.isfinite(h).all()
                    for _, h in got[c])
+
+
+# -- the rest of tensor_filter, the plain backends, SingleShot -------------
+
+MN_SMALL = '"zoo://mobilenet_v2?width=0.35&size=96"'
+MN_CAPS = ("other/tensors,format=static,num_tensors=1,types=uint8,"
+           "dimensions=3:96:96,framerate=0/1")
+
+
+def _mn_frames(n, seed=0):
+    return np.random.default_rng(seed).integers(0, 255, (n, 96, 96, 3),
+                                                dtype=np.uint8)
+
+
+def _allocated():
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def test_suspend_frees_the_weights_and_resume_recaptures(card):
+    """SUSPEND on a backend with a captured graph: memory_allocated()
+    falls by at least the weights' bytes; the next invoke brings them
+    back, captures again (one more compile) and returns the same
+    outputs bit for bit."""
+    from nnstreamer_tpu_torch.filters.base import (FilterEvent,
+                                                   FilterProperties)
+    from nnstreamer_tpu_torch.filters.torch_cuda_backend import \
+        TorchCudaFilter
+    fw = TorchCudaFilter()
+    fw.open(FilterProperties(model_files=(MN_SMALL.strip('"'),)))
+    x = _mn_frames(1)[0]
+    before = [fw.invoke([x])[0] for _ in range(3)]
+    weights = sum(t.numel() * t.element_size() for t in
+                  list(fw._module.parameters()) + list(fw._module.buffers()))
+    busy = _allocated()
+    assert fw.handle_event(FilterEvent.SUSPEND)
+    idle = _allocated()
+    assert busy - idle >= weights
+    after = [fw.invoke([x])[0] for _ in range(3)]
+    assert fw.compile_count == 2
+    assert all(torch.equal(a, before[0]) for a in before + after)
+    fw.close()
+
+
+def test_reload_swaps_weights_between_replays(card):
+    """RELOAD_MODEL while frames stream on another thread: every output
+    is bitwise one model's or the other's, the old one's first."""
+    import threading
+    from nnstreamer_tpu_torch.filters.base import (FilterEvent,
+                                                   FilterProperties)
+    from nnstreamer_tpu_torch.filters.torch_cuda_backend import \
+        TorchCudaFilter
+    uri = MN_SMALL.strip('"')
+    x = _mn_frames(1)[0]
+    refs = []
+    for seed in ("0", "1"):
+        ref = TorchCudaFilter()
+        ref.open(FilterProperties(model_files=(f"{uri}&seed={seed}",)))
+        refs.append(ref.invoke([x])[0].cpu())
+        ref.close()
+    fw = TorchCudaFilter()
+    fw.open(FilterProperties(model_files=(uri,)))
+    outs, stop = [], threading.Event()
+
+    def stream():
+        while not stop.is_set() or len(outs) < 8:
+            outs.append(fw.invoke([x])[0].cpu())
+
+    t = threading.Thread(target=stream)
+    t.start()
+    while len(outs) < 4:
+        pass
+    assert fw.handle_event(FilterEvent.RELOAD_MODEL,
+                           {"model_files": (f"{uri}&seed=1",)})
+    n = len(outs)
+    while len(outs) < n + 4:
+        pass
+    stop.set()
+    t.join(60)
+    kinds = [0 if torch.equal(o, refs[0]) else 1 if torch.equal(o, refs[1])
+             else -1 for o in outs]
+    assert -1 not in kinds and kinds == sorted(kinds)
+    assert kinds[0] == 0 and kinds[-1] == 1
+    fw.close()
+
+
+def test_shared_backend_graphs_outlive_one_leg(card):
+    """Two filters under one key: stopping one (its pipeline's teardown
+    included) leaves the shared backend's graph pool alone, so the other
+    keeps replaying its graph with outputs equal to before."""
+    line = (f"appsrc name=in caps={MN_CAPS} ! tensor_filter name=f "
+            f"framework=torch-cuda model={MN_SMALL} "
+            "shared-tensor-filter-key=mn ! appsink name=out")
+    a, b = pt.parse_launch(line), pt.parse_launch(line)
+    frames = _mn_frames(6)
+    a.start()
+    b.start()
+    try:
+        assert a["f"].fw is b["f"].fw
+        for i, f in enumerate(frames[:3]):
+            a["in"].push_buffer(pt.Buffer.from_arrays([f], pts=i))
+            b["in"].push_buffer(pt.Buffer.from_arrays([f], pts=i))
+        a["in"].end_stream()
+        assert a.wait_eos(60)
+        a.stop()
+        for i, f in enumerate(frames[3:]):
+            b["in"].push_buffer(pt.Buffer.from_arrays([f], pts=3 + i))
+        b["in"].end_stream()
+        assert b.wait_eos(60)
+        compiles = b["f"].fw.compile_count
+    finally:
+        a.stop()
+        b.stop()
+    got = [buf.chunks[0].host() for buf in b["out"].buffers]
+    first = [buf.chunks[0].host() for buf in a["out"].buffers]
+    assert compiles == 1 and len(got) == 6
+    assert all(np.array_equal(x, y) for x, y in zip(first, got))
+    solo = pt.parse_launch(line.replace(" shared-tensor-filter-key=mn", ""))
+    solo.start()
+    for i, f in enumerate(frames):
+        solo["in"].push_buffer(pt.Buffer.from_arrays([f], pts=i))
+    solo["in"].end_stream()
+    assert solo.wait_eos(60)
+    solo.stop()
+    want = [buf.chunks[0].host() for buf in solo["out"].buffers]
+    assert all(np.array_equal(x, y) for x, y in zip(got, want))
+
+
+def test_donate_input_leaves_upstream_cuda_input_intact(card):
+    """in-flight=2 donate-input=true on frames pushed as CUDA tensors:
+    outputs equal the run without donation and every pushed tensor is
+    bitwise intact after its frame."""
+    line = (f"appsrc name=in caps={MN_CAPS} ! tensor_filter name=f "
+            f"framework=torch-cuda model={MN_SMALL} in-flight=2 {{}} "
+            "! appsink name=out")
+    dev = [torch.from_numpy(f).cuda() for f in _mn_frames(6)]
+    kept = [d.clone() for d in dev]
+    outs = {}
+    for donate in ("donate-input=true", ""):
+        pipe = pt.parse_launch(line.format(donate))
+        pipe.start()
+        for i, d in enumerate(dev):
+            pipe["in"].push_buffer(pt.Buffer.from_arrays([d], pts=i))
+        pipe["in"].end_stream()
+        assert pipe.wait_eos(60)
+        pipe.stop()
+        outs[donate] = [b.chunks[0].host() for b in pipe["out"].buffers]
+    torch.cuda.synchronize()
+    assert all(torch.equal(d, k) for d, k in zip(dev, kept))
+    assert len(outs[""]) == 6 and all(
+        np.array_equal(a, b) for a, b in zip(outs["donate-input=true"],
+                                             outs[""]))
+
+
+def test_custom_easy_gets_host_arrays_from_card_chunks(card):
+    """A numpy-only custom-easy function after a card filter receives
+    host ndarrays, never CUDA tensors."""
+    from nnstreamer_tpu_torch.filters import (register_custom_easy,
+                                              unregister_custom_easy)
+    seen = []
+
+    def numpy_only(x):
+        seen.append(type(x))
+        return np.argsort(x)[-5:].astype(np.int32)
+
+    register_custom_easy("top5_card", numpy_only)
+    try:
+        pipe = pt.parse_launch(
+            f"tensortestsrc caps={MN_CAPS} pattern=random num-buffers=3 "
+            f"device=true ! tensor_filter framework=torch-cuda "
+            f"model={MN_SMALL} ! tensor_filter framework=custom-easy "
+            "model=top5_card ! appsink name=out").run(timeout=120)
+    finally:
+        unregister_custom_easy("top5_card")
+    assert seen == [np.ndarray] * 3
+    assert all(b.chunks[0].shape == (5,) for b in pipe["out"].buffers)
+
+
+def test_pytorch_backend_runs_on_the_card(card, tmp_path):
+    """framework=pytorch loads a TorchScript file onto the card by
+    default: outputs are CUDA tensors equal to the module's own eager
+    run on the card."""
+    from nnstreamer_tpu_torch.filters import find_filter
+    from nnstreamer_tpu_torch.filters.base import FilterProperties
+    net = torch.nn.Sequential(torch.nn.Linear(16, 8), torch.nn.ReLU()).cuda()
+    path = str(tmp_path / "net.pt")
+    torch.jit.trace(net, torch.zeros(16, device="cuda")).save(path)
+    fw = find_filter("pytorch")()
+    fw.open(FilterProperties(model_files=(path,)))
+    x = np.random.default_rng(1).random(16).astype(np.float32)
+    (out,) = fw.invoke([x])
+    assert out.is_cuda
+    with torch.no_grad():
+        want = net(torch.from_numpy(x).cuda())
+    assert torch.equal(out, want)
+    fw.close()
+
+
+def test_single_shot_on_the_card(card):
+    """SingleShot with no accelerator runs on the card: CUDA outputs,
+    one attention launch a layer a call (the first eagerly, then by
+    replay), equal to the pipeline's outputs bit for bit."""
+    uri = ("zoo://vit?size=64&d_model=64&layers=2&heads=4&classes=10"
+           "&attn=pallas")
+    frames = _mn_frames(3)[:, :64, :64]
+    before = attention.launches
+    with pt.SingleShot(uri) as shot:
+        outs = [shot.invoke([f])[0] for f in frames]
+        torch.cuda.synchronize()
+    assert attention.launches - before == 2 * 3
+    assert all(o.is_cuda for o in outs)
+    caps = MN_CAPS.replace("3:96:96", "3:64:64")
+    pipe = pt.parse_launch(
+        f"appsrc name=in caps={caps} ! tensor_filter framework=torch-cuda "
+        f'model="{uri}" ! appsink name=out')
+    pipe.start()
+    for i, f in enumerate(frames):
+        pipe["in"].push_buffer(pt.Buffer.from_arrays(
+            [np.ascontiguousarray(f)], pts=i))
+    pipe["in"].end_stream()
+    assert pipe.wait_eos(60)
+    pipe.stop()
+    for o, b in zip(outs, pipe["out"].buffers):
+        assert np.array_equal(o.cpu().numpy(), b.chunks[0].host())

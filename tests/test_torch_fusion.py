@@ -38,6 +38,9 @@ CAPS_U8 = ("other/tensors,format=static,num_tensors=1,"
 CAPS_SEG = ("other/tensors,format=static,num_tensors=1,"
             "types=(string)float32,dimensions=(string)8:8,"
             "framerate=(fraction)0/1")
+CAPS_PAIR = ("other/tensors,format=static,num_tensors=2,"
+             "types=(string)\"uint8,float32\",dimensions=(string)\"4:4,8:8\","
+             "framerate=(fraction)0/1")
 CAPS_F64 = ("other/tensors,format=static,num_tensors=1,"
             "types=(string)float64,dimensions=(string)3:4:4,"
             "framerate=(fraction)0/1")
@@ -223,6 +226,22 @@ PLAN_LINES = {
                       "name=f {fw} model=zoo://toyseg invoke-dynamic=true "
                       "! tensor_decoder name=d mode=image_segment ! "
                       "appsink name=out",
+    "input_combination": f"tensortestsrc name=src caps={CAPS_PAIR} ! "
+                         "tensor_filter name=f {fw} model=zoo://toyseg "
+                         "input-combination=1 ! tensor_filter name=g {fw} "
+                         "model=zoo://toyscale ! appsink name=out",
+    "output_combination": f"tensortestsrc name=src caps={CAPS_SEG} ! "
+                          "tensor_filter name=f {fw} model=zoo://toyseg "
+                          "output-combination=o0 ! tensor_decoder name=d "
+                          "mode=image_segment ! appsink name=out",
+    "passthrough_queue": f"tensortestsrc name=src caps={CAPS_PAIR} ! "
+                         "tensor_filter name=f {fw} model=zoo://toyseg "
+                         "input-combination=1 output-combination=i0,o0 ! "
+                         "queue name=q ! appsink name=out",
+    "shared_key": f"tensortestsrc name=src caps={CAPS_SEG} ! tensor_filter "
+                  "name=f {fw} model=zoo://toyseg shared-tensor-filter-key="
+                  "plan_f ! tensor_filter name=g {fw} model=zoo://toyscale "
+                  "shared-tensor-filter-key=plan_g ! appsink name=out",
     "filter_queue": f"tensortestsrc name=src caps={CAPS_SEG} ! tensor_filter name=f "
                     "{fw} model=zoo://toyseg ! queue name=q ! tensor_decoder name=d "
                     "mode=image_segment ! appsink name=out",
