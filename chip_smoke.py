@@ -160,8 +160,8 @@ queue between filter and decoder: unfused): host time a frame by element.
               and no model loaded.
 22-24. among devices — BASELINE config 5's query fan-out, the ViT line
               behind the query link, edge pub/sub across a killed link.
-              Phases 22-28 run before phase 21, whose validate() reads
-              their lines too.
+              Phases 22-31 and the native queue lines run before phase
+              21, whose validate() reads their lines too.
 25. shared vit — tensortestsrc ! tee into two ViT-B/16 legs (queue,
               filter, appsink) under one shared-tensor-filter-key, 16
               frames: one backend and one graph, 24 attention launches a
@@ -192,11 +192,43 @@ queue between filter and decoder: unfused): host time a frame by element.
               (equal to numpy); SingleShot("zoo://vit?attn=pallas"): CUDA
               outputs, 12 attention launches a call, bitwise equal to the
               pipeline's.
+29. delta link — bench.py's 5 %-motion stream (120 224x224x3 u8 frames,
+              one 50x50 patch redrawn a frame) from appsrc through
+              edgesink wire-codec=raw, zlib and delta (wire-delta-k=32)
+              over loopback into edgesrc ! tee: MobileNet-v2 (torch-cuda)
+              on one leg, the frames on the other; wire bytes a frame,
+              keyframes, diffs and promotions (the tracer's wire block);
+              frames byte-identical to the source, logits bitwise equal to
+              the raw link's. Then a session delta link killed twice (every
+              40 frames): every frame once and in order, each of the three
+              connections' first decoded frame a keyframe, no declared
+              loss, one link error a kill.
+30. delta gate — the motion stream with each frame held for two, CUDA
+              frames through tensor_delta mode=gate tile=16 device=true and
+              device=false into MobileNet-v2: the same frames pass, invokes
+              = frames in - skipped, tile_error on the card every frame of
+              device=true and on none of device=false; tile_error on the
+              card against numpy within 1e-5 relative; mode=roi through a
+              tensor_query_serversrc server (custom-easy x3) into
+              tensor_delta_stitch, equal to the full-frame oracle.
+31. sparse   — 32 card frames a dtype (f32, bf16; 224x224x3, 5 %
+              non-zeros) through tensor_sparse_enc density=0.1 !
+              tensor_sparse_dec device=true: bitwise round trip, every
+              frame packed and unpacked on the card (ops/sparse.py's
+              counts), nnz within the capacity, the bytes a frame copied
+              to the host against the dense frame.
+Native queue — the headline line with queue backend=native against
+              backend=python, in turns (python, native, native, python),
+              after `make native` (its seconds printed): logits bitwise
+              equal, fps and p50. It runs after phase 28, so phases 1-28
+              keep the Python queue they ran with before (backend=auto
+              takes the ring only once the library is on disk).
 Every model line runs through the backend's per-signature executable,
 one captured CUDA graph per input signature: the first frame runs
 eagerly (the capture's warm-up), every later frame is one replay, so a
 hand kernel inside the graph counts once a frame.
-Phases 8-11, 13, 16, 17, 19, 20, 22, 24, 26 and 27 launch neither hand kernel
+Phases 8-11, 13, 16, 17, 19, 20, 22, 24, 26, 27, 29-31 and the native
+queue lines launch neither hand kernel
 (their models inline their input affine, as the JAX models do); their
 launch counts are read all the same and written on the kernels line as
 0. The
@@ -2960,6 +2992,442 @@ def phase_plain_backends(smi, clean, vit, tmp):
     return out
 
 
+# -- phases 29-31: sparse and delta; the native queue --------------------
+
+DELTA_FRAMES = 120         # bench.py:724 _delta_motion_frames' stream
+DELTA_PATCH = 50           # one 50x50 patch redrawn a frame: ~5 % motion
+DELTA_K = 32               # wire-delta-k of phase 29's links
+DELTA_KILL_EVERY = 40      # phase 29: a link kill every 40 frames, twice
+DELTA_RING_KB = 32768      # its replay ring holds the whole 18 MB stream
+DELTA_TILE = 16            # phase 30's change-grid tile
+TILE_RTOL = 1e-5           # tile_error on the card against numpy: f32 sums
+SPARSE_FRAMES = 32         # phase 31's frames a dtype
+SPARSE_DENSITY = 0.05      # non-zeros a frame
+SPARSE_CAPACITY = 0.1      # tensor_sparse_enc density=0.1
+
+
+def _delta_motion_frames(n=None):
+    """bench.py's 5 %-motion camera stream: a fixed sensor-noise frame
+    (FRAME_DIMS: 224x224x3) with one random DELTA_PATCH x DELTA_PATCH
+    region redrawn a frame (seed 7)."""
+    n = DELTA_FRAMES if n is None else n
+    side, patch = _frame_shape()[0], DELTA_PATCH
+    rng = np.random.default_rng(7)
+    cur = rng.integers(0, 255, (side, side, 3), np.uint8, endpoint=True)
+    frames = [cur.copy()]
+    for _ in range(n - 1):
+        cur = cur.copy()
+        y = int(rng.integers(0, side - patch))
+        x = int(rng.integers(0, side - patch))
+        cur[y:y + patch, x:x + patch] = rng.integers(
+            0, 255, (patch, patch, 3), np.uint8, endpoint=True)
+        frames.append(cur.copy())
+    return frames
+
+
+def _reset_device_ops():
+    from nnstreamer_tpu_torch.ops import delta, sparse
+    _reset_launches()
+    sparse.reset_counts()
+    delta.runs = 0
+
+
+def _device_ops():
+    """The kernels' launches and the card runs of the sparse and delta
+    torch ops since the last reset."""
+    from nnstreamer_tpu_torch.ops import delta, sparse
+    return {**_kernel_launches(), "sparse_packs": sparse.packs,
+            "sparse_unpacks": sparse.unpacks,
+            "sparse_d2h_bytes": sparse.pack_d2h_bytes,
+            "tile_error_runs": delta.runs}
+
+
+def _delta_link_run(frames, codec, extra_sink="", extra_src=""):
+    """appsrc ! edgesink wire-codec=<codec> -> loopback -> edgesrc ! tee:
+    one leg the MobileNet-v2 filter (torch-cuda) ! appsink name=out, the
+    other the frames as they arrived (appsink name=frames). Returns the
+    delivered (pts, frame), (pts, logits), both ends' stats and wire
+    blocks, the counts and frames/s."""
+    import nnstreamer_tpu_torch as pt
+    port = _free_port()
+    pub = pt.parse_launch(
+        f"appsrc name=in caps={_caps_at(FRAME_DIMS)} ! edgesink name=p "
+        f"port={port} topic=t wire-codec={codec} wire-delta-k={DELTA_K} "
+        f"{extra_sink}")
+    sub = pt.parse_launch(
+        f"edgesrc name=s dest-port={port} topic=t timeout=60 {extra_src}"
+        "! tee name=t t. ! queue max-size-buffers=32 ! tensor_filter "
+        "name=f framework=torch-cuda model=zoo://mobilenet_v2 "
+        "! appsink name=out t. ! queue max-size-buffers=256 "
+        "! appsink name=frames")
+    ptr, st = pub.enable_tracing(), sub.enable_tracing()
+    _reset_device_ops()
+    pub.start()
+    try:
+        sub.start()
+        deadline = time.monotonic() + 120
+        while not pub["p"]._subs:
+            if time.monotonic() > deadline:
+                sys.exit("chip_smoke: delta link: no subscriber attached")
+            time.sleep(0.01)
+        t0 = time.perf_counter()
+        for i, f in enumerate(frames):
+            pub["in"].push_buffer(pt.Buffer.from_arrays([f], pts=i))
+        while len(sub["out"].buffers) < len(frames) \
+                or len(sub["frames"].buffers) < len(frames):
+            if time.monotonic() > deadline:
+                break
+            time.sleep(0.002)
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = _device_ops()
+        ps, ss = pub["p"].stats.snapshot(), sub["s"].stats.snapshot()
+        pw = ptr.report(pub)["p"].get("wire", {})
+        sw = st.report(sub)["s"].get("wire", {})
+        got = [(b.pts, b.chunks[0].host()) for b in sub["frames"].buffers]
+        logits = [(b.pts, b.chunks[0].host()) for b in sub["out"].buffers]
+        fault = sub["k"].stats.snapshot() if "k" in sub.elements else {}
+    finally:
+        pub["in"].end_stream()
+        pub.wait_eos(60)
+        pub.stop()
+        sub.stop()
+    return {"frames": got, "logits": logits, "ps": ps, "ss": ss,
+            "pub_wire": pw, "sub_wire": sw, "counts": counts,
+            "fault": fault, "fps": len(frames) / dt}
+
+
+def phase_delta_link(smi):
+    """Phase 29: the 5 %-motion stream over an edge link with
+    wire-codec=raw, zlib and delta, each into MobileNet-v2 on the card;
+    then a session delta link killed twice mid-stream."""
+    from nnstreamer_tpu_torch.edge import wire
+    frames = _delta_motion_frames()
+    src = [(i, f.tobytes()) for i, f in enumerate(frames)]
+    out, runs = {}, {}
+    for codec in ("raw", "zlib", "delta"):
+        r = runs[codec] = _delta_link_run(frames, codec)
+        same = [(p, g.tobytes()) for p, g in r["frames"]] == src
+        n = r["ps"]["wire_frames_out"]
+        row = out[codec] = {
+            "frames": len(r["frames"]), "bytes_per_frame":
+            r["ps"]["wire_bytes_out"] / max(n, 1),
+            "raw_bytes_per_frame": r["ps"]["wire_raw_bytes_out"] / max(n, 1),
+            "fps": r["fps"], "byte_identical_source": same,
+            "pub_wire": r["pub_wire"], "sub_wire": r["sub_wire"],
+            "kernel_launches": r["counts"]}
+        if codec != "raw":
+            row["logits_bitwise_raw"] = [
+                (p, g.tobytes()) for p, g in r["logits"]] == [
+                (p, g.tobytes()) for p, g in runs["raw"]["logits"]]
+        log(f"delta link {codec}: {row['frames']} of {DELTA_FRAMES} "
+            f"frames, {row['bytes_per_frame']:.1f} wire bytes a frame "
+            f"(raw {row['raw_bytes_per_frame']:.1f}), byte-identical to "
+            f"the source {same}, logits bitwise equal to the raw link's "
+            f"{row.get('logits_bitwise_raw', True)}, wire block "
+            f"{r['pub_wire'].get('delta')} / {r['sub_wire'].get('delta_in')}"
+            f", {r['fps']:.2f} fps, counts {r['counts']}; {smi}")
+        if not same or not row.get("logits_bitwise_raw", True) \
+                or len(r["logits"]) != DELTA_FRAMES:
+            sys.exit(f"chip_smoke: delta link {codec}: {row}")
+    d = out["delta"]["pub_wire"].get("delta", {})
+    if not d.get("diffs") or out["delta"]["bytes_per_frame"] >= \
+            out["zlib"]["bytes_per_frame"]:
+        sys.exit(f"chip_smoke: the delta link shipped no diffs or no "
+                 f"fewer bytes than zlib: {out['delta']}")
+    # the session link killed twice: which connection decoded what
+    decoded = []
+    orig = wire._delta_decode
+
+    def spy(tensors, payloads, key, epoch, cfg, codes=None):
+        decoded.append((id(cfg), bool(key)))
+        return orig(tensors, payloads, key, epoch, cfg, codes)
+
+    wire._delta_decode = spy
+    try:
+        r = _delta_link_run(
+            frames, "delta", "session=true coalesce-frames=4 "
+            f"coalesce-ms=5 session-ring-kb={DELTA_RING_KB}",
+            "session=true ack-every=4 ! tensor_fault "
+            f"name=k mode=kill-link target=s every={DELTA_KILL_EVERY} "
+            "max-faults=2 ")
+    finally:
+        wire._delta_decode = orig
+    firsts = {}
+    for link, key in decoded:
+        firsts.setdefault(link, key)
+    same = [(p, g.tobytes()) for p, g in r["frames"]] == src
+    logits_same = [(p, g.tobytes()) for p, g in r["logits"]] == [
+        (p, g.tobytes()) for p, g in runs["raw"]["logits"]]
+    ss = r["ss"]
+    out["killed"] = {
+        "frames": len(r["frames"]), "kills": r["fault"].get("faults", 0),
+        "links": len(firsts), "every_link_opens_with_keyframe":
+        all(firsts.values()), "byte_identical_source": same,
+        "logits_bitwise_raw": logits_same,
+        "reconnects": ss["reconnects"], "link_errors": ss["link_errors"],
+        "replayed": r["ps"]["session_replayed"],
+        "dup_drops": ss["session_dup_drops"],
+        "declared_lost": ss["session_declared_lost"],
+        "sub_wire": r["sub_wire"], "fps": r["fps"],
+        "kernel_launches": r["counts"]}
+    k = out["killed"]
+    log(f"delta link killed: {k['frames']} of {DELTA_FRAMES} frames once "
+        f"and in order {same} across {k['kills']} kills, {k['links']} "
+        f"connections each opening with a keyframe "
+        f"{k['every_link_opens_with_keyframe']}, {k['replayed']} replayed, "
+        f"{k['dup_drops']} duplicates dropped, {k['declared_lost']} "
+        f"declared lost, link errors {k['link_errors']}, logits bitwise "
+        f"{logits_same}; {smi}")
+    if not (same and logits_same and k["kills"] == 2 and k["links"] == 3
+            and k["every_link_opens_with_keyframe"]
+            and k["link_errors"] == 2 and not k["declared_lost"]):
+        sys.exit(f"chip_smoke: delta link killed: {k}")
+    return out
+
+
+def _gate_line(device, n):
+    """appsrc ! tensor_delta mode=gate ! MobileNet-v2 ! appsink."""
+    import nnstreamer_tpu_torch as pt
+    pipe = pt.parse_launch(
+        f"appsrc name=in caps={_caps_at(FRAME_DIMS)} ! tensor_delta name=d "
+        f"mode=gate device={device} tile={DELTA_TILE} ! tensor_filter "
+        "name=f framework=torch-cuda model=zoo://mobilenet_v2 "
+        "! appsink name=out")
+    return pipe
+
+
+def phase_delta_gate(smi):
+    """Phase 30: the motion stream, each frame held for two (a camera at
+    twice its scene's rate), pushed as CUDA frames through tensor_delta
+    mode=gate device=true and device=false into MobileNet-v2; tile_error
+    on the card against numpy; then mode=roi through a query server and
+    tensor_delta_stitch against the full-frame oracle."""
+    import nnstreamer_tpu_torch as pt
+    from nnstreamer_tpu_torch.ops import delta
+    motion = _delta_motion_frames(DELTA_FRAMES // 2)
+    frames = [motion[i // 2] for i in range(DELTA_FRAMES)]
+    dev = [torch.from_numpy(f).cuda() for f in frames]
+    out, passed = {}, {}
+    for device in ("true", "false"):
+        pipe = _gate_line(device, len(dev))
+        _reset_device_ops()
+        pipe.start()
+        try:
+            t0 = time.perf_counter()
+            _push_all(pipe, dev)
+            pipe["in"].end_stream()
+            pipe.wait_eos(300)
+            dt = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            counts = _device_ops()
+            st = pipe["d"].stats.snapshot()
+            invokes = pipe["f"]._invoke_count
+            got = [b.pts for b in pipe["out"].buffers]
+        finally:
+            pipe.stop()
+        passed[device] = got
+        row = out[f"device_{device}"] = {
+            "frames_in": len(dev), "skipped": st["delta_frames_skipped"],
+            "tiles_total": st["delta_tiles_total"],
+            "tiles_skipped": st["delta_tiles_skipped"],
+            "keyframes": st["delta_keyframes"], "invokes": invokes,
+            "delivered": len(got), "fps_in": len(dev) / dt,
+            "kernel_launches": counts}
+        log(f"delta gate device={device}: {len(dev)} frames in, "
+            f"{row['skipped']} skipped, {invokes} invoked, {len(got)} "
+            f"delivered, tiles {row['tiles_skipped']} of "
+            f"{row['tiles_total']} skipped, {row['fps_in']:.2f} frames/s "
+            f"in, counts {counts}; {smi}")
+        if invokes != len(dev) - row["skipped"] or len(got) != invokes:
+            sys.exit(f"chip_smoke: delta gate: {row}")
+    if passed["true"] != passed["false"] \
+            or out["device_true"]["kernel_launches"]["tile_error_runs"] \
+            != DELTA_FRAMES - 1 \
+            or out["device_false"]["kernel_launches"]["tile_error_runs"]:
+        sys.exit(f"chip_smoke: device gating differs from host gating: "
+                 f"{out}")
+    # tile_error on the card against its numpy version on the same frames
+    cur, ref = (f.astype(np.float32).mean(axis=2) for f in motion[1::-1])
+    delta.runs = 0
+    got = delta.tile_error(torch.from_numpy(cur).cuda(),
+                           torch.from_numpy(ref).cuda(), DELTA_TILE)
+    got = got.cpu().numpy()
+    want = delta.tile_error_reference(cur, ref, DELTA_TILE)
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    ms = time_ms(lambda: delta.tile_error(
+        torch.from_numpy(cur).cuda(), torch.from_numpy(ref).cuda(),
+        DELTA_TILE))
+    out["tile_error"] = {"max_rel_err": rel, "rtol": TILE_RTOL, "ms": ms,
+                         "changed_tiles": int((want > 0).sum())}
+    log(f"tile_error on the card (224x224, tile {DELTA_TILE}): max "
+        f"relative error {rel:.3g} against numpy (tol {TILE_RTOL}), "
+        f"{out['tile_error']['changed_tiles']} changed tiles, {ms:.4f} ms "
+        f"a call with its H2D copies; {smi}")
+    if rel > TILE_RTOL:
+        sys.exit(f"chip_smoke: tile_error: {out['tile_error']}")
+    out["roi"] = _delta_roi(frames, smi)
+    return out
+
+
+def _delta_roi(frames, smi):
+    """tensor_delta mode=roi ! tensor_query_client to a
+    tensor_query_serversrc running a custom-easy scale, then
+    tensor_delta_stitch: the stitched frames equal the scaled frames."""
+    import nnstreamer_tpu_torch as pt
+    crops = []
+    pt.filters.register_custom_easy(
+        "chip_roi_scale", lambda x: (crops.append(np.asarray(x).shape),
+                                     x * np.uint8(3))[1])
+    port = _free_port()
+    server = pt.parse_launch(
+        f"tensor_query_serversrc name=qs port={port} id={port} "
+        "! tensor_filter framework=custom-easy model=chip_roi_scale "
+        f"! tensor_query_serversink id={port}")
+    server.start()
+    client = pt.parse_launch(
+        f"appsrc name=in caps={_caps_at(FRAME_DIMS)} ! tensor_delta name=d "
+        f"mode=roi tile={DELTA_TILE} ! tensor_query_client name=qc "
+        f"port={port} timeout=60 ! tensor_delta_stitch ! appsink name=out")
+    _reset_device_ops()
+    try:
+        client.start()
+        t0 = time.perf_counter()
+        _push_all(client, [torch.from_numpy(f).cuda() for f in frames])
+        client["in"].end_stream()
+        client.wait_eos(300)
+        dt = time.perf_counter() - t0
+        counts = _device_ops()
+        st = client["d"].stats.snapshot()
+        got = {b.pts: b.chunks[0].host() for b in client["out"].buffers}
+    finally:
+        client.stop()
+        server.stop()
+    equal = all(g.tobytes() == (frames[p] * np.uint8(3)).tobytes()
+                for p, g in got.items())
+    rows = sum(s[0] for s in crops if len(s) == 4)
+    row = {"frames_in": len(frames), "delivered": len(got),
+           "skipped": st["delta_frames_skipped"], "crops_inferred": rows,
+           "full_frames_inferred": sum(1 for s in crops if len(s) == 3),
+           "tiles_total": st["delta_tiles_total"],
+           "equal_full_frame_oracle": equal, "fps_in": len(frames) / dt,
+           "kernel_launches": counts}
+    log(f"delta roi through the query link: {len(got)} frames stitched "
+        f"({row['skipped']} skipped), {rows} crops and "
+        f"{row['full_frames_inferred']} full frames inferred against "
+        f"{len(frames)} frames of {DELTA_TILE}x{DELTA_TILE} tiles "
+        f"({row['tiles_total']} tiles seen), every output "
+        f"{'equal' if equal else 'NOT EQUAL'} to the full-frame oracle; "
+        f"{smi}")
+    if not equal or len(got) != len(frames) - row["skipped"]:
+        sys.exit(f"chip_smoke: delta roi: {row}")
+    return row
+
+
+def _sparse_frames(dtype, n):
+    """Seeded frames on the card with SPARSE_DENSITY of their elements
+    non-zero (no -0.0: a decoded zero is +0.0)."""
+    gen = torch.Generator().manual_seed(SEED)
+    shape = (n,) + _frame_shape()
+    vals = torch.randn(shape, generator=gen) + 4.0
+    keep = torch.rand(shape, generator=gen) < SPARSE_DENSITY
+    x = torch.where(keep, vals, torch.zeros_like(vals)).to(dtype)
+    return [f.cuda() for f in x]
+
+
+def phase_sparse(smi):
+    """Phase 31: card frames at 5 % non-zeros through tensor_sparse_enc
+    density=0.1 ! tensor_sparse_dec device=true ! appsink, f32 and bf16:
+    a bitwise round trip, every frame packed and unpacked on the card,
+    and the bytes that crossed to the host against the dense frame."""
+    import nnstreamer_tpu_torch as pt
+    from nnstreamer_tpu_torch.ops import sparse
+    out = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        frames = _sparse_frames(dtype, SPARSE_FRAMES)
+        size = frames[0].numel()
+        cap = max(1, min(size, int(np.ceil(size * SPARSE_CAPACITY))))
+        nnz = [int(torch.count_nonzero(f)) for f in frames]
+        caps = _caps_at(FRAME_DIMS).replace(
+            "uint8", "float32" if name == "f32" else "bfloat16")
+        pipe = pt.parse_launch(
+            f"appsrc name=in caps={caps} ! tensor_sparse_enc "
+            f"density={SPARSE_CAPACITY} ! tensor_sparse_dec device=true "
+            "! appsink name=out")
+        _reset_device_ops()
+        pipe.start()
+        try:
+            t0 = time.perf_counter()
+            _push_all(pipe, frames)
+            pipe["in"].end_stream()
+            pipe.wait_eos(300)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = _device_ops()
+            got = [b.chunks[0].raw for b in pipe["out"].buffers]
+        finally:
+            pipe.stop()
+        bits = torch.int32 if dtype == torch.float32 else torch.int16
+        equal = len(got) == len(frames) and all(
+            g.is_cuda and torch.equal(g.view(bits), f.view(bits))
+            for g, f in zip(got, frames))
+        dense = size * frames[0].element_size()
+        row = out[name] = {
+            "frames": len(got), "nnz_min": min(nnz), "nnz_max": max(nnz),
+            "capacity": cap, "packs": counts["sparse_packs"],
+            "unpacks": counts["sparse_unpacks"],
+            "d2h_bytes_per_frame": counts["sparse_d2h_bytes"] / len(frames),
+            "dense_bytes_per_frame": dense, "bitwise_round_trip": equal,
+            "frames_per_s": len(frames) / dt, "kernel_launches": counts}
+        log(f"sparse {name}: {len(got)} card frames, nnz {min(nnz)}-"
+            f"{max(nnz)} (capacity {cap}), {row['packs']} packs and "
+            f"{row['unpacks']} unpacks on the card, "
+            f"{row['d2h_bytes_per_frame']:.0f} bytes a frame to the host "
+            f"against {dense} dense, round trip "
+            f"{'bitwise' if equal else 'NOT EQUAL'}, "
+            f"{row['frames_per_s']:.2f} frames/s; {smi}")
+        if not equal or max(nnz) > cap or row["packs"] != len(frames) \
+                or row["unpacks"] != len(frames):
+            sys.exit(f"chip_smoke: sparse {name}: {row}")
+    return out
+
+
+def phase_native_queue(smi, clean):
+    """The headline line with queue backend=native against
+    backend=python in the same call, in turns (python, native, native,
+    python): logits bitwise equal to the clean run's, fps and p50."""
+    from nnstreamer_tpu_torch.native.lib import load_native_lib
+    t0 = time.perf_counter()
+    if load_native_lib() is None:
+        sys.exit("chip_smoke: make native failed")
+    build_s = time.perf_counter() - t0
+    n = MOBILENET_WARMUP + MOBILENET_FRAMES
+    # phase 19's clean run covers the first FAULT_FRAMES frames; the rest
+    # are held against the first python run
+    want = _headline_logits(clean, FAULT_FRAMES)
+    out = {"build_s": build_s}
+    for i, backend in enumerate(("python", "native", "native", "python")):
+        line = _headline_line(n).replace(
+            "queue max-size-buffers", f"queue backend={backend} "
+            "max-size-buffers")
+        pipe, row = _run_line(f"queue backend={backend} ({i + 1} of 4)",
+                              line, MOBILENET_WARMUP, MOBILENET_FRAMES, smi)
+        kinds = {type(e._q).__name__ for name, e in pipe.elements.items()
+                 if name.startswith("queue")}
+        got = [b.chunks[0].host() for b in pipe["out"].buffers]
+        if i == 0:
+            want = want + got[len(want):]
+        row["bitwise_clean"] = len(got) == n and all(
+            g.tobytes() == w.tobytes() for g, w in zip(got, want))
+        row["queues"] = sorted(kinds)
+        out[f"{backend}_{1 + (i in (2, 3))}"] = row
+        if not row["bitwise_clean"] or kinds != (
+                {"_NativeQueueAdapter"} if backend == "native"
+                else {"Queue"}):
+            sys.exit(f"chip_smoke: queue backend={backend}: {row}")
+    return out
+
+
 def phase_pipelint(smi, lines):
     """Phase 21: Pipeline.validate() on every launch line phases 1-24
     ran (0 errors, 0 crashed rules), and a defective line refused at
@@ -3060,6 +3528,22 @@ def main():
              "combination": phase_combination(smi, clean)}
     with tempfile.TemporaryDirectory() as tmp:
         multi["plain_backends"] = phase_plain_backends(smi, clean, vit, tmp)
+    # phases 29-31 and the native queue lines: one row, and one count, a
+    # line; neither hand kernel runs on any of them
+    multi["delta_link"] = phase_delta_link(smi)
+    gate = phase_delta_gate(smi)
+    tile_error = gate.pop("tile_error")
+    multi["delta_gate"] = gate
+    multi["sparse"] = phase_sparse(smi)
+    native = phase_native_queue(smi, clean)
+    native_build_s = native.pop("build_s")
+    multi["native_queue"] = native
+    for k in ("delta_link", "delta_gate", "sparse", "native_queue"):
+        for line, row in multi[k].items():
+            if row["kernel_launches"]["attention"] \
+                    or row["kernel_launches"]["normalize"]:
+                sys.exit(f"chip_smoke: a hand kernel ran on {k}_{line}: "
+                         f"{row['kernel_launches']}")
     pt.parse_launch = parse
     pipelint = phase_pipelint(smi, list(dict.fromkeys(launched)))
     for k in ("clean", "retry", "skip", "restart"):
@@ -3114,6 +3598,8 @@ def main():
                     "vit_batch1": run, "traces": traces,
                     "policies_fail": policies["fail"],
                     "segment_clean_after": segment["clean_after"],
+                    "tile_error": tile_error,
+                    "native_build_s": native_build_s,
                     "pipelint": pipelint, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,16 +1,18 @@
 """pipelint graph rules.
 
 Port of ``nnstreamer_tpu/analysis/rules.py``: the rules whose elements
-the port has (16 of the reference's 28). Each :class:`Rule` inspects the
+the port has (17 of the reference's 28). Each :class:`Rule` inspects the
 parsed-but-unstarted pipeline plus the caps inference result and yields
 findings with element/pad locations. Rules never execute elements and
 never raise past :func:`analyze` — a broken rule must not block a
 launch; :func:`analyze` lists the ids of rules that raised on the
 report's ``crashed``.
 
-The reference's other 12 rules inspect elements the port does not have
+The reference's other 11 rules inspect elements the port does not have
 yet; each comes with the slice that ports its elements (ROADMAP.md,
-queue A).
+queue A). Among them ``delta-lossy-gate-feeds-trainer``: its
+``tensor_delta`` is ported, but it fires only on a ``tensor_trainer``,
+which comes with the trainer (item 11).
 Rules keyed on kind names of such elements (``tensor_serve_src``,
 ``tensor_trainer``, ``mqttsrc``) keep those branches and stay silent until then.
 """
@@ -663,12 +665,38 @@ class TraceExportRule(Rule):
                 stack.extend(ctx.downstream(e))
 
 
+class DeltaNoKeyframeIntervalRule(Rule):
+    """Delta wire codec with no finite keyframe interval: the link's
+    only scheduled resynchronization points are gone. A subscriber that
+    joins late, or whose reference drifts for any unforeseen reason,
+    then has no bounded-time path back to a self-contained frame: the
+    stream degrades into diffs against state only the sender has."""
+
+    id = "delta-no-keyframe-interval"
+    severity = Severity.ERROR
+
+    def check(self, ctx: LintContext):
+        from ..edge.wire import CODEC_DELTA
+        for e in ctx.of_kind("edgesink"):
+            if str(getattr(e, "wire_codec", "raw")) != CODEC_DELTA:
+                continue
+            k = int(getattr(e, "wire_delta_k", 0))
+            if k <= 0:
+                yield self.finding(
+                    f"wire-codec=delta with wire-delta-k={k}: no finite "
+                    "keyframe interval — only connect/layout-change/"
+                    "promotion keyframes remain, so a reference that "
+                    "drifts has no bounded-time resync; set "
+                    "wire-delta-k to a positive frame count", e.name)
+
+
 ALL_RULES: List[Rule] = [
     DanglingPadRule(), CycleRule(), TeeNoQueueRule(), JitSignatureRule(),
     SinklessBranchRule(), CombinerDtypeRule(), ShedNoRetryAfterRule(),
     LinkResilienceRule(), ErrorPolicyRule(), WireConfigRule(),
     FusionBreakRule(), FusionTransferRule(), SessionReplayBudgetRule(),
     SessionNoReconnectRule(), AsyncWindowRule(), TraceExportRule(),
+    DeltaNoKeyframeIntervalRule(),
 ]
 
 def analyze(pipeline, rules: Optional[List[Rule]] = None) -> Report:

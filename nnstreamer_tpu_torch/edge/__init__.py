@@ -9,7 +9,7 @@ port speaks the JAX package's wire byte for byte. Everything here runs
 on the host; no network thread touches the card.
 
 Not ported yet (ROADMAP.md queue A, item 8): the MQTT broker and wire,
-NTP, the KV hand-off and ``wire-codec=delta`` (item 7).
+NTP and the KV hand-off.
 """
 from .broker import DiscoveryBroker, discover, discover_meta
 from .protocol import MsgKind, recv_msg, send_msg

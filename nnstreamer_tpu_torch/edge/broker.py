@@ -1,8 +1,8 @@
 """Discovery broker: the MQTT-hybrid control plane slot.
 
 A copy of ``nnstreamer_tpu/edge/broker.py``, which is framework
-neutral, without the live-broker registry that only the tracer's
-broker block reads (that block is not ported yet).
+neutral, with its live-broker registry (``live_broker_stats``, which the
+tracer's ``broker`` block reads).
 
 ≙ the reference's hybrid connect-type, where servers publish their
 host:port under a topic to an MQTT broker and clients query the broker
@@ -31,12 +31,30 @@ from __future__ import annotations
 
 import socket
 import threading
+import weakref
 from typing import Dict, List, Tuple
 
 from ..utils.atomic import Counters
 from ..utils.log import logger
 from .listener import TcpListener
 from .protocol import MsgKind, recv_msg, send_msg
+
+# live in-process brokers, for trace.report()'s broker block (tests and
+# single-host fleets run the broker in-process; a weak set never keeps a
+# stopped broker alive)
+_LIVE: "weakref.WeakSet[DiscoveryBroker]" = weakref.WeakSet()
+
+
+def live_broker_stats() -> Dict[str, int]:
+    """Aggregate counters of every live in-process broker (the
+    trace.report() surfacing hook). {} when no broker is running."""
+    out: Dict[str, int] = {}
+    for b in list(_LIVE):
+        for k, v in b.stats.snapshot().items():
+            if v:
+                out[k] = out.get(k, 0) + v
+    return out
+
 
 class DiscoveryBroker:
     """Topic -> [(host, port), ...] registry over the edge protocol.
@@ -62,9 +80,11 @@ class DiscoveryBroker:
 
     def start(self) -> "DiscoveryBroker":
         self._listener.start()
+        _LIVE.add(self)
         return self
 
     def stop(self) -> None:
+        _LIVE.discard(self)
         self._listener.stop()
 
     def entries(self, topic: str) -> List[Tuple[Tuple[str, int], Dict]]:

@@ -33,11 +33,22 @@ Per-tensor, a codec is only kept when it actually shrinks the payload
 failing to compress stops trying for a while (adaptive skip) so
 incompressible streams pay ~zero codec overhead.
 
-Not ported: ``delta``, the temporal keyframe+diff codec, which encodes
-through ``elements/sparse.py`` (ROADMAP.md queue A, item 7). The port
-advertises and echoes a codec list without it, so a JAX acceptor that
-asks for delta falls back to raw on a link to the port, as it does for
-an old peer; a local delta request raises :class:`NotPortedError`.
+* ``delta`` — temporal keyframe+diff transport: the sender keeps the
+  last frame shipped on the link as the reference and sends sparse
+  bitwise diffs (the ``elements/sparse.py`` (index, value) format,
+  zlib'd when that pays) between keyframes. Keyframes go out on a fresh
+  link, every ``delta_k`` frames, on any layout change, and whenever a
+  diff would not beat the dense frame (promotion). Each frame carries
+  the reference epoch it was encoded against, so a receiver can never
+  silently patch the wrong baseline: a mismatch raises, the link
+  reconnects, and the fresh link starts with a keyframe. Lossless and
+  deterministic: decode output is byte-identical to the delta-off path.
+
+Delta is the one codec with per-link *state* on both ends, so it is
+only ever chosen by the accepting side's own request (an edgesink's
+``wire-codec=delta``), never adopted from a peer's wish. References
+live in the wire dtype on both ends (bf16 as its uint16 bits), each
+link's under its own lock.
 
 ``wire-precision`` (opt-in, lossy): float32 tensors are downcast to
 bfloat16/float16 on the wire and upcast back to float32 on receive; the
@@ -58,7 +69,6 @@ import numpy as np
 
 from ..obs import context as _obs_ctx
 from ..obs import spans as _obs_spans
-from ..pipeline.element import NotPortedError
 from ..tensors.buffer import Buffer, BufferFlags, Chunk
 from . import protocol
 from .protocol import (BF16, Payload, as_payload_view, host_array, host_value,
@@ -70,11 +80,12 @@ CODEC_RAW = "raw"
 CODEC_ZLIB = "zlib"
 CODEC_SHUFFLE = "shuffle-zlib"
 CODEC_DELTA = "delta"
-# every codec name of the wire grammar (pipelint's wire-config rule
-# checks launch lines against it, as the reference does) ...
 CODECS = (CODEC_RAW, CODEC_ZLIB, CODEC_SHUFFLE, CODEC_DELTA)
-# ... and the ones the port encodes: what it advertises and echoes
-PORTED_CODECS = (CODEC_RAW, CODEC_ZLIB, CODEC_SHUFFLE)
+
+# default keyframe cadence for wire-codec=delta: a keyframe every K
+# frames bounds both the blast radius of a corrupted reference and the
+# time a joining observer waits for a decodable frame. 0 = never rekey
+# on schedule (pipelint flags that as delta-no-keyframe-interval).
 DELTA_KEYFRAME_INTERVAL = 32
 
 PREC_NONE = "none"
@@ -85,8 +96,10 @@ _PREC_DTYPE = {PREC_BF16: BF16, PREC_FP16: "float16"}
 
 # numeric codec codes for the compact per-payload ``enc`` list on
 # DATA_BATCH messages (single DATA frames use the per-tensor "codec"
-# meta key instead)
+# meta key instead); _CODE_DELTA(_Z) mark sparse-diff payloads (plain /
+# zlib'd) and only ever appear on links that negotiated delta
 _CODE_RAW, _CODE_ZLIB, _CODE_SHUFFLE = 0, 1, 2
+_CODE_DELTA, _CODE_DELTA_Z = 3, 4
 _CODE_NAME = {_CODE_ZLIB: CODEC_ZLIB, _CODE_SHUFFLE: CODEC_SHUFFLE}
 
 # don't bother compressing tiny tensors; keep zlib at a
@@ -116,26 +129,19 @@ _FHDR = struct.Struct("<qddI")
 _FHDR_T = struct.Struct("<qddIQQqqqq")
 
 
-def _refuse_delta() -> None:
-    raise NotPortedError(
-        "wire-codec=delta is not ported yet: it encodes through "
-        "tensor_sparse_* (ROADMAP.md queue A, item 7)")
-
-
 class WireConfig:
     """The negotiated per-link wire feature set (+ adaptive codec
     state). One instance per connection; the skip counters are touched
     from whatever thread packs for that link, under a leaf lock."""
 
-    __slots__ = ("version", "codec", "precision", "trace",
-                 "_lock", "_poor", "_skip")
+    __slots__ = ("version", "codec", "precision", "trace", "delta_k",
+                 "_lock", "_poor", "_skip", "_dlock", "_dtx", "_drx")
 
     def __init__(self, codec: str = CODEC_RAW, precision: str = PREC_NONE,
-                 version: int = WIRE_VERSION, trace: bool = False):
-        if codec == CODEC_DELTA:
-            _refuse_delta()
+                 version: int = WIRE_VERSION, trace: bool = False,
+                 delta_k: int = DELTA_KEYFRAME_INTERVAL):
         self.version = version
-        self.codec = codec if codec in PORTED_CODECS else CODEC_RAW
+        self.codec = codec if codec in CODECS else CODEC_RAW
         self.precision = precision if precision in PRECISIONS else PREC_NONE
         # negotiated frame-trace propagation (obs/): DATA meta gains a
         # "trace" field and DATA_BATCH the fhdr=2 extended header —
@@ -144,11 +150,22 @@ class WireConfig:
         self._lock = threading.Lock()
         self._poor = 0
         self._skip = 0
+        # delta codec: keyframe cadence + per-direction reference state.
+        # A WireConfig is minted fresh per connection (negotiate/accept),
+        # so a reconnect or session RESUME always restarts from a
+        # keyframe. _dtx/_drx are guarded by _dlock (never _lock: the
+        # keyframe zlib attempt must not re-enter the adaptive-skip lock).
+        self.delta_k = int(delta_k)
+        self._dlock = threading.Lock()
+        self._dtx: Optional[Dict] = None
+        self._drx: Optional[Dict] = None
 
     def to_meta(self) -> Dict:
         out = {"v": self.version, "codec": self.codec,
-               "precision": self.precision, "codecs": list(PORTED_CODECS),
+               "precision": self.precision, "codecs": list(CODECS),
                "precisions": list(PRECISIONS)}
+        if self.codec == CODEC_DELTA:
+            out["delta_k"] = self.delta_k
         if self.trace:
             out["trace"] = True
         return out
@@ -181,11 +198,9 @@ class WireConfig:
 
 def advertise(codec: str = CODEC_RAW, precision: str = PREC_NONE) -> Dict:
     """The ``wire`` block a connecting peer puts in its handshake meta:
-    what it supports, plus what it would like for this link. A wish
-    for delta is sent as asked: an acceptor never adopts a peer's delta
-    wish, and the codec list tells it the port cannot decode one."""
+    what it supports, plus what it would like for this link."""
     out = {"v": WIRE_VERSION, "codec": codec, "precision": precision,
-           "codecs": list(PORTED_CODECS), "precisions": list(PRECISIONS)}
+           "codecs": list(CODECS), "precisions": list(PRECISIONS)}
     if _obs_spans.ENABLED:
         # frame-trace propagation support (an old peer just ignores the
         # key; it only takes effect when both ends advertise it)
@@ -194,14 +209,17 @@ def advertise(codec: str = CODEC_RAW, precision: str = PREC_NONE) -> Dict:
 
 
 def negotiate(peer: Optional[Dict], codec: str = CODEC_RAW,
-              precision: str = PREC_NONE) -> Optional[WireConfig]:
+              precision: str = PREC_NONE,
+              delta_k: Optional[int] = None) -> Optional[WireConfig]:
     """Accepting side: fold the peer's advertisement into our own
     request. Returns None — meaning "speak plain v1" — when the peer
     did not advertise v2. A non-default local request wins over the
     peer's wish; either way the result is clamped to what both ends
-    support, falling back to raw/none rather than erroring. A peer's
-    wish for delta is never adopted (the reference adopts it only on
-    its own request); a local delta request raises NotPortedError."""
+    support, falling back to raw/none rather than erroring. Delta is
+    the exception to wish-adoption: it needs per-link reference state
+    on the accepting side, so it is only chosen when *our own* request
+    asks for it (and the peer's codec list shows it can decode deltas);
+    a peer wishing for delta against a non-delta acceptor gets raw."""
     if not isinstance(peer, dict):
         return None
     try:
@@ -209,18 +227,18 @@ def negotiate(peer: Optional[Dict], codec: str = CODEC_RAW,
             return None
     except (TypeError, ValueError):
         return None
-    if codec == CODEC_DELTA:
-        _refuse_delta()
     peer_codecs = set(peer.get("codecs") or (CODEC_RAW,))
     want = codec if codec != CODEC_RAW else str(peer.get("codec") or CODEC_RAW)
-    chosen = want if want in PORTED_CODECS and want in peer_codecs \
-        else CODEC_RAW
+    if want == CODEC_DELTA and codec != CODEC_DELTA:
+        want = CODEC_RAW
+    chosen = want if want in CODECS and want in peer_codecs else CODEC_RAW
     peer_precs = set(peer.get("precisions") or (PREC_NONE,))
     wantp = precision if precision != PREC_NONE \
         else str(peer.get("precision") or PREC_NONE)
     chosenp = wantp if wantp in PRECISIONS and wantp in peer_precs \
         else PREC_NONE
-    return WireConfig(chosen, chosenp,
+    dk = DELTA_KEYFRAME_INTERVAL if delta_k is None else int(delta_k)
+    return WireConfig(chosen, chosenp, delta_k=dk,
                       trace=bool(peer.get("trace")) and _obs_spans.ENABLED)
 
 
@@ -235,8 +253,13 @@ def accept(reply: Optional[Dict]) -> Optional[WireConfig]:
             return None
     except (TypeError, ValueError):
         return None
+    try:
+        dk = int(reply.get("delta_k", DELTA_KEYFRAME_INTERVAL))
+    except (TypeError, ValueError):
+        dk = DELTA_KEYFRAME_INTERVAL
     return WireConfig(str(reply.get("codec") or CODEC_RAW),
                       str(reply.get("precision") or PREC_NONE),
+                      delta_k=dk,
                       trace=bool(reply.get("trace")) and _obs_spans.ENABLED)
 
 
@@ -292,20 +315,29 @@ def _byte_unshuffle(data: bytes, itemsize: int) -> np.ndarray:
     return u8.reshape(itemsize, -1).transpose().copy().reshape(-1)
 
 
-def _encode_tensor(value, cfg: Optional[WireConfig]
-                   ) -> Tuple[Payload, Dict, int, int]:
-    """One host value (ndarray, or a CPU bf16 tensor) -> (payload,
-    tensor-meta, raw_nbytes, codec_code)."""
+def _wire_arr(value, precision: str) -> Tuple[np.ndarray, Dict]:
+    """One host value -> (contiguous array of its wire bytes, base tensor
+    meta): bf16 as uint16 bits, a float32 downcast under
+    ``wire-precision``. The delta codec's references are these arrays,
+    so precision composes *under* delta and diffs are exact in the wire
+    domain."""
     arr, name = host_array(value)
     if arr.size and not arr.flags.c_contiguous:
         arr = np.ascontiguousarray(arr)
     t = {"dtype": name, "shape": list(arr.shape)}
-    if cfg is not None and cfg.precision != PREC_NONE and \
-            name == "float32":
-        wname = _PREC_DTYPE[cfg.precision]
+    if precision != PREC_NONE and name == "float32":
+        wname = _PREC_DTYPE[precision]
         arr = (f32_to_bf16_bits(arr) if wname == BF16
                else np.ascontiguousarray(arr.astype(np.float16)))
         t["wire_dtype"] = wname
+    return arr, t
+
+
+def _encode_tensor(value, cfg: Optional[WireConfig]
+                   ) -> Tuple[Payload, Dict, int, int]:
+    """One host value (ndarray, or a CPU bf16 tensor) -> (payload,
+    tensor-meta, raw_nbytes, codec_code)."""
+    arr, t = _wire_arr(value, PREC_NONE if cfg is None else cfg.precision)
     raw = as_payload_view(arr)
     nraw = len(raw)
     if cfg is None or cfg.codec == CODEC_RAW or nraw < MIN_COMPRESS or \
@@ -333,13 +365,14 @@ def _encode_tensor(value, cfg: Optional[WireConfig]
     return raw, t, nraw, _CODE_RAW
 
 
-def _decode_tensor(t: Dict, p: Payload, code: Optional[int] = None):
+def _decode_tensor(t: Dict, p: Payload, code: Optional[int] = None,
+                   upcast: bool = True):
     """One payload -> a writable host value per its tensor-meta (+
     optional numeric codec code from a batch's ``enc`` list): an
-    ndarray, or a CPU bf16 tensor for dtype bfloat16."""
+    ndarray, or a CPU bf16 tensor for dtype bfloat16. ``upcast=False``
+    returns the wire bytes' array as it stands (the delta decoder keeps
+    references in the wire dtype, exactly like the sender's)."""
     codec = _CODE_NAME.get(code) if code is not None else t.get("codec")
-    if codec == CODEC_DELTA:
-        _refuse_delta()
     wname = t.get("wire_dtype")
     dtype = resolve_dtype(wname or t["dtype"])
     shape = tuple(t["shape"])
@@ -357,10 +390,147 @@ def _decode_tensor(t: Dict, p: Payload, code: Optional[int] = None):
         arr = np.frombuffer(raw, dtype).reshape(shape)
         if not arr.flags.writeable:
             arr = arr.copy()
+    if not upcast:
+        return arr
+    return _deliver(arr, t)
+
+
+def _deliver(arr: np.ndarray, t: Dict):
+    """Wire-dtype array -> the host value the app sees (upcast under
+    ``wire-precision``; bf16 bits as a CPU bf16 tensor)."""
+    wname = t.get("wire_dtype")
     if wname:
         arr = (bf16_bits_to_f32(arr) if wname == BF16
                else arr.astype(resolve_dtype(t["dtype"])))
     return host_value(arr, t["dtype"])
+
+
+# -- delta codec (temporal keyframe + sparse diff) ---------------------
+
+
+def _delta_layout_ok(st: Dict, arrs: List[np.ndarray],
+                     names: List[str]) -> bool:
+    return st["names"] == names and all(
+        r.shape == a.shape and r.dtype == a.dtype
+        for r, a in zip(st["refs"], arrs))
+
+
+def _zlib_maybe(data: bytes) -> Tuple[bytes, bool]:
+    """zlib when it pays (same MIN/KEEP thresholds as the codec path,
+    no adaptive skip: delta decisions must be deterministic so the
+    delta-on/off parity is exact)."""
+    if len(data) < MIN_COMPRESS:
+        return data, False
+    comp = zlib.compress(data, COMPRESS_LEVEL)
+    if len(comp) < KEEP_RATIO * len(data):
+        return comp, True
+    return data, False
+
+
+def _delta_encode(buf: Buffer, cfg: WireConfig
+                  ) -> Tuple[bool, int, List[Dict], List[Payload],
+                             List[int], int, int, bool]:
+    """One frame under the link's sender delta state (caller holds
+    cfg._dlock) -> (keyframe?, epoch, tensor metas, payloads, numeric
+    codes, raw bytes, enc bytes, promoted?). Keyframe triggers: fresh
+    link, layout change, K-th frame, or a diff that would not beat the
+    dense frame."""
+    from ..elements.sparse import encode_bits
+    pairs = [_wire_arr(c.host(), cfg.precision) for c in buf.chunks]
+    arrs = [a for a, _t in pairs]
+    # the dtype name of each tensor's wire bytes: its sparse header type
+    names = [t.get("wire_dtype") or t["dtype"] for _a, t in pairs]
+    nraw = sum(a.nbytes for a in arrs)
+    st = cfg._dtx
+    promoted = False
+    key = False
+    if st is None or not _delta_layout_ok(st, arrs, names):
+        key = True
+        promoted = st is not None  # caps/layout change mid-stream
+    elif cfg.delta_k > 0 and st["n"] + 1 >= cfg.delta_k:
+        key = True
+    diffs: List[Tuple[bytes, bool]] = []
+    if not key:
+        total = 0
+        for a, name, ref in zip(arrs, names, st["refs"]):
+            payload, z = _zlib_maybe(encode_bits(a, name, ref))
+            diffs.append((payload, z))
+            total += len(payload)
+        if total >= KEEP_RATIO * max(nraw, 1):
+            key = True       # the diff does not pay: promote to keyframe
+            promoted = True
+    tensors: List[Dict] = []
+    payloads: List[Payload] = []
+    codes: List[int] = []
+    nenc = 0
+    if key:
+        epoch = 1 if st is None else st["e"] + 1
+        for a, t in pairs:
+            payload, z = _zlib_maybe(as_payload_view(a))
+            codes.append(_CODE_ZLIB if z else _CODE_RAW)
+            payloads.append(payload)
+            tensors.append(dict(t))
+            nenc += len(payload)
+        cfg._dtx = {"refs": [a.copy() for a in arrs], "names": names,
+                    "e": epoch, "n": 0}
+        return True, epoch, tensors, payloads, codes, nraw, nenc, promoted
+    epoch = st["e"]
+    for (a, t), (payload, z) in zip(pairs, diffs):
+        tensors.append(dict(t))
+        codes.append(_CODE_DELTA_Z if z else _CODE_DELTA)
+        payloads.append(payload)
+        nenc += len(payload)
+    st["refs"] = [a.copy() for a in arrs]
+    st["n"] += 1
+    return False, epoch, tensors, payloads, codes, nraw, nenc, False
+
+
+def _delta_decode(tensors: Sequence[Dict], payloads: Sequence[Payload],
+                  key: bool, epoch: int, cfg: WireConfig,
+                  codes: Optional[Sequence[int]] = None) -> List:
+    """One frame's payloads -> delivered host values, advancing the
+    receiver reference state (caller holds cfg._dlock). A diff whose
+    epoch does not match the held reference raises: the link layer
+    treats that as a dead link and reconnects, which restarts from a
+    keyframe. Delivered values never alias a reference (downstream
+    transforms mutate in place)."""
+    st = cfg._drx
+    out: List = []
+    if key:
+        refs = []
+        for j, (t, p) in enumerate(zip(tensors, payloads)):
+            code = codes[j] if codes is not None else None
+            arr = _decode_tensor(t, p, code, upcast=False)
+            refs.append(arr.copy())
+            out.append(_deliver(arr, t))
+        cfg._drx = {"refs": refs, "e": epoch}
+        return out
+    if st is None or st.get("e") != epoch:
+        raise ValueError(
+            "delta diff against a missing/stale reference (held epoch "
+            f"{None if st is None else st['e']}, frame wants {epoch})")
+    from ..elements.sparse import decode_bits
+    refs = st["refs"]
+    if len(refs) != len(tensors):
+        raise ValueError("delta diff tensor count mismatch")
+    for j, (t, p) in enumerate(zip(tensors, payloads)):
+        code = codes[j] if codes is not None else None
+        z = (code == _CODE_DELTA_Z) if code is not None \
+            else bool(t.get("dz"))
+        data = p.tobytes() if isinstance(p, np.ndarray) else bytes(p)
+        if z:
+            data = zlib.decompress(data)
+        arr, _name = decode_bits(data, ref=refs[j])
+        refs[j] = arr
+        out.append(_deliver(arr if t.get("wire_dtype") else arr.copy(), t))
+    return out
+
+
+def _delta_out_stats(stats, key: bool, promoted: bool,
+                     nraw: int, nenc: int) -> None:
+    stats.add(wire_delta_keyframes=int(key), wire_delta_diffs=int(not key),
+              wire_delta_promotions=int(promoted),
+              wire_delta_bytes_saved=max(0, nraw - nenc))
 
 
 # -- frame pack/unpack -------------------------------------------------
@@ -373,6 +543,8 @@ def pack_buffer(buf: Buffer, cfg: Optional[WireConfig] = None, stats=None
     (no codec/wire_dtype keys ever appear), so it is always safe for a
     v1 peer. A chunk on the card is copied to the host here (a
     prefetched chunk's copy is already in flight and is waited for)."""
+    if cfg is not None and cfg.codec == CODEC_DELTA:
+        return _pack_buffer_delta(buf, cfg, stats)
     t0 = time.perf_counter_ns()
     tensors: List[Dict] = []
     payloads: List[Payload] = []
@@ -397,15 +569,44 @@ def pack_buffer(buf: Buffer, cfg: Optional[WireConfig] = None, stats=None
     return meta, payloads
 
 
-def unpack_buffer(meta: Dict, payloads: Sequence[Payload], stats=None
-                  ) -> Buffer:
-    """Inverse of :func:`pack_buffer`; handles plain-v1 and every ported
-    codec/precision marker. Chunk arrays are always writable. A delta
-    frame raises ValueError: no link of the port negotiates delta, so
-    one arriving is a peer fault, and the link layer reconnects."""
+def _pack_buffer_delta(buf: Buffer, cfg: WireConfig, stats=None
+                       ) -> Tuple[Dict, List[Payload]]:
+    """pack_buffer for a delta link: frame-level meta carries the
+    reference epoch (+ ``k`` on keyframes); diff tensors are marked
+    ``codec=delta`` (``dz=1`` when the sparse bytes are zlib'd)."""
+    t0 = time.perf_counter_ns()
+    with cfg._dlock:
+        key, epoch, tensors, payloads, codes, nraw, nenc, promoted = \
+            _delta_encode(buf, cfg)
+    for t, code in zip(tensors, codes):
+        if code == _CODE_ZLIB:
+            t["codec"] = CODEC_ZLIB
+        elif code in (_CODE_DELTA, _CODE_DELTA_Z):
+            t["codec"] = CODEC_DELTA
+            if code == _CODE_DELTA_Z:
+                t["dz"] = 1
+    meta = {"pts": buf.pts, "duration": buf.duration, "tensors": tensors,
+            "delta": {"e": epoch, "k": 1} if key else {"e": epoch}}
+    if cfg.trace:
+        ctx = buf.extras.get(_obs_ctx.CTX_KEY)
+        if ctx is not None:
+            meta["trace"] = _obs_ctx.to_wire(ctx)
+    if stats is not None:
+        stats.add(wire_frames_out=1, wire_raw_bytes_out=nraw,
+                  wire_enc_bytes_out=nenc,
+                  wire_pack_ns=time.perf_counter_ns() - t0)
+        _delta_out_stats(stats, key, promoted, nraw, nenc)
+    return meta, payloads
+
+
+def unpack_buffer(meta: Dict, payloads: Sequence[Payload], stats=None,
+                  cfg: Optional[WireConfig] = None) -> Buffer:
+    """Inverse of :func:`pack_buffer`; handles plain-v1 and every v2
+    codec/precision marker. Chunk arrays are always writable. ``cfg``
+    is only needed on links that negotiated the delta codec (the
+    receiver keeps reference state in it)."""
     if meta.get("delta") is not None:
-        raise ValueError("delta frame on a link that did not negotiate "
-                         "wire-codec=delta (the port never does)")
+        return _unpack_buffer_delta(meta, payloads, stats, cfg)
     if stats is not None:
         stats.inc("wire_frames_in")
     tensors = meta.get("tensors", [])
@@ -416,6 +617,29 @@ def unpack_buffer(meta: Dict, payloads: Sequence[Payload], stats=None
                   for t, p in zip(tensors, payloads)]
         buf = Buffer(chunks, pts=meta.get("pts"),
                      duration=meta.get("duration"))
+    trace = meta.get("trace")
+    if trace is not None and _obs_spans.ENABLED:
+        _adopt_trace(buf, trace)
+    return buf
+
+
+def _unpack_buffer_delta(meta: Dict, payloads: Sequence[Payload],
+                         stats=None, cfg: Optional[WireConfig] = None
+                         ) -> Buffer:
+    if cfg is None or cfg.codec != CODEC_DELTA:
+        raise ValueError(
+            "delta frame on a link that did not negotiate wire-codec="
+            "delta (no receiver reference state)")
+    d = meta["delta"]
+    key = bool(d.get("k"))
+    with cfg._dlock:
+        values = _delta_decode(meta.get("tensors", []), payloads, key,
+                               int(d.get("e", 0)), cfg)
+    buf = Buffer([Chunk(v) for v in values], pts=meta.get("pts"),
+                 duration=meta.get("duration"))
+    if stats is not None:
+        stats.add(wire_frames_in=1, wire_delta_keyframes_in=int(key),
+                  wire_delta_diffs_in=int(not key))
     trace = meta.get("trace")
     if trace is not None and _obs_spans.ENABLED:
         _adopt_trace(buf, trace)
@@ -475,6 +699,8 @@ def pack_batch(bufs: Sequence[Buffer], cfg: Optional[WireConfig] = None,
     header (seq/pts/duration/flags), then frames×tensors payloads with a
     numeric ``enc`` codec list. Only ever sent on links that negotiated
     v2 (a v1 peer cannot parse DATA_BATCH)."""
+    if cfg is not None and cfg.codec == CODEC_DELTA:
+        return _pack_batch_delta(bufs, cfg, stats, seqs)
     t0 = time.perf_counter_ns()
     trace = cfg is not None and cfg.trace and _obs_spans.ENABLED
     fhdr = _FHDR_T if trace else _FHDR
@@ -506,15 +732,60 @@ def pack_batch(bufs: Sequence[Buffer], cfg: Optional[WireConfig] = None,
     return meta, payloads
 
 
-def unpack_batch(meta: Dict, payloads: Sequence[Payload], stats=None
-                 ) -> List[Buffer]:
+def _pack_batch_delta(bufs: Sequence[Buffer], cfg: WireConfig,
+                      stats=None, seqs: Optional[Sequence[int]] = None
+                      ) -> Tuple[Dict, List[Payload]]:
+    """pack_batch for a delta link: frames are delta-encoded in order
+    against the evolving link reference (a coalesced batch can hold a
+    mid-batch keyframe: K rollover or promotion); per-frame epochs and
+    keyframe flags ride in the ``delta`` meta block, per-payload codecs
+    in the numeric ``enc`` list."""
+    t0 = time.perf_counter_ns()
+    trace = cfg.trace and _obs_spans.ENABLED
+    fhdr = _FHDR_T if trace else _FHDR
+    hdr = bytearray(fhdr.size * len(bufs))
+    template: List[Dict] = []
+    enc: List[int] = []
+    es: List[int] = []
+    ks: List[int] = []
+    payloads: List[Payload] = [hdr]
+    nraw = nenc = 0
+    with cfg._dlock:
+        for i, buf in enumerate(bufs):
+            seq = seqs[i] if seqs is not None and seqs[i] is not None else -1
+            _stamp_fhdr(hdr, i, buf, seq, trace)
+            key, epoch, tensors, pls, codes, r, e, promoted = \
+                _delta_encode(buf, cfg)
+            if i == 0:
+                template = tensors
+            es.append(epoch)
+            ks.append(int(key))
+            enc.extend(codes)
+            payloads.extend(pls)
+            nraw += r
+            nenc += e
+            if stats is not None:
+                _delta_out_stats(stats, key, promoted, r, e)
+    meta = {"wire_batch": 1, "frames": len(bufs), "tensors": template,
+            "enc": enc, "delta": {"es": es, "ks": ks}}
+    if trace:
+        meta["fhdr"] = 2
+        meta["ts"] = time.time_ns()
+    if stats is not None:
+        stats.add(wire_frames_out=len(bufs), wire_raw_bytes_out=nraw,
+                  wire_enc_bytes_out=nenc,
+                  wire_pack_ns=time.perf_counter_ns() - t0)
+    return meta, payloads
+
+
+def unpack_batch(meta: Dict, payloads: Sequence[Payload], stats=None,
+                 cfg: Optional[WireConfig] = None) -> List[Buffer]:
     """Inverse of :func:`pack_batch` -> the original frames, in order,
     with pts/duration/flags restored and seq (when present) in
-    ``extras["seq"]``. A delta batch raises ValueError, as
-    :func:`unpack_buffer` does for a delta frame."""
+    ``extras["seq"]``. ``cfg`` is only needed on delta links (receiver
+    reference state)."""
     if meta.get("delta") is not None:
-        raise ValueError("delta batch on a link that did not negotiate "
-                         "wire-codec=delta (the port never does)")
+        return _unpack_batch_delta(meta, payloads, stats, cfg)
     frames = int(meta.get("frames", 0))
     template = meta.get("tensors", [])
     enc = meta.get("enc")
@@ -545,4 +816,50 @@ def unpack_batch(meta: Dict, payloads: Sequence[Payload], stats=None
             _adopt_trace(buf, (rec[4], rec[5], t_send,
                                rec[6], rec[7], rec[8], rec[9]))
         out.append(buf)
+    return out
+
+
+def _unpack_batch_delta(meta: Dict, payloads: Sequence[Payload],
+                        stats=None, cfg: Optional[WireConfig] = None
+                        ) -> List[Buffer]:
+    if cfg is None or cfg.codec != CODEC_DELTA:
+        raise ValueError(
+            "delta batch on a link that did not negotiate wire-codec="
+            "delta (no receiver reference state)")
+    frames = int(meta.get("frames", 0))
+    template = meta.get("tensors", [])
+    enc = meta.get("enc") or []
+    d = meta["delta"]
+    es, ks = d.get("es") or [], d.get("ks") or []
+    ntens = len(template)
+    hdr = payloads[0]
+    traced = int(meta.get("fhdr", 1)) >= 2
+    fhdr = _FHDR_T if traced else _FHDR
+    t_send = int(meta.get("ts", 0))
+    out: List[Buffer] = []
+    idx = 1
+    with cfg._dlock:
+        for i in range(frames):
+            rec = fhdr.unpack_from(hdr, i * fhdr.size)
+            seq, pts, dur, flags = rec[:4]
+            key = bool(ks[i]) if i < len(ks) else False
+            epoch = int(es[i]) if i < len(es) else 0
+            codes = enc[i * ntens:(i + 1) * ntens]
+            values = _delta_decode(template, payloads[idx:idx + ntens],
+                                   key, epoch, cfg, codes)
+            idx += ntens
+            if stats is not None:
+                stats.add(wire_frames_in=1,
+                          wire_delta_keyframes_in=int(key),
+                          wire_delta_diffs_in=int(not key))
+            buf = Buffer([Chunk(v) for v in values],
+                         pts=None if pts != pts else pts,
+                         duration=None if dur != dur else dur,
+                         flags=BufferFlags(flags))
+            if seq >= 0:
+                buf.extras["seq"] = seq
+            if traced and _obs_spans.ENABLED and rec[4]:
+                _adopt_trace(buf, (rec[4], rec[5], t_send,
+                                   rec[6], rec[7], rec[8], rec[9]))
+            out.append(buf)
     return out

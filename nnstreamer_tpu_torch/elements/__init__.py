@@ -14,6 +14,8 @@ from . import crop  # noqa: F401  (tensor_crop)
 from . import flowctl  # noqa: F401  (tensor_if/tensor_rate)
 from . import query  # noqa: F401  (tensor_query_*)
 from . import edge  # noqa: F401  (edgesrc/edgesink)
+from . import sparse  # noqa: F401  (tensor_sparse_enc/dec)
+from . import delta  # noqa: F401  (tensor_delta/tensor_delta_stitch)
 from ..fault import element as fault  # noqa: F401  (tensor_fault)
 
 __all__: list = []

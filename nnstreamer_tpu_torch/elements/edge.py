@@ -28,10 +28,12 @@ card is copied to the host there, or its in-flight prefetch waited
 for); the accept, flush and per-subscriber reader threads and the
 subscriber's loop touch host data only.
 
-Not ported: ``wire-codec=delta`` (edgesink refuses it at start,
-ROADMAP.md queue A item 7; a JAX publisher asking for it falls back to
-raw toward a port subscriber), the graceful drain, and the
-checkpoint/restore hooks (the port has neither).
+``wire-codec=delta`` encodes each link against its own reference state,
+minted fresh at every (re)connect on both ends: a session's replay
+after a link kill starts from a keyframe.
+
+Not ported: the graceful drain and the checkpoint/restore hooks (the
+port has neither).
 """
 from __future__ import annotations
 
@@ -81,9 +83,11 @@ class EdgeSink(SinkElement):
              "connect-type": "TCP",
              # wire v2 link request, applied per subscriber that
              # advertises support (v1 subscribers keep plain framing):
-             # lossless payload codec + opt-in lossy fp32 downcast
-             # (wire-codec=delta is refused at start: not ported)
+             # lossless payload codec + opt-in lossy fp32 downcast;
+             # wire-codec=delta ships keyframes every wire-delta-k
+             # frames and sparse bitwise diffs between them
              "wire-codec": "raw", "wire-precision": "none",
+             "wire-delta-k": wire.DELTA_KEYFRAME_INTERVAL,
              # frame coalescing: broadcast up to N frames per message
              # (DATA_BATCH, v2 subscribers only), flushing a partial
              # batch once its oldest frame has waited coalesce-ms
@@ -93,9 +97,6 @@ class EdgeSink(SinkElement):
              # of unacknowledged frames for gap replay before evicting
              # (evictions become *declared* loss, never silent)
              "session": True, "session-ring-kb": 8192}
-    # the delta codec's keyframe cadence: only its default is accepted
-    NOT_PORTED = {"wire-delta-k": wire.DELTA_KEYFRAME_INTERVAL}
-
     def __init__(self, name=None, **props):
         super().__init__(name, **props)
         self._listener: Optional[socket.socket] = None
@@ -132,12 +133,6 @@ class EdgeSink(SinkElement):
         return self._listener.getsockname()[1] if self._listener else self.port
 
     def start(self) -> None:
-        if str(self.wire_codec) == wire.CODEC_DELTA:
-            from ..pipeline.element import NotPortedError
-            raise NotPortedError(
-                f"{self.name}: wire-codec=delta is not ported yet: it "
-                f"encodes through tensor_sparse_* (ROADMAP.md queue A, "
-                f"item 7)")
         super().start()
         self._stop_evt.clear()
         # parse_launch sets properties after construction, so the ring
@@ -213,7 +208,8 @@ class EdgeSink(SinkElement):
                 # block) gets plain framing and never sees DATA_BATCH
                 cfg = wire.negotiate(meta.get("wire"),
                                      codec=str(self.wire_codec),
-                                     precision=str(self.wire_precision))
+                                     precision=str(self.wire_precision),
+                                     delta_k=int(self.wire_delta_k))
                 # session fold, same shape: no "session" block in the
                 # SUBSCRIBE = no session = strict v1 on this link
                 scfg = None
@@ -410,10 +406,16 @@ class EdgeSink(SinkElement):
         for sub in subs:
             cfg = sub.cfg
             with_seq = sub.sid is not None and seqs is not None
-            key = (None if cfg is None
-                   else (cfg.codec, cfg.precision, cfg.trace,
-                         len(frames) > 1),
-                   with_seq)
+            if cfg is not None and cfg.codec == wire.CODEC_DELTA:
+                # delta frames are encoded against this link's own
+                # reference state: never share packed bytes across
+                # subscribers (id(cfg) is unique per connection)
+                key = (id(cfg), with_seq)
+            else:
+                key = (None if cfg is None
+                       else (cfg.codec, cfg.precision, cfg.trace,
+                             len(frames) > 1),
+                       with_seq)
             msgs = packed.get(key)
             if msgs is None:
                 if cfg is not None and len(frames) > 1:
@@ -495,8 +497,9 @@ class EdgeSrc(SrcElement):
         super().__init__(name, **props)
         self._sock: Optional[socket.socket] = None
         # the wire config adopted from the publisher's CAPS_ACK echo,
-        # minted fresh at every (re)subscribe (frames are self-describing:
-        # unpacking reads their meta, this records what the link chose)
+        # minted fresh at every (re)subscribe: that resets the delta
+        # receiver reference state in lockstep with the publisher's
+        # fresh per-connection sender state
         self._wire_cfg: Optional[wire.WireConfig] = None
         # frames from an unpacked DATA_BATCH beyond the first, drained
         # before the next recv (only the source loop touches this)
@@ -571,7 +574,8 @@ class EdgeSrc(SrcElement):
         kind, meta, _ = recv_msg(sock)
         if kind != MsgKind.CAPS_ACK:
             raise ConnectionError(f"{self.name}: subscribe rejected ({kind})")
-        # adopt the publisher's choice
+        # adopt the publisher's choice; a fresh WireConfig per
+        # (re)connect means fresh delta reference state on both ends
         self._wire_cfg = wire.accept(meta.get("wire"))
         scfg = sess_mod.accept(meta.get("session")) if self.session else None
         if scfg is not None:
@@ -740,7 +744,8 @@ class EdgeSrc(SrcElement):
             if kind == MsgKind.DATA:
                 try:
                     buf = wire.unpack_buffer(meta, payloads,
-                                             stats=self.stats)
+                                             stats=self.stats,
+                                             cfg=self._wire_cfg)
                 except ValueError as exc:
                     if self._decode_failed(exc):
                         continue
@@ -758,7 +763,8 @@ class EdgeSrc(SrcElement):
             if kind == MsgKind.DATA_BATCH:
                 try:
                     frames = wire.unpack_batch(meta, payloads,
-                                               stats=self.stats)
+                                               stats=self.stats,
+                                               cfg=self._wire_cfg)
                 except ValueError as exc:
                     if self._decode_failed(exc):
                         continue
@@ -795,8 +801,8 @@ class EdgeSrc(SrcElement):
         return None
 
     def _decode_failed(self, exc: ValueError) -> bool:
-        """An undecodable frame (a torn payload, a delta frame this side
-        never negotiated) is a link fault: tear the connection down and
+        """An undecodable frame (a torn payload, a delta diff against a
+        reference this side no longer holds) is a link fault: tear the connection down and
         re-handshake; a session resume replays the gap. True =
         reconnected."""
         if self._stop_evt.is_set():

@@ -298,8 +298,12 @@ class TensorQueryServerSrc(SrcElement):
                         ack["wire"] = cfg.to_meta()
                     send_msg(conn, MsgKind.CAPS_ACK, ack)
                 elif kind == MsgKind.DATA:
-                    self._enqueue(wire.unpack_buffer(meta, payloads,
-                                                     stats=self.stats), cid)
+                    buf = wire.unpack_buffer(meta, payloads,
+                                             stats=self.stats)
+                    if meta.get("delta_roi"):
+                        # the client's ROI side-band, echoed on RESULT
+                        buf.extras["delta_roi"] = meta["delta_roi"]
+                    self._enqueue(buf, cid)
                 elif kind == MsgKind.DATA_BATCH:
                     for b in wire.unpack_batch(meta, payloads,
                                                stats=self.stats):
@@ -379,6 +383,9 @@ class TensorQueryServerSrc(SrcElement):
         out.extras["batch_rows"] = [
             (b.extras.get("client_id"), b.extras.get("server_id", self.id),
              b.pts) for b in bufs]
+        rois = [b.extras.get("delta_roi") for b in bufs]
+        if any(rois):
+            out.extras["batch_rois"] = rois
         # tensor_filter trims the padded rows of its host outputs; its
         # card outputs ship padded (one copy of the stack) and the
         # serversink answers the real rows only
@@ -411,14 +418,16 @@ class TensorQueryServerSink(SinkElement):
             # back to the client that sent frame i (padded rows have no
             # entry and are never sent)
             hosts = [c.host() for c in buf.chunks]
-            for i, (cid, sid, pts) in enumerate(rows):
+            rois = buf.extras.get("batch_rois") or [None] * len(rows)
+            for i, ((cid, sid, pts), roi) in enumerate(zip(rows, rois)):
                 row = Buffer([Chunk(_row(h, i)) for h in hosts], pts=pts)
-                self._send_one(row, cid, sid)
+                self._send_one(row, cid, sid, roi)
             return
         self._send_one(buf, buf.extras.get("client_id"),
-                       buf.extras.get("server_id", self.id))
+                       buf.extras.get("server_id", self.id),
+                       buf.extras.get("delta_roi"))
 
-    def _send_one(self, buf: Buffer, cid, sid) -> None:
+    def _send_one(self, buf: Buffer, cid, sid, roi=None) -> None:
         conn = SERVER_TABLE.get_conn(sid, cid) if cid is not None else None
         if conn is None:
             logger.warning("%s: no connection for client %s", self.name, cid)
@@ -427,6 +436,8 @@ class TensorQueryServerSink(SinkElement):
         meta, payloads = wire.pack_buffer(
             buf, SERVER_TABLE.get_wire(sid, cid), stats=self.stats)
         meta["client_id"] = cid
+        if roi:
+            meta["delta_roi"] = roi
         try:
             send_msg(conn, MsgKind.RESULT, meta, payloads, stats=self.stats)
         except (ConnectionError, OSError):

@@ -8,7 +8,10 @@ unless ``accelerator`` asks for the CPU; without CUDA and without that
 request, open raises) and runs it there eagerly, as the reference runs
 it: no executable cache and no graph capture, so each invoke launches
 the module's kernels one by one. Inputs (host arrays or tensors) go to
-the module's device; outputs stay there.
+the module's device; outputs stay there. Its f32 products run in full
+f32, as the reference's do on the host: ``full_f32_numerics`` (which the
+torch-cuda backend sets too) for what reads the process flags, and
+``_full_f32_convolutions`` for the convolutions a trace froze them into.
 
 As in the reference, input dimensions come from the properties or the
 negotiated caps (TorchScript carries no static shapes); the output info
@@ -27,13 +30,41 @@ from ..tensors.types import TensorType
 from ..utils.log import logger
 from .base import FilterEvent, FilterFramework, FilterProperties
 from .registry import register_filter
-from .torch_cuda_backend import device_for
+from .torch_cuda_backend import device_for, full_f32_numerics
 
 
 def _as_tensor(x: Any, device: torch.device) -> torch.Tensor:
     if not isinstance(x, torch.Tensor):
         x = torch.from_numpy(np.ascontiguousarray(x))
     return x.to(device)
+
+
+# aten::_convolution(input, weight, bias, stride, padding, dilation,
+#   transposed, output_padding, groups, benchmark, deterministic,
+#   cudnn_enabled, allow_tf32): the two cuDNN flags rewritten below
+_CONV_BENCHMARK, _CONV_ALLOW_TF32 = 9, 12
+
+
+def _full_f32_convolutions(module) -> None:
+    """Run a loaded TorchScript module's convolutions in full f32 with no
+    cuDNN autotuning, as ``full_f32_numerics`` sets for the process.
+
+    ``torch.jit.trace`` records the cuDNN flags of the process that
+    traced the model as constant arguments of each ``aten::_convolution``
+    (``allow_tf32`` is on by default), so the runtime flags never reach a
+    traced convolution: rewrite those constants in every method's graph
+    before the first run."""
+    for m in module.modules():
+        for name in m._c._method_names():
+            graph = m._c._get_method(name).graph
+            for node in graph.nodes():
+                if node.kind() != "aten::_convolution" or \
+                        len(list(node.inputs())) <= _CONV_ALLOW_TF32:
+                    continue
+                for k in (_CONV_BENCHMARK, _CONV_ALLOW_TF32):
+                    const = graph.insertConstant(False)
+                    const.node().moveBefore(node)
+                    node.replaceInput(k, const)
 
 
 @register_filter
@@ -53,6 +84,7 @@ class TorchScriptFilter(FilterFramework):
         if not props.model_files:
             raise ValueError("pytorch backend needs a model file")
         self.device = device_for(props.accelerators)
+        full_f32_numerics()
         self._path = props.model_files[0]
         self._module = self._load(self._path)
         self._in_info = props.input_info
@@ -65,6 +97,7 @@ class TorchScriptFilter(FilterFramework):
     def _load(self, path: str):
         module = torch.jit.load(path, map_location=self.device)
         module.eval()
+        _full_f32_convolutions(module)
         return module
 
     def close(self) -> None:

@@ -93,6 +93,19 @@ def device_for(accelerators: Sequence[Accelerator]) -> torch.device:
     return torch.device("cuda", 0)
 
 
+def full_f32_numerics() -> None:
+    """Full f32 in every f32 product on the card (no TF32 in matmuls or
+    cuDNN convolutions), as the reference computes them, and no cuDNN
+    autotuning, so a graph replays what an eager run computes. The
+    flags are process-wide: every backend that runs a module on the
+    card sets them at open, so no result depends on which filter opened
+    first. They act on CUDA only, so setting them on the CPU is
+    harmless."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+
+
 def _moved(module: torch.nn.Module,
            device: torch.device) -> torch.nn.Module:
     """A copy of ``module`` whose parameters and buffers live on
@@ -176,13 +189,7 @@ class TorchCudaFilter(FilterFramework):
         self.device = device_for(props.accelerators)
         self._own_pool = props.graph_pool is None
         self._pool = GraphPool() if self._own_pool else props.graph_pool
-        if self.device.type == "cuda":
-            # full f32 in every f32 product, as the reference computes;
-            # no cuDNN autotuning, so a graph replays what an eager run
-            # computes
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cudnn.benchmark = False
+        full_f32_numerics()
         (self._apply, self._module,
          self._in_info, self._out_info) = self._load(props)
         logger.info("torch-cuda filter opened model=%s on %s",

@@ -4,8 +4,8 @@ appsink, fakesink and tensortestsrc.
 Port of the matching elements of ``nnstreamer_tpu/pipeline/basic.py``,
 with their static caps transfer (the element base's declaration for the
 queue, appsrc and the sinks; capsfilter's and tensortestsrc's below).
-The queue is always a Python ``queue.Queue``: the native C++ ring of the
-JAX package (``backend=native``) is not ported. ``tee`` shares each
+The queue is a Python ``queue.Queue`` or the native C++ ring
+(``backend=native``, ``native/lib.py``). ``tee`` shares each
 buffer among its branches (no copy), so CUDA chunks stay on the card
 through it, as ``identity`` passes them.
 """
@@ -23,13 +23,41 @@ from ..tensors.buffer import Buffer, Chunk
 from ..tensors.caps import Caps
 from ..tensors.types import TensorType
 from ..utils.log import logger
-from .element import (Element, NotPortedError, SinkElement, SrcElement,
-                      TransferError, TransformElement)
+from .element import (Element, SinkElement, SrcElement, TransferError,
+                      TransformElement)
 from .events import CapsEvent, Event
 from .pad import FlowError, Pad
 from .registry import register_element
 
 _SENTINEL = object()
+
+
+class _NativeQueueAdapter:
+    """queue.Queue facade over the C++ MPMC ring (csrc/nns_ring.cc), the
+    native thread boundary the reference gets from GStreamer's C queue.
+    Waiting happens in native condition variables, off the interpreter
+    lock. A put or get on a closed ring raises FlowError at once. Only
+    non-leaky queues use it: both calls block."""
+
+    def __init__(self, capacity: int):
+        from ..native.lib import NativeRing
+        self._ring = NativeRing(capacity)
+
+    def put(self, item) -> None:
+        if not self._ring.push(item):
+            raise FlowError("queue stopped")
+
+    def get(self):
+        ok, item = self._ring.pop()
+        if not ok:
+            raise FlowError("queue stopped")
+        return item
+
+    def close(self) -> None:
+        self._ring.close()
+
+    def qsize(self) -> int:
+        return len(self._ring)
 
 
 @register_element("queue")
@@ -40,8 +68,18 @@ class Queue(Element):
     (matching gst queue defaults). GStreamer leaky semantics:
     ``leaky=upstream`` drops the incoming buffer when full;
     ``leaky=downstream`` evicts the oldest queued buffer to make room.
-    ``backend`` accepts ``auto`` and ``python``, which are the same queue
-    here.
+
+    ``backend=auto`` (default) uses the native C++ ring for the common
+    non-leaky case when libnnstpu is already built (``make native``; auto
+    never builds it); ``python`` forces the Python queue, and ``native``
+    the ring, building it at first use and raising, never falling back,
+    when it cannot. Leaky modes always use the Python queue (eviction
+    needs its internals).
+
+    ``stop`` closes the ring (or, for the Python queue, marks the queue
+    stopped and wakes the worker): a producer blocked in ``chain``
+    returns with FlowError instead of waiting on a queue no worker
+    drains, and ``start`` makes a fresh ring.
     """
 
     SINK_TEMPLATES = {"sink": None}
@@ -53,15 +91,39 @@ class Queue(Element):
         self._q = self._make_q()
         self._thread: Optional[threading.Thread] = None
         self._running = False
+        self._stopped = threading.Event()
 
     def _make_q(self):
-        return _pyqueue.Queue(maxsize=max(1, self.max_size_buffers))
+        cap = max(1, self.max_size_buffers)
+        if self.backend in ("auto", "native") and self.leaky == "none":
+            from ..native.lib import native_available, native_built
+            # auto never triggers an on-demand `make native` from a plain
+            # pipeline parse: only a library already on disk is used;
+            # backend=native may build
+            usable = (native_available() if self.backend == "native"
+                      else native_built() and native_available())
+            if usable:
+                return _NativeQueueAdapter(cap)
+            if self.backend == "native":
+                raise RuntimeError(
+                    f"{self.name}: backend=native but libnnstpu is not "
+                    "built (run `make native`)")
+        elif self.backend == "native":
+            raise ValueError(
+                f"{self.name}: leaky queues need backend=python")
+        return _pyqueue.Queue(maxsize=cap)
+
+    @property
+    def is_native(self) -> bool:
+        return isinstance(self._q, _NativeQueueAdapter)
 
     def set_property(self, key: str, value) -> None:
         super().set_property(key, value)
-        if key.replace("_", "-") == "max-size-buffers":
+        if key.replace("_", "-") in ("max-size-buffers", "leaky", "backend"):
             # properties may be applied after __init__ (launch parser);
-            # rebuild then, but never once the worker owns the queue
+            # rebuild then, but never once the worker owns the queue.
+            # During Element.__init__ (constructor kwargs) _q does not
+            # exist yet: Queue.__init__ builds it exactly once.
             if "_q" not in self.__dict__:
                 return
             if getattr(self, "_running", False):
@@ -69,15 +131,14 @@ class Queue(Element):
                     f"{self.name}: cannot reconfigure a running queue")
             self._q = self._make_q()
 
-    def check_ported(self) -> None:
-        super().check_ported()
-        if self.backend not in ("auto", "python"):
-            raise NotPortedError(
-                f"{self.name}: backend={self.backend!r} is not ported yet "
-                "(the port has only the python queue)")
-
     def start(self) -> None:
         super().start()
+        if self.is_native and self._stopped.is_set():
+            # a closed ring stays closed: a restarted element gets a
+            # live one (made here, not at stop, so a producer still
+            # pushing after the stop meets the closed ring)
+            self._q = self._make_q()
+        self._stopped.clear()
         self._running = True
         self._thread = threading.Thread(
             target=self._worker, name=f"queue:{self.name}", daemon=True)
@@ -85,22 +146,43 @@ class Queue(Element):
 
     def stop(self) -> None:
         self._running = False
+        self._stopped.set()
         super().stop()
-        try:
-            self._q.put_nowait(_SENTINEL)
-        except _pyqueue.Full:
+        if self.is_native:
+            # the ring has a real shutdown: close() wakes the producers
+            # blocked in push (FlowError) and the worker's pop
+            self._q.close()
+        else:
             try:
-                self._q.get_nowait()
                 self._q.put_nowait(_SENTINEL)
-            except (_pyqueue.Empty, _pyqueue.Full):
-                pass
+            except _pyqueue.Full:
+                try:
+                    self._q.get_nowait()
+                    self._q.put_nowait(_SENTINEL)
+                except (_pyqueue.Empty, _pyqueue.Full):
+                    pass
         if self._thread is not None and self._thread is not threading.current_thread():
             self._thread.join(timeout=5.0)
             self._thread = None
 
+    def _put(self, item) -> None:
+        """Blocking put (backpressure) that gives up once the queue is
+        stopped: no worker drains it then."""
+        if self.is_native:
+            self._q.put(item)
+            return
+        while True:
+            if self._stopped.is_set():
+                raise FlowError(f"{self.name}: queue stopped")
+            try:
+                self._q.put(item, timeout=0.05)
+                return
+            except _pyqueue.Full:
+                continue
+
     def chain(self, pad: Pad, item) -> None:
         if isinstance(item, Event):
-            self._q.put(item)  # events are serialized: never dropped
+            self._put(item)  # events are serialized: never dropped
             return
         # the queue bypasses Element.chain (no do_chain), so the tracing
         # hook fires here (stats['buffers'] is counted by the worker on pop)
@@ -133,14 +215,17 @@ class Queue(Element):
                                 break
                     if not dropped:
                         # only events queued: block until the worker drains
-                        self._q.put(item)
+                        self._put(item)
                         return
         else:
-            self._q.put(item)  # blocking: backpressure
+            self._put(item)  # blocking: backpressure
 
     def _worker(self) -> None:
         while self._running:
-            item = self._q.get()
+            try:
+                item = self._q.get()
+            except FlowError:
+                break  # native ring closed and drained
             if item is _SENTINEL:
                 break
             try:

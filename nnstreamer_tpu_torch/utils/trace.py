@@ -34,12 +34,14 @@ device completion only where the sink materialises the frame.
 
 A networked element (``tensor_query_*``, ``edgesink``/``edgesrc``)
 adds a per-link ``wire`` block (bytes and messages each way, the codec's
-compression ratio, pack time, frames per message) and a ``session``
-block (sent/delivered, replays, duplicate drops, declared losses, acks,
-heartbeat RTT and the element's live ring gauges).
+compression ratio, pack time, frames per message, and the delta codec's
+``delta``/``delta_in`` keyframes and diffs) and a ``session`` block
+(sent/delivered, replays, duplicate drops, declared losses, acks,
+heartbeat RTT and the element's live ring gauges). A live in-process
+discovery broker's counters come as a top-level ``broker`` block.
 
-Not ported: the serve router's block and the discovery broker's
-counters; their modules are not in the port yet.
+Not ported: the serve router's block; its module is not in the port
+yet.
 """
 from __future__ import annotations
 
@@ -76,6 +78,17 @@ def _wire_summary(st: Dict[str, Any]) -> Dict[str, Any]:
             out["frames_per_msg"] = round(frames_out / msgs, 2)
     if st.get("wire_frames_in"):
         out["frames_in"] = st["wire_frames_in"]
+    if st.get("wire_delta_keyframes") or st.get("wire_delta_diffs"):
+        # delta codec sender: how much temporal redundancy the link shed
+        out["delta"] = {
+            "keyframes": st.get("wire_delta_keyframes", 0),
+            "diffs": st.get("wire_delta_diffs", 0),
+            "promotions": st.get("wire_delta_promotions", 0),
+            "bytes_saved": st.get("wire_delta_bytes_saved", 0)}
+    if st.get("wire_delta_keyframes_in") or st.get("wire_delta_diffs_in"):
+        out["delta_in"] = {
+            "keyframes": st.get("wire_delta_keyframes_in", 0),
+            "diffs": st.get("wire_delta_diffs_in", 0)}
     return out
 
 
@@ -287,6 +300,12 @@ class Tracer:
             transfer = self._transfer_block(pipeline)
             if transfer:
                 out["transfer"] = transfer
+        # control-plane counters: any live in-process discovery broker
+        # (register/query/error totals) surfaces next to the elements
+        from ..edge.broker import live_broker_stats
+        b = live_broker_stats()
+        if b:
+            out["broker"] = b
         return out
 
     @staticmethod

@@ -1,7 +1,7 @@
 """The port's pipelint (nnstreamer_tpu_torch/analysis/) against the JAX
 package's, on the CPU.
 
-Mirrors the tests/test_analysis.py cases of the sixteen rules the port
+Mirrors the tests/test_analysis.py cases of the seventeen rules the port
 has (``TestRules``), ``TestStartGate``, ``TestReport`` and
 ``TestTraceExportRule``, and tests/test_fusion.py's ``TestLintRules``.
 Each description is parsed by both packages and analyzed without
@@ -50,7 +50,7 @@ DEFERRED = {
     "sharding-divisibility", "serve-mesh-divisibility", "mesh-colocation",
     "unbounded-admission", "router-no-replicas",
     "router-affinity-sessionless", "llm-decode-no-kv-budget", "llm-prefix-cache-lossy-link",
-    "delta-no-keyframe-interval", "delta-lossy-gate-feeds-trainer",
+    "delta-lossy-gate-feeds-trainer",
     "autoscaler-config", "stateful-no-checkpoint",
 }
 
@@ -73,7 +73,7 @@ def findings_for(desc, rule=None):
 
 def test_rule_ids_are_the_reference_minus_the_deferred():
     assert {r.id for r in ALL_RULES} == {r.id for r in NT_RULES} - DEFERRED
-    assert len(ALL_RULES) == 16
+    assert len(ALL_RULES) == 17
 
 
 class TestCapsInference:
@@ -284,6 +284,19 @@ class TestAmongDeviceRules:
         assert sorted((f.element, f.severity) for f in got) == [
             ("q", Severity.ERROR), ("q", Severity.ERROR),
             ("w", Severity.WARNING), ("z", Severity.ERROR)]
+
+    @pytest.mark.parametrize("k,want", [(0, True), (-1, True), (8, False),
+                                        (None, False)])
+    def test_delta_no_keyframe_interval(self, k, want):
+        desc = (  # pipelint: skip — some lines never rekey on schedule
+            f"tensortestsrc caps={CAPS_F32} ! edgesink name=z "
+            "wire-codec=delta" + ("" if k is None else f" wire-delta-k={k}"))
+        got = findings_for(desc, "delta-no-keyframe-interval")
+        assert [(f.element, f.severity) for f in got] == \
+            ([("z", Severity.ERROR)] if want else [])
+        assert findings_for(
+            f"tensortestsrc caps={CAPS_F32} ! edgesink wire-delta-k=0",
+            "delta-no-keyframe-interval") == []
 
     def test_wire_config_accepts_the_reference_codec_names(self):
         ok = (f"tensortestsrc caps={CAPS_F32} ! edgesink "

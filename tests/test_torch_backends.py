@@ -309,6 +309,57 @@ def test_pytorch_without_cuda_raises(traced_pt, monkeypatch):
         fw.open(FilterProperties(model_files=(traced_pt,)))
 
 
+@pytest.mark.parametrize("framework", ["pytorch", "torch-cuda"])
+def test_both_card_backends_set_full_f32_at_open(traced_pt, framework,
+                                                 monkeypatch):
+    """Each backend that runs a module on the card sets the process-wide
+    numerics flags at its own open (no TF32 in f32 products, no cuDNN
+    autotuning), so the result of one never depends on whether the
+    other opened first. The flags are restored after the test."""
+    from nnstreamer_tpu_torch.filters.base import FilterProperties
+    for flag in (torch.backends.cuda.matmul, torch.backends.cudnn):
+        monkeypatch.setattr(flag, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", True)
+    model = (traced_pt if framework == "pytorch" else
+             "zoo://mobilenet_v2?width=0.35&size=32")
+    fw = find_filter(framework)()
+    fw.open(FilterProperties(model_files=(model,),
+                             accelerators=(Accelerator.CPU,)))
+    fw.close()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cudnn.benchmark
+
+
+def test_pytorch_backend_clears_the_traced_tf32_flag(tmp_path, monkeypatch):
+    """torch.jit.trace freezes the tracing process's cuDNN flags into each
+    aten::_convolution (allow_tf32 on by default); the pytorch backend
+    rewrites them to full f32 with no autotuning at load, so the runtime
+    flags' full f32 reaches a traced conv on the card too."""
+    from nnstreamer_tpu_torch.filters.base import FilterProperties
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", True)
+    path = str(tmp_path / "conv.pt")
+    torch.jit.trace(_Net().eval(),
+                    torch.zeros(8, 8, 3, dtype=torch.uint8)).save(path)
+
+    def flags(module):
+        return [[i.toIValue() for i in list(n.inputs())[9:13:3]]
+                for m in module.modules() for n in m.graph.nodes()
+                if n.kind() == "aten::_convolution"]
+
+    assert flags(torch.jit.load(path)) == [[True, True]]
+    fw = find_filter("pytorch")()
+    fw.open(FilterProperties(model_files=(path,),
+                             accelerators=(Accelerator.CPU,)))
+    assert flags(fw._module) == [[False, False]]
+    x = np.random.default_rng(2).integers(0, 255, (8, 8, 3), np.uint8)
+    want = torch.jit.load(path)(torch.from_numpy(x))
+    got = fw.invoke([x])
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    fw.close()
+
+
 # -- auto-detection --------------------------------------------------------------
 
 @pytest.mark.parametrize("name", ["m.so", "m.pt", "m.pth", "m.py"])
@@ -393,14 +444,23 @@ def test_single_shot_runs_on_the_card_by_default(mlp_py, monkeypatch):
 # -- the port imports no JAX ---------------------------------------------------------
 
 def test_new_modules_import_no_jax():
-    """The backends, SingleShot and the watchdog (and chip_smoke.py, read
-    as text) import nothing of JAX or of the JAX package; the modules
-    are imported in a fresh interpreter."""
+    """The backends, SingleShot, the watchdog, the sparse and delta ops
+    and elements, the delta wire codec, the broker and the native ring
+    (and chip_smoke.py, read as text) import nothing of JAX or of the
+    JAX package; the modules are imported in a fresh interpreter."""
     code = ("import sys; import nnstreamer_tpu_torch.filters.custom, "
             "nnstreamer_tpu_torch.filters.custom_c, "
             "nnstreamer_tpu_torch.filters.torch_backend, "
             "nnstreamer_tpu_torch.single, "
-            "nnstreamer_tpu_torch.utils.watchdog; "
+            "nnstreamer_tpu_torch.utils.watchdog, "
+            "nnstreamer_tpu_torch.ops.sparse, "
+            "nnstreamer_tpu_torch.ops.delta, "
+            "nnstreamer_tpu_torch.elements.sparse, "
+            "nnstreamer_tpu_torch.elements.delta, "
+            "nnstreamer_tpu_torch.edge.wire, "
+            "nnstreamer_tpu_torch.edge.broker, "
+            "nnstreamer_tpu_torch.native.lib, "
+            "nnstreamer_tpu_torch.pipeline.basic; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes', "
             "'nnstreamer_tpu')]; assert not bad, bad")

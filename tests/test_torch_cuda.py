@@ -992,3 +992,181 @@ def test_single_shot_on_the_card(card):
     pipe.stop()
     for o, b in zip(outs, pipe["out"].buffers):
         assert np.array_equal(o.cpu().numpy(), b.chunks[0].host())
+
+
+# -- numerics flags, sparse and delta ops ----------------------------------------
+
+
+TF32_SCRIPT = r'''
+import sys, numpy as np, torch
+from nnstreamer_tpu_torch.filters import find_filter
+from nnstreamer_tpu_torch.filters.base import FilterProperties
+from nnstreamer_tpu_torch.tensors.info import TensorsInfo
+path = sys.argv[1]
+gen = torch.Generator().manual_seed(0)
+
+
+class Net(torch.nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.conv = torch.nn.Conv2d(256, 256, 1)
+
+    def forward(self, x):
+        return self.conv(x[None])[0]
+
+
+net = Net().eval()
+with torch.no_grad():
+    for p in net.parameters():
+        p.copy_(torch.randn(p.shape, generator=gen))
+x = torch.randn(256, 32, 32, generator=gen)
+torch.jit.trace(net, x).save(path)
+with torch.no_grad():
+    want = net(x)
+    scale = float(want.abs().max())
+    # the same conv on the card in TF32: what the check must tell apart
+    torch.backends.cudnn.allow_tf32 = True
+    tf32 = float((net.cuda()(x.cuda()).cpu() - want).abs().max()) / scale
+    net.cpu()
+
+def rel_err():
+    fw = find_filter("pytorch")()
+    fw.open(FilterProperties(model_files=(path,),
+                             input_info=TensorsInfo.make("float32",
+                                                         "32:32:256")))
+    got = fw.invoke([x.cuda()])[0].cpu()
+    fw.close()
+    return float((got - want).abs().max()) / scale
+
+before = rel_err()
+cuda_fw = find_filter("torch-cuda")()
+cuda_fw.open(FilterProperties(model_files=(
+    "zoo://mobilenet_v2?width=0.35&size=32",)))
+after = rel_err()
+print(tf32, before, after, torch.backends.cudnn.allow_tf32)
+'''
+
+
+def test_pytorch_conv_is_full_f32_before_and_after_a_torch_cuda_open(
+        card, tmp_path):
+    """In a fresh process (default flags: cuDNN TF32 on, and traced
+    under them), an f32 conv TorchScript model under framework=pytorch
+    agrees with its CPU f32 run within 1e-5 of the largest output,
+    before and after a torch-cuda open: full f32 either way. The same
+    conv run in TF32 on the card misses by more than 1e-5 (10-bit
+    mantissa, 256-term sums), so the bound tells the two apart. A 1x1
+    conv, because cuDNN may take Winograd for a 3x3 one, whose f32 error
+    is itself above 1e-5."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = tmp_path / "tf32.py"
+    script.write_text(TF32_SCRIPT)
+    out = subprocess.run(
+        [sys.executable, str(script), str(tmp_path / "conv.pt")],
+        check=True, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": root})
+    tf32, before, after, flag = out.stdout.split()[-4:]
+    assert float(tf32) > 1e-5, out.stdout  # the bound tells TF32 apart
+    assert float(before) <= 1e-5 and float(after) <= 1e-5, out.stdout
+    assert flag == "False"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.uint8])
+def test_sparse_pack_unpack_on_card_equal_the_cpu(card, dtype):
+    from nnstreamer_tpu_torch.ops import sparse
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal(224 * 224 * 3).astype(np.float32) * 9
+    x[rng.random(x.size) > 0.05] = 0
+    x[:3] = [np.nan, -0.0, np.inf]
+    t = torch.from_numpy(x).to(dtype) if dtype != torch.uint8 else \
+        torch.from_numpy(np.clip(np.nan_to_num(np.abs(x)), 0, 255)
+                         .astype(np.uint8))
+    cap = int(t.numel() * 0.1)
+    sparse.reset_counts()
+    got = sparse.fetch_packed(*sparse.pack(t.cuda(), cap))
+    want = sparse.fetch_packed(*sparse.pack(t, cap))
+    assert got[2] == want[2] <= cap
+    assert got[0].tobytes() == want[0].tobytes()
+    assert got[1].tobytes() == want[1].tobytes()
+    vals = got[1][:got[2]]
+    if dtype == torch.bfloat16:
+        vals = torch.from_numpy(vals.view(np.int16).copy()).view(dtype)
+    dense = sparse.unpack(got[0][:got[2]], vals, t.numel(), "cuda")
+    assert dense.is_cuda
+    plain = torch.where(t == 0, torch.zeros_like(t), t)  # -0.0 -> +0.0
+    assert dense.cpu().view(torch.uint8).numpy().tobytes() == \
+        plain.view(torch.uint8).numpy().tobytes()
+    assert (sparse.packs, sparse.unpacks) == (1, 1)
+    assert sparse.pack_d2h_bytes == 8 + cap * (8 + t.element_size())
+
+
+def test_tile_error_on_card_matches_plain(card):
+    from nnstreamer_tpu_torch.ops import delta
+    rng = np.random.default_rng(3)
+    cur = rng.standard_normal((224, 224)).astype(np.float32) * 60
+    ref = cur + rng.standard_normal((224, 224)).astype(np.float32)
+    delta.runs = 0
+    got = delta.tile_error(torch.from_numpy(cur).cuda(),
+                           torch.from_numpy(ref).cuda(), 16).cpu().numpy()
+    want = delta.tile_error_reference(cur, ref, 16)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+    assert delta.runs == 1
+
+
+def test_sparse_line_on_card_round_trips_bitwise(card):
+    from nnstreamer_tpu_torch.ops import sparse
+    caps = ("other/tensors,format=static,num_tensors=1,"
+            "types=(string)float32,dimensions=(string)3:64:64")
+    pipe = pt.parse_launch(
+        f'appsrc name=in caps="{caps}" ! tensor_sparse_enc density=0.1 '
+        '! tensor_sparse_dec device=true ! appsink name=out')
+    rng = np.random.default_rng(4)
+    frames = []
+    for _ in range(4):
+        x = rng.standard_normal((64, 64, 3)).astype(np.float32)
+        x[rng.random(x.shape) > 0.05] = 0
+        frames.append(torch.from_numpy(x).cuda())
+    sparse.reset_counts()
+    pipe.start()
+    for f in frames:
+        pipe["in"].push_buffer(pt.Buffer.from_arrays([f]))
+    pipe["in"].end_stream()
+    assert pipe.wait_eos(60)
+    pipe.stop()
+    got = [b.chunks[0].raw for b in pipe["out"].buffers]
+    assert all(g.is_cuda for g in got)
+    assert all(torch.equal(g.view(torch.int32), f.view(torch.int32))
+               for g, f in zip(got, frames))
+    assert sparse.packs == sparse.unpacks == 4
+
+
+def test_delta_gate_on_card_equals_host(card):
+    caps = ("other/tensors,format=static,num_tensors=1,"
+            "types=(string)uint8,dimensions=(string)3:64:64")
+    rng = np.random.default_rng(5)
+    base = rng.integers(0, 255, (64, 64, 3), np.uint8)
+    frames = []
+    for i in range(12):
+        f = base.copy()
+        if i % 3 == 0:
+            f[(i * 4) % 48:(i * 4) % 48 + 16, 8:24] = rng.integers(
+                0, 255, (16, 16, 3), np.uint8)
+            base = f
+        frames.append(f)
+    skipped = []
+    for device in ("true", "false"):
+        pipe = pt.parse_launch(
+            f'appsrc name=in caps="{caps}" ! tensor_delta name=d mode=gate '
+            f'device={device} tile=16 ! appsink name=out')
+        pipe.start()
+        for i, f in enumerate(frames):
+            pipe["in"].push_buffer(pt.Buffer.from_arrays(
+                [torch.from_numpy(f).cuda()], pts=i))
+        pipe["in"].end_stream()
+        assert pipe.wait_eos(60)
+        pipe.stop()
+        skipped.append([b.pts for b in pipe["out"].buffers])
+    assert skipped[0] == skipped[1] and len(skipped[0]) < len(frames)

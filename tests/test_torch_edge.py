@@ -6,11 +6,12 @@ the reverse, with ``session=true``, ``coalesce-frames=4``,
 ``wire-codec=shuffle-zlib`` and one ``tensor_fault mode=kill-link``
 (on the subscriber, or on the publisher): every frame arrives once and
 in order, bytewise equal to what was pushed, with nothing declared lost.
-A JAX ``edgesink wire-codec=delta`` falls back to raw toward a port
-subscriber (the port advertises no delta) and delivers equal bytes; the
-port's own edgesink refuses delta at start. ``wire-precision=bf16``
-delivers exactly the frames downcast and upcast on the host. No
-tolerance: every comparison is exact.
+``wire-codec=delta`` links run across packages in both directions, and
+the port's own delta link is killed three times mid-stream (the mirror
+of tests/test_chaos.py ``TestDeltaChaos``): every frame arrives once, in
+order and bytewise equal, and each replay opens with a keyframe.
+``wire-precision=bf16`` delivers exactly the frames downcast and upcast
+on the host. No tolerance: every comparison is exact.
 
 Behaviour: tests/test_wire.py's ``TestCoalescing``, ``TestSessionHandshake``
 and ``TestBatchReplayAcrossReconnect`` run as one test each
@@ -20,9 +21,10 @@ the subscriber in its broadcast set. The port also closes the gap the
 reference leaves between a v1 subscriber's CAPS_ACK and its entry into
 that set (``test_frame_published_right_after_the_ack_arrives``).
 
-The tracer's ``wire``/``session`` blocks have the JAX package's keys on
-the same lines, and the discovery broker serves either package's
-servers and clients.
+The tracer's ``wire``/``session`` blocks (and the delta codec's
+``delta``/``delta_in``) have the JAX package's keys on the same lines,
+the discovery broker serves either package's servers and clients, and
+a live broker's counters form the tracer's ``broker`` block.
 """
 import dataclasses
 import socket
@@ -44,7 +46,6 @@ from nnstreamer_tpu_torch.edge import broker as pt_broker
 from nnstreamer_tpu_torch.edge import protocol as pt_protocol
 from nnstreamer_tpu_torch.edge import session as pt_session
 from nnstreamer_tpu_torch.edge import wire as pt_wire
-from nnstreamer_tpu_torch.pipeline.element import NotPortedError
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,44 +163,155 @@ def test_session_link_survives_one_kill(pub_pkg, sub_pkg, kill):
     assert ps["wire_enc_bytes_out"] < ps["wire_raw_bytes_out"]
 
 
-def test_jax_delta_publisher_falls_back_to_raw_for_a_port_subscriber():
+def _delta_frames(n):
+    """A one-element patch moving over a 512-float frame: consecutive
+    frames differ in two elements, so diffs genuinely engage."""
+    out = []
+    for i in range(n):
+        arr = np.zeros(512, np.float32)
+        arr[i % 512] = float(i + 1)
+        out.append(arr)
+    return out
+
+
+@pytest.mark.parametrize("pub_pkg,sub_pkg", [(NT, PT), (PT, NT)],
+                         ids=["jax-to-torch", "torch-to-jax"])
+def test_delta_link_across_packages(pub_pkg, sub_pkg):
+    """A delta publisher of one package and a subscriber of the other,
+    coalesced, with a session and one killed link: every frame once, in
+    order, bytewise equal; diffs really shipped; the resumed link opens
+    with a keyframe."""
     port = _free_port()
-    pub = nt.parse_launch(
+    n = 40
+    pub = pub_pkg.top.parse_launch(
         f'appsrc name=in caps="{CAPS_512}" '
-        f'! edgesink name=p port={port} topic=t wire-codec=delta '
-        'wire-delta-k=4')
+        f'! edgesink name=p port={port} topic=t session=true '
+        'wire-codec=delta wire-delta-k=8 coalesce-frames=4 coalesce-ms=10')
     pub.start()
-    sub = pt.parse_launch(f'edgesrc name=s dest-port={port} topic=t '
-                          'timeout=15 ! appsink name=out')
-    frames = _frames(10)
+    sub = sub_pkg.top.parse_launch(
+        f'edgesrc name=s dest-port={port} topic=t session=true '
+        'ack-every=4 timeout=15 '
+        '! tensor_fault name=f mode=kill-link target=s every=15 '
+        'max-faults=1 ! appsink name=out')
+    frames = _delta_frames(n)
     try:
         sub.start()
-        _wait(lambda: _subscribed(pub["p"]), what="subscribe")
+        _wait(lambda: pub["p"].session_info().get("sessions") == 1,
+              what="session attach")
+        assert sub["s"]._wire_cfg.codec == "delta"
         for arr in frames:
-            pub["in"].push_buffer(nt.Buffer.from_arrays([arr]))
-        _wait(lambda: len(sub["out"].buffers) >= 10, what="delivery")
-        ps = pub["p"].stats.snapshot()
-        codec = sub["s"]._wire_cfg.codec
+            pub["in"].push_buffer(pub_pkg.top.Buffer.from_arrays([arr]))
+            time.sleep(0.005)
+        _wait(lambda: len(sub["out"].buffers) >= n, 30, "delivery")
+        _wait(lambda: pub["p"].stats.snapshot().get("session_resumes") == 1,
+              what="resume counted")
+        ps, ss = pub["p"].stats.snapshot(), sub["s"].stats.snapshot()
         got = [b.chunks[0].host() for b in sub["out"].buffers]
+        errs = (pub._error, sub._error)
     finally:
         pub["in"].end_stream()
         pub.wait_eos(timeout=10)
         pub.stop()
         sub.stop()
-    assert codec == "raw"
-    assert not ps.get("wire_delta_keyframes") \
-        and not ps.get("wire_delta_diffs")
+    assert errs == (None, None)
     assert [_host_bytes(g) for g in got] == [_host_bytes(f) for f in frames]
+    assert ss["session_delivered"] == n and ss["session_declared_lost"] == 0
+    assert ss["reconnects"] == 1
+    assert ps["wire_delta_diffs"] > 0 and ss["wire_delta_diffs_in"] > 0
+    # one keyframe a connection at least: the first subscribe + the resume
+    assert ps["wire_delta_keyframes"] >= 2
+    assert ss["wire_delta_keyframes_in"] >= 2
+    assert ss["link_errors"] == 1
 
 
-@pytest.mark.parametrize("prop,match", [("wire-codec=delta", "item 7"),
-                                        ("wire-delta-k=8", "wire-delta-k")])
-def test_port_edgesink_refuses_delta_at_start(prop, match):
-    pipe = pt.parse_launch(f'appsrc caps="{CAPS}" ! edgesink name=p '
-                           f'port={_free_port()} {prop}')
-    with pytest.raises(NotPortedError, match=match):
-        pipe.start()
-    pipe.stop()
+def test_port_delta_link_kills_replay_from_keyframe():
+    """tests/test_chaos.py ``TestDeltaChaos`` on the port: a session
+    link with wire-codec=delta killed mid-stream three times. Each
+    resumed connection mints fresh reference state on both ends, so each
+    replay opens with a keyframe; a diff decoded against the pre-kill
+    reference would corrupt frames, hence the byte-exact check."""
+    port = _free_port()
+    pub = pt.parse_launch(
+        f'appsrc name=in caps="{CAPS_512}" '
+        f'! edgesink name=p port={port} topic=t session=true '
+        'wire-codec=delta wire-delta-k=8 coalesce-frames=4 coalesce-ms=10')
+    pub.start()
+    sub = pt.parse_launch(
+        f'edgesrc name=s dest-port={port} topic=t session=true '
+        'ack-every=4 timeout=15 '
+        '! tensor_fault name=f mode=kill-link target=s every=12 '
+        'max-faults=3 ! appsink name=out')
+    n = 50
+    frames = _delta_frames(n)
+    try:
+        sub.start()
+        _wait(lambda: pub["p"].session_info().get("sessions") == 1,
+              what="session attach")
+        for arr in frames:
+            pub["in"].push_buffer(pt.Buffer.from_arrays([arr]))
+            time.sleep(0.01)
+        _wait(lambda: len(sub["out"].buffers) >= n, 30, "delivery")
+        kills = sub["f"].stats["faults"]
+        _wait(lambda: pub["p"].stats.snapshot().get("session_resumes")
+              == kills, what="every resume counted")
+        ps, ss = pub["p"].stats.snapshot(), sub["s"].stats.snapshot()
+        got = [b.chunks[0].host() for b in sub["out"].buffers]
+        errs = (pub._error, sub._error)
+    finally:
+        pub["in"].end_stream()
+        pub.wait_eos(timeout=10)
+        pub.stop()
+        sub.stop()
+    assert errs == (None, None)
+    assert kills == 3
+    assert ps["session_sent"] == n
+    assert ss["session_delivered"] == n
+    assert ss["session_declared_lost"] == 0 == ps["session_declared_lost"]
+    assert ss["reconnects"] == kills
+    assert [_host_bytes(g) for g in got] == [_host_bytes(f) for f in frames]
+    assert ps["wire_delta_diffs"] > 0 and ss["wire_delta_diffs_in"] > 0
+    assert ps["wire_delta_keyframes"] >= kills + 1
+    assert ss["wire_delta_keyframes_in"] >= kills + 1
+    # each kill cost exactly one link error: no diff ever met a stale
+    # reference (that would tear the link down a second time)
+    assert ss["link_errors"] == kills
+
+
+def test_delta_line_delivers_what_a_raw_line_delivers():
+    """tools/delta_parity.py's live scenario on the port: the same
+    stream over a live socket with wire-codec=delta and with raw."""
+    frames = _delta_frames(16)
+
+    def run(codec):
+        port = _free_port()
+        pub = pt.parse_launch(
+            f'appsrc name=in caps="{CAPS_512}" ! edgesink name=p '
+            f'port={port} topic=t wire-codec={codec} wire-delta-k=4')
+        pub.start()
+        sub = pt.parse_launch(f'edgesrc name=s dest-port={port} topic=t '
+                              'timeout=15 ! appsink name=out')
+        try:
+            sub.start()
+            _wait(lambda: _subscribed(pub["p"]), what="subscribe")
+            for f in frames:
+                pub["in"].push_buffer(pt.Buffer.from_arrays([f.copy()]))
+            _wait(lambda: len(sub["out"].buffers) >= len(frames),
+                  what="delivery")
+            got = [_host_bytes(b.chunks[0].host())
+                   for b in sub["out"].buffers]
+            ps = pub["p"].stats.snapshot()
+        finally:
+            pub["in"].end_stream()
+            pub.wait_eos(timeout=10)
+            pub.stop()
+            sub.stop()
+        return got, ps
+
+    got_delta, ps = run("delta")
+    got_raw, _ = run("raw")
+    assert got_delta == got_raw == [_host_bytes(f) for f in frames]
+    assert ps["wire_delta_diffs"] > 0
+    assert ps["wire_enc_bytes_out"] < ps["wire_raw_bytes_out"] / 4
 
 
 @pytest.mark.parametrize("pub_pkg,sub_pkg", [(NT, PT), (PT, NT)],
@@ -633,6 +745,26 @@ def test_hybrid_discovery_across_packages(broker_mod, server_pkg,
     with torch.inference_mode():
         want = apply_fn(module, torch.from_numpy(x)).numpy()
     assert got[0].tobytes() == want.tobytes()
+
+
+def test_live_broker_counters_form_the_tracer_broker_block():
+    """A running broker's counters reach every tracer report (the
+    reference's ``live_broker_stats`` hook); a stopped one leaves."""
+    broker = pt_broker.DiscoveryBroker(port=0).start()
+    pipe = pt.parse_launch(f'appsrc caps="{CAPS}" ! fakesink')
+    tracer = pipe.enable_tracing()
+    try:
+        assert pt_broker.discover("localhost", broker.bound_port,
+                                  "none") == []
+        _wait(lambda: broker.stats["broker_queries"] >= 1, what="query")
+        report = tracer.report(pipe)
+        assert report["broker"]["broker_queries"] >= 1
+        assert set(report["broker"]) <= {"broker_registers",
+                                         "broker_queries", "broker_errors"}
+        assert pt_broker.live_broker_stats() == report["broker"]
+    finally:
+        broker.stop()
+    assert "broker" not in tracer.report(pipe)
 
 
 def test_broker_drops_a_dead_server_at_the_next_query():

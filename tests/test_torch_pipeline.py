@@ -784,3 +784,108 @@ def test_named_pad_targets_specific_leg():
             "tensor_mux name=m ! appsink name=out "
             f"tensortestsrc name=s1 caps={CAPS_U8_4} ! m.sink_1")
         assert p["m"].sink_pads["sink_1"].peer.element.name == "s1"
+
+
+# -- queue backend=native ------------------------------------------------------
+
+
+QCAPS = ("other/tensors,format=static,num_tensors=1,types=(string)uint8,"
+         "dimensions=(string)3:16:16,framerate=(fraction)0/1")
+
+
+def _queue_line(backend):
+    return (f"tensortestsrc caps={QCAPS} pattern=random seed=3 "
+            f"num-buffers=24 ! queue name=q1 backend={backend} "
+            "max-size-buffers=2 ! tensor_transform mode=arithmetic "
+            "option=typecast:float32,add:-127.5,mul:0.5 "
+            f"! queue name=q2 backend={backend} max-size-buffers=4 "
+            "! appsink name=out")
+
+
+@pytest.mark.parametrize("pkg", [nt, pt], ids=["jax", "torch"])
+def test_native_queue_line_equals_python_queue_line(pkg):
+    """queue backend=native carries the same frames, in order, as
+    backend=python, in both packages, and the port's equal the JAX
+    package's."""
+    got = {}
+    for backend in ("python", "native"):
+        pipe = pkg.parse_launch(_queue_line(backend))
+        assert type(pipe["q1"]._q).__name__ == (
+            "_NativeQueueAdapter" if backend == "native" else "Queue")
+        pipe.run(timeout=60)
+        got[backend] = [(b.pts, np.asarray(b.chunks[0].host()).tobytes())
+                        for b in pipe["out"].buffers]
+    assert len(got["native"]) == 24
+    assert got["native"] == got["python"]
+    ref = nt.parse_launch(_queue_line("python"))
+    ref.run(timeout=60)
+    assert got["native"] == [(b.pts, np.asarray(b.chunks[0].host())
+                              .tobytes()) for b in ref["out"].buffers]
+
+
+def test_native_queue_auto_takes_the_built_ring():
+    from nnstreamer_tpu_torch.native.lib import load_native_lib
+    assert load_native_lib() is not None  # builds it when it is missing
+    pipe = pt.parse_launch(_queue_line("auto"))
+    assert pipe["q1"].is_native
+    pipe.run(timeout=60)
+    assert len(pipe["out"].buffers) == 24
+
+
+def test_native_queue_without_the_library_raises(monkeypatch):
+    """backend=native never falls back; auto falls back to Python."""
+    from nnstreamer_tpu_torch.native import lib
+    monkeypatch.setattr(lib, "native_available", lambda: False)
+    monkeypatch.setattr(lib, "native_built", lambda: False)
+    with pytest.raises(RuntimeError, match="make native"):
+        pt.parse_launch(_queue_line("native"))
+    assert not pt.parse_launch(_queue_line("auto"))["q1"].is_native
+
+
+@pytest.mark.parametrize("pkg", [nt, pt], ids=["jax", "torch"])
+def test_leaky_native_queue_is_refused(pkg):
+    with pytest.raises(ValueError, match="leaky"):
+        pkg.parse_launch(f"tensortestsrc caps={QCAPS} ! queue "
+                         "leaky=downstream backend=native ! fakesink")
+
+
+@pytest.mark.parametrize("backend", ["native", "python"])
+def test_queue_close_race(backend):
+    """tests/test_stress.py ``test_native_ring_close_race`` on the port,
+    for both backends: producers blocked in chain while the queue stops
+    must return (FlowError), not wedge. The JAX queue rebuilds its ring
+    in stop(), so a producer still pushing after the stop blocks on a
+    fresh ring no worker drains; the port closes the ring at stop and
+    rebuilds it at start."""
+    import threading
+    import time as _time
+    from nnstreamer_tpu_torch.pipeline.registry import make_element
+    for _ in range(10):
+        q = make_element("queue", **{"max-size-buffers": 2,
+                                     "backend": backend})
+        sink = make_element("fakesink")
+        q.srcpad.link(sink.sinkpad)
+        sink.start()
+        q.start()
+        done = threading.Event()
+
+        def producer():
+            try:
+                for _ in range(200):
+                    q.chain(q.sinkpad, pt.Buffer(
+                        [pt.Chunk(np.zeros(2, np.float32))]))
+            except Exception:  # noqa: BLE001 — the stop's FlowError
+                pass
+            finally:
+                done.set()
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        _time.sleep(0.005)
+        q.stop()
+        sink.stop()
+        assert done.wait(10), f"producer wedged in the {backend} queue"
+        # a restarted queue takes frames again
+        q.start()
+        q.chain(q.sinkpad, pt.Buffer([pt.Chunk(np.zeros(2, np.float32))]))
+        q.stop()

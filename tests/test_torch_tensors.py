@@ -112,11 +112,3 @@ def test_appsrc_capsfilter_queue_chain():
         assert [b.pts for b in pipe["out"].buffers] == [0, 1, 2]
         negotiated.append(str(pipe["out"].sinkpad.caps))
     assert negotiated[0] == negotiated[1]
-
-
-def test_native_queue_backend_is_refused():
-    pipe = pt.parse_launch("tensortestsrc caps=other/tensors,format=static,"
-                           "num_tensors=1,types=uint8,dimensions=4,"
-                           "framerate=0/1 ! queue backend=native ! fakesink")
-    with pytest.raises(pt.NotPortedError, match="native"):
-        pipe.start()

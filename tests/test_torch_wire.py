@@ -16,10 +16,13 @@ Behaviour: where tests/test_wire.py checks behaviour rather than bytes
 (``TestNegotiation``, ``TestBatch``, ``TestSocketTransport``,
 ``TestSessionNegotiation``, ``TestReplayRing``, ``TestSessionReceiver``,
 ``TestHeartbeat``, ``TestDeltaNegotiation``), each case is one test
-parametrised over both packages. ``wire-codec=delta`` is not ported:
-the port refuses a local delta request with NotPortedError and
-advertises a codec list without it, so a JAX acceptor asking for delta
-falls back to raw toward the port.
+parametrised over both packages.
+
+Delta: every stream of ``tools/delta_parity.py`` goes through a port
+delta link (single frames and DATA_BATCH): the port packs the JAX
+package's bytes for the same frames, each package decodes the other's
+to the source bytes, and a port delta link delivers what a raw link
+delivers. Exact, bit for bit.
 """
 import dataclasses
 import json
@@ -43,7 +46,6 @@ from nnstreamer_tpu_torch.edge import protocol as pt_protocol
 from nnstreamer_tpu_torch.edge import session as pt_session
 from nnstreamer_tpu_torch.edge import wire as pt_wire
 from nnstreamer_tpu_torch.obs import context as pt_ctx
-from nnstreamer_tpu_torch.pipeline.element import NotPortedError
 from nnstreamer_tpu_torch.tensors.buffer import Buffer as PtBuffer
 from nnstreamer_tpu_torch.utils.atomic import Counters as PtCounters
 
@@ -60,6 +62,9 @@ class Pkg:
 NT = Pkg(nt_wire, nt_protocol, nt_session, NtBuffer, NtCounters)
 PT = Pkg(pt_wire, pt_protocol, pt_session, PtBuffer, PtCounters)
 BOTH = pytest.mark.parametrize("pkg", [NT, PT], ids=["jax", "torch"])
+
+# the codecs without per-link state: one packed message per config
+STATELESS_CODECS = ("raw", "zlib", "shuffle-zlib")
 
 SHAPE = (16, 33)   # 528 elements: every dtype clears MIN_COMPRESS
 _FLOATS = (TensorType.FLOAT16, TensorType.FLOAT32, TensorType.FLOAT64,
@@ -119,7 +124,7 @@ def _wire_json(meta):
 
 @pytest.mark.parametrize("data", ["noise", "ramp"])
 @pytest.mark.parametrize("precision", pt_wire.PRECISIONS)
-@pytest.mark.parametrize("codec", pt_wire.PORTED_CODECS)
+@pytest.mark.parametrize("codec", STATELESS_CODECS)
 @pytest.mark.parametrize("ttype", list(TensorType), ids=str)
 def test_pack_buffer_bytes_equal(ttype, codec, precision, data):
     nv, pv = _values(ttype, data)
@@ -139,7 +144,7 @@ def test_pack_buffer_bytes_equal(ttype, codec, precision, data):
 
 
 @pytest.mark.parametrize("precision", pt_wire.PRECISIONS)
-@pytest.mark.parametrize("codec", pt_wire.PORTED_CODECS)
+@pytest.mark.parametrize("codec", STATELESS_CODECS)
 @pytest.mark.parametrize("ttype", list(TensorType), ids=str)
 def test_pack_batch_bytes_equal(ttype, codec, precision):
     kinds = ("noise", "ramp", "noise")
@@ -176,7 +181,7 @@ def test_multi_chunk_frame_bytes_equal():
     vals = [_values(t, "ramp") for t in (TensorType.UINT8,
                                          TensorType.BFLOAT16,
                                          TensorType.FLOAT32)]
-    for codec in pt_wire.PORTED_CODECS:
+    for codec in STATELESS_CODECS:
         nmeta, npl = nt_wire.pack_buffer(
             NtBuffer.from_arrays([v for v, _ in vals]),
             nt_wire.WireConfig(codec, "bf16"))
@@ -308,7 +313,7 @@ def test_msg_kinds_are_the_reference_values():
         {k.name: int(k) for k in nt_protocol.MsgKind}
 
 
-# -- delta: refused in the port, falls back toward it -----------------------
+# -- delta -------------------------------------------------------------------
 
 
 class TestDeltaNegotiation:
@@ -326,23 +331,39 @@ class TestDeltaNegotiation:
     def test_non_delta_meta_has_no_delta_k(self, pkg):
         assert "delta_k" not in pkg.wire.WireConfig("zlib").to_meta()
 
-    def test_jax_acceptor_asking_delta_falls_back_to_raw_for_the_port(self):
-        cfg = nt_wire.negotiate(pt_wire.advertise(), codec="delta")
-        assert cfg is not None and cfg.codec == "raw"
-        # what the JAX acceptor echoes, the port adopts
-        assert pt_wire.accept(cfg.to_meta()).codec == "raw"
+    @BOTH
+    def test_local_request_negotiates_delta_and_its_k(self, pkg):
+        cfg = pkg.wire.negotiate(pkg.wire.advertise(), codec="delta",
+                                 delta_k=5)
+        assert cfg.codec == "delta" and cfg.to_meta()["delta_k"] == 5
+        rx = pkg.wire.accept(cfg.to_meta())
+        assert rx.codec == "delta" and rx.delta_k == 5
 
-    def test_port_refuses_a_local_delta_request(self):
-        with pytest.raises(NotPortedError, match="item 7"):
-            pt_wire.negotiate(pt_wire.advertise(), codec="delta")
-        with pytest.raises(NotPortedError):
-            pt_wire.WireConfig("delta")
+    @BOTH
+    def test_peer_without_delta_in_its_codecs_gets_raw(self, pkg):
+        old = pkg.wire.advertise()
+        old["codecs"] = [c for c in old["codecs"] if c != "delta"]
+        assert pkg.wire.negotiate(old, codec="delta").codec == "raw"
 
-    def test_port_never_advertises_delta(self):
-        assert "delta" not in pt_wire.advertise()["codecs"]
-        assert "delta" not in pt_wire.WireConfig().to_meta()["codecs"]
+    def test_advertisement_and_ack_equal_the_reference(self):
+        assert json.dumps(pt_wire.advertise()) == \
+            json.dumps(nt_wire.advertise())
+        for codec in pt_wire.CODECS:
+            n = nt_wire.negotiate(nt_wire.advertise(), codec=codec,
+                                  delta_k=7)
+            p = pt_wire.negotiate(pt_wire.advertise(), codec=codec,
+                                  delta_k=7)
+            assert json.dumps(p.to_meta()) == json.dumps(n.to_meta())
+        # each package accepts the other's delta ack
+        n = nt_wire.negotiate(pt_wire.advertise(), codec="delta")
+        assert n.codec == "delta"
+        assert pt_wire.accept(n.to_meta()).codec == "delta"
+        p = pt_wire.negotiate(nt_wire.advertise(), codec="delta")
+        assert nt_wire.accept(p.to_meta()).codec == "delta"
 
     def test_a_delta_frame_is_a_link_fault_in_the_port(self):
+        """A delta frame on a link that did not negotiate delta has no
+        receiver reference: unpacking raises and the link reconnects."""
         tx, _ = (nt_wire.negotiate(nt_wire.advertise(), codec="delta"),
                  None)
         arr = np.arange(64, dtype=np.float32)
@@ -353,6 +374,137 @@ class TestDeltaNegotiation:
         meta, pl = nt_wire.pack_batch([NtBuffer.from_arrays([arr])], tx)
         with pytest.raises(ValueError, match="delta"):
             pt_wire.unpack_batch(meta, pl)
+
+    @BOTH
+    def test_stale_epoch_diff_raises(self, pkg):
+        tx = pkg.wire.negotiate(pkg.wire.advertise(), codec="delta")
+        rx = pkg.wire.accept(tx.to_meta())
+        arr = np.zeros(256, np.float32)
+        for i in range(2):
+            f = arr.copy()
+            f[i] = 1
+            meta, pl = pkg.wire.pack_buffer(pkg.Buffer.from_arrays([f]), tx)
+        assert "k" not in meta["delta"]
+        with pytest.raises(ValueError, match="stale reference"):
+            pkg.wire.unpack_buffer(meta, pl, cfg=rx)  # never saw the key
+
+
+def _delta_parity():
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parent.parent / "tools" / \
+        "delta_parity.py"
+    spec = importlib.util.spec_from_file_location("delta_parity", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+DP = _delta_parity()
+
+
+def _to_port(buf):
+    return PtBuffer.from_arrays([np.asarray(c.host()).copy()
+                                 for c in buf.chunks], pts=buf.pts)
+
+
+def _delta_link(wire, precision):
+    tx = wire.negotiate(wire.advertise(), codec="delta",
+                        precision=precision, delta_k=DP.DELTA_K)
+    return tx, wire.accept(tx.to_meta())
+
+
+def _no_ts(meta):
+    return {k: v for k, v in meta.items() if k != "ts"}
+
+
+@pytest.mark.parametrize("batch", [1, 4], ids=["frame", "batch"])
+@pytest.mark.parametrize("name,gen,precision", DP.BUILTIN,
+                         ids=[b[0].split(":")[1] for b in DP.BUILTIN])
+def test_delta_parity_stream_bytes_equal(name, gen, precision, batch):
+    """One tools/delta_parity.py stream: the port's delta messages equal
+    the JAX package's, each decodes the other's, and the delivered bytes
+    equal the source's (and a raw link's under lossy precision)."""
+    frames = gen()
+    ntx, nrx = _delta_link(nt_wire, precision)
+    ptx, prx = _delta_link(pt_wire, precision)
+    raw = pt_wire.WireConfig("raw", precision)
+    stats = PtCounters()
+    for i in range(0, len(frames), batch):
+        group = frames[i:i + batch]
+        if batch == 1:
+            nmeta, npl = nt_wire.pack_buffer(group[0], ntx)
+            pmeta, ppl = pt_wire.pack_buffer(_to_port(group[0]), ptx,
+                                             stats=stats)
+            got_pt = [pt_wire.unpack_buffer(nmeta, npl, cfg=prx)]
+            got_nt = [nt_wire.unpack_buffer(pmeta, ppl, cfg=nrx)]
+            ctrl = [pt_wire.unpack_buffer(*pt_wire.pack_buffer(
+                _to_port(group[0]), raw))]
+        else:
+            seqs = [i + k + 1 for k in range(len(group))]
+            nmeta, npl = nt_wire.pack_batch(group, ntx, seqs=seqs)
+            pmeta, ppl = pt_wire.pack_batch([_to_port(b) for b in group],
+                                            ptx, stats=stats, seqs=seqs)
+            got_pt = pt_wire.unpack_batch(nmeta, npl, cfg=prx)
+            got_nt = nt_wire.unpack_batch(pmeta, ppl, cfg=nrx)
+            ctrl = pt_wire.unpack_batch(*pt_wire.pack_batch(
+                [_to_port(b) for b in group], raw, seqs=seqs))
+        assert json.dumps(_no_ts(pmeta)) == json.dumps(_no_ts(nmeta))
+        assert [_pbytes(p) for p in ppl] == [_pbytes(p) for p in npl]
+        want = [[_host(c.host()) for c in b.chunks] for b in ctrl]
+        assert [[_host(c.host()) for c in b.chunks] for b in got_pt] == want
+        assert [[_host(c.host()) for c in b.chunks] for b in got_nt] == want
+        if precision == "none":
+            assert want == [[_host(c.host()) for c in b.chunks]
+                            for b in group]
+    snap = stats.snapshot()
+    assert snap["wire_delta_keyframes"] >= 1
+
+
+def test_delta_parity_streams_ship_diffs():
+    """The suite is not vacuous: the port's links ship sparse diffs."""
+    stats = PtCounters()
+    for _name, gen, precision in DP.BUILTIN:
+        tx, rx = _delta_link(pt_wire, precision)
+        for b in gen():
+            pt_wire.unpack_buffer(*pt_wire.pack_buffer(_to_port(b), tx,
+                                                       stats=stats), cfg=rx)
+    assert stats["wire_delta_diffs"] > 0
+    assert stats["wire_delta_promotions"] > 0
+
+
+def test_bf16_delta_stream_bytes_equal():
+    """bfloat16 frames (ml_dtypes in JAX, CPU torch.bfloat16 in the
+    port) diff on their bits: the same messages, NaN and -0.0 included."""
+    rng = np.random.default_rng(21)
+    base = rng.standard_normal(600).astype(np.float32)
+    base[:3] = [np.nan, -0.0, np.inf]
+    ntx, _ = _delta_link(nt_wire, "none")
+    ptx, prx = _delta_link(pt_wire, "none")
+    for i in range(9):
+        f = base.copy()
+        f[(i * 37) % 600] = i
+        f[1] = -0.0 if i % 2 else 0.0
+        nv = f.astype(ml_dtypes.bfloat16)
+        pv = torch.from_numpy(nv.view(np.int16).copy()).view(torch.bfloat16)
+        nmeta, npl = nt_wire.pack_buffer(NtBuffer.from_arrays([nv]), ntx)
+        pmeta, ppl = pt_wire.pack_buffer(PtBuffer.from_arrays([pv]), ptx)
+        assert json.dumps(pmeta) == json.dumps(nmeta)
+        assert [_pbytes(p) for p in ppl] == [_pbytes(p) for p in npl]
+        got = pt_wire.unpack_buffer(nmeta, npl, cfg=prx).chunks[0].host()
+        assert got.dtype == torch.bfloat16
+        assert _host(got) == _host(pv)
+
+
+def test_delta_trace_blocks_have_the_reference_keys():
+    from nnstreamer_tpu.utils.trace import _wire_summary as nt_summary
+    from nnstreamer_tpu_torch.utils.trace import _wire_summary as pt_summary
+    st = {"wire_frames_out": 5, "wire_delta_keyframes": 2,
+          "wire_delta_diffs": 3, "wire_delta_promotions": 1,
+          "wire_delta_bytes_saved": 900, "wire_frames_in": 4,
+          "wire_delta_keyframes_in": 1, "wire_delta_diffs_in": 3}
+    assert pt_summary(st) == nt_summary(st)
+    assert pt_summary(st)["delta"]["promotions"] == 1
 
 
 # -- mirrored behaviour: negotiation ----------------------------------------
