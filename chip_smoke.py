@@ -186,7 +186,10 @@ queue between filter and decoder: unfused): host time a frame by element.
 28. plain backends — framework=pytorch on a .pt traced from the seeded
               MobileNet-v2 (fps and host launches a frame against the
               torch-cuda line in the same call, logits within 1e-2 of
-              the largest |logit|); framework=custom on
+              the largest |logit|; the gap's cause held on 8 frames:
+              the torch-cuda replays, the wrapper untraced and the
+              traced module with TorchScript's fuser off bitwise equal
+              to the torch-cuda eager logits); framework=custom on
               csrc/custom_scaler.cc built with g++ into build/custom/
               (equal to numpy); a python3 script after the card filter
               (equal to numpy); SingleShot("zoo://vit?attn=pallas"): CUDA
@@ -220,9 +223,12 @@ queue between filter and decoder: unfused): host time a frame by element.
 Native queue — the headline line with queue backend=native against
               backend=python, in turns (python, native, native, python),
               after `make native` (its seconds printed): logits bitwise
-              equal, fps and p50. It runs after phase 28, so phases 1-28
-              keep the Python queue they ran with before (backend=auto
-              takes the ring only once the library is on disk).
+              equal, fps and p50. Every other line runs the Python
+              queue, whatever build/native/ holds: main() adds
+              backend=python to each queue of a line that names no
+              backend (backend=auto would take the ring once the library
+              is on disk), counts the queues of each kind and fails on a
+              ring queue outside the native lines.
 Every model line runs through the backend's per-signature executable,
 one captured CUDA graph per input signature: the first frame runs
 eagerly (the capture's warm-up), every later frame is one replay, so a
@@ -241,6 +247,7 @@ Imports nothing of JAX and nothing of the JAX package.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -2402,6 +2409,7 @@ def phase_edge_pubsub(smi):
 
 SUSPEND_MS = 200           # phase 26's suspend window
 SWAP_FRAMES = 16           # phase 26's frames around a reload
+GAP_FRAMES = 8             # phase 28's frames for the pytorch gap
 # phase 28: the pytorch line's logits against the torch-cuda line's, as a
 # share of the largest |logit|. TorchScript runs the same bf16 model
 # through its own graph executor and fuser, which round at other points:
@@ -2841,6 +2849,62 @@ def _build_custom_scaler():
     return so, time.perf_counter() - t0
 
 
+def _pytorch_gap(path, frames, frame_cls):
+    """Where the pytorch line's logits part from the torch-cuda line's:
+    each variant against the torch-cuda backend's eager logits (its
+    first, uncaptured frame path) on the same card frames: its graph
+    replays, the wrapper ``frame_cls`` untraced, and the traced module at
+    ``path`` under framework=pytorch as the line runs it, with
+    TorchScript's tensor-expression fuser off, and unoptimised. A row:
+    the largest |diff|, that over the largest |logit|, the frames
+    bitwise equal."""
+    from nnstreamer_tpu_torch.filters import find_filter
+    from nnstreamer_tpu_torch.filters.base import FilterProperties
+    from nnstreamer_tpu_torch.tensors.info import TensorsInfo
+    xs = [torch.from_numpy(f).cuda() for f in frames]
+    fw = find_filter("torch-cuda")()
+    fw.open(FilterProperties(model_files=("zoo://mobilenet_v2",)))
+    with torch.inference_mode():
+        eager = [fw._apply(fw._module, x).float().cpu().numpy() for x in xs]
+    got = {"torch_cuda_replayed": []}
+    for x in xs:
+        fw.invoke([x])  # the first call of a signature runs eagerly
+        got["torch_cuda_replayed"].append(
+            fw.invoke([x])[0].float().cpu().numpy())
+    with torch.no_grad():
+        wrapper = frame_cls(fw._module).eval()
+        got["eager_untraced"] = [wrapper(x).float().cpu().numpy()
+                                 for x in xs]
+    fw.close()
+
+    def traced():
+        pfw = find_filter("pytorch")()
+        pfw.open(FilterProperties(
+            model_files=(path,),
+            input_info=TensorsInfo.make("uint8", FRAME_DIMS)))
+        out = [pfw.invoke([x])[0].float().cpu().numpy() for x in xs]
+        pfw.close()
+        return out
+
+    got["traced_default"] = traced()
+    torch._C._jit_set_texpr_fuser_enabled(False)
+    try:
+        got["traced_fuser_off"] = traced()
+    finally:
+        torch._C._jit_set_texpr_fuser_enabled(True)
+    with torch.jit.optimized_execution(False):
+        got["traced_unoptimized"] = traced()
+    scale = max(float(np.abs(e).max()) for e in eager)
+    rows = {}
+    for name, outs in got.items():
+        diff = max(float(np.abs(g - e).max()) for g, e in zip(outs, eager))
+        rows[name] = {"max_abs_diff": diff, "rel_to_max_logit": diff / scale,
+                      "bitwise_frames": sum(g.tobytes() == e.tobytes()
+                                            for g, e in zip(outs, eager)),
+                      "frames": len(outs)}
+    return rows
+
+
 def phase_plain_backends(smi, clean, vit, tmp):
     """Phase 28: framework=pytorch on a .pt traced from the seeded
     MobileNet-v2, framework=custom on csrc/custom_scaler.cc built with
@@ -2917,6 +2981,16 @@ def phase_plain_backends(smi, clean, vit, tmp):
         f"|logit| {scale:.4g}); {smi}")
     if max(diffs) > r["tol"] or not r["torch_cuda_bitwise_clean"]:
         sys.exit(f"chip_smoke: pytorch line: {r}")
+    # the cause of the gap: TorchScript's fuser, which the line keeps on
+    gap = r["gap"] = _pytorch_gap(path, frames[:GAP_FRAMES], Frame)
+    log("pytorch gap against the torch-cuda eager logits, " + ", ".join(
+        f"{k} {v['rel_to_max_logit']:.4g} of max |logit| "
+        f"({v['bitwise_frames']} of {v['frames']} bitwise)"
+        for k, v in gap.items()) + f"; {smi}")
+    if any(gap[k]["bitwise_frames"] != GAP_FRAMES for k in (
+            "torch_cuda_replayed", "eager_untraced", "traced_fuser_off")):
+        sys.exit(f"chip_smoke: the fuser does not explain the pytorch "
+                 f"line's gap: {gap}")
 
     # -- custom: csrc/custom_scaler.cc, built with g++ at first use
     so, build_s = _build_custom_scaler()
@@ -3486,9 +3560,24 @@ def main():
     launched = []
     parse = pt.parse_launch
 
+    queues = {"python": 0, "native": 0}
+
     def parse_recorded(desc, *args, **kwargs):
+        # every line but the native queue lines runs the Python queue it
+        # was measured with, whatever build/native/ holds (backend=auto
+        # takes the ring once the library is on disk)
+        pinned = "backend=" not in desc
+        if pinned:
+            desc = re.sub(r"(?<![\w.=-])queue(?=\s|$)",
+                          "queue backend=python", desc)
         launched.append(desc)
-        return parse(desc, *args, **kwargs)
+        pipe = parse(desc, *args, **kwargs)
+        for e in pipe.elements.values():
+            if getattr(e, "is_native", None) is not None:
+                queues["native" if e.is_native else "python"] += 1
+                if pinned and e.is_native:
+                    sys.exit(f"chip_smoke: a ring queue on {desc[:100]}")
+        return pipe
 
     pt.parse_launch = parse_recorded
     hmma = phase_build()
@@ -3545,6 +3634,9 @@ def main():
                 sys.exit(f"chip_smoke: a hand kernel ran on {k}_{line}: "
                          f"{row['kernel_launches']}")
     pt.parse_launch = parse
+    log(f"queues: {queues['python']} Python queues on the lines of "
+        f"phases 1-31, {queues['native']} ring queues, all on the native "
+        "queue lines")
     pipelint = phase_pipelint(smi, list(dict.fromkeys(launched)))
     for k in ("clean", "retry", "skip", "restart"):
         lines[f"policies_{k}"] = policies[k]
@@ -3599,7 +3691,7 @@ def main():
                     "policies_fail": policies["fail"],
                     "segment_clean_after": segment["clean_after"],
                     "tile_error": tile_error,
-                    "native_build_s": native_build_s,
+                    "native_build_s": native_build_s, "queues": queues,
                     "pipelint": pipelint, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -8,9 +8,13 @@ package.
 
 :func:`load_native_lib` runs ``make native`` at its first use (make's
 dependency tracking makes that a no-op when the library is fresh, and
-rebuilds it after a change to ``csrc/``, so a stale binary is never
-loaded over newer source); :func:`native_built` is the cheap probe that
-never builds.
+rebuilds it after a change to ``csrc/``). Either way it loads only a
+library no older than the sources make builds it from: after a failed
+rebuild a stale binary is refused with a warning, never loaded over
+newer source. ``load_native_lib(build=False)`` is the same load without
+``make``, for callers that must never start a build (``queue
+backend=auto``); :func:`native_built` is the cheap probe that never
+builds.
 """
 from __future__ import annotations
 
@@ -26,9 +30,13 @@ _REPO_ROOT = os.path.abspath(
     os.path.join(os.path.dirname(__file__), "..", ".."))
 _LIB_PATH = os.path.join(_REPO_ROOT, "build", "native", "libnnstpu.so")
 
+# what the Makefile builds the library from
+_SOURCES = tuple(os.path.join(_REPO_ROOT, "csrc", f)
+                 for f in ("nns_util.cc", "nns_ring.cc", "nns_custom.h"))
+
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-_tried = False
+_build_tried = False
 
 # nns_ring_push / nns_ring_pop: 0 ok, 1 timeout, 2 closed
 _RING_OK = 0
@@ -52,15 +60,31 @@ def native_built() -> bool:
     return os.path.exists(_LIB_PATH)
 
 
-def load_native_lib() -> Optional[ctypes.CDLL]:
-    """The library with the ring's signatures bound, building it first;
-    None when it can be neither built nor found."""
-    global _lib, _tried
+def _fresh() -> bool:
+    """The library is on disk and no source it is built from is newer."""
+    try:
+        built = os.path.getmtime(_LIB_PATH)
+    except OSError:
+        return False
+    return all(os.path.getmtime(src) <= built for src in _SOURCES
+               if os.path.exists(src))
+
+
+def load_native_lib(build: bool = True) -> Optional[ctypes.CDLL]:
+    """The library with the ring's signatures bound; None when no fresh
+    library can be had. ``build`` runs ``make native`` first (once a
+    process); without it nothing is built."""
+    global _lib, _build_tried
     with _lock:
-        if _lib is not None or _tried:
+        if _lib is not None:
             return _lib
-        _tried = True
-        if not _try_build() and not os.path.exists(_LIB_PATH):
+        if build and not _build_tried:
+            _build_tried = True
+            _try_build()
+        if not _fresh():
+            if native_built():
+                logger.warning("%s is older than its sources in csrc/ and "
+                               "was not rebuilt: not loaded", _LIB_PATH)
             return None
         try:
             lib = ctypes.CDLL(_LIB_PATH)
@@ -82,10 +106,6 @@ def load_native_lib() -> Optional[ctypes.CDLL]:
         lib.nns_ring_size.restype = ctypes.c_uint32
         _lib = lib
         return _lib
-
-
-def native_available() -> bool:
-    return load_native_lib() is not None
 
 
 class NativeRing:

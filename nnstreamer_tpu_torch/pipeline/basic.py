@@ -70,8 +70,8 @@ class Queue(Element):
     ``leaky=downstream`` evicts the oldest queued buffer to make room.
 
     ``backend=auto`` (default) uses the native C++ ring for the common
-    non-leaky case when libnnstpu is already built (``make native``; auto
-    never builds it); ``python`` forces the Python queue, and ``native``
+    non-leaky case when a fresh libnnstpu is already built (``make
+    native``; auto never starts a build); ``python`` forces the Python queue, and ``native``
     the ring, building it at first use and raising, never falling back,
     when it cannot. Leaky modes always use the Python queue (eviction
     needs its internals).
@@ -96,18 +96,15 @@ class Queue(Element):
     def _make_q(self):
         cap = max(1, self.max_size_buffers)
         if self.backend in ("auto", "native") and self.leaky == "none":
-            from ..native.lib import native_available, native_built
-            # auto never triggers an on-demand `make native` from a plain
-            # pipeline parse: only a library already on disk is used;
-            # backend=native may build
-            usable = (native_available() if self.backend == "native"
-                      else native_built() and native_available())
-            if usable:
+            from ..native.lib import load_native_lib
+            # auto never starts `make native` from a pipeline parse: it
+            # takes only a fresh library already on disk; native builds
+            if load_native_lib(build=self.backend == "native") is not None:
                 return _NativeQueueAdapter(cap)
             if self.backend == "native":
                 raise RuntimeError(
-                    f"{self.name}: backend=native but libnnstpu is not "
-                    "built (run `make native`)")
+                    f"{self.name}: backend=native but no fresh libnnstpu "
+                    "could be built (run `make native`)")
         elif self.backend == "native":
             raise ValueError(
                 f"{self.name}: leaky queues need backend=python")

@@ -835,11 +835,28 @@ def test_native_queue_auto_takes_the_built_ring():
 def test_native_queue_without_the_library_raises(monkeypatch):
     """backend=native never falls back; auto falls back to Python."""
     from nnstreamer_tpu_torch.native import lib
-    monkeypatch.setattr(lib, "native_available", lambda: False)
-    monkeypatch.setattr(lib, "native_built", lambda: False)
+    monkeypatch.setattr(lib, "load_native_lib", lambda build=True: None)
     with pytest.raises(RuntimeError, match="make native"):
         pt.parse_launch(_queue_line("native"))
     assert not pt.parse_launch(_queue_line("auto"))["q1"].is_native
+
+
+def test_auto_queue_never_starts_make(monkeypatch):
+    """Parsing a backend=auto queue loads a library already on disk but
+    never runs ``make native``; backend=native does."""
+    from nnstreamer_tpu_torch.native import lib
+    makes = []
+    monkeypatch.setattr(lib, "_lib", None)
+    monkeypatch.setattr(lib, "_build_tried", False)
+    monkeypatch.setattr(lib, "_try_build", lambda: makes.append(1) or True)
+    pt.parse_launch(_queue_line("auto"))
+    assert makes == []
+    monkeypatch.setattr(lib, "_lib", None)  # what auto may have loaded
+    monkeypatch.setattr(lib, "native_built", lambda: False)
+    monkeypatch.setattr(lib, "_fresh", lambda: False)
+    with pytest.raises(RuntimeError, match="make native"):
+        pt.parse_launch(_queue_line("native"))
+    assert makes == [1]
 
 
 @pytest.mark.parametrize("pkg", [nt, pt], ids=["jax", "torch"])

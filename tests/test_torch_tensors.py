@@ -112,3 +112,39 @@ def test_appsrc_capsfilter_queue_chain():
         assert [b.pts for b in pipe["out"].buffers] == [0, 1, 2]
         negotiated.append(str(pipe["out"].sinkpad.caps))
     assert negotiated[0] == negotiated[1]
+
+
+def _stale_library(monkeypatch, tmp_path):
+    """Point the port's ring bindings at a library older than its source,
+    with a rebuild that fails."""
+    import os
+    from nnstreamer_tpu_torch.native import lib
+    so, src = tmp_path / "libnnstpu.so", tmp_path / "nns_ring.cc"
+    so.write_bytes(b"")
+    src.write_text("// newer than the library\n")
+    os.utime(so, (1_000_000, 1_000_000))
+    os.utime(src, (2_000_000, 2_000_000))
+    monkeypatch.setattr(lib, "_LIB_PATH", str(so))
+    monkeypatch.setattr(lib, "_SOURCES", (str(src),))
+    monkeypatch.setattr(lib, "_lib", None)
+    monkeypatch.setattr(lib, "_build_tried", False)
+    monkeypatch.setattr(lib, "_try_build", lambda: False)
+    return lib
+
+
+def test_native_queue_backend_is_refused(monkeypatch, tmp_path):
+    """queue backend=native over a stale library whose rebuild failed is
+    refused at parse, and never falls back to the Python queue."""
+    _stale_library(monkeypatch, tmp_path)
+    with pytest.raises(RuntimeError, match="make native"):
+        pt.parse_launch("tensortestsrc caps=other/tensors,format=static,"
+                        "num_tensors=1,types=uint8,dimensions=4,"
+                        "framerate=0/1 ! queue backend=native ! fakesink")
+
+
+def test_stale_native_library_is_not_loaded(monkeypatch, tmp_path, caplog):
+    lib = _stale_library(monkeypatch, tmp_path)
+    with caplog.at_level("WARNING"):
+        assert lib.load_native_lib() is None
+    assert "older than its sources" in caplog.text
+    assert lib.native_built()  # on disk, but not loaded
