@@ -2,13 +2,17 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure exits non-zero and prints no result line:
+Phases, in order, but for 32-34, which run right after phase 1 while
+phase 2's compilers run; any failure exits non-zero and prints no result
+line:
 
 1. device   — a CUDA device must be present; prints nvidia-smi's card
               name and power limit.
 2. build    — compiles every CUDA kernel of the port (one nvcc per source,
-              all at once: attention.cu, normalize.cu) and prints the
-              build seconds, ptxas's registers, shared memory and spills
+              all at once: attention.cu, normalize.cu, on a worker
+              thread) and prints the build seconds and the seconds
+              waited for it after phases 32-34, ptxas's registers,
+              shared memory and spills
               for each kernel instantiation and, where cuobjdump is
               present, the HMMA (tensor-core)
               instructions in each attention kernel's SASS: a bf16/f16
@@ -160,7 +164,7 @@ queue between filter and decoder: unfused): host time a frame by element.
               and no model loaded.
 22-24. among devices — BASELINE config 5's query fan-out, the ViT line
               behind the query link, edge pub/sub across a killed link.
-              Phases 22-31 and the native queue lines run before phase
+              Phases 22-34 and the native queue lines run before phase
               21, whose validate() reads their lines too.
 25. shared vit — tensortestsrc ! tee into two ViT-B/16 legs (queue,
               filter, appsink) under one shared-tensor-filter-key, 16
@@ -220,6 +224,36 @@ queue between filter and decoder: unfused): host time a frame by element.
               frame packed and unpacked on the card (ops/sparse.py's
               counts), nnz within the capacity, the bytes a frame copied
               to the host against the dense frame.
+32. llm decode — bench.py:2148's generative line at LLM_LARGE's full
+              width (zoo://gpt vocab 32000, d_model 1536, 16 heads, 24
+              layers: 1.0 B parameters, seeded random weights on the
+              card's generator) through find_filter("llm") and
+              invoke_async: bench's one-prompt warm-up, then 8 prompts,
+              8 streams, 48 tokens, max_len 128, chunk 32: tokens/s and
+              steps/s from submit to last token against the decode
+              step's bound (every weight but the embedding and the
+              whole KV cache at 3.35 TB/s: 0.6153 ms), time to first
+              token, prefill rows, graph captures, the step's device
+              time (the 32-step chunk graph replayed alone), host calls
+              (torch.profiler) of the run's two kinds of chunk, a
+              32-step chunk and a 16-step tail, D2H copies a chunk, open
+              time, memory_allocated(); then appsrc !
+              tensor_filter framework=llm invoke-async=true ! appsink
+              with two prompts in flight, every token buffer carrying
+              its prompt's pts.
+33. llm parity — at LLM_LARGE: chunk 1 against phase 32's chunk 32;
+              a decode graph's replay against an eager step, bitwise;
+              paged (block 16, pool_blocks 64) against contiguous,
+              greedy and at temperature 0.7, seed 11, top_k 8; the
+              prefix cache on against off on bench.py:1617's prompts
+              (8 x 64 tokens, 57 shared) with hits, fewer prompt
+              tokens computed and fewer prefill rows run (those runs
+              decode a token a step, so they capture no chunk graph); a
+              16-token prompt's prefill logits against the same weights
+              in f32 on the CPU (within 2**-5 of the largest logit).
+34. llm single shot — SingleShot(framework=llamacpp) at LLM_LARGE: the
+              tokens of invoke_async with set_async_callback equal a
+              sync invoke's.
 Native queue — the headline line with queue backend=native against
               backend=python, in turns (python, native, native, python),
               after `make native` (its seconds printed): logits bitwise
@@ -233,7 +267,7 @@ Every model line runs through the backend's per-signature executable,
 one captured CUDA graph per input signature: the first frame runs
 eagerly (the capture's warm-up), every later frame is one replay, so a
 hand kernel inside the graph counts once a frame.
-Phases 8-11, 13, 16, 17, 19, 20, 22, 24, 26, 27, 29-31 and the native
+Phases 8-11, 13, 16, 17, 19, 20, 22, 24, 26, 27, 29-34 and the native
 queue lines launch neither hand kernel
 (their models inline their input affine, as the JAX models do); their
 launch counts are read all the same and written on the kernels line as
@@ -241,23 +275,37 @@ launch counts are read all the same and written on the kernels line as
 tracer's times are host times: a filter's proctime is its dispatch
 (staging and the graph launch), not the device time.
 
+Before the kernels line, a line gives each phase's wall seconds and the
+seconds since the script started.
 The second-to-last line is the kernels JSON, the last line the result:
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 Imports nothing of JAX and nothing of the JAX package.
 """
-import json
-import os
-import re
-import subprocess
-import sys
-import tempfile
 import time
 
-import numpy as np
-import torch
+T_START = time.perf_counter()
+
+import json  # noqa: E402
+import os  # noqa: E402
+import re  # noqa: E402
+import subprocess  # noqa: E402
+import sys  # noqa: E402
+import tempfile  # noqa: E402
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and bf16 FLOP/s
 HBM_BYTES_S = 3.35e12
+# each phase's wall seconds, printed with the total before the result
+PHASE_S = {}
+
+
+def timed(name, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_S[name] = round(time.perf_counter() - t0, 2)
+    return out
 BF16_FLOPS_S = 989e12
 VIT_LAYERS = 12
 FRAMES = 16
@@ -363,15 +411,41 @@ def _sass_hmma(lib):
     return dict(zip(map(_short, _demangle(list(counts))), counts.values()))
 
 
-def phase_build():
+def start_build():
+    """Phase 2's work on a worker thread: every kernel's nvcc, started
+    together, then the attention library's SASS; then `make native` for
+    the native queue lines (its seconds). The phases that launch neither
+    kernel (32-34) run meanwhile."""
+    from concurrent.futures import ThreadPoolExecutor
+    from nnstreamer_tpu_torch.native.lib import load_native_lib
     from nnstreamer_tpu_torch.ops import _build
+
+    def work():
+        t0 = time.perf_counter()
+        logs = _build.build_all()
+        secs = time.perf_counter() - t0
+        hmma = _sass_hmma(_build.library_path("attention"))
+        t0 = time.perf_counter()
+        if load_native_lib() is None:
+            sys.exit("chip_smoke: make native failed")
+        return logs, secs, hmma, time.perf_counter() - t0
+
+    pool = ThreadPoolExecutor(1)
+    try:
+        return pool.submit(work)
+    finally:
+        pool.shutdown(wait=False)
+
+
+def phase_build(building):
     t0 = time.perf_counter()
-    logs = _build.build_all()
-    log(f"build: {time.perf_counter() - t0:.2f} s for {sorted(logs)}")
+    logs, secs, hmma, _ = building.result()
+    log(f"build: {secs:.2f} s for {sorted(logs)}, "
+        f"{time.perf_counter() - t0:.2f} s of it waited for after phases "
+        "32-34")
     for name, out in logs.items():
         for func, regs, spill in _ptxas_report(out):
             log(f"  ptxas[{name}] {func}: {regs}; {spill}")
-    hmma = _sass_hmma(_build.library_path("attention"))
     if hmma is None:
         log("  cuobjdump: not present; SASS not inspected")
     else:
@@ -399,15 +473,57 @@ def time_ms(fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
+def _profiled():
+    """The activities of every profiler session of the script, CPU and
+    CUDA: the profiler's first session of a kind takes seconds to set
+    up."""
+    from torch.profiler import ProfilerActivity
+    return [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+
+def _trace_counts(parts, names):
+    """Run each ``(label, fn)`` of ``parts`` in turn inside one
+    torch.profiler session, each under a record_function range of its
+    label, and count the trace's events named in ``names`` (name ->
+    key) whose start falls in each range: {label: {key: count}}. Reads
+    the raw trace: a chunk graph's replay records ~48,000 device
+    kernels, which key_averages() takes seconds to turn into Python
+    events."""
+    from torch.profiler import profile, record_function
+    torch.cuda.synchronize()
+    with profile(activities=_profiled()) as prof:
+        for label, fn in parts:
+            with record_function(label):
+                fn()
+                torch.cuda.synchronize()
+    events = prof.profiler.kineto_results.events()
+    # the host's ranges (the device timeline repeats each label)
+    spans = {e.name(): (e.start_ns(), e.end_ns()) for e in events
+             if e.name() in dict(parts)
+             and e.device_type() == torch.autograd.DeviceType.CPU}
+    if len(spans) != len(parts):
+        sys.exit(f"chip_smoke: the trace lacks ranges {dict(parts).keys()}"
+                 f" - {spans.keys()}")
+    out = {label: {} for label, _ in parts}
+    for e in events:
+        key = names.get(e.name())
+        if key is None:
+            continue
+        for label, (t0, t1) in spans.items():
+            if t0 <= e.start_ns() <= t1:
+                out[label][key] = out[label].get(key, 0) + 1
+    return out
+
+
 def device_ms(fn, kernel, iters=20):
     """Mean device time (ms) of the kernels named ``kernel`` in one call,
     from torch.profiler's CUDA trace over ``iters`` calls; None if the
     profiler records none. Event times of back-to-back calls measure the
     host's enqueue rate where a launch is shorter than its enqueue."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=_profiled()) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
@@ -2821,17 +2937,14 @@ def invoke(inputs):
 def _host_launches(fn, calls):
     """Kernel launches the host makes per call of ``fn``
     (cudaLaunchKernel and its variants in torch.profiler's trace)."""
-    from torch.profiler import ProfilerActivity, profile
     names = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
              "cuLaunchKernelEx")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.key in names) / calls
+    counts = _trace_counts([("calls", run)], {n: n for n in names})
+    return sum(counts["calls"].values()) / calls
 
 
 def _build_custom_scaler():
@@ -3466,15 +3579,11 @@ def phase_sparse(smi):
     return out
 
 
-def phase_native_queue(smi, clean):
+def phase_native_queue(smi, clean, build_s):
     """The headline line with queue backend=native against
     backend=python in the same call, in turns (python, native, native,
-    python): logits bitwise equal to the clean run's, fps and p50."""
-    from nnstreamer_tpu_torch.native.lib import load_native_lib
-    t0 = time.perf_counter()
-    if load_native_lib() is None:
-        sys.exit("chip_smoke: make native failed")
-    build_s = time.perf_counter() - t0
+    python), after `make native` (``build_s`` seconds, on phase 2's
+    worker): logits bitwise equal to the clean run's, fps and p50."""
     n = MOBILENET_WARMUP + MOBILENET_FRAMES
     # phase 19's clean run covers the first FAULT_FRAMES frames; the rest
     # are held against the first python run
@@ -3500,6 +3609,421 @@ def phase_native_queue(smi, clean):
                 else {"Queue"}):
             sys.exit(f"chip_smoke: queue backend={backend}: {row}")
     return out
+
+
+LLM_LARGE = "zoo://gpt?vocab=32000&d_model=1536&n_heads=16&n_layers=24"
+LLM_STREAMS = 8            # bench.py:2148: 8 prompts, 8 streams,
+LLM_TOKENS = 48            # 48 tokens each,
+LLM_MAX_LEN = 128          # max_len 128,
+LLM_CHUNK = 32             # chunk 32
+LLM_PIPE_TOKENS = 16       # phase 32's pipeline line: 2 prompts x 16
+LLM_PARITY_TOKENS = 16     # phase 33's sampled and prefix-cache runs
+LLM_BLOCK = 16
+LLM_POOL_BLOCKS = 64       # 8 streams x ceil((7 + 48) / 16) = 32 needed
+LLM_PREFIX_BLOCKS = 96     # 8 x ceil((64 + 16) / 16) = 40 needed
+# phase 33: one prompt's prefill logits, bf16 on the card against the
+# same weights in f32 on the CPU, as a share of the largest |logit|.
+# bf16 keeps 8 significant bits: each of 24 layers rounds its norms,
+# products and residual adds, so the logits drift by a few ulps of the
+# largest. An H100 80GB HBM3 at 700 W read 1.324e-02 (64 tokens) and
+# 1.348e-02 (16 tokens); 2**-5 (3.1e-02) is 2.3 times that, and fails
+# a wrong layout, a wrong rope, a stale cache row or a bf16 split-K
+# reduction in every layer, which move logits by more
+LLM_F32_REL_TOL = 2.0 ** -5
+
+
+def _llm(custom):
+    """An opened llm filter at LLM_LARGE on the card, and its open time
+    (the 1.0 B-parameter init on the card's generator)."""
+    from nnstreamer_tpu_torch.filters import FilterProperties, find_filter
+    t0 = time.perf_counter()
+    fw = find_filter("llm")()
+    fw.open(FilterProperties(model_files=(LLM_LARGE,),
+                             custom_properties=custom))
+    torch.cuda.synchronize()
+    return fw, time.perf_counter() - t0
+
+
+def _llm_prompts():
+    """bench.py:1595's prompts for bench_llm_decode."""
+    return [np.arange(1 + (i % 7), dtype=np.int32) + i
+            for i in range(LLM_STREAMS)]
+
+
+def _llm_disagg_prompts(n, plen, shared):
+    """bench.py:1617: n prompts of plen tokens sharing the first
+    ``shared``."""
+    base = (np.arange(plen, dtype=np.int32) % 500) + 1
+    out = []
+    for i in range(n):
+        p = base.copy()
+        p[shared:] = ((np.arange(plen - shared) * 7 + i * 31) % 500) + 1
+        out.append(p)
+    return out
+
+
+def _llm_collect(fw, prompts, per_stream, what, timeout=300):
+    """invoke_async every prompt; -> (tokens a prompt, t_submit,
+    t_first_token, t_last_token)."""
+    import threading
+    got, stamps = {}, []
+    lock, done = threading.Lock(), threading.Event()
+    want = len(prompts) * per_stream
+
+    def dispatch(outs, ctx):
+        with lock:
+            stamps.append(time.perf_counter())
+            got.setdefault(ctx, []).append(
+                int(np.asarray(outs[0]).ravel()[0]))
+            if len(stamps) == want:
+                done.set()
+
+    fw.set_async_dispatcher(dispatch)
+    t0 = time.perf_counter()
+    for i, p in enumerate(prompts):
+        fw.invoke_async([p], ctx=i)
+    if not done.wait(timeout):
+        sys.exit(f"chip_smoke: {what}: {len(stamps)} of {want} tokens")
+    return [got[i] for i in range(len(prompts))], t0, stamps[0], stamps[-1]
+
+
+def llm_bound(fw, streams, max_len):
+    """(weight bytes a decode step reads, KV bytes, bound ms): every
+    weight but the embedding table (a step gathers M rows of it) and the
+    whole [streams, max_len] cache, once each, at HBM_BYTES_S."""
+    weights = sum(p.numel() * p.element_size()
+                  for name, p in fw._params.named_parameters()
+                  if name != "embed")
+    cfg = fw._cfg
+    kv = 2 * cfg.n_layers * streams * max_len * cfg.n_heads * \
+        cfg.head_dim * torch.finfo(cfg.dtype).bits // 8
+    return weights, kv, (weights + kv) / HBM_BYTES_S * 1e3
+
+
+def _host_calls(parts):
+    """Host CUDA calls each ``(label, fn)`` of ``parts`` makes, on every
+    thread, in one torch.profiler session: graph launches, kernel
+    launches and copies."""
+    names = {"cudaGraphLaunch": "graph_launches",
+             "cudaLaunchKernel": "kernel_launches",
+             "cudaLaunchKernelExC": "kernel_launches",
+             "cuLaunchKernel": "kernel_launches",
+             "cuLaunchKernelEx": "kernel_launches",
+             "cudaMemcpyAsync": "memcpy", "cudaMemcpy": "memcpy"}
+    counts = _trace_counts(parts, names)
+    return {label: {k: c.get(k, 0) for k in (
+        "graph_launches", "kernel_launches", "memcpy")}
+        for label, c in counts.items()}
+
+
+def _event_ms(fn, iters):
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def phase_llm_decode(smi):
+    """Phase 32: bench.py:2148's generative line at LLM_LARGE's full
+    width through find_filter("llm") and invoke_async (8 prompts, 8
+    streams, 48 tokens, max_len 128, chunk 32), after bench's one-prompt
+    warm-up: tokens/s and decode steps/s from submit to last token, time
+    to first token, prefill rows, graph captures, the decode step's
+    device time (the 32-step chunk graph replayed alone, CUDA events)
+    against its bound, D2H copies a chunk, open time, memory_allocated();
+    host calls of each kind of chunk the run takes (a 32-step chunk and
+    a 16-step tail); then the same model in a pipeline with two prompts
+    in flight, each token buffer carrying its own prompt's pts."""
+    import nnstreamer_tpu_torch as pt
+    from nnstreamer_tpu_torch.filters import llm as L
+    from nnstreamer_tpu_torch.tensors.transfer import fetch_stats
+    out = {}
+    t_phase = time.perf_counter()
+    _reset_launches()
+    mem0 = _allocated()
+    custom = (f"max_tokens:{LLM_TOKENS},n_parallel:{LLM_STREAMS},"
+              f"max_len:{LLM_MAX_LEN},chunk:{LLM_CHUNK}")
+    fw, open_s = _llm(custom)
+    mem_open = _allocated()
+    weights, kv, bound_ms = llm_bound(fw, LLM_STREAMS, LLM_MAX_LEN)
+    t0 = time.perf_counter()
+    _llm_collect(fw, [np.arange(8, dtype=np.int32)], LLM_TOKENS, "warm-up")
+    warm_s = time.perf_counter() - t0
+    captures_warm = fw.compile_count
+    s0 = fw.stats.snapshot()
+    fetch_stats(reset=True)
+    toks, t0, t_first, t_last = _llm_collect(fw, _llm_prompts(), LLM_TOKENS,
+                                             "llm decode")
+    fetched = fetch_stats()
+    s1 = fw.stats.snapshot()
+    steps = s1["decode_steps"] - s0["decode_steps"]
+    chunks = s1["decode_dispatches"] - s0["decode_dispatches"]
+    wall = t_last - t0
+    n_tok = LLM_STREAMS * LLM_TOKENS
+    be = fw._backend
+    graph = be._graphs["chunk"]
+    step_ms = _event_ms(graph.replay, 3) / LLM_CHUNK
+    tail = LLM_TOKENS % LLM_CHUNK
+    on = np.ones(be.m, bool)
+    t_prof = time.perf_counter()
+    calls = _host_calls(
+        [(f"chunk{k}", lambda k=k: L._host(be.chunk(k, 0.0, on)))
+         for k in (LLM_CHUNK, tail)])
+    prof_s = time.perf_counter() - t_prof
+    flat = [t for row in toks for t in row]
+    row = out["decode"] = {
+        "streams": LLM_STREAMS, "tokens": n_tok,
+        "tokens_per_s": n_tok / wall, "steps_per_s": steps / wall,
+        "bound_ms": bound_ms, "bound_steps_per_s": 1e3 / bound_ms,
+        "share_of_bound": steps / wall * bound_ms / 1e3,
+        "ttft_ms": (t_first - t0) * 1e3,
+        "first_to_last_ms": (t_last - t_first) * 1e3,
+        "step_ms_device": step_ms,
+        "device_share_of_bound": bound_ms / step_ms,
+        "decode_steps": steps, "chunks": chunks,
+        "d2h_per_chunk": fetched["arrays"] / max(1, chunks),
+        "host_calls": calls, "host_calls_s": prof_s,
+        "prefill_rows": s1["prefill_rows"] - s0["prefill_rows"],
+        "graph_captures": fw.compile_count,
+        "captures_at_warmup": captures_warm, "warmup_s": warm_s,
+        "open_s": open_s, "weights_bytes": weights, "kv_bytes": kv,
+        "allocated_open_mib": (mem_open - mem0) / 2**20,
+        "allocated_run_mib": (_allocated() - mem0) / 2**20,
+        "prefill_dispatches": s1["prefill_dispatches"]
+        - s0["prefill_dispatches"]}
+    fw.close()
+    log(f"llm decode (LLM_LARGE, {LLM_STREAMS} prompts x {LLM_TOKENS} "
+        f"tokens, chunk {LLM_CHUNK}): {row['tokens_per_s']:.1f} tokens/s, "
+        f"{row['steps_per_s']:.2f} steps/s from submit to last token "
+        f"({row['share_of_bound']:.4f} of the {bound_ms:.4f} ms bound's "
+        f"{1e3 / bound_ms:.1f} steps/s), time to first token "
+        f"{row['ttft_ms']:.2f} ms, decode step {step_ms:.4f} ms on the "
+        f"device ({row['device_share_of_bound']:.4f} of bound), "
+        f"{row['prefill_rows']} prefill rows for {LLM_STREAMS} prompts "
+        f"of 1-7 tokens, {row['graph_captures']} graph captures, "
+        f"{chunks} chunks, host calls of a {LLM_CHUNK}-step chunk "
+        f"{calls[f'chunk{LLM_CHUNK}']} and of a {tail}-step tail "
+        f"{calls[f'chunk{tail}']}, "
+        f"{row['d2h_per_chunk']:.2f} D2H copies a chunk, "
+        f"warm-up {warm_s:.2f} s with {captures_warm} captures, open "
+        f"{open_s:.2f} s, memory_allocated() +"
+        f"{row['allocated_open_mib']:.1f} MiB at open, "
+        f"+{row['allocated_run_mib']:.1f} MiB after the run; {smi}")
+    if not all(0 <= t < 32000 for t in flat) or chunks < 2 \
+            or row["d2h_per_chunk"] != 1:
+        sys.exit(f"chip_smoke: llm decode: {row}")
+    row["kernel_launches"] = _kernel_launches()
+    # the pipeline: appsrc ! tensor_filter invoke-async ! appsink
+    _reset_launches()
+    caps = ("other/tensors,format=static,num_tensors=1,"
+            "types=(string)int32,dimensions=(string)8")
+    line = (f'appsrc name=in caps="{caps}" ! tensor_filter name=f '
+            f'framework=llm model="{LLM_LARGE}" invoke-async=true '
+            'invoke-dynamic=true custom="max_tokens:'
+            f'{LLM_PIPE_TOKENS},n_parallel:2,max_len:{LLM_MAX_LEN}" '
+            '! appsink name=out')
+    pipe = pt.parse_launch(line)
+    pipe.start()
+    try:
+        t0 = time.perf_counter()
+        for i, pts in enumerate((1000, 2000)):
+            pipe["in"].push_buffer(pt.Buffer.from_arrays(
+                [np.arange(8, dtype=np.int32) + 100 * i], pts=pts))
+        _wait_frames(pipe, 2 * LLM_PIPE_TOKENS, "llm pipeline")
+        dt = time.perf_counter() - t0
+        captures = pipe["f"].fw.compile_count
+    finally:
+        pipe.stop()
+    by_pts = {}
+    for b in pipe["out"].buffers:
+        by_pts.setdefault(b.pts, []).append(int(b.chunks[0].host()[0]))
+    prow = out["pipeline"] = {
+        "buffers": len(pipe["out"].buffers),
+        "tokens_by_pts": {k: len(v) for k, v in by_pts.items()},
+        "tokens_per_s": 2 * LLM_PIPE_TOKENS / dt,
+        "graph_captures": captures, "kernel_launches": _kernel_launches(),
+        "phase_s": time.perf_counter() - t_phase}
+    log(f"llm pipeline (appsrc ! tensor_filter framework=llm invoke-async "
+        f"! appsink, 2 prompts in flight): {prow['buffers']} token "
+        f"buffers, by pts {prow['tokens_by_pts']}, "
+        f"{prow['tokens_per_s']:.1f} tokens/s with the captures, "
+        f"{captures} graph captures; phase 32 {prow['phase_s']:.1f} s; "
+        f"{smi}")
+    if sorted(by_pts) != [1000, 2000] or any(
+            len(v) != LLM_PIPE_TOKENS for v in by_pts.values()):
+        sys.exit(f"chip_smoke: llm pipeline: {prow}")
+    return out, toks
+
+
+def _llm_graph_equals_eager(fw):
+    """One decode step of the per-token backend: its graph's replay
+    against decode_step_multi run eagerly on a copy of the same state,
+    bitwise. All lanes active, at the positions the run left."""
+    from nnstreamer_tpu_torch.models import transformer as tfm
+    be = fw._backend
+    with torch.no_grad():
+        be.active.fill_(True)
+        cache = {k: v.clone() for k, v in be.cache.items()}
+        eager, _ = tfm.decode_step_multi(fw._params, cache, be.tok.clone(),
+                                         be.active.clone(), fw._cfg)
+        be._graphs["step"].replay()
+        torch.cuda.synchronize()
+        return torch.equal(eager, be.logits) and \
+            torch.equal(cache["k"], be.cache["k"])
+
+
+def _llm_f32_gap(fw, prompt):
+    """One prompt's prefill logits on the card (bf16) against the same
+    weights, copied back, in f32 on the CPU (forward over the prompt):
+    max |difference| as a share of the largest |logit|."""
+    import dataclasses
+    from nnstreamer_tpu_torch.models import transformer as tfm
+    card = fw._prefill_prompt(prompt, LLM_MAX_LEN)[0][0].float().cpu()
+    cfg = dataclasses.replace(fw._cfg, dtype=torch.float32)
+    cpu = tfm.GPT(cfg, device="meta")
+    cpu.load_state_dict({k: v.float().cpu()
+                         for k, v in fw._params.state_dict().items()},
+                        assign=True)
+    with torch.no_grad():
+        want = tfm.forward(cpu, torch.from_numpy(prompt[None]).long(),
+                           cfg)[0, -1]
+    return float((card - want).abs().max() / want.abs().max())
+
+
+def phase_llm_parity(smi, ref):
+    """Phase 33, at LLM_LARGE on the card: chunk 1 against phase 32's
+    chunk 32 (greedy, 8 x 48 tokens); a graph replay's decode logits
+    against an eager step's, bitwise; paged (block 16, an explicit
+    pool_blocks budget) against contiguous, greedy (48 tokens) and at
+    temperature 0.7, seed 11, top_k 8 (16 tokens); the prefix cache on
+    against off on bench.py's disagg prompts (8 x 64 tokens, 57 shared),
+    with hits and fewer computed prompt tokens; one prompt's prefill
+    logits against f32 on the CPU. Every mismatch fails the run. Past the
+    chunk-32 check every run decodes a token a step, so it captures only
+    the step and the prefill, not a multi-step chunk graph (the chunk
+    captures are most of phase 32's warm-up)."""
+    out = {}
+    t0 = time.perf_counter()
+    _reset_launches()
+    prompts = _llm_prompts()
+    base = (f"max_tokens:{LLM_TOKENS},n_parallel:{LLM_STREAMS},"
+            f"max_len:{LLM_MAX_LEN},chunk:{LLM_CHUNK}")
+    paged = (f",paged:true,block_size:{LLM_BLOCK},"
+             f"pool_blocks:{LLM_POOL_BLOCKS}")
+    checks = {}
+
+    def run(custom, plist, n, what, keep=False):
+        fw, _ = _llm(custom)
+        toks = _llm_collect(fw, plist, n, what)[0]
+        stats = dict(fw.stats.snapshot())
+        if fw._pool_mgr is not None:
+            stats.update(fw._pool_mgr.stats_dict())
+        stats["graph_captures"] = fw.compile_count
+        if keep:
+            return toks, stats, fw
+        fw.close()
+        return toks, stats
+
+    per_token = base.replace(f"chunk:{LLM_CHUNK}", "chunk:1")
+    toks, stats, fw = run(per_token, prompts, LLM_TOKENS, "per-token",
+                          keep=True)
+    checks["chunk1_equals_chunk32"] = toks == ref
+    checks["graph_equals_eager"] = _llm_graph_equals_eager(fw)
+    fw.close()
+    paged_toks, _ = run(per_token + paged, prompts, LLM_TOKENS,
+                        "paged greedy")
+    checks["paged_greedy"] = paged_toks == toks
+    samp = (f"max_tokens:{LLM_PARITY_TOKENS},n_parallel:{LLM_STREAMS},"
+            f"max_len:{LLM_MAX_LEN},temperature:0.7,seed:11,top_k:8")
+    a, _ = run(samp, prompts, LLM_PARITY_TOKENS, "sampled")
+    b, _ = run(samp + paged, prompts, LLM_PARITY_TOKENS, "sampled paged")
+    checks["paged_sampled"] = a == b
+    checks["sampled_differs_from_greedy"] = a != [r[:LLM_PARITY_TOKENS]
+                                                  for r in ref]
+    disagg = _llm_disagg_prompts(8, 64, 57)
+    pre = (f"max_tokens:{LLM_PARITY_TOKENS},n_parallel:{LLM_STREAMS},"
+           f"max_len:{LLM_MAX_LEN},paged:true,block_size:{LLM_BLOCK},"
+           f"pool_blocks:{LLM_PREFIX_BLOCKS}")
+    off, off_stats, fw = run(pre + ",prefix_cache:false", disagg,
+                             LLM_PARITY_TOKENS, "prefix off", keep=True)
+    gap = _llm_f32_gap(fw, disagg[0][:16])
+    fw.close()
+    on, on_stats = run(pre + ",prefix_cache:true", disagg,
+                       LLM_PARITY_TOKENS, "prefix on")
+    admitted = sum(p.size for p in disagg)
+    checks["prefix_cache_exact"] = on == off
+    checks["prefix_hits"] = on_stats["prefix_hits"] > 0
+    checks["prefix_saves_prefill"] = \
+        on_stats["prefill_computed_tokens"] < admitted and \
+        on_stats["prefill_rows"] < off_stats["prefill_rows"]
+    checks["f32_gap"] = gap <= LLM_F32_REL_TOL
+    row = out["parity"] = {
+        "checks": checks, "f32_gap_rel": gap,
+        "f32_tol_rel": LLM_F32_REL_TOL,
+        "prefix_on": {k: on_stats[k] for k in (
+            "prefix_hits", "prefix_misses", "prefill_computed_tokens",
+            "prefill_cached_tokens", "prefill_dispatches",
+            "prefill_rows")},
+        "prefix_off_computed": off_stats["prefill_computed_tokens"],
+        "prefix_off_rows": off_stats["prefill_rows"],
+        "admitted_prompt_tokens": admitted, "s": time.perf_counter() - t0,
+        "kernel_launches": _kernel_launches()}
+    log(f"llm parity (LLM_LARGE): {checks}; prefix cache on: "
+        f"{row['prefix_on']} of {admitted} admitted prompt tokens (off: "
+        f"{row['prefix_off_computed']} computed in "
+        f"{row['prefix_off_rows']} rows); a 16-token prompt's "
+        f"prefill logits against f32 on the CPU {gap:.3e} of the largest "
+        f"(tolerance {LLM_F32_REL_TOL}); {row['s']:.1f} s; {smi}")
+    if not all(checks.values()):
+        sys.exit(f"chip_smoke: llm parity: {row}")
+    return out
+
+
+def phase_llm_single_shot(smi):
+    """Phase 34: SingleShot(LLM_LARGE, framework=llamacpp) on the card:
+    the tokens of invoke_async with set_async_callback equal a sync
+    invoke's."""
+    import threading
+    import nnstreamer_tpu_torch as pt
+    _reset_launches()
+    prompt = np.arange(5, dtype=np.int32) + 7
+    shot = pt.SingleShot(LLM_LARGE, framework="llamacpp",
+                         custom=f"max_tokens:{LLM_PARITY_TOKENS}")
+    try:
+        t0 = time.perf_counter()
+        (want,) = shot.invoke([prompt])
+        sync_s = time.perf_counter() - t0
+        got, done = [], threading.Event()
+
+        def cb(outs):
+            got.append(int(np.asarray(outs[0]).ravel()[0]))
+            if len(got) == LLM_PARITY_TOKENS:
+                done.set()
+
+        shot.set_async_callback(cb)
+        t0 = time.perf_counter()
+        shot.invoke_async([prompt])
+        if not done.wait(300):
+            sys.exit(f"chip_smoke: llm single shot: {len(got)} tokens")
+        async_s = time.perf_counter() - t0
+        captures = shot.fw.compile_count
+    finally:
+        shot.stop()
+    row = {"equal": got == want.tolist(), "tokens": len(got),
+           "sync_s": sync_s, "async_s": async_s, "graph_captures": captures,
+           "kernel_launches": _kernel_launches()}
+    log(f"llm single shot (framework=llamacpp): invoke_async "
+        f"{'equals' if row['equal'] else 'DIFFERS FROM'} the sync invoke "
+        f"over {len(got)} tokens, sync {sync_s:.3f} s (with the captures), "
+        f"async {async_s:.3f} s, {captures} graph captures; {smi}")
+    if not row["equal"]:
+        sys.exit(f"chip_smoke: llm single shot: {row}")
+    return {"single_shot": row}
 
 
 def phase_pipelint(smi, lines):
@@ -3553,7 +4077,7 @@ def phase_pipelint(smi, lines):
 
 
 def main():
-    smi = phase_device()
+    smi = timed("device", phase_device)
     kind = torch.cuda.get_device_name(0)
     # every launch line the phases parse, for phase 21's validate()
     import nnstreamer_tpu_torch as pt
@@ -3580,54 +4104,71 @@ def main():
         return pipe
 
     pt.parse_launch = parse_recorded
-    hmma = phase_build()
-    rows = phase_kernels()
-    norm_rows, norm_err = phase_normalize()
+    building = start_build()
+    # phases 32-34: the generative line, which neither hand kernel runs,
+    # while the kernels build
+    llm = {}
+    llm["llm_decode"], llm_tokens = timed("llm_decode", phase_llm_decode,
+                                          smi)
+    llm["llm_parity"] = timed("llm_parity", phase_llm_parity, smi,
+                              llm_tokens)
+    llm["llm_single_shot"] = timed("llm_single_shot",
+                                   phase_llm_single_shot, smi)
+    hmma = timed("build", phase_build, building)
+    rows = timed("kernels", phase_kernels)
+    norm_rows, norm_err = timed("normalize", phase_normalize)
     with tempfile.TemporaryDirectory() as tmp:
-        run = phase_pipeline(smi, tmp)
-        mobilenet, frames = phase_mobilenet(smi, tmp)
-    norm_launches = phase_normalize_entry(frames)
-    vit_batch = phase_vit_batch(smi)
-    lines = {"ssd": phase_ssd(smi), "posenet": phase_posenet(smi),
-             "deeplab": phase_deeplab(smi), "video": phase_video(smi)}
-    graphs = phase_graphs()
-    lines["fused_deeplab"] = phase_fused(smi)
+        run = timed("pipeline", phase_pipeline, smi, tmp)
+        mobilenet, frames = timed("mobilenet", phase_mobilenet, smi, tmp)
+    norm_launches = timed("normalize_entry", phase_normalize_entry, frames)
+    vit_batch = timed("vit_batch", phase_vit_batch, smi)
+    lines = {k: timed(k, fn, smi) for k, fn in (
+        ("ssd", phase_ssd), ("posenet", phase_posenet),
+        ("deeplab", phase_deeplab), ("video", phase_video))}
+    graphs = timed("graphs", phase_graphs)
+    lines["fused_deeplab"] = timed("fused", phase_fused, smi)
     with tempfile.TemporaryDirectory() as tmp:
         labels = os.path.join(tmp, "labels.txt")
         with open(labels, "w") as f:
             f.write("\n".join(f"class{i}" for i in range(1000)))
-        inflight = phase_vit_inflight(smi, tmp)
-    lines["ensemble"] = phase_ensemble(smi)
-    lines["aggregated"] = phase_aggregated(smi)
-    lines["crop"] = phase_crop(smi)
-    lines["throttled"] = phase_throttled(smi)
-    traces = phase_traces(smi)
+        inflight = timed("vit_inflight", phase_vit_inflight, smi, tmp)
+    lines["ensemble"] = timed("ensemble", phase_ensemble, smi)
+    lines["aggregated"] = timed("aggregated", phase_aggregated, smi)
+    lines["crop"] = timed("crop", phase_crop, smi)
+    lines["throttled"] = timed("throttled", phase_throttled, smi)
+    traces = timed("traces", phase_traces, smi)
     with tempfile.TemporaryDirectory() as tmp:
         labels = os.path.join(tmp, "labels1001.txt")
         with open(labels, "w") as f:
             f.write("\n".join(f"class{i}" for i in range(1001)))
-        policies, clean = phase_policies(smi, labels)
-    segment = phase_segment_faults(smi, clean)
-    lines["query_fanout"] = phase_query_fanout(smi, clean)
-    lines["query_vit"] = phase_query_vit(smi)
-    lines["edge_pubsub"] = phase_edge_pubsub(smi)
-    lines["shared_vit"], vit = phase_shared_vit(smi)
+        policies, clean = timed("policies", phase_policies, smi, labels)
+    segment = timed("segment_faults", phase_segment_faults, smi, clean)
+    lines["query_fanout"] = timed("query_fanout", phase_query_fanout, smi,
+                                  clean)
+    lines["query_vit"] = timed("query_vit", phase_query_vit, smi)
+    lines["edge_pubsub"] = timed("edge_pubsub", phase_edge_pubsub, smi)
+    lines["shared_vit"], vit = timed("shared_vit", phase_shared_vit, smi)
     # phases 26-28 run several lines each: one row, and one count, a line
-    multi = {"suspend_reload": phase_suspend_reload(smi, clean),
-             "combination": phase_combination(smi, clean)}
+    multi = {k: timed(k, fn, smi, clean) for k, fn in (
+        ("suspend_reload", phase_suspend_reload),
+        ("combination", phase_combination))}
     with tempfile.TemporaryDirectory() as tmp:
-        multi["plain_backends"] = phase_plain_backends(smi, clean, vit, tmp)
+        multi["plain_backends"] = timed(
+            "plain_backends", phase_plain_backends, smi, clean, vit, tmp)
     # phases 29-31 and the native queue lines: one row, and one count, a
     # line; neither hand kernel runs on any of them
-    multi["delta_link"] = phase_delta_link(smi)
-    gate = phase_delta_gate(smi)
+    multi["delta_link"] = timed("delta_link", phase_delta_link, smi)
+    gate = timed("delta_gate", phase_delta_gate, smi)
     tile_error = gate.pop("tile_error")
     multi["delta_gate"] = gate
-    multi["sparse"] = phase_sparse(smi)
-    native = phase_native_queue(smi, clean)
+    multi["sparse"] = timed("sparse", phase_sparse, smi)
+    native = timed("native_queue", phase_native_queue, smi, clean,
+                   building.result()[3])
     native_build_s = native.pop("build_s")
     multi["native_queue"] = native
-    for k in ("delta_link", "delta_gate", "sparse", "native_queue"):
+    multi.update(llm)
+    for k in ("delta_link", "delta_gate", "sparse", "native_queue",
+              "llm_decode", "llm_parity", "llm_single_shot"):
         for line, row in multi[k].items():
             if row["kernel_launches"]["attention"] \
                     or row["kernel_launches"]["normalize"]:
@@ -3635,7 +4176,7 @@ def main():
                          f"{row['kernel_launches']}")
     pt.parse_launch = parse
     log(f"queues: {queues['python']} Python queues on the lines of "
-        f"phases 1-31, {queues['native']} ring queues, all on the native "
+        f"phases 1-34, {queues['native']} ring queues, all on the native "
         "queue lines")
     pipelint = phase_pipelint(smi, list(dict.fromkeys(launched)))
     for k in ("clean", "retry", "skip", "restart"):
@@ -3693,6 +4234,8 @@ def main():
                     "tile_error": tile_error,
                     "native_build_s": native_build_s, "queues": queues,
                     "pipelint": pipelint, "card": smi}))
+    log(f"phase seconds: {PHASE_S}; "
+        f"{time.perf_counter() - T_START:.1f} s since the script started")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,16 +1,17 @@
 """pipelint graph rules.
 
 Port of ``nnstreamer_tpu/analysis/rules.py``: the rules whose elements
-the port has (17 of the reference's 28). Each :class:`Rule` inspects the
+the port has (18 of the reference's 28). Each :class:`Rule` inspects the
 parsed-but-unstarted pipeline plus the caps inference result and yields
 findings with element/pad locations. Rules never execute elements and
 never raise past :func:`analyze` — a broken rule must not block a
 launch; :func:`analyze` lists the ids of rules that raised on the
 report's ``crashed``.
 
-The reference's other 11 rules inspect elements the port does not have
-yet; each comes with the slice that ports its elements (ROADMAP.md,
-queue A). Among them ``delta-lossy-gate-feeds-trainer``: its
+The reference's other 10 rules inspect elements or options the port
+does not have yet; each comes with the slice that ports them (ROADMAP.md,
+queue A): ``llm-prefix-cache-lossy-link`` with the llm filter's KV link
+(item 8). Among them ``delta-lossy-gate-feeds-trainer``: its
 ``tensor_delta`` is ported, but it fires only on a ``tensor_trainer``,
 which comes with the trainer (item 11).
 Rules keyed on kind names of such elements (``tensor_serve_src``,
@@ -690,13 +691,39 @@ class DeltaNoKeyframeIntervalRule(Rule):
                     "wire-delta-k to a positive frame count", e.name)
 
 
+class LlmDecodeNoKvBudgetRule(Rule):
+    """A paged llm filter (``paged:true``, or a decode role, which the
+    port refuses at open until the KV link comes) without an explicit
+    ``pool_blocks`` budget sizes its KV pool from n_parallel x max_len —
+    the contiguous worst case — so admission is not token-budgeted."""
+
+    id = "llm-decode-no-kv-budget"
+    severity = Severity.ERROR
+
+    def check(self, ctx: LintContext):
+        from ..filters.base import parse_custom_properties
+        for filt in ctx.of_kind("tensor_filter"):
+            opts = parse_custom_properties(str(filt.custom or ""))
+            paged = (opts.get("role") == "decode"
+                     or opts.get("paged", "").lower()
+                     in ("1", "true", "yes", "on"))
+            if not paged or "pool_blocks" in opts:
+                continue
+            yield self.finding(
+                "paged llm decode without custom=pool_blocks:N — the "
+                "KV pool silently defaults to the contiguous worst "
+                "case (n_parallel x max_len tokens), so decode "
+                "occupancy is not actually token-budgeted; size the "
+                "pool explicitly", filt.name, "sink")
+
+
 ALL_RULES: List[Rule] = [
     DanglingPadRule(), CycleRule(), TeeNoQueueRule(), JitSignatureRule(),
     SinklessBranchRule(), CombinerDtypeRule(), ShedNoRetryAfterRule(),
     LinkResilienceRule(), ErrorPolicyRule(), WireConfigRule(),
     FusionBreakRule(), FusionTransferRule(), SessionReplayBudgetRule(),
     SessionNoReconnectRule(), AsyncWindowRule(), TraceExportRule(),
-    DeltaNoKeyframeIntervalRule(),
+    DeltaNoKeyframeIntervalRule(), LlmDecodeNoKvBudgetRule(),
 ]
 
 def analyze(pipeline, rules: Optional[List[Rule]] = None) -> Report:

@@ -26,16 +26,21 @@ the inputs handed to the model, and the output buffer mixing input
 passthrough ``iN`` and model outputs ``oN``; the src caps list the
 combined tensors), ``invoke-dynamic`` (FLEXIBLE out caps, per-frame
 output shapes), ``donate-input`` (handed to the backend's ``dispatch``
-under ``in-flight``) and the rolling latency/throughput statistics.
+under ``in-flight``), ``invoke-async`` (1 input, N output frames: the
+backend's ``invoke_async`` takes the input buffer as its ctx and hands
+each output frame back through :meth:`TensorFilter._dispatch_async`,
+which stamps it with that buffer's pts, so two prompts in flight keep
+their own; only the LLM backend implements it, and start refuses it for
+a backend without the async path) and the rolling latency/throughput
+statistics.
 Chunks handed to the backend may already live on the card; a backend
 declaring ``HOST_INPUTS`` (custom-easy, python3, custom) gets them on the
 host. Outputs stay on the card until a host boundary, or, with
 ``prefetch-host=true``, leave as :class:`~..tensors.transfer.PendingHost`
 handles whose D2H copy the coalescing fetcher has already started.
 
-Not ported yet: ``invoke-async`` (``NOT_PORTED``, refused at start: only
-the LLM backend implements it); a ``custom=mesh:`` option raises in the
-torch-cuda backend. A breaker-open shed answers no serve rows (the
+Not ported yet: a ``custom=mesh:`` option raises in the torch-cuda
+backend. A breaker-open shed answers no serve rows (the
 serve elements are not ported).
 """
 from __future__ import annotations
@@ -172,8 +177,8 @@ class TensorFilter(Element):
         # an upstream tensor); the torch-cuda backend has none to reuse
         # and says so once
         "donate-input": False,
-    }
-    NOT_PORTED = {
+        # 1 input -> N output frames through the backend's async
+        # dispatcher (the LLM backend's token stream)
         "invoke-async": False,
     }
 
@@ -250,6 +255,8 @@ class TensorFilter(Element):
         mi_in, mi_out = fw.get_model_info()
         self._in_info = props.input_info or mi_in
         self._out_info = props.output_info or mi_out
+        if self.invoke_async:
+            fw.set_async_dispatcher(self._dispatch_async)
         if self.suspend > 0:
             self._watchdog = Watchdog(self.suspend / 1000.0, self._on_idle)
         if self.input_combination:
@@ -262,13 +269,21 @@ class TensorFilter(Element):
     def start(self) -> None:
         super().start()
         self._open_fw()
+        if self.invoke_async and not self.fw.supports_async():
+            raise ValueError(
+                f"{self.name}: invoke-async=true, but framework "
+                f"{self.fw.NAME!r} has no async output path (only llm has)")
         self._start_time = time.monotonic()
         self._breaker = element_breaker(
             self, lambda: {"invoke_errors": self.stats["invoke_errors"]})
         self._overlap = None
         window = int(self.in_flight)
         if window > 1:
-            if not getattr(self.fw, "SUPPORTS_DISPATCH", False):
+            if self.invoke_async:
+                logger.info("%s: in-flight=%d ignored — invoke-async "
+                            "backends manage their own in-flight frames",
+                            self.name, window)
+            elif not getattr(self.fw, "SUPPORTS_DISPATCH", False):
                 logger.info("%s: in-flight=%d ignored — framework %s has "
                             "no async dispatch; staying synchronous",
                             self.name, window, self.fw.NAME)
@@ -542,6 +557,14 @@ class TensorFilter(Element):
         t0 = time.perf_counter_ns()
         c0 = getattr(self.fw, "compile_count", 0)
         try:
+            if self.invoke_async:
+                # the buffer rides along as ctx: each output frame takes
+                # ITS prompt's pts, however many invokes are in flight
+                self.fw.invoke_async(inputs, ctx=buf)
+                self._note_recompiles(c0)
+                self._record_dispatch(time.perf_counter_ns() - t0)
+                self._record_latency(time.perf_counter_ns() - t0)
+                return
             outputs = self.fw.invoke(inputs)
         except InvokeDrop:
             # subplugin-signaled drop (≙ invoke result > 0): silent.
@@ -663,6 +686,12 @@ class TensorFilter(Element):
             return [Chunk(o) for o in outputs]
         return [inbuf.chunks[int(t[1:])] if t[0] == "i"
                 else Chunk(outputs[int(t[1:])]) for t in self._out_combi]
+
+    def _dispatch_async(self, outputs: List[Any], ctx: Buffer) -> None:
+        """The backend's callback, once per generated output frame
+        (≙ gst_tensor_filter_async_output_callback, tensor_filter.c:1099):
+        ``ctx`` is the input buffer of the invoke that produced it."""
+        self.push(Buffer([Chunk(o) for o in outputs], pts=ctx.pts))
 
     def transfer_report(self) -> dict:
         """Window occupancy / overlap stats; {} when running

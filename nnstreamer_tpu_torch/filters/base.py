@@ -5,17 +5,17 @@ ref: gst/nnstreamer/include/nnstreamer_plugin_api_filter.h:399-475 —
 open/close/invoke/getModelInfo).
 
 The non-blocking ``dispatch``/``complete`` split behind the element's
-in-flight window is ported, with ``custom=`` option strings and the
+in-flight window is ported, with ``custom=`` option strings, the
 reference's RELOAD_MODEL, SUSPEND and RESUME events
-(:class:`FilterEvent`). Not ported yet: the async
-generative output path (``invoke_async``, which only the LLM backend
-implements).
+(:class:`FilterEvent`) and the async generative output path
+(``set_async_dispatcher``/``invoke_async``: 1 input, N output frames,
+which only the LLM backend implements).
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from ..tensors.info import TensorsInfo
 
@@ -186,3 +186,24 @@ class FilterFramework:
         from the element's watchdog thread, so a backend that answers it
         serialises it against its own invokes."""
         return False
+
+    # async generative path -----------------------------------------------
+    def set_async_dispatcher(self, dispatch: Callable[..., None]) -> None:
+        """The element installs a callback; an async backend calls it once
+        per produced output frame (≙ nnstreamer_filter_dispatch_output_
+        async) as ``dispatch(outputs, ctx)``, handing back the ``ctx`` it
+        was given at :meth:`invoke_async` so the element stamps each
+        frame from its own input: with several invokes in flight, a
+        missing ctx would mis-stamp frames."""
+        self._dispatch = dispatch
+
+    def invoke_async(self, inputs: Sequence[Any], ctx: Any = None) -> None:
+        """1-in/N-out invoke: the outputs flow through the dispatcher,
+        each carrying ``ctx``. Backends without an async path raise."""
+        raise NotImplementedError(
+            f"framework {self.NAME!r} has no async output path")
+
+    @classmethod
+    def supports_async(cls) -> bool:
+        """True when the backend implements :meth:`invoke_async`."""
+        return cls.invoke_async is not FilterFramework.invoke_async

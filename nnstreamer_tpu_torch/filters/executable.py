@@ -138,6 +138,35 @@ class GraphPool:
             self._handle = self._keeper = None
 
 
+def capture_in_place(fn: Callable[[], None], device: torch.device,
+                     pool: Optional[Any] = None) -> torch.cuda.CUDAGraph:
+    """Run ``fn`` once eagerly on the device's capture stream (the
+    warm-up, and the work of the caller's first call), then capture one
+    more run of it into a graph in ``pool`` and return the graph; the
+    caller replays it on its current stream. :class:`Executable`
+    captures through it, and so does the LLM backend, whose functions
+    read and write only tensors it owns (its decode state)."""
+    current = torch.cuda.current_stream(device)
+    graph = torch.cuda.CUDAGraph()
+    with _capture_lock:
+        side = _capture_stream(device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side), torch.no_grad():
+            fn()
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                fn()
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass  # the capture is void; fn's error says why
+                raise
+            graph.capture_end()
+    current.wait_stream(side)
+    return graph
+
+
 class Executable:
     """``fn`` for one input signature on ``device``; graphs of one element
     share the memory ``pool`` (their :meth:`GraphPool.handle_for`)."""
@@ -182,29 +211,20 @@ class Executable:
         self.static_in = [torch.empty(tuple(x.shape), dtype=_torch_dtype(x),
                                       device=dev) for x in inputs]
         self._stage(inputs)
+        runs: List[List[torch.Tensor]] = []
+
+        def run() -> None:
+            out = _as_list(self.fn(list(self.static_in)))
+            # the eager run's outputs are cloned before the capture
+            # begins: fn may hand back views of the static inputs
+            runs.append(out if runs else [o.clone() for o in out])
+
+        with torch.inference_mode(), _tally.recording() as tally:
+            graph = capture_in_place(run, dev, self.pool)
+        first, out = runs
         current = torch.cuda.current_stream(dev)
-        graph = torch.cuda.CUDAGraph()
-        with _capture_lock:
-            side = _capture_stream(dev)
-            side.wait_stream(current)
-            with torch.cuda.stream(side), torch.inference_mode():
-                first = [o.clone()
-                         for o in _as_list(self.fn(list(self.static_in)))]
-                with _tally.recording() as tally:
-                    graph.capture_begin(pool=self.pool,
-                                        capture_error_mode="thread_local")
-                    try:
-                        out = self.fn(list(self.static_in))
-                    except BaseException:
-                        try:
-                            graph.capture_end()
-                        except RuntimeError:
-                            pass  # the capture is void; fn's error says why
-                        raise
-                    graph.capture_end()
-        current.wait_stream(side)
         for o in first:
             o.record_stream(current)  # made on the side stream, used here
-        self.graph, self.static_out = graph, _as_list(out)
+        self.graph, self.static_out = graph, out
         self.tally = tally
         return first

@@ -95,13 +95,15 @@ def device_for(accelerators: Sequence[Accelerator]) -> torch.device:
 
 def full_f32_numerics() -> None:
     """Full f32 in every f32 product on the card (no TF32 in matmuls or
-    cuDNN convolutions), as the reference computes them, and no cuDNN
-    autotuning, so a graph replays what an eager run computes. The
-    flags are process-wide: every backend that runs a module on the
-    card sets them at open, so no result depends on which filter opened
-    first. They act on CUDA only, so setting them on the CPU is
-    harmless."""
+    cuDNN convolutions) and f32 sums in every bf16 product (no bf16
+    reduction of a split-K GEMM's partial sums), as the reference's XLA
+    computes them, and no cuDNN autotuning, so a graph replays what an
+    eager run computes. The flags are process-wide: every backend that
+    runs a module on the card sets them at open, so no result depends on
+    which filter opened first. They act on CUDA only, so setting them on
+    the CPU is harmless."""
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.benchmark = False
 

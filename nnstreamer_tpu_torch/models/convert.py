@@ -22,7 +22,9 @@ Layout changes:
   kernel + bias. Their converters check that every leaf of the JAX tree
   is used exactly once;
 * the toy models (``toyseg``, ``toyscale``, ``mlp``) keep the JAX
-  names and layouts.
+  names and layouts;
+* the GPT (``gpt``, models/transformer.py) keeps the JAX names and
+  layouts too: ``layers`` (a list) becomes ``layers.{i}``.
 """
 from __future__ import annotations
 
@@ -232,4 +234,24 @@ def mlp_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     reads = _Reads(tree)
     out = {k: _t(reads[k]) for k in ("w1", "b1", "w2", "b2")}
     _check_all_read(tree, reads, "mlp")
+    return out
+
+
+def gpt_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX ``init_params`` tree of ``models/transformer.py``
+    (``embed``, ``head``, ``ln_f`` and a list ``layers`` of dicts) -> the
+    ``state_dict`` of :class:`..models.transformer.GPT` (float32 here;
+    bf16 values convert exactly, and ``load_state_dict`` casts to the
+    module's dtype)."""
+    flat = {k: tree[k] for k in ("embed", "head", "ln_f")}
+    flat.update({f"layers.{i}": dict(layer)
+                 for i, layer in enumerate(tree["layers"])})
+    reads = _Reads(flat)
+    out = {k: _t(reads[k]) for k in ("embed", "head", "ln_f")}
+    for i in range(len(tree["layers"])):
+        layer = reads[f"layers.{i}"]
+        for name in ("ln1", "wq", "wk", "wv", "wo", "ln2", "w1", "w3",
+                     "w2"):
+            out[f"layers.{i}.{name}"] = _t(layer[name])
+    _check_all_read(flat, reads, "gpt")
     return out

@@ -12,7 +12,9 @@ explicit ``torch.Generator``. Not ported yet: ``params_dir`` (trained
 weights from a checkpoint); weights from the JAX package's param trees
 go through :mod:`.convert` instead.
 
-The toy models of the JAX zoo live here too: ``toyseg`` and
+``gpt`` (the logit model of ``models/transformer.py``, registered there
+with the JAX entry's defaults and query keys) is the model the ``llm``
+filter runs. The toy models of the JAX zoo live here too: ``toyseg`` and
 ``toyscale`` (elementwise-only, so fused and unfused runs stay
 bit-exact) and ``mlp``, the filter-level test model.
 """

@@ -6,11 +6,9 @@ once through the same backend classes as ``tensor_filter`` and invoke
 it synchronously. It runs on the card unless ``accelerator`` asks for
 the CPU (``true:cpu`` or ``false``), as the element does; outputs of a
 card backend stay CUDA tensors. Without CUDA and without that request,
-``start`` raises.
-
-Not ported yet: ``invoke_async`` and ``set_async_callback`` (only the
-LLM backend implements the async path) raise
-:class:`~.pipeline.element.NotPortedError`.
+``start`` raises. ``invoke_async`` hands the backend's output frames to
+the callback of ``set_async_callback`` (only the LLM backend has the
+async path; the others raise ``NotImplementedError``).
 """
 from __future__ import annotations
 
@@ -18,13 +16,12 @@ from typing import Any, Callable, List, Optional, Sequence
 
 from .filters.base import Accelerator, FilterProperties
 from .filters.registry import detect_framework, find_filter
-from .pipeline.element import NotPortedError
 from .tensors.info import TensorsInfo
 
 
 class SingleShot:
-    """Open a model once, invoke synchronously without building a
-    pipeline."""
+    """Open a model once, invoke synchronously (or async-callback)
+    without building a pipeline."""
 
     def __init__(self, model: str, framework: str = "auto",
                  input_info: Optional[TensorsInfo] = None,
@@ -66,14 +63,13 @@ class SingleShot:
         return self.fw.invoke(list(inputs))
 
     def set_async_callback(self, cb: Callable[[List[Any]], None]) -> None:
-        raise NotPortedError(
-            "SingleShot.set_async_callback: the async output path is not "
-            "ported yet (it comes with the LLM backend)")
+        # user callbacks take just the outputs; the per-invoke ctx drops
+        self.fw.set_async_dispatcher(lambda outputs, ctx=None: cb(outputs))
 
     def invoke_async(self, inputs: Sequence[Any], ctx: Any = None) -> None:
-        raise NotPortedError(
-            "SingleShot.invoke_async: the async output path is not ported "
-            "yet (it comes with the LLM backend)")
+        if not self._opened:
+            self.start()
+        self.fw.invoke_async(list(inputs), ctx=ctx)
 
     def get_model_info(self):
         if not self._opened:

@@ -30,8 +30,9 @@ _DEFAULT_PATHS = ("./nnstreamer_tpu.ini", "/etc/nnstreamer_tpu.ini")
 DEFAULT_PRIORITY = ["torch-cuda", "custom-easy", "python3"]
 
 # the aliases the JAX package registers at import (``torch`` for its
-# TorchScript backend); [filter-aliases] and the variable override them
-DEFAULT_ALIASES = {"torch": "pytorch"}
+# TorchScript backend, ``llamacpp``/``llama2c`` for its LLM backend);
+# [filter-aliases] and the variable override them
+DEFAULT_ALIASES = {"torch": "pytorch", "llamacpp": "llm", "llama2c": "llm"}
 
 
 def _split(s: str) -> List[str]:

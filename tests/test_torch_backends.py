@@ -13,6 +13,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -331,6 +332,26 @@ def test_both_card_backends_set_full_f32_at_open(traced_pt, framework,
     assert not torch.backends.cudnn.benchmark
 
 
+@pytest.mark.parametrize("framework", ["torch-cuda", "pytorch", "llm"])
+def test_every_card_backend_turns_off_bf16_reduction_at_open(
+        traced_pt, framework, monkeypatch):
+    """Each card backend's open turns off cuBLAS's bf16 reduction of
+    split-K partial sums (process-wide, restored after the test), so no
+    bf16 product depends on which filter opened first."""
+    from nnstreamer_tpu_torch.filters.base import FilterProperties
+    monkeypatch.setattr(torch.backends.cuda.matmul,
+                        "allow_bf16_reduced_precision_reduction", True)
+    model = {"pytorch": traced_pt,
+             "torch-cuda": "zoo://mobilenet_v2?width=0.35&size=32",
+             "llm": "zoo://gpt?vocab=64&d_model=32&n_heads=4&n_layers=2"
+             }[framework]
+    fw = find_filter(framework)()
+    fw.open(FilterProperties(model_files=(model,),
+                             accelerators=(Accelerator.CPU,)))
+    fw.close()
+    assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+
+
 def test_pytorch_backend_clears_the_traced_tf32_flag(tmp_path, monkeypatch):
     """torch.jit.trace freezes the tracing process's cuDNN flags into each
     aten::_convolution (allow_tf32 on by default); the pytorch backend
@@ -418,14 +439,39 @@ def test_single_shot_matches_jax(mlp_py):
 
 
 def test_single_shot_invokes_lazily_and_refuses_async(mlp_py):
+    """The async path is ported with the llm backend
+    (tests/test_torch_llm.py); a backend without it refuses
+    invoke_async, as the JAX package's base class does."""
     shot = pt.SingleShot(mlp_py, accelerator="true:cpu")
     (out,) = shot.invoke([np.zeros(64, np.float32)])
     assert out.shape == (10,) and shot._opened
-    with pytest.raises(pt.NotPortedError, match="async"):
+    shot.set_async_callback(lambda outs: None)
+    with pytest.raises(NotImplementedError, match="async"):
         shot.invoke_async([np.zeros(64, np.float32)])
-    with pytest.raises(pt.NotPortedError, match="async"):
-        shot.set_async_callback(lambda outs: None)
     shot.stop()
+
+
+def test_single_shot_async_equals_sync_on_llamacpp():
+    """SingleShot(framework=llamacpp): invoke_async with a callback gives
+    the tokens of a sync invoke, on the JAX package's SingleShot too."""
+    model = "zoo://gpt?vocab=64&d_model=32&n_heads=4&n_layers=2"
+    prompt = np.array([3, 1, 4], np.int32)
+    for pkg, acc in ((pt, "true:cpu"), (nt, "")):
+        shot = pkg.SingleShot(model, framework="llamacpp", accelerator=acc,
+                              custom="max_tokens:6,max_len:16")
+        (want,) = shot.invoke([prompt])
+        got, done = [], threading.Event()
+
+        def cb(outs):
+            got.append(int(np.asarray(outs[0]).ravel()[0]))
+            if len(got) == 6:
+                done.set()
+
+        shot.set_async_callback(cb)
+        shot.invoke_async([prompt])
+        assert done.wait(60)
+        shot.stop()
+        assert got == want.tolist()
 
 
 def test_single_shot_runs_on_the_card_by_default(mlp_py, monkeypatch):

@@ -1170,3 +1170,135 @@ def test_delta_gate_on_card_equals_host(card):
         pipe.stop()
         skipped.append([b.pts for b in pipe["out"].buffers])
     assert skipped[0] == skipped[1] and len(skipped[0]) < len(frames)
+
+
+# -- the generative line (slice 12) --------------------------------------------
+
+BF16_SCRIPT = r'''
+import torch
+from nnstreamer_tpu_torch.filters import find_filter
+from nnstreamer_tpu_torch.filters.base import FilterProperties
+gen = torch.Generator(device="cuda").manual_seed(0)
+x = torch.randn(8, 6144, generator=gen, device="cuda").bfloat16()
+w = torch.randn(6144, 1536, generator=gen, device="cuda").bfloat16()
+reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+
+
+def opened(framework, model):
+    fw = find_filter(framework)()
+    fw.open(FilterProperties(model_files=(model,)))
+    return fw
+
+
+a = opened("torch-cuda", "zoo://mlp")
+before = x @ w
+b = opened("llm", "zoo://gpt?vocab=64&d_model=32&n_heads=4&n_layers=2")
+after = x @ w
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+in_bf16 = x @ w
+torch.cuda.synchronize()
+print(reduced, torch.equal(before, after), torch.equal(before, in_bf16),
+      torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction)
+'''
+
+
+def test_bf16_gemm_equal_before_and_after_an_llm_open(card, tmp_path):
+    """In a fresh process (bf16 reduction of split-K sums allowed by
+    default), a bf16 GEMM with K = 6144 (an MLP down-projection's depth)
+    gives the same bits after a torch-cuda open and after an llm open:
+    each open turns the reduction off, so no result depends on which
+    filter opened first."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = tmp_path / "bf16.py"
+    script.write_text(BF16_SCRIPT)
+    out = subprocess.run(
+        [sys.executable, str(script)], check=True, capture_output=True,
+        text=True, timeout=300, env={**os.environ, "PYTHONPATH": root})
+    default, equal, same_as_bf16, _ = out.stdout.split()[-4:]
+    assert default == "True"       # the flag the opens turn off
+    assert equal == "True", out.stdout
+    print("bf16 GEMM, f32 sums vs bf16 sums bitwise:", same_as_bf16)
+
+
+LLM_ZOO = "zoo://gpt?vocab=64&d_model=32&n_heads=4&n_layers=2"
+
+
+def _llm_tokens(custom, prompts, n):
+    import threading
+    fw = pt.filters.find_filter("llm")()
+    fw.open(pt.filters.FilterProperties(model_files=(LLM_ZOO,),
+                                        custom_properties=custom))
+    got, done = {}, threading.Event()
+
+    def dispatch(outs, ctx):
+        got.setdefault(ctx, []).append(int(np.asarray(outs[0]).ravel()[0]))
+        if sum(map(len, got.values())) == n * len(prompts):
+            done.set()
+
+    fw.set_async_dispatcher(dispatch)
+    for i, p in enumerate(prompts):
+        fw.invoke_async([p], ctx=i)
+    assert done.wait(120)
+    return fw, [got[i] for i in range(len(prompts))]
+
+
+LLM_PROMPTS = [np.arange(1, 6, dtype=np.int32), np.array([7, 8], np.int32),
+               np.arange(20, 40, dtype=np.int32)]
+
+
+def test_llm_paged_chunked_and_graphs_on_the_card(card):
+    """On the card, with the decode state in captured graphs: paged
+    equals contiguous, chunk 4 equals per-token, a replay of the step
+    graph equals decode_step_multi run eagerly on a copy of its state,
+    and the tokens are CPU-side host arrays, one fetch a chunk."""
+    from nnstreamer_tpu_torch.models import transformer as tfm
+    base = "max_tokens:10,n_parallel:3,max_len:64"
+    fw, ref = _llm_tokens(base + ",chunk:4", LLM_PROMPTS, 10)
+    assert fw.compile_count >= 2   # the prefill pass and a chunk
+    fw.close()
+    fw, paged = _llm_tokens(base + ",chunk:4,paged:true,block_size:8,"
+                            "pool_blocks:24", LLM_PROMPTS, 10)
+    fw.close()
+    fw, per_token = _llm_tokens(base, LLM_PROMPTS, 10)
+    be = fw._backend
+    with torch.no_grad():
+        be.active.fill_(True)
+        cache = {k: v.clone() for k, v in be.cache.items()}
+        eager, _ = tfm.decode_step_multi(fw._params, cache, be.tok.clone(),
+                                         be.active.clone(), fw._cfg)
+        be._graphs["step"].replay()
+        torch.cuda.synchronize()
+    assert torch.equal(eager, be.logits)
+    fw.close()
+    assert paged == ref and per_token == ref
+
+
+def test_llm_prefix_cache_exact_on_the_card(card):
+    """A prompt prefilled over cached blocks gives the tokens of its
+    whole prefill, bit for bit, on the card."""
+    pref = np.arange(1, 25, dtype=np.int32)
+    prompts = [np.concatenate([pref, [30, 31]]).astype(np.int32),
+               np.concatenate([pref, [40, 41, 42]]).astype(np.int32)]
+    base = "max_tokens:8,n_parallel:2,max_len:64,block_size:8,paged:true"
+    fw, off = _llm_tokens(base + ",prefix_cache:false", prompts, 8)
+    fw.close()
+    fw, on = _llm_tokens(base + ",prefix_cache:true", prompts, 8)
+    assert fw.stats["prefill_cached_tokens"] == 24
+    fw.close()
+    assert on == off
+
+
+def test_llm_refuses_out_of_vocab_ids_before_a_launch(card):
+    """An id past the vocabulary is refused on the host: the card's
+    context stays usable (an out-of-range embedding read would be a
+    device-side assert)."""
+    fw = pt.filters.find_filter("llm")()
+    fw.open(pt.filters.FilterProperties(model_files=(LLM_ZOO,),
+                                        custom_properties="max_tokens:2"))
+    with pytest.raises(ValueError, match="vocabulary"):
+        fw.invoke([np.array([1, 64], np.int32)])
+    assert fw.invoke([np.array([1, 63], np.int32)])[0].shape == (2,)
+    fw.close()

@@ -586,11 +586,13 @@ def test_numpy_user_function_after_a_device_filter(models):
 
 
 def test_invoke_async_refused_at_start():
+    """invoke-async is ported with the llm backend (tests/test_torch_llm.py);
+    on a backend without the async output path start refuses it."""
     pipe = pt.parse_launch(
         f"tensortestsrc caps={MLP_CAPS} num-buffers=1 ! tensor_filter "
         f"framework=torch-cuda {CPU} model=zoo://mlp invoke-async=true "
         "! appsink")
-    with pytest.raises(pt.NotPortedError, match="invoke-async"):
+    with pytest.raises(ValueError, match="invoke-async"):
         pipe.start()
 
 

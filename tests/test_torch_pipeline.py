@@ -205,16 +205,21 @@ def test_auto_framework_resolves_zoo_to_torch_cuda():
     "shared-tensor-filter-key=k", "suspend=100", "invoke-async=true",
     "input-combination=0", "custom=mesh:2x1x1"])
 def test_unported_filter_properties_raise_at_start(prop):
-    """invoke-async and a mesh are not ported: each raises
-    NotPortedError at start. The other properties of the list are
-    ported now: the line starts and runs its frame."""
+    """A mesh is not ported: it raises NotPortedError at start.
+    invoke-async is ported with the llm backend, and start refuses it on
+    torch-cuda, which has no async output path. The other properties of
+    the list are ported: the line starts and runs its frame."""
     pipe = pt.parse_launch(
         f"tensortestsrc caps={CAPS} num-buffers=1 ! tensor_filter "
         "framework=torch-cuda accelerator=true:cpu "
         'model="zoo://vit?size=64&d_model=64&layers=1&heads=4&classes=10" '
         f"{prop} ! appsink name=out")
-    if prop in ("invoke-async=true", "custom=mesh:2x1x1"):
-        with pytest.raises(pt.NotPortedError, match=prop.split("=")[0]):
+    if prop == "custom=mesh:2x1x1":
+        with pytest.raises(pt.NotPortedError, match="mesh"):
+            pipe.start()
+        return
+    if prop == "invoke-async=true":
+        with pytest.raises(ValueError, match="invoke-async"):
             pipe.start()
         return
     pipe.run(timeout=120)
