@@ -18,7 +18,8 @@ line:
               instructions in each attention kernel's SASS: a bf16/f16
               kernel without them fails.
 3. kernels  — the attention kernel against its plain PyTorch version on
-              the card, at the main path's shapes and ragged, D=20/72 and
+              the card, at the main path's shapes (a ViT frame, a ViT
+              serve bucket of 8, batch 64) and ragged, D=20/72 and
               storage-offset-1 ones, with the tolerance stated beside
               each; kernel, plain and library times from CUDA events, and
               for bf16 the kernel's device time (torch.profiler).
@@ -164,7 +165,7 @@ queue between filter and decoder: unfused): host time a frame by element.
               and no model loaded.
 22-24. among devices — BASELINE config 5's query fan-out, the ViT line
               behind the query link, edge pub/sub across a killed link.
-              Phases 22-34 and the native queue lines run before phase
+              Phases 22-37 and the native queue lines run before phase
               21, whose validate() reads their lines too.
 25. shared vit — tensortestsrc ! tee into two ViT-B/16 legs (queue,
               filter, appsink) under one shared-tensor-filter-key, 16
@@ -263,12 +264,41 @@ Native queue — the headline line with queue backend=native against
               backend (backend=auto would take the ring once the library
               is on disk), counts the queues of each kind and fails on a
               ring queue outside the native lines.
+35. serve mobilenet — bench.py:562's bench_serve_row with the port's
+              framework: 8 port tensor_query_clients (max-request 16, 8
+              warm-up and 80 timed frames each, 16 seeded frames) into
+              tensor_serve_src buckets=1,2,4,8 max-wait-ms=4 max-queue=64
+              ! the full-width MobileNet-v2 (prefetch-host=true) ! queue
+              32 ! tensor_serve_sink: aggregate fps, batches, occupancy,
+              queue delay p50/p95, sheds (none allowed), compile_count
+              (<= 4, one captured graph a bucket), D2H arrays a batch (1,
+              the sink handed PendingHost chunks only), every reply once
+              and in order and within FANOUT_REL_TOL of its frame's
+              batch-1 headline logits (the gap printed); then the same
+              clients against tensor_query_serversrc batch=0 (one invoke
+              a frame): its fps, and served over per-request.
+36. serve vit — the same serve line over ViT-B/16 attn=pallas at full
+              width: the attention kernel at (b,196,12,64), b in
+              {1,2,4,8}, 12 launches a batch (counted, = 12 x batches),
+              each reply within phase 4's ViT bf16 rule of phase 23's
+              batch-1 logits of its frame.
+37. drain and router — the MobileNet serve line, 4 clients x 16 frames
+              all on the wire, Pipeline.drain() while part is queued:
+              drain returns True, every request answered once (RESULT
+              or SHED, none declared lost) and requests = completed +
+              shed_deadline + cancelled + shed_failed; then two serve
+              replicas under one shared-tensor-filter-key (one backend)
+              behind tensor_serve_router (heartbeat 50 ms, affinity on),
+              4 clients x 32 frames, the busier replica's links killed
+              after a third: every frame delivered once, none shed or
+              lost, the router's requests = delivered + shed + orphaned,
+              redispatches printed.
 Every model line runs through the backend's per-signature executable,
 one captured CUDA graph per input signature: the first frame runs
 eagerly (the capture's warm-up), every later frame is one replay, so a
 hand kernel inside the graph counts once a frame.
-Phases 8-11, 13, 16, 17, 19, 20, 22, 24, 26, 27, 29-34 and the native
-queue lines launch neither hand kernel
+Phases 8-11, 13, 16, 17, 19, 20, 22, 24, 26, 27, 29-35, 37 and the
+native queue lines launch neither hand kernel
 (their models inline their input affine, as the JAX models do); their
 launch counts are read all the same and written on the kernels line as
 0. The
@@ -567,6 +597,8 @@ def phase_kernels():
     # order only; f16 as bf16 with 3 more mantissa bits.
     cases = [((1, 196, 12, 64), torch.bfloat16, 2.0 ** -6),
              ((64, 196, 12, 64), torch.bfloat16, 2.0 ** -6),
+             # a full bucket of the ViT serve line (phase 36)
+             ((8, 196, 12, 64), torch.bfloat16, 2.0 ** -6),
              ((1, 7, 2, 8), torch.bfloat16, 2.0 ** -6),
              ((2, 1000, 4, 128), torch.bfloat16, 2.0 ** -6),
              ((1, 65, 2, 64), torch.bfloat16, 2.0 ** -6),
@@ -2161,14 +2193,16 @@ def _query_server(port, batch, model, extra=""):
     return server
 
 
-def _query_client(port, frames, order, replies, sent, arrived, on_reply):
+def _query_client(port, frames, order, replies, sent, arrived, on_reply,
+                  window=FANOUT_WINDOW):
     """One client pipeline: appsrc ! tensor_query_client ! appsink. The
     client element's do_chain is wrapped to stamp when each frame leaves
-    for the server; ``order`` lists the frame index of each request."""
+    for the server; ``order`` lists the frame index of each request and
+    ``window`` is the client's max-request."""
     import nnstreamer_tpu_torch as pt
     client = pt.parse_launch(
         f"appsrc name=in caps={_caps_at(FRAME_DIMS)} ! tensor_query_client "
-        f"name=qc port={port} timeout=120 max-request={FANOUT_WINDOW} "
+        f"name=qc port={port} timeout=120 max-request={window} "
         "! appsink name=out")
     qc = client["qc"]
     chain = qc.do_chain
@@ -2365,7 +2399,9 @@ def phase_query_fanout(smi, clean):
 
 def phase_query_vit(smi):
     """Phase 23: the ViT-B/16 line of phases 1 and 4 behind the query
-    link: one client, 16 frames, the attention kernel on the server."""
+    link: one client, 16 frames, the attention kernel on the server.
+    Returns its row and the local line's logits of the 16 frames (phase
+    36's batch-1 reference)."""
     frames = _frames(FRAMES, _frame_shape()).numpy()
     model = 'zoo://vit?attn=pallas'
     # the local line on the same frames: appsrc ! filter ! appsink
@@ -2411,7 +2447,7 @@ def phase_query_vit(smi):
         f"{FANOUT_WINDOW}); {smi}")
     if not same or launches["attention"] != VIT_LAYERS * FRAMES:
         sys.exit(f"chip_smoke: query vit: {row}")
-    return row
+    return row, want
 
 
 def _edge_run(frames, sink_props, src_tail="", timeout=120):
@@ -4026,6 +4062,397 @@ def phase_llm_single_shot(smi):
     return {"single_shot": row}
 
 
+SERVE_CLIENTS = 8          # bench.py:488 bench_serve_row: 8 clients,
+SERVE_WINDOW = 16          # max-request 16 each,
+SERVE_WARMUP = 8           # 8 warm-up frames and
+SERVE_FRAMES = 80          # 80 timed frames a client,
+SERVE_BUCKETS = "1,2,4,8"  # buckets 1,2,4,8, max-wait-ms 4, max-queue 64
+DRAIN_CLIENTS = 4          # phase 37's drain: 4 clients x 16 frames, all
+DRAIN_FRAMES = 16          # on the wire (max-request 16) before the drain
+ROUTER_CLIENTS = 4         # phase 37's fleet: 4 clients x 32 frames over
+ROUTER_FRAMES = 32         # two replicas behind one router
+# A served row against its frame's logits from the batch-1 line on the
+# same card: the MobileNet rule of phase 22 (FANOUT_REL_TOL: a bucket runs
+# other cuDNN convolution blockings than one frame), and for ViT phase
+# 4's bf16 rule (5e-2 + 5 % of the largest |logit|): cuBLAS may pick
+# other GEMM algorithms for 8 x 196 rows than for 196, and the bf16
+# roundings add up over 12 blocks.
+
+
+def _serve_server(port, model, name="s", extra=""):
+    """bench_serve_row's server: tensor_serve_src (buckets 1,2,4,8) !
+    tensor_filter prefetch-host=true ! queue 32 ! tensor_serve_sink;
+    elements ``<name>src``, ``<name>f``, ``<name>k``."""
+    import nnstreamer_tpu_torch as pt
+    server = pt.parse_launch(
+        f"tensor_serve_src name={name}src port={port} id={port} "
+        f"buckets={SERVE_BUCKETS} max-wait-ms=4 max-queue=64 "
+        f"! tensor_filter name={name}f framework=torch-cuda "
+        f'model="{model}" prefetch-host=true {extra}'
+        f"! queue max-size-buffers=32 ! tensor_serve_sink name={name}k "
+        f"id={port}")
+    server.start()
+    return server
+
+
+def _fanout(port, frames, n_clients, warmup, n_frames, window,
+            during=None):
+    """``n_clients`` clients, each sending ``warmup + n_frames`` of the
+    distinct ``frames`` (client c's frame i is (4c + i) mod len) at once
+    through a max-request ``window``; ``during(n)``, if given, runs once
+    when ``n`` replies have arrived in all. Returns (aggregate fps after
+    every client's warm-up, per-client results, the client pipelines'
+    query-client stats)."""
+    import threading
+    n_each = warmup + n_frames
+    n_warm, n_all = warmup * n_clients, n_each * n_clients
+    lock = threading.Lock()
+    total = {"n": 0, "t0": None, "t1": None}
+    done, hook = threading.Event(), threading.Event()
+
+    def on_reply():
+        with lock:
+            total["n"] += 1
+            if total["n"] == n_warm:
+                total["t0"] = time.perf_counter()
+            if total["n"] == n_all:
+                total["t1"] = time.perf_counter()
+                done.set()
+            if during is not None and total["n"] == during[0]:
+                hook.set()
+
+    clients, results = [], []
+    try:
+        for c in range(n_clients):
+            order = [(c * 4 + i) % len(frames) for i in range(n_each)]
+            res = {"order": order, "replies": [], "sent": {},
+                   "arrived": {}}
+            results.append(res)
+            clients.append(_query_client(port, frames, order,
+                                         res["replies"], res["sent"],
+                                         res["arrived"], on_reply,
+                                         window=window))
+        if during is not None:
+            if not hook.wait(300):
+                sys.exit(f"chip_smoke: {total['n']} replies before the "
+                         "mid-stream action")
+            during[1]()
+        else:
+            if not done.wait(600):
+                sys.exit(f"chip_smoke: {total['n']} of {n_all} replies "
+                         "arrived")
+        for client in clients:
+            client.wait_eos(300)
+        stats = [client["qc"].stats.snapshot() for client in clients]
+    finally:
+        for client in clients:
+            client.stop()
+    fps = ((n_all - n_warm) / (total["t1"] - total["t0"])
+           if total["t1"] is not None and total["t0"] is not None else None)
+    return fps, results, stats
+
+
+def _replies_vs(results, want, in_order=True):
+    """Every client's replies: each frame once (in order where the path
+    keeps it), and the largest |diff| and |diff| / max |want| against
+    the batch-1 logits of the frame each reply answers; returns (worst
+    abs, worst rel, top-1 equal, replies)."""
+    worst, worst_rel, top1, n = 0.0, 0.0, 0, 0
+    for c, res in enumerate(results):
+        pts = [p for p, _ in res["replies"]]
+        ok = (pts == list(range(len(res["order"]))) if in_order
+              else len(set(pts)) == len(pts))
+        if not ok:
+            sys.exit(f"chip_smoke: client {c}: replies {pts[:12]}... not "
+                     "each frame once")
+        for i, got in res["replies"]:
+            ref = want[res["order"][i]]
+            diff, rel = _max_diff(got, ref)
+            worst, worst_rel = max(worst, diff), max(worst_rel, rel)
+            top1 += int(int(np.argmax(got)) == int(np.argmax(ref)))
+            n += 1
+    return worst, worst_rel, top1, n
+
+
+def _sink_chunks(server, sink):
+    """Count what the serve sink is handed: PendingHost chunks (the
+    filter's prefetch already in flight) or anything else."""
+    from nnstreamer_tpu_torch.tensors.transfer import PendingHost
+    seen = {"pending": 0, "other": 0}
+    render = server[sink].render
+
+    def counted(buf):
+        for c in buf.chunks:
+            seen["pending" if isinstance(c._data, PendingHost)
+                 else "other"] += 1
+        render(buf)
+
+    server[sink].render = counted
+    return seen
+
+
+def _serve_line_run(name, model, frames, want, tol, smi, vit=False):
+    """One bench_serve_row run of the serve line over ``model``: 8
+    clients x (8 + 80) frames; returns its row after every check. ``tol``
+    bounds a reply's distance to its frame's batch-1 logits: relative
+    for MobileNet, absolute for ViT (``vit``, which also counts 12
+    attention launches a batch)."""
+    from nnstreamer_tpu_torch.tensors.transfer import fetch_stats
+    port = _free_port()
+    _reset_launches()
+    fetch_stats(reset=True)
+    server = _serve_server(port, model)
+    at_sink = _sink_chunks(server, "sk")
+    try:
+        fps, results, stats = _fanout(port, frames, SERVE_CLIENTS,
+                                      SERVE_WARMUP, SERVE_FRAMES,
+                                      SERVE_WINDOW)
+        fw = server["sf"].fw
+        compiles, sigs = fw.compile_count, len(fw._executables)
+        rep = server["ssrc"].scheduler.report()
+        invokes = server["sf"].stats["buffers"]
+    finally:
+        server.stop()
+    fetch = fetch_stats(reset=True)
+    launches = _kernel_launches()
+    worst, worst_rel, top1, n = _replies_vs(results, want)
+    # MobileNet: relative to each frame's largest |logit|; ViT: absolute
+    within = worst <= tol if vit else worst_rel <= tol
+    shed = rep["shed_admission"] + rep["shed_deadline"]
+    row = {"clients": SERVE_CLIENTS, "window": SERVE_WINDOW,
+           "frames_per_client": SERVE_WARMUP + SERVE_FRAMES,
+           "measured": SERVE_FRAMES * SERVE_CLIENTS, "fps": fps,
+           "batches": rep["batches"], "invokes": invokes,
+           "rows_per_batch": rep["completed"] / rep["batches"],
+           "occupancy_avg": rep["occupancy_avg"],
+           "queue_delay_us": rep["queue_delay_us"],
+           "batch_latency_us": rep["batch_latency_us"],
+           "shed_admission": rep["shed_admission"],
+           "shed_deadline": rep["shed_deadline"],
+           "compile_count": compiles, "signatures": sigs, "fetch": fetch,
+           "d2h_arrays_per_batch": fetch["arrays"] / rep["batches"],
+           "sink_chunks": at_sink, "max_abs_diff": worst,
+           "max_rel_diff": worst_rel, "tol": tol, "top1_equal": top1,
+           "replies": n, "kernel_launches": launches,
+           "link_errors": sum(s.get("link_errors", 0) for s in stats)}
+    log(f"{name}: {SERVE_CLIENTS} clients x "
+        f"{SERVE_WARMUP + SERVE_FRAMES} frames ({SERVE_FRAMES} measured "
+        f"after {SERVE_WARMUP}), buckets {SERVE_BUCKETS}: aggregate "
+        f"{fps:.2f} fps; {rep['batches']} batches, "
+        f"{row['rows_per_batch']:.2f} rows a batch, occupancy "
+        f"{rep['occupancy_avg']:.3f}, queue delay p50 "
+        f"{rep['queue_delay_us']['p50']:.1f} / p95 "
+        f"{rep['queue_delay_us']['p95']:.1f} us, shed "
+        f"{rep['shed_admission']} + {rep['shed_deadline']}; "
+        f"compile_count {compiles}; D2H {fetch['arrays']} arrays in "
+        f"{fetch['rpcs']} fetch RPCs = {row['d2h_arrays_per_batch']:.2f} a "
+        f"batch ({fetch['frames_per_rpc_avg']:.2f} batches an RPC); sink "
+        f"chunks {at_sink}; every reply once and in order; vs the batch-1 "
+        f"line max |diff| {worst:.4g}, relative {worst_rel:.3g} (tol "
+        f"{tol:.3g} {'absolute' if vit else 'relative'}), top-1 equal "
+        f"{top1}/{n}; kernel launches "
+        f"{launches}; {smi}")
+    bad = (compiles > 4 or sigs != compiles or shed or not within
+           or at_sink["other"] or fetch["arrays"] != rep["batches"]
+           or rep["completed"] != n or invokes != rep["batches"])
+    if vit:
+        bad = bad or launches["attention"] != VIT_LAYERS * rep["batches"]
+    if bad:
+        sys.exit(f"chip_smoke: {name}: {row}")
+    return row
+
+
+def phase_serve_mobilenet(smi, clean):
+    """Phase 35: bench_serve_row (bench.py:562) with the port's framework:
+    8 clients through tensor_serve_src into the full-width MobileNet-v2;
+    then its comparator, the same clients against the per-request
+    tensor_query_serversrc (one invoke a frame). Returns both rows."""
+    frames = _frames(QUERY_DISTINCT, _frame_shape()).numpy()
+    want = _headline_logits(clean, QUERY_DISTINCT)
+    gap = _min_frame_gap(want)
+    if not gap > 100 * FANOUT_REL_TOL:
+        sys.exit(f"chip_smoke: serve: two frames' headline logits lie "
+                 f"{gap:.3g} apart, too close for tol {FANOUT_REL_TOL}")
+    served = _serve_line_run("serve mobilenet", "zoo://mobilenet_v2",
+                             frames, want, FANOUT_REL_TOL, smi)
+    served["min_frame_gap_rel"] = gap
+    port = _free_port()
+    _reset_launches()
+    server = _query_server(port, 0, "zoo://mobilenet_v2",
+                           "prefetch-host=true ")
+    try:
+        fps, results, _ = _fanout(port, frames, SERVE_CLIENTS, SERVE_WARMUP,
+                                  SERVE_FRAMES, SERVE_WINDOW)
+        compiles = server["qf"].fw.compile_count
+        invokes = server["qf"].stats["buffers"]
+    finally:
+        server.stop()
+    launches = _kernel_launches()
+    worst, worst_rel, top1, n = _replies_vs(results, want)
+    per_request = {"fps": fps, "invokes": invokes, "compile_count": compiles,
+                   "max_rel_diff": worst_rel, "top1_equal": top1,
+                   "replies": n, "kernel_launches": launches}
+    ratio = served["fps"] / fps
+    served["per_request_fps"], served["served_over_per_request"] = fps, ratio
+    log(f"serve per-request: the same {SERVE_CLIENTS} clients against "
+        f"tensor_query_serversrc batch=0: aggregate {fps:.2f} fps, "
+        f"{invokes} invokes (one a frame), compile_count {compiles}, every "
+        f"reply once and in order, relative {worst_rel:.3g}; served / "
+        f"per-request fps {ratio:.3f}; kernel launches {launches}; {smi}")
+    if invokes != n or worst_rel > FANOUT_REL_TOL:
+        sys.exit(f"chip_smoke: serve per-request: {per_request}")
+    return served, per_request
+
+
+def phase_serve_vit(smi, vit_local):
+    """Phase 36: the same serve line over ViT-B/16 attn=pallas at full
+    width: the attention kernel at each bucket's shape, 12 launches a
+    batch."""
+    frames = _frames(FRAMES, _frame_shape()).numpy()
+    scale = max(float(np.abs(w).max()) for w in vit_local)
+    row = _serve_line_run("serve vit", "zoo://vit?attn=pallas", frames,
+                          vit_local, 5e-2 + 0.05 * scale, smi, vit=True)
+    row["min_frame_gap_rel"] = _min_frame_gap(vit_local)
+    return row
+
+
+def phase_serve_drain_router(smi, clean):
+    """Phase 37: Pipeline.drain() on the MobileNet serve line mid-stream,
+    then two serve replicas (one shared-tensor-filter-key) behind
+    tensor_serve_router with 4 clients and session affinity, one
+    replica's links killed mid-stream. Returns both rows."""
+    import nnstreamer_tpu_torch as pt
+    frames = _frames(QUERY_DISTINCT, _frame_shape()).numpy()
+    want = _headline_logits(clean, QUERY_DISTINCT)
+    n_sent = DRAIN_CLIENTS * DRAIN_FRAMES
+    port = _free_port()
+    _reset_launches()
+    server = _serve_server(port, "zoo://mobilenet_v2", "d")
+    sched = server["dsrc"].scheduler
+    drained = {}
+
+    def drain():
+        # every frame is on the wire (window = frames a client); drain once
+        # the server has read them all, with part still queued
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            st = sched.batcher.stats.snapshot()
+            if st["submitted"] + st["shed_admission"] >= n_sent:
+                break
+            time.sleep(0.001)
+        drained["pending"] = sched.pending()
+        t0 = time.perf_counter()
+        drained["ok"] = server.drain(deadline=60)
+        drained["ms"] = (time.perf_counter() - t0) * 1e3
+
+    _, results, stats = _fanout(port, frames, DRAIN_CLIENTS, 0, DRAIN_FRAMES,
+                                DRAIN_FRAMES, during=(4, drain))
+    rep = sched.report()
+    launches = _kernel_launches()
+    sheds = sum(s["shed"] for s in stats)
+    lost = sum(s["session_declared_lost"] for s in stats)
+    n_result = sum(len(r["replies"]) for r in results)
+    settled = rep["completed"] + rep["shed_deadline"] + rep["cancelled"] \
+        + rep["shed_failed"]
+    _, worst_rel, _, _ = _replies_vs(results, want, in_order=False)
+    drain_row = {"clients": DRAIN_CLIENTS, "frames_per_client": DRAIN_FRAMES,
+                 "drain_ok": drained.get("ok"), "drain_ms": drained.get("ms"),
+                 "pending_at_drain": drained.get("pending"),
+                 "results": n_result, "shed": sheds, "declared_lost": lost,
+                 "requests": rep["requests"], "completed": rep["completed"],
+                 "shed_admission": rep["shed_admission"],
+                 "settled": settled, "max_rel_diff": worst_rel,
+                 "kernel_launches": launches}
+    log(f"serve drain: {DRAIN_CLIENTS} clients x {DRAIN_FRAMES} frames, "
+        f"Pipeline.drain() with {drained.get('pending')} requests queued: "
+        f"returned {drained.get('ok')} in {drained.get('ms', 0):.1f} ms; "
+        f"{n_result} RESULT + {sheds} SHED = {n_result + sheds} of {n_sent}, "
+        f"{lost} declared lost; requests {rep['requests']} = completed "
+        f"{rep['completed']} + shed_deadline {rep['shed_deadline']} + "
+        f"cancelled {rep['cancelled']} + shed_failed {rep['shed_failed']}; "
+        f"admission shed {rep['shed_admission']}; relative {worst_rel:.3g} "
+        f"(tol {FANOUT_REL_TOL}); {smi}")
+    if drained.get("ok") is not True or n_result + sheds != n_sent or lost \
+            or rep["requests"] != settled or rep["completed"] != n_result \
+            or rep["shed_admission"] != sheds or worst_rel > FANOUT_REL_TOL:
+        sys.exit(f"chip_smoke: serve drain: {drain_row}")
+
+    # the fleet: two replicas, one copy of the weights, one router
+    _reset_launches()
+    ports = [_free_port(), _free_port()]
+    reps = [_serve_server(p, "zoo://mobilenet_v2", f"r{i}",
+                          "shared-tensor-filter-key=fleet ")
+            for i, p in enumerate(ports)]
+    router = pt.parse_launch(
+        f"tensor_serve_router name=rt port=0 replicas=localhost:{ports[0]},"
+        f"localhost:{ports[1]} heartbeat-ms=50 breaker-reset-ms=100")
+    router.start()
+    rt = router["rt"]
+    killed = {}
+
+    def healthy():
+        rows = rt.router_report()
+        return len(rows) == 2 and all(r["state"] == "healthy"
+                                      for r in rows.values())
+
+    def kill():
+        loads = [r[f"r{i}src"].scheduler.report()["completed"]
+                 for i, r in enumerate(reps)]
+        victim = loads.index(max(loads))
+        killed["replica"] = victim
+        killed["links"] = reps[victim][f"r{victim}src"].kill_link()
+
+    try:
+        deadline = time.monotonic() + 30
+        while not healthy() and time.monotonic() < deadline:
+            time.sleep(0.01)
+        _, results, stats = _fanout(
+            rt.bound_port, frames, ROUTER_CLIENTS, 0, ROUTER_FRAMES, 8,
+            during=(ROUTER_CLIENTS * ROUTER_FRAMES // 3, kill))
+        st = rt.stats.snapshot()
+        per_replica = [r[f"r{i}src"].scheduler.report()["completed"]
+                       for i, r in enumerate(reps)]
+        fws = [r[f"r{i}f"].fw for i, r in enumerate(reps)]
+        compiles = fws[0].compile_count
+    finally:
+        router.stop()
+        for r in reps:
+            r.stop()
+    launches = _kernel_launches()
+    sheds = sum(s["shed"] for s in stats)
+    lost = sum(s["session_declared_lost"] for s in stats)
+    n_result = sum(len(r["replies"]) for r in results)
+    _, worst_rel, _, _ = _replies_vs(results, want, in_order=False)
+    router_row = {"replicas": 2, "clients": ROUTER_CLIENTS,
+                  "frames_per_client": ROUTER_FRAMES,
+                  "killed_replica": killed.get("replica"),
+                  "links_killed": killed.get("links"),
+                  "results": n_result, "shed": sheds, "declared_lost": lost,
+                  "per_replica_completed": per_replica,
+                  "one_backend": fws[0] is fws[1], "compile_count": compiles,
+                  "max_rel_diff": worst_rel, "kernel_launches": launches,
+                  **{k: v for k, v in st.items() if k.startswith("router_")}}
+    log(f"serve router: {ROUTER_CLIENTS} clients x {ROUTER_FRAMES} frames "
+        f"over 2 replicas (one shared backend: {fws[0] is fws[1]}, "
+        f"compile_count {compiles}), replica {killed.get('replica')}'s "
+        f"{killed.get('links')} link(s) killed after a third: {n_result} "
+        f"RESULT, {sheds} SHED, {lost} declared lost; router requests "
+        f"{st['router_requests']} = delivered {st['router_delivered']} + "
+        f"shed {st['router_shed']} + orphaned {st['router_orphaned']}; "
+        f"redispatched {st['router_redispatched']}, replica deaths "
+        f"{st['router_replica_deaths']}, connects "
+        f"{st['router_replica_connects']}, duplicate drops "
+        f"{st['router_dup_drops']}; completed a replica {per_replica}; "
+        f"relative {worst_rel:.3g} (tol {FANOUT_REL_TOL}); {smi}")
+    if n_result != ROUTER_CLIENTS * ROUTER_FRAMES or sheds or lost \
+            or st["router_requests"] != st["router_delivered"] \
+            + st["router_shed"] + st["router_orphaned"] \
+            or not killed.get("links") or fws[0] is not fws[1] \
+            or compiles > 4 or worst_rel > FANOUT_REL_TOL:
+        sys.exit(f"chip_smoke: serve router: {router_row}")
+    return drain_row, router_row
+
+
 def phase_pipelint(smi, lines):
     """Phase 21: Pipeline.validate() on every launch line phases 1-24
     ran (0 errors, 0 crashed rules), and a defective line refused at
@@ -4145,7 +4572,8 @@ def main():
     segment = timed("segment_faults", phase_segment_faults, smi, clean)
     lines["query_fanout"] = timed("query_fanout", phase_query_fanout, smi,
                                   clean)
-    lines["query_vit"] = timed("query_vit", phase_query_vit, smi)
+    lines["query_vit"], vit_local = timed("query_vit", phase_query_vit,
+                                          smi)
     lines["edge_pubsub"] = timed("edge_pubsub", phase_edge_pubsub, smi)
     lines["shared_vit"], vit = timed("shared_vit", phase_shared_vit, smi)
     # phases 26-28 run several lines each: one row, and one count, a line
@@ -4166,6 +4594,18 @@ def main():
                    building.result()[3])
     native_build_s = native.pop("build_s")
     multi["native_queue"] = native
+    # phases 35-37: the serving stack
+    lines["serve_mobilenet"], lines["serve_per_request"] = timed(
+        "serve_mobilenet", phase_serve_mobilenet, smi, clean)
+    lines["serve_vit"] = timed("serve_vit", phase_serve_vit, smi, vit_local)
+    lines["serve_drain"], lines["serve_router"] = timed(
+        "serve_drain_router", phase_serve_drain_router, smi, clean)
+    for k in ("serve_mobilenet", "serve_per_request", "serve_drain",
+              "serve_router"):
+        if lines[k]["kernel_launches"]["attention"] \
+                or lines[k]["kernel_launches"]["normalize"]:
+            sys.exit(f"chip_smoke: a hand kernel ran on {k}: "
+                     f"{lines[k]['kernel_launches']}")
     multi.update(llm)
     for k in ("delta_link", "delta_gate", "sparse", "native_queue",
               "llm_decode", "llm_parity", "llm_single_shot"):
@@ -4176,7 +4616,7 @@ def main():
                          f"{row['kernel_launches']}")
     pt.parse_launch = parse
     log(f"queues: {queues['python']} Python queues on the lines of "
-        f"phases 1-34, {queues['native']} ring queues, all on the native "
+        f"phases 1-37, {queues['native']} ring queues, all on the native "
         "queue lines")
     pipelint = phase_pipelint(smi, list(dict.fromkeys(launched)))
     for k in ("clean", "retry", "skip", "restart"):

@@ -1,21 +1,24 @@
 """pipelint graph rules.
 
 Port of ``nnstreamer_tpu/analysis/rules.py``: the rules whose elements
-the port has (18 of the reference's 28). Each :class:`Rule` inspects the
+the port has (21 of the reference's 28). Each :class:`Rule` inspects the
 parsed-but-unstarted pipeline plus the caps inference result and yields
 findings with element/pad locations. Rules never execute elements and
 never raise past :func:`analyze` — a broken rule must not block a
 launch; :func:`analyze` lists the ids of rules that raised on the
 report's ``crashed``.
 
-The reference's other 10 rules inspect elements or options the port
+The reference's other 7 rules inspect elements or options the port
 does not have yet; each comes with the slice that ports them (ROADMAP.md,
-queue A): ``llm-prefix-cache-lossy-link`` with the llm filter's KV link
-(item 8). Among them ``delta-lossy-gate-feeds-trainer``: its
-``tensor_delta`` is ported, but it fires only on a ``tensor_trainer``,
-which comes with the trainer (item 11).
-Rules keyed on kind names of such elements (``tensor_serve_src``,
-``tensor_trainer``, ``mqttsrc``) keep those branches and stay silent until then.
+queue A): ``sharding-divisibility``, ``serve-mesh-divisibility`` and
+``mesh-colocation`` with the mesh (item 12),
+``llm-prefix-cache-lossy-link`` with the llm filter's KV link (item 8),
+``stateful-no-checkpoint`` and ``delta-lossy-gate-feeds-trainer`` with
+the checkpoint hooks and the trainer (item 11; the latter's
+``tensor_delta`` is ported, but it fires only on a ``tensor_trainer``),
+and ``autoscaler-config`` with the fleet (item 13).
+Rules keyed on kind names of such elements (``tensor_trainer``,
+``mqttsrc``) keep those branches and stay silent until then.
 """
 from __future__ import annotations
 
@@ -295,6 +298,31 @@ class CombinerDtypeRule(Rule):
                         f"one caps for all legs", comb.name, pname)
 
 
+class UnboundedAdmissionRule(Rule):
+    """Serving entry points must bound admission: an unbounded queue
+    turns an overloaded server into a memory leak with unbounded tail
+    latency instead of shedding load."""
+
+    id = "unbounded-admission"
+    severity = Severity.WARNING
+
+    def check(self, ctx: LintContext):
+        for e in ctx.of_kind("tensor_serve_src"):
+            if int(e.max_queue) <= 0:
+                yield self.finding(
+                    f"max-queue={int(e.max_queue)} disables admission "
+                    f"control (clamped to 1 silently); set a real bound",
+                    e.name)
+            if float(e.deadline_ms) < 0:
+                yield self.finding(
+                    "negative deadline-ms sheds every request", e.name)
+        for e in ctx.of_kind("tensor_query_serversrc"):
+            yield self.finding(
+                "per-request path has no admission control or shedding; "
+                "production traffic belongs on tensor_serve_src",
+                e.name, severity=Severity.INFO)
+
+
 class ShedNoRetryAfterRule(Rule):
     """A SHED reply without a positive retry-after hint gives clients
     nothing to pace themselves by: they hot-loop resubmitting into the
@@ -560,6 +588,49 @@ class SessionNoReconnectRule(Rule):
                     "reconnect or drop the session overhead", e.name)
 
 
+class RouterNoReplicasRule(Rule):
+    """A fleet router with neither a static replica list nor a broker
+    topic can never route anything: every request it accepts sheds.
+    That is a dead configuration, not a tuning choice — an error before
+    launch."""
+
+    id = "router-no-replicas"
+    severity = Severity.ERROR
+
+    def check(self, ctx: LintContext):
+        for e in ctx.of_kind("tensor_serve_router"):
+            replicas = str(getattr(e, "replicas", "") or "").strip()
+            topic = str(getattr(e, "topic", "") or "").strip()
+            if not replicas and not topic:
+                yield self.finding(
+                    "router has zero replica endpoints and no broker "
+                    "topic: every request will be shed; set replicas= "
+                    "(host:port,...) or topic= + dest-port= for broker "
+                    "discovery", e.name)
+
+
+class RouterAffinitySessionlessRule(Rule):
+    """affinity=true keys dispatch on per-client session identity — but
+    session=false disables minting those keys, so every frame silently
+    degrades to least-loaded placement and the operator's affinity
+    expectation (stream order, warm per-replica state) is not actually
+    being honored."""
+
+    id = "router-affinity-sessionless"
+    severity = Severity.WARNING
+
+    def check(self, ctx: LintContext):
+        for e in ctx.of_kind("tensor_serve_router"):
+            if bool(getattr(e, "affinity", True)) \
+                    and not bool(getattr(e, "session", True)):
+                yield self.finding(
+                    "affinity=true with session=false: no session keys "
+                    "are minted, so dispatch silently degrades to "
+                    "least-loaded and sessions do NOT stick to a "
+                    "replica; enable session or set affinity=false",
+                    e.name)
+
+
 class AsyncWindowRule(Rule):
     """In-flight window sanity for tensor_filter's overlapped executor.
 
@@ -719,11 +790,13 @@ class LlmDecodeNoKvBudgetRule(Rule):
 
 ALL_RULES: List[Rule] = [
     DanglingPadRule(), CycleRule(), TeeNoQueueRule(), JitSignatureRule(),
-    SinklessBranchRule(), CombinerDtypeRule(), ShedNoRetryAfterRule(),
-    LinkResilienceRule(), ErrorPolicyRule(), WireConfigRule(),
-    FusionBreakRule(), FusionTransferRule(), SessionReplayBudgetRule(),
-    SessionNoReconnectRule(), AsyncWindowRule(), TraceExportRule(),
-    DeltaNoKeyframeIntervalRule(), LlmDecodeNoKvBudgetRule(),
+    SinklessBranchRule(), CombinerDtypeRule(), UnboundedAdmissionRule(),
+    ShedNoRetryAfterRule(), LinkResilienceRule(), ErrorPolicyRule(),
+    WireConfigRule(), FusionBreakRule(), FusionTransferRule(),
+    SessionReplayBudgetRule(), SessionNoReconnectRule(),
+    RouterNoReplicasRule(), RouterAffinitySessionlessRule(),
+    AsyncWindowRule(), TraceExportRule(), DeltaNoKeyframeIntervalRule(),
+    LlmDecodeNoKvBudgetRule(),
 ]
 
 def analyze(pipeline, rules: Optional[List[Rule]] = None) -> Report:

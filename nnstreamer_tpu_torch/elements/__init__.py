@@ -13,6 +13,8 @@ from . import aggregator  # noqa: F401  (tensor_aggregator)
 from . import crop  # noqa: F401  (tensor_crop)
 from . import flowctl  # noqa: F401  (tensor_if/tensor_rate)
 from . import query  # noqa: F401  (tensor_query_*)
+from ..serve import elements as serve  # noqa: F401  (tensor_serve_src/sink)
+from ..serve import router as serve_router  # noqa: F401  (tensor_serve_router)
 from . import edge  # noqa: F401  (edgesrc/edgesink)
 from . import sparse  # noqa: F401  (tensor_sparse_enc/dec)
 from . import delta  # noqa: F401  (tensor_delta/tensor_delta_stitch)

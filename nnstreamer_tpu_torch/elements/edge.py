@@ -32,8 +32,10 @@ subscriber's loop touch host data only.
 minted fresh at every (re)connect on both ends: a session's replay
 after a link kill starts from a keyframe.
 
-Not ported: the graceful drain and the checkpoint/restore hooks (the
-port has neither).
+``Pipeline.drain`` on the subscriber side acks what edgesrc delivered
+and closes the link; the frames already received are flushed before
+EOS, and the close is not counted as a link error. Not ported: the
+checkpoint/restore hooks (ROADMAP item 11).
 """
 from __future__ import annotations
 
@@ -733,6 +735,10 @@ class EdgeSrc(SrcElement):
             except (ConnectionError, OSError, ValueError) as exc:
                 if self._stop_evt.is_set():
                     return None
+                if self._drain_evt.is_set():
+                    # deliberate drain teardown, not a link fault: the
+                    # received tail was already flushed via _rxq
+                    return None
                 self.stats.inc("link_errors")
                 self._breaker.record_failure()
                 logger.info("%s: publisher link lost (%r)", self.name, exc)
@@ -805,13 +811,27 @@ class EdgeSrc(SrcElement):
         reference this side no longer holds) is a link fault: tear the connection down and
         re-handshake; a session resume replays the gap. True =
         reconnected."""
-        if self._stop_evt.is_set():
+        if self._stop_evt.is_set() or self._drain_evt.is_set():
             return False
         self.stats.inc("link_errors")
         self._breaker.record_failure()
         logger.warning("%s: undecodable frame (%s); re-subscribing",
                        self.name, exc)
         return bool(self.reconnect and self._reconnect())
+
+    def drain_flushed(self) -> bool:
+        return not self._rxq
+
+    def drain(self) -> None:
+        """Graceful local teardown: ack what we delivered, then close
+        the link so the source loop ends the stream as EOS (frames
+        already received — the _rxq tail — are flushed first; nothing
+        is counted as a link error)."""
+        super().drain()
+        sock = self._sock
+        if sock is not None:
+            self._final_ack()
+            _sever(sock)
 
     def kill_link(self) -> int:
         """Chaos hook (tensor_fault mode=kill-link): force-close the

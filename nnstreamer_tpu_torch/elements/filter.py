@@ -39,9 +39,16 @@ host. Outputs stay on the card until a host boundary, or, with
 ``prefetch-host=true``, leave as :class:`~..tensors.transfer.PendingHost`
 handles whose D2H copy the coalescing fetcher has already started.
 
+A frame of ``tensor_serve_src`` carries its requests in ``serve_rows``:
+when its invoke fails or the breaker sheds it, each request is answered
+with a SHED and booked on the scheduler (fault/breaker.py
+``shed_serve_rows``), on the synchronous path too (the reference answers
+them only under ``in-flight`` and on a breaker shed). ``drain`` settles
+the in-flight window and quiesces the ``suspend`` watchdog, so the model
+is not unloaded while upstream flushes its queues.
+
 Not ported yet: a ``custom=mesh:`` option raises in the torch-cuda
-backend. A breaker-open shed answers no serve rows (the
-serve elements are not ported).
+backend.
 """
 from __future__ import annotations
 
@@ -53,7 +60,7 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
-from ..fault.breaker import element_breaker, shed_frame
+from ..fault.breaker import element_breaker, shed_frame, shed_serve_rows
 from ..filters.base import (Accelerator, FilterEvent, FilterProperties,
                             InvokeDrop)
 from ..filters.executable import GraphPool
@@ -319,6 +326,19 @@ class TensorFilter(Element):
         """Free the graph pool the element kept across restarts."""
         self._graph_pool.release()
 
+    def drain(self) -> None:
+        """During a deliberate drain the filter may sit idle for longer
+        than the suspend window while upstream flushes its queues —
+        quiesce the idle watchdog so the model is not unloaded right
+        before the flushed tail arrives and needs it. (The pipeline
+        stops after the drain, so the quiesce is never resumed: destroy
+        in stop() cleans up.)"""
+        super().drain()
+        if self._overlap is not None:
+            self._overlap.flush()
+        if self._watchdog is not None:
+            self._watchdog.quiesce()
+
     # -- negotiation ------------------------------------------------------
     def _infer_batch(self, sel: TensorsInfo) -> Optional[int]:
         """If the stream is the model input plus one leading (outermost)
@@ -575,6 +595,7 @@ class TensorFilter(Element):
             return
         except Exception as exc:  # noqa: BLE001
             self._account_invoke_error(exc)
+            shed_serve_rows(self, buf)
             return
         if self._breaker is not None:
             self._breaker.record_success()
@@ -615,6 +636,7 @@ class TensorFilter(Element):
         except Exception as exc:  # noqa: BLE001
             self._overlap.window.release(t_disp)
             self._account_invoke_error(exc)
+            shed_serve_rows(self, buf)
             return
         try:
             self._note_recompiles(c0)
@@ -645,9 +667,11 @@ class TensorFilter(Element):
     def _complete_error(self, entry, exc: BaseException) -> None:
         """A frame that failed at completion: the same per-frame
         accounting as a sync invoke failure (invoke_errors /
-        frames_dropped / breaker), though the chain thread returned long
-        ago: the breaker records it from the completer thread."""
+        frames_dropped / breaker, serve rows shed), though the chain
+        thread returned long ago: the breaker records it from the
+        completer thread."""
         self._account_invoke_error(exc)
+        shed_serve_rows(self, entry.buf)
 
     @staticmethod
     def _trim_padded_rows(buf: Buffer, outputs: List[Any]) -> List[Any]:

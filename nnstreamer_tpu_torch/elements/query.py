@@ -26,8 +26,11 @@ real row's reply route and ``batch_valid_rows`` their count; the
 serversink answers the real rows only, so a padded row never reaches a
 client.
 
-Not ported: the graceful ``drain()`` (the port's pipeline has no drain;
-a DRAIN from a JAX server is still honoured by the client).
+``Pipeline.drain`` on a server closes admission (a frame arriving after
+it is shed and counted in ``stats["shed"]``), sends DRAIN to every
+client, which stops sending and settles, and flushes the queued frames
+through the pipeline behind the EOS barrier, so every frame already
+queued still gets its RESULT before the server closes.
 """
 from __future__ import annotations
 
@@ -330,6 +333,24 @@ class TensorQueryServerSrc(SrcElement):
             except OSError:
                 pass
 
+    def drain(self) -> None:
+        """Graceful teardown: stop admitting frames (late arrivals are
+        shed + counted), tell every client DRAIN so it stops sending,
+        and flush the queue through the pipeline behind the EOS barrier
+        — every queued frame still gets its RESULT before close."""
+        super().drain()
+        for conn in SERVER_TABLE.conns_of(self.id):
+            try:
+                send_msg(conn, MsgKind.DRAIN, {"server_id": self.id})
+            except (ConnectionError, OSError):
+                pass
+        with self._qlock:
+            self._qlock.notify_all()
+
+    def drain_flushed(self) -> bool:
+        with self._qlock:
+            return not self._queue
+
     def kill_link(self) -> int:
         """Chaos hook (tensor_fault mode=kill-link): force-close every
         live client connection mid-stream; clients reconnect and replay
@@ -340,6 +361,11 @@ class TensorQueryServerSrc(SrcElement):
         return victims
 
     def _enqueue(self, buf: Buffer, cid: int) -> None:
+        if self._drain_evt.is_set():
+            # admission is closed: the frame is shed, visibly — the
+            # client's pending entry settles via its own teardown path
+            self.stats.inc("shed")
+            return
         buf.extras["client_id"] = cid
         buf.extras["server_id"] = self.id
         with self._qlock:
@@ -351,6 +377,8 @@ class TensorQueryServerSrc(SrcElement):
             while not self._queue:
                 if self._stop_evt.is_set():
                     return None
+                if self._drain_evt.is_set():
+                    return None  # drained dry: the EOS barrier
                 self._qlock.wait(timeout=0.1)
             k = int(self.batch)
             if k <= 1:

@@ -21,9 +21,10 @@ its outcome closes or re-opens the breaker.
 Thread-safe; transitions invoke an optional callback (the filter posts
 them to the bus) and are counted for ``stats()``.
 
-:func:`element_breaker` and :func:`shed_frame` are the element side,
-shared by ``tensor_filter`` and the fused segment (the reference writes
-them out in both).
+:func:`element_breaker`, :func:`shed_frame` and :func:`shed_serve_rows`
+are the element side, shared by ``tensor_filter`` and the fused segment
+(the reference writes them out in both, and its segment answers no serve
+rows on a breaker-open shed).
 """
 from __future__ import annotations
 
@@ -140,15 +141,39 @@ def element_breaker(element, message_extra: Optional[
                           name=element.name, on_transition=on_transition)
 
 
+def shed_serve_rows(element, buf) -> None:
+    """Answer the serve-batch rows (``tensor_serve_src``) of a frame that
+    will never reach the sink's demux — an invoke failure or a
+    breaker-open shed: each request gets its ``on_shed`` callback (the
+    wire-level SHED + retry-after) instead of silently timing out at the
+    client, and the scheduler (``serve_sched``) books them as
+    ``shed_failed``, so its settlement (requests == completed +
+    shed_deadline + cancelled + shed_failed + pending) balances."""
+    rows = buf.extras.get("serve_rows")
+    if not rows:
+        return
+    for req in rows:
+        if req.on_shed is not None:
+            try:
+                req.on_shed(req)
+            except Exception:  # noqa: BLE001 — one dead client
+                logger.warning("%s: shed callback failed for stream %s",
+                               element.name, req.stream_id, exc_info=True)
+    sched = buf.extras.get("serve_sched")
+    if sched is not None:
+        sched.record_shed_failed(len(rows))
+
+
 def shed_frame(element, buf) -> None:
-    """Answer a frame while the element's breaker is open: upstream gets
-    a QosEvent spaced by the retry-after hint, so sources stop producing
-    doomed frames. (The reference also answers serve-batch rows with
-    their on_shed callback: the serve elements are not ported.)"""
+    """Answer a frame while the element's breaker is open: its serve
+    rows get their SHED (:func:`shed_serve_rows`), and upstream gets a
+    QosEvent spaced by the retry-after hint, so sources stop producing
+    doomed frames."""
     element.stats.inc("shed")
     element.stats.inc("dropped")
     _obs_events.emit("shed", source=element.name, element=element,
                      reason="breaker-open", pts=buf.pts)
+    shed_serve_rows(element, buf)
     element.send_upstream_event(QosEvent(
         proportion=2.0,
         period_ns=int(float(element.breaker_retry_after_ms) * 1e6),

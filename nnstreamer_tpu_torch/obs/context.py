@@ -3,7 +3,8 @@
 Port of ``nnstreamer_tpu/obs/context.py``, which is framework neutral,
 without the chain thread's current context (the reference's elements
 that mint fresh buffers inherit it; the port's pipeline records no
-element spans yet). In the port only the wire adopts contexts.
+element spans yet). In the port the wire and the serve
+src's batch adoption use contexts.
 
 One context object rides in ``Buffer.extras[CTX_KEY]`` from the source
 that stamped it to whatever finally settles the frame — across queue
@@ -55,6 +56,11 @@ class TraceContext:
         self.c_ns = c_ns             # compute attribution
         self.w_ns = w_ns             # wire attribution
 
+    def child(self) -> "TraceContext":
+        """Fork for a derived frame (batch adoption): same trace, same
+        parent span, fresh accumulators."""
+        return TraceContext(self.trace_id, self.span_id, self.t0_ns)
+
     def __repr__(self) -> str:
         return (f"TraceContext({self.trace_id:#x}, span={self.span_id:#x}, "
                 f"q={self.q_ns} c={self.c_ns} w={self.w_ns})")
@@ -70,6 +76,10 @@ def stamp(buf) -> TraceContext:
 
 def attach(buf, ctx: TraceContext) -> None:
     buf.extras[CTX_KEY] = ctx
+
+
+def ctx_of(buf) -> Optional[TraceContext]:
+    return buf.extras.get(CTX_KEY)
 
 
 # -- wire encoding ------------------------------------------------------

@@ -8,7 +8,9 @@ used to hand-roll and, when asked, posts the bus message, so the log
 and the bus cannot drift apart.
 
 Kinds in use in the port: ``breaker`` (open/close flips), ``shed``
-(admission drops), ``resume`` (session RESUME replay).
+(admission, deadline, invoke and no-replica drops), ``resume`` (session
+RESUME replay), ``drain`` (Pipeline.drain and the serve src's drain),
+``failover`` (a fleet router's replica death).
 """
 from __future__ import annotations
 

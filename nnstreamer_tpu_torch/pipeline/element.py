@@ -19,8 +19,12 @@ streaming loop runs under a fault.Supervisor applying the same policy.
 trace-export rule reads it and ``STRIPS_META``); the port records no
 spans.
 
+:meth:`Element.drain` is the graceful-teardown hook
+(``Pipeline.drain``): a source stops admitting and flushes what it
+queued behind the EOS barrier (:meth:`SrcElement.drain_flushed`).
+
 Trimmed in the port: the observability spans, per-element debug
-categories, and checkpoint/preempt/drain.
+categories, and checkpoint/preempt.
 
 A property the port accepts but does not implement yet is declared in
 ``NOT_PORTED`` with the one value the port supports; :meth:`Element.start`
@@ -376,6 +380,13 @@ class Element:
         if self.pipeline is not None:
             self.pipeline.post_message(kind, element=self.name, **data)
 
+    def drain(self) -> None:
+        """Graceful-teardown hook (``Pipeline.drain``): stop admitting
+        new work but finish what is already in flight — after every
+        element drains, EOS reaches the sinks and the pipeline closes
+        with nothing half-done. Base: nothing to do (pure per-buffer
+        elements hold no work between chain calls)."""
+
     def __repr__(self) -> str:
         return f"<{type(self).__name__} {self.name!r}>"
 
@@ -447,6 +458,7 @@ class SrcElement(Element):
         super().__init__(name, **props)
         self._thread: Optional[threading.Thread] = None
         self._stop_evt = threading.Event()
+        self._drain_evt = threading.Event()
         self._pushed = 0
 
     def negotiate_src_caps(self) -> Optional[Caps]:
@@ -458,9 +470,22 @@ class SrcElement(Element):
     def start(self) -> None:
         super().start()
         self._stop_evt.clear()
+        self._drain_evt.clear()
         self._thread = threading.Thread(
             target=self._loop, name=f"src:{self.name}", daemon=True)
         self._thread.start()
+
+    def drain(self) -> None:
+        """Ask the streaming loop to end the stream gracefully: no new
+        admissions, flush what is queued (:meth:`drain_flushed`), then
+        EOS. Subclasses that block in create() should also wake it."""
+        self._drain_evt.set()
+
+    def drain_flushed(self) -> bool:
+        """True once everything this source already admitted has been
+        pushed — the drain barrier for sources that queue internally
+        (serversrc, serve src and edgesrc override)."""
+        return True
 
     def stop(self) -> None:
         self._stop_evt.set()
@@ -527,6 +552,8 @@ class SrcElement(Element):
         while not self._stop_evt.is_set():
             if 0 <= self.num_buffers <= self._pushed:
                 break
+            if self._drain_evt.is_set() and self.drain_flushed():
+                break  # drained: everything admitted has been pushed
             try:
                 buf = self.create()
             except FlowError:

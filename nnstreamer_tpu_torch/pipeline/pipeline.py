@@ -14,12 +14,15 @@ leading launch-line property) or ``pipeline.fuse = False`` opts out.
 True): pipelint's error findings raise
 :class:`~..analysis.PipelineValidationError` before any element starts,
 so no model is loaded and nothing is allocated on the card; warnings
-are logged. Not ported: drain and checkpoint/restore/preempt.
+are logged. ``Pipeline.drain`` is the graceful teardown: every element's
+``drain`` hook, then EOS through the queues behind the sources' drain
+barrier, then ``stop``. Not ported: checkpoint/restore/preempt.
 """
 from __future__ import annotations
 
 import queue as _queue
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
@@ -186,6 +189,36 @@ class Pipeline:
             e.teardown()
         self.running = False
         return self
+
+    def drain(self, deadline: float = 10.0) -> bool:
+        """Graceful teardown (vs ``stop()``'s hard cut): ask every
+        element to stop admitting new work, flush everything already in
+        flight through queues and the serve batcher behind the EOS
+        barrier, settle pending client correlations, then stop. Returns
+        True when EOS reached every sink inside ``deadline`` seconds —
+        False means the flush timed out and stop() cut it short.
+
+        Safe to call twice; a drain of a never-started pipeline just
+        stops it."""
+        t0 = time.monotonic()
+        from ..obs import events as _obs_events
+        _obs_events.emit("drain", source=self.name, level=20,
+                         deadline_s=float(deadline))
+        self.post_message("drain", deadline=deadline)
+        for e in self.elements.values():
+            try:
+                e.drain()
+            except Exception:  # noqa: BLE001 — drain is best-effort per element
+                logger.warning("%s: drain hook failed", e.name,
+                               exc_info=True)
+        ok = False
+        try:
+            remaining = max(0.0, deadline - (time.monotonic() - t0))
+            ok = bool(self._eos_evt.wait(remaining)) \
+                and self._error is None
+        finally:
+            self.stop()
+        return ok
 
     def wait_eos(self, timeout: Optional[float] = None) -> bool:
         """Block until all sinks saw EOS or an error was posted.

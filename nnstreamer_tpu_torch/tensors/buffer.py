@@ -21,7 +21,7 @@ import torch
 
 from .info import TensorInfo, TensorsInfo
 from .meta import TensorMetaInfo
-from .transfer import PendingHost, is_device_tensor
+from .transfer import PendingHost, fetch_host, is_device_tensor
 from .types import TensorType
 
 _RAW = (bytes, bytearray, memoryview)
@@ -185,6 +185,14 @@ class Buffer:
     def host_arrays(self) -> List[Union[np.ndarray, torch.Tensor]]:
         """Each chunk on the host: the blocking host boundary."""
         return [c.host() for c in self.chunks]
+
+    def fetch_host(self) -> List[Union[np.ndarray, torch.Tensor]]:
+        """Each chunk on the host with one copy batch for the whole
+        buffer (:func:`~.transfer.fetch_host`): chunks whose fetch is in
+        flight (``prefetch-host``) are waited for, the chunks still on
+        the card join one coalesced fetch instead of one blocking copy
+        each."""
+        return fetch_host([c._data for c in self.chunks])
 
     def to_infos(self) -> TensorsInfo:
         return TensorsInfo(c.to_info() for c in self.chunks)

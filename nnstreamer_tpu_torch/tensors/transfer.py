@@ -424,6 +424,15 @@ def resolve(x: Any) -> Any:
     return x.resolve() if isinstance(x, (PendingHost, PendingDevice)) else x
 
 
+def fetch_host(values: Sequence[Any]) -> List[Any]:
+    """Host copies of ``values`` with one copy batch for all of them: the
+    CUDA tensors among them join ONE coalesced fetch (pinned copies on
+    the copy stream after an event recorded on this thread's stream,
+    never a blocking copy each), pending fetches are waited for, host
+    data passes. numpy, but bfloat16 (numpy has none) as a CPU tensor."""
+    return [_host_value(resolve(v)) for v in submit_fetch(list(values))]
+
+
 def fetch_stats(reset: bool = False) -> dict:
     """Download-side counters: rpcs / frames / arrays since start (or
     last reset) plus ``frames_per_rpc_avg``, the achieved batching depth.

@@ -38,10 +38,10 @@ compression ratio, pack time, frames per message, and the delta codec's
 ``delta``/``delta_in`` keyframes and diffs) and a ``session`` block
 (sent/delivered, replays, duplicate drops, declared losses, acks,
 heartbeat RTT and the element's live ring gauges). A live in-process
-discovery broker's counters come as a top-level ``broker`` block.
-
-Not ported: the serve router's block; its module is not in the port
-yet.
+discovery broker's counters come as a top-level ``broker`` block, and a
+``tensor_serve_router`` adds a ``router`` block: each replica's health
+state, in-flight count, last load report, breaker state and heartbeat
+RTT.
 """
 from __future__ import annotations
 
@@ -294,6 +294,12 @@ class Tracer:
                 q = getattr(el, "_q", None)
                 if q is not None and hasattr(q, "qsize"):
                     entry["queue_level"] = q.qsize()
+            for name, el in pipeline.elements.items():
+                rep = getattr(el, "router_report", None)
+                if callable(rep):
+                    r = rep()
+                    if r:
+                        out.setdefault(name, {})["router"] = r
             fusion = self._fusion_block(pipeline, out)
             if fusion:
                 out["fusion"] = fusion

@@ -3,8 +3,8 @@
 A copy of ``nnstreamer_tpu/utils/watchdog.py`` (framework-neutral: no
 device code), the timer behind ``tensor_filter``'s ``suspend``
 (≙ nnstreamer_watchdog.c, armed per invoke at tensor_filter.c:1259-1266).
-Its ``quiesce``/``resume`` are left out: only the filter's drain calls
-them, and the port has no drain yet.
+``quiesce``/``resume`` hold it off while the filter drains
+(``TensorFilter.drain``), so a model is not unloaded mid-flush.
 
 ``feed()`` sits on the filter's hot path (called once per invoke), so it
 must be cheap: one persistent thread sleeps against a monotonic deadline
@@ -27,6 +27,7 @@ class Watchdog:
         self.callback = callback
         self._cond = threading.Condition()
         self._deadline: Optional[float] = None   # monotonic; None = disarmed
+        self._quiesced = 0                       # nestable quiesce depth
         self._alive = True
         self._thread: Optional[threading.Thread] = None
 
@@ -43,6 +44,33 @@ class Watchdog:
                 self._thread.start()
             self._cond.notify_all()
 
+    def quiesce(self) -> None:
+        """Suspend firing during a deliberate stall (drain/replay
+        flush): the dog keeps its state but cannot bite, so a
+        supervised loop is never restarted — or a model unloaded —
+        mid-flush. Nestable; balance every call with :meth:`resume`."""
+        with self._cond:
+            self._quiesced += 1
+            self._cond.notify_all()
+
+    def resume(self) -> None:
+        """End one quiesce. If the deadline lapsed while quiesced, the
+        dog does NOT fire retroactively — it gets a fresh full timeout
+        (a long drain must never look like a stall the moment it
+        ends)."""
+        with self._cond:
+            if self._quiesced > 0:
+                self._quiesced -= 1
+            if self._quiesced == 0 and self._deadline is not None:
+                self._deadline = max(self._deadline,
+                                     time.monotonic() + self.timeout_s)
+            self._cond.notify_all()
+
+    @property
+    def quiesced(self) -> bool:
+        with self._cond:
+            return self._quiesced > 0
+
     def destroy(self) -> None:
         with self._cond:
             self._alive = False
@@ -56,7 +84,7 @@ class Watchdog:
             with self._cond:
                 if not self._alive:
                     return
-                if self._deadline is None:
+                if self._deadline is None or self._quiesced:
                     self._cond.wait()
                     continue
                 now = time.monotonic()

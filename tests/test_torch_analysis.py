@@ -10,9 +10,10 @@ severity), after the JAX report drops the ids of the rules the port
 defers (``DEFERRED``, pinned below: the reference's ids minus exactly
 that list are the port's; ROADMAP.md names the item that brings each). Where the reference tests use a
 ``framework=jax model=zoo://mlp`` filter, these use ``framework=simlink``,
-which both packages carry; the serve and query elements the reference
-uses for batching are not in the port, so a ``format=flexible`` source
-stands in as the unbounded upstream.
+which both packages carry; where the reference uses a serve src for an
+unbounded upstream, a ``format=flexible`` source stands in (the serve
+rules' own cases are in tests/test_torch_serve.py and
+tests/test_torch_router.py).
 
 Every intentionally defective description is tagged ``# pipelint: skip``
 as in the reference tests.
@@ -48,9 +49,7 @@ FILTER = "tensor_filter name=f framework=simlink"
 
 DEFERRED = {
     "sharding-divisibility", "serve-mesh-divisibility", "mesh-colocation",
-    "unbounded-admission", "router-no-replicas",
-    "router-affinity-sessionless", "llm-prefix-cache-lossy-link",
-    "delta-lossy-gate-feeds-trainer",
+    "llm-prefix-cache-lossy-link", "delta-lossy-gate-feeds-trainer",
     "autoscaler-config", "stateful-no-checkpoint",
 }
 
@@ -73,7 +72,7 @@ def findings_for(desc, rule=None):
 
 def test_rule_ids_are_the_reference_minus_the_deferred():
     assert {r.id for r in ALL_RULES} == {r.id for r in NT_RULES} - DEFERRED
-    assert len(ALL_RULES) == 18
+    assert len(ALL_RULES) == 21
 
 
 class TestCapsInference:

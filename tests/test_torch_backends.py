@@ -491,9 +491,10 @@ def test_single_shot_runs_on_the_card_by_default(mlp_py, monkeypatch):
 
 def test_new_modules_import_no_jax():
     """The backends, SingleShot, the watchdog, the sparse and delta ops
-    and elements, the delta wire codec, the broker and the native ring
-    (and chip_smoke.py, read as text) import nothing of JAX or of the
-    JAX package; the modules are imported in a fresh interpreter."""
+    and elements, the delta wire codec, the broker, the native ring and
+    the serving stack (and chip_smoke.py, read as text) import nothing of
+    JAX or of the JAX package; the modules are imported in a fresh
+    interpreter."""
     code = ("import sys; import nnstreamer_tpu_torch.filters.custom, "
             "nnstreamer_tpu_torch.filters.custom_c, "
             "nnstreamer_tpu_torch.filters.torch_backend, "
@@ -506,7 +507,11 @@ def test_new_modules_import_no_jax():
             "nnstreamer_tpu_torch.edge.wire, "
             "nnstreamer_tpu_torch.edge.broker, "
             "nnstreamer_tpu_torch.native.lib, "
-            "nnstreamer_tpu_torch.pipeline.basic; "
+            "nnstreamer_tpu_torch.pipeline.basic, "
+            "nnstreamer_tpu_torch.serve.batcher, "
+            "nnstreamer_tpu_torch.serve.scheduler, "
+            "nnstreamer_tpu_torch.serve.elements, "
+            "nnstreamer_tpu_torch.serve.router; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes', "
             "'nnstreamer_tpu')]; assert not bad, bad")

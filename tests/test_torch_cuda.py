@@ -1302,3 +1302,180 @@ def test_llm_refuses_out_of_vocab_ids_before_a_launch(card):
         fw.invoke([np.array([1, 64], np.int32)])
     assert fw.invoke([np.array([1, 63], np.int32)])[0].shape == (2,)
     fw.close()
+
+
+# -- the serving stack ------------------------------------------------------
+
+def _serve_line(ident, buckets, extra=""):
+    """tensor_serve_src ! the small MobileNet-v2 (prefetch-host) ! queue !
+    tensor_serve_sink, started; returns (pipeline, port)."""
+    import socket
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    server = pt.parse_launch(
+        f"tensor_serve_src name=src port={port} id={ident} "
+        f"buckets={buckets} max-wait-ms=4 max-queue=64 "
+        f"! tensor_filter name=f framework=torch-cuda model={MN_SMALL} "
+        f"prefetch-host=true {extra}! queue max-size-buffers=32 "
+        f"! tensor_serve_sink id={ident}")
+    server.start()
+    return server, port
+
+
+def _serve_clients(port, frames, n_clients, gap_s=0.0):
+    """``n_clients`` query clients, each sending every frame (pts = frame
+    index) and waiting for EOS; returns {client: [(pts, host logits)]}."""
+    import threading
+    import time
+    got = {}
+
+    def client(c):
+        line = pt.parse_launch(
+            f"appsrc name=in caps={MN_CAPS} ! tensor_query_client "
+            f"port={port} timeout=60 max-request=16 ! appsink name=out")
+        line.start()
+        for i, f in enumerate(frames):
+            line["in"].push_buffer(pt.Buffer.from_arrays([f], pts=i))
+            if gap_s:
+                time.sleep(gap_s * (c + 1))
+        line["in"].end_stream()
+        line.wait_eos(120)
+        got[c] = [(b.pts, b.chunks[0].host()) for b in line["out"].buffers]
+        line.stop()
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(n_clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(180)
+    assert not any(t.is_alive() for t in threads)
+    return got
+
+
+def test_serve_filter_captures_at_most_one_graph_a_bucket(card):
+    """Ragged concurrency (clients pacing apart) over buckets 1, 2, 4, 8:
+    the serve filter makes at most one executable, one captured graph, a
+    bucket, and every frame is answered once, in order."""
+    server, port = _serve_line(90, "1,2,4,8")
+    try:
+        got = _serve_clients(port, list(_mn_frames(16)), 6, gap_s=0.002)
+        fw = server["f"].fw
+        compiles, sigs = fw.compile_count, len(fw._executables)
+        rep = server["src"].scheduler.report()
+    finally:
+        server.stop()
+    assert 1 <= compiles == sigs <= 4
+    assert rep["completed"] == 96
+    for c in range(6):
+        assert [p for p, _ in got[c]] == list(range(16))
+
+
+def test_serve_padded_rows_never_reach_the_demux(card):
+    """Three lone requests in bucket 8: the card's output has 8 rows (5
+    padded), the demux answers 3, each reply equal to its frame's
+    batch-1 logits within the batched-convolution bound."""
+    frames = list(_mn_frames(3, seed=4))
+    local = pt.parse_launch(f"appsrc name=in caps={MN_CAPS} ! tensor_filter "
+                            f"framework=torch-cuda model={MN_SMALL} "
+                            "! appsink name=out")
+    local.start()
+    for i, f in enumerate(frames):
+        local["in"].push_buffer(pt.Buffer.from_arrays([f], pts=i))
+    local["in"].end_stream()
+    local.wait_eos(120)
+    want = [b.chunks[0].host() for b in local["out"].buffers]
+    local.stop()
+    server, port = _serve_line(91, "8", extra="")
+    sched = server["src"].scheduler
+    seen = []
+    complete = sched.complete
+
+    def spy(batch, outputs):
+        seen.append((len(batch), [tuple(o.shape) for o in outputs]))
+        complete(batch, outputs)
+
+    sched.complete = spy
+    try:
+        got = {}
+        for i, f in enumerate(frames):
+            got[i] = _serve_clients(port, [f], 1)[0]
+    finally:
+        server.stop()
+    assert seen == [(1, [(8, 1001)])] * 3
+    for i in range(3):
+        (pts, logits), = got[i]
+        assert pts == 0
+        scale = float(np.abs(want[i]).max())
+        assert float(np.abs(logits - want[i]).max()) <= 1e-4 * scale
+
+
+def test_serve_sink_reads_one_copy_a_batch(card):
+    """prefetch-host=true: each batch's logits leave the card in one copy
+    (fetch_stats: arrays = batches), and the sink waits on that fetch
+    instead of starting another."""
+    from nnstreamer_tpu_torch.tensors.transfer import fetch_stats
+    server, port = _serve_line(92, "1,2,4,8")
+    fetch_stats(reset=True)
+    try:
+        _serve_clients(port, list(_mn_frames(12)), 4)
+        batches = server["src"].scheduler.report()["batches"]
+        invokes = server["f"].stats["buffers"]
+    finally:
+        server.stop()
+    fetch = fetch_stats(reset=True)
+    assert batches == invokes
+    assert fetch["arrays"] == batches
+    assert fetch["frames"] == batches
+
+
+def test_serve_drain_after_suspend_and_resume_answers_every_request(card):
+    """suspend=100: a burst, an idle gap that unloads the model, a second
+    burst that brings it back (one more capture), then Pipeline.drain()
+    mid-stream: drain returns True and every request is answered once
+    (RESULT or SHED)."""
+    import time
+    server, port = _serve_line(93, "1,2,4,8", extra="suspend=100 ")
+    frames = list(_mn_frames(8))
+    try:
+        _serve_clients(port, frames, 2)
+        fw = server["f"].fw
+        deadline = time.monotonic() + 10      # idle: the model suspends
+        while fw._module is not None and time.monotonic() < deadline:
+            time.sleep(0.01)
+        suspended = fw._module is None
+        c0 = fw.compile_count
+        line = pt.parse_launch(
+            f"appsrc name=in caps={MN_CAPS} ! tensor_query_client name=qc "
+            f"port={port} timeout=60 max-request=32 ! appsink name=out")
+        line.start()
+        for i in range(32):
+            line["in"].push_buffer(pt.Buffer.from_arrays(
+                [frames[i % 8]], pts=i))
+        deadline = time.monotonic() + 60
+        while not line["out"].buffers and time.monotonic() < deadline:
+            time.sleep(0.005)
+        ok = server.drain(deadline=60)
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            with line["qc"]._plock:
+                owed = len(line["qc"]._pending)
+            if not owed and (len(line["out"].buffers)
+                             + line["qc"].stats["shed"]) >= 32:
+                break
+            time.sleep(0.01)
+        n_result = len(line["out"].buffers)
+        n_shed = line["qc"].stats["shed"]
+        rep = server["src"].scheduler.report()
+        c1 = fw.compile_count
+        line["in"].end_stream()
+        line.stop()
+    finally:
+        server.stop()
+    assert suspended and c1 > c0              # resumed: captured afresh
+    assert ok is True
+    assert n_result + n_shed == 32 and n_result > 0
+    assert rep["requests"] == rep["completed"] + rep["shed_deadline"] \
+        + rep["cancelled"] + rep["shed_failed"]
