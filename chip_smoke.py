@@ -165,7 +165,7 @@ queue between filter and decoder: unfused): host time a frame by element.
               and no model loaded.
 22-24. among devices — BASELINE config 5's query fan-out, the ViT line
               behind the query link, edge pub/sub across a killed link.
-              Phases 22-37 and the native queue lines run before phase
+              Phases 22-39 and the native queue lines run before phase
               21, whose validate() reads their lines too.
 25. shared vit — tensortestsrc ! tee into two ViT-B/16 legs (queue,
               filter, appsink) under one shared-tensor-filter-key, 16
@@ -293,11 +293,39 @@ Native queue — the headline line with queue backend=native against
               after a third: every frame delivered once, none shed or
               lost, the router's requests = delivered + shed + orphaned,
               redispatches printed.
+38. train vit — ViT-B/16 at full width (86.6 M parameters, stock
+              attention, seeded random weights) trained in a pipeline on
+              the card: datareposrc (40 seeded 224x224x3 frames with
+              int32 labels, written as a .data file and a JSON index)
+              ! tensor_trainer framework=torch-cuda
+              model-config="zoo://vit?lr=1e-4" (32 training + 8
+              validation samples, 8 epochs, one Adam step an epoch) !
+              appsink: one record an epoch plus completion, the epoch-1
+              loss within 1e-5 relative of a cross-entropy computed apart
+              on the card from the seed-0 weights and the same 32 frames,
+              the loss falling, the weights on cuda:0, the saved params
+              file; ms a step and training samples/s over epochs 2-8,
+              max_memory_allocated(). Then the same line to epoch 3 under
+              install_sigterm, SIGTERM sent to this process once the
+              epoch-3 record arrives, and a fresh line restored from the
+              snapshot: epochs 4-8 exactly, their losses within 1e-4
+              relative of the straight run's (bitwise or not, printed);
+              the snapshot's bytes and seconds. Then 8 of the training
+              frames through tensor_filter
+              model="zoo://vit?attn=pallas&params_dir=<the saved run>":
+              12 attention launches a frame, logits within phase 4's rule
+              of the trained module's eager forward (attn=stock) and
+              farther than that from the seed-0 logits.
+39. train gpt — a reduced width (vocab 32, d_model 16, 2 heads, 1
+              layer): a GPT model-config file trained on next-token loss
+              from a datareposrc on the card, saved, and served by the
+              llm filter from params_dir: the first token after [4, 5,
+              6] is 7 (tests/test_training.py:210's loop).
 Every model line runs through the backend's per-signature executable,
 one captured CUDA graph per input signature: the first frame runs
 eagerly (the capture's warm-up), every later frame is one replay, so a
 hand kernel inside the graph counts once a frame.
-Phases 8-11, 13, 16, 17, 19, 20, 22, 24, 26, 27, 29-35, 37 and the
+Phases 8-11, 13, 16, 17, 19, 20, 22, 24, 26, 27, 29-35, 37, 39 and the
 native queue lines launch neither hand kernel
 (their models inline their input affine, as the JAX models do); their
 launch counts are read all the same and written on the kernels line as
@@ -4453,8 +4481,305 @@ def phase_serve_drain_router(smi, clean):
     return drain_row, router_row
 
 
+TRAIN_FRAMES = 40          # phase 38's dataset: 40 seeded 224x224x3 frames
+TRAIN_SAMPLES = 32         # one Adam step a epoch over a batch of 32,
+TRAIN_VAL = 8              # then the validation loss over the other 8
+TRAIN_EPOCHS = 8
+TRAIN_PREEMPT_AT = 3       # the SIGTERM run stops after epoch 3
+TRAIN_MODEL = "zoo://vit?lr=1e-4"  # ViT-B/16 at full width, stock attention
+TRAIN_GRACE_S = 5.0        # install_sigterm's grace
+TRAIN_SERVE = 8            # training frames served with attn=pallas
+TRAIN_LOSS_RTOL = 1e-5     # epoch-1 loss against the separate cross-entropy
+TRAIN_RESUME_RTOL = 1e-4   # resumed epochs 4-8 against the straight run
+GPT_TRAIN = "vocab=32&d_model=16&n_heads=2&n_layers=1"  # phase 39, reduced
+
+
+def _write_datarepo(tmp, name, samples, dims, types):
+    """A datarepo file and JSON index (the JAX package's schema) of
+    ``samples``, each a tuple of host arrays written back to back."""
+    data = os.path.join(tmp, f"{name}.data")
+    with open(data, "wb") as f:
+        for sample in samples:
+            f.write(b"".join(np.ascontiguousarray(a).tobytes()
+                             for a in sample))
+    index = {"gst_caps": ("other/tensors, format=(string)static, "
+                          "framerate=(fraction)0/1, num_tensors=(int)"
+                          f"{len(samples[0])}, dimensions=(string){dims}, "
+                          f"types=(string){types}"),
+             "total_samples": len(samples),
+             "sample_size": sum(a.nbytes for a in samples[0])}
+    jpath = os.path.join(tmp, f"{name}.json")
+    with open(jpath, "w") as f:
+        json.dump(index, f)
+    return data, jpath
+
+
+def _train_line(data, jpath, src_epochs, epochs, save=""):
+    return (f"datareposrc location={data} json={jpath} is-shuffle=false "
+            f"epochs={src_epochs} ! tensor_trainer name=t "
+            f'framework=torch-cuda model-config="{TRAIN_MODEL}" '
+            f"num-training-samples={TRAIN_SAMPLES} "
+            f"num-validation-samples={TRAIN_VAL} epochs={epochs} "
+            "num-inputs=1 num-labels=1 "
+            + (f"model-save-path={save} " if save else "")
+            + "! appsink name=out")
+
+
+def _records(pipe):
+    return [(int(b.pts), b.chunks[0].host()) for b in pipe["out"].buffers]
+
+
+def phase_train_vit(smi, tmp):
+    """Phase 38: ViT-B/16 at full width trained in a pipeline on the
+    card (datareposrc ! tensor_trainer ! appsink), resumed from a
+    SIGTERM snapshot, and served from its checkpoint with the attention
+    kernel. Returns its row."""
+    import signal
+    import threading
+
+    import nnstreamer_tpu_torch as pt
+    from nnstreamer_tpu_torch.checkpoint import SnapshotStore, install_sigterm
+    from nnstreamer_tpu_torch.models import zoo
+    from nnstreamer_tpu_torch.trainers import restore_params
+
+    frames = _frames(TRAIN_FRAMES, _frame_shape()).numpy()
+    labels = np.random.default_rng(SEED + 1).integers(
+        0, 1000, (TRAIN_FRAMES, 1)).astype(np.int32)
+    data, jpath = _write_datarepo(tmp, "vit", list(zip(frames, labels)),
+                                  f"{FRAME_DIMS}.1", "uint8.int32")
+    log(f"train vit: {TRAIN_FRAMES} frames with labels, "
+        f"{os.path.getsize(data)} bytes of datarepo; {smi}")
+    # the epoch-1 loss computed apart from the trainer: the seed-0
+    # weights on the first batch, on the card
+    apply_fn, module, _, _ = zoo.build("vit")
+    module = module.cuda()
+    batch = torch.from_numpy(frames[:TRAIN_SAMPLES]).cuda()
+    target = torch.from_numpy(labels[:TRAIN_SAMPLES, 0]).cuda().long()
+    with torch.no_grad():
+        logp = torch.log_softmax(apply_fn(module, batch).float(), -1)
+        ref_loss = float(-logp.gather(-1, target[:, None]).mean())
+        serve_in = torch.from_numpy(frames[:TRAIN_SERVE]).cuda()
+        seed_logits = apply_fn(module, serve_in).cpu()
+    n_params = sum(p.numel() for p in module.parameters())
+    del module, batch, logp
+
+    # the straight run, epochs 1-8, saved at stop()
+    save = os.path.join(tmp, "vit")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    pipe = pt.parse_launch(_train_line(data, jpath, TRAIN_EPOCHS,
+                                       TRAIN_EPOCHS, save))
+    _reset_launches()
+    arrivals = []
+    pipe["out"].connect(lambda b: arrivals.append(time.perf_counter()))
+    t0 = time.perf_counter()
+    pipe.start()
+    try:
+        if not pipe.wait_eos(900):
+            sys.exit("chip_smoke: train vit: no EOS in 900 s")
+        devices = {str(p.device) for p in pipe["t"].fw.module.parameters()}
+    finally:
+        pipe.stop()
+    peak = torch.cuda.max_memory_allocated() - base
+    train_launches = _kernel_launches()
+    straight = _records(pipe)
+    epochs = [e for e, _ in straight]
+    if epochs != list(range(1, TRAIN_EPOCHS + 1)) + [TRAIN_EPOCHS]:
+        sys.exit(f"chip_smoke: train vit: records at epochs {epochs}")
+    losses = [float(r[0]) for _, r in straight[:TRAIN_EPOCHS]]
+    loss_err = abs(losses[0] - ref_loss) / abs(ref_loss)
+    if not all(np.isfinite(r).all() for _, r in straight):
+        sys.exit(f"chip_smoke: train vit: records not finite {straight}")
+    steps = TRAIN_EPOCHS - 1
+    step_ms = (arrivals[TRAIN_EPOCHS - 1] - arrivals[0]) * 1e3 / steps
+    samples_s = TRAIN_SAMPLES * 1e3 / step_ms
+    saved = os.path.join(save, "params")
+    log(f"train vit: {TRAIN_EPOCHS} epochs of {TRAIN_SAMPLES} samples + "
+        f"{TRAIN_VAL} validation, {n_params} parameters on {devices}; "
+        f"training losses {losses}; epoch-1 loss {losses[0]!r} against a "
+        f"separate cross-entropy {ref_loss!r} (rel err {loss_err:.3g}, "
+        f"tol {TRAIN_LOSS_RTOL}); first record "
+        f"{(arrivals[0] - t0) * 1e3:.1f} ms after start; epochs 2-"
+        f"{TRAIN_EPOCHS}: {step_ms:.3f} ms a step, {samples_s:.2f} "
+        f"training samples/s; max_memory_allocated {peak} bytes above the "
+        f"{base} before; params file {os.path.getsize(saved)} bytes; hand "
+        f"kernel launches while training {train_launches} (stock "
+        f"attention trains); {smi}")
+    if devices != {"cuda:0"} or not loss_err <= TRAIN_LOSS_RTOL \
+            or not losses[-1] < losses[0] or not os.path.isfile(saved) \
+            or any(train_launches.values()):
+        sys.exit("chip_smoke: train vit: the straight run failed its checks")
+
+    # the same line to epoch 3 under SIGTERM, then a fresh pipeline
+    # restored from the snapshot runs epochs 4-8
+    snap_root = os.path.join(tmp, "snap")
+    pipe = pt.parse_launch(_train_line(data, jpath, TRAIN_PREEMPT_AT,
+                                       TRAIN_PREEMPT_AT))
+    guard = install_sigterm(pipe, snap_root, grace_s=TRAIN_GRACE_S)
+    reached = threading.Event()
+    pipe["out"].connect(lambda b: reached.set()
+                        if int(b.pts) >= TRAIN_PREEMPT_AT else None)
+    try:
+        pipe.start()
+        if not reached.wait(900):
+            sys.exit("chip_smoke: train vit: epoch 3 never arrived")
+        os.kill(os.getpid(), signal.SIGTERM)
+        if not guard.done.wait(300) or guard.report is None:
+            sys.exit("chip_smoke: train vit: the preemption failed")
+    finally:
+        guard.uninstall()
+        pipe.stop()
+    report = guard.report
+    snap = SnapshotStore(snap_root).latest()
+    manifest = SnapshotStore.verify(snap)
+    snap_bytes = sum(f["size"] for f in manifest["files"].values())
+    pipe = pt.parse_launch(_train_line(
+        data, jpath, TRAIN_EPOCHS - TRAIN_PREEMPT_AT, TRAIN_EPOCHS))
+    t0 = time.perf_counter()
+    pipe.restore(snap_root)
+    restore_s = time.perf_counter() - t0
+    pipe.start()
+    try:
+        if not pipe.wait_eos(900):
+            sys.exit("chip_smoke: train vit: the resumed run has no EOS")
+    finally:
+        pipe.stop()
+    resumed = _records(pipe)
+    r_epochs = [e for e, _ in resumed]
+    want = list(range(TRAIN_PREEMPT_AT + 1, TRAIN_EPOCHS + 1)) \
+        + [TRAIN_EPOCHS]
+    gaps = [abs(float(r[0]) - losses[e - 1]) / abs(losses[e - 1])
+            for e, r in resumed[:-1]]
+    bitwise = all(float(r[0]) == losses[e - 1] for e, r in resumed[:-1])
+    log(f"train vit resume: SIGTERM after epoch {TRAIN_PREEMPT_AT}: "
+        f"preempt drained={report['drained']} in {report['used_s']:.3f} s "
+        f"(grace {TRAIN_GRACE_S} s), snapshot {snap_bytes} bytes in "
+        f"{len(manifest['files'])} files, verify + restore "
+        f"{restore_s:.3f} s; resumed epochs {r_epochs}; training losses "
+        f"{[float(r[0]) for _, r in resumed[:-1]]}; largest relative gap "
+        f"to the straight run {max(gaps):.3g} (tol {TRAIN_RESUME_RTOL}), "
+        f"{'bitwise equal' if bitwise else 'not bitwise equal'}; {smi}")
+    if r_epochs != want or not max(gaps) <= TRAIN_RESUME_RTOL:
+        sys.exit("chip_smoke: train vit: the resumed run did not continue "
+                 "the straight run")
+
+    # the checkpoint served through the attention kernel
+    model = f"zoo://vit?attn=pallas&params_dir={save}"
+    serve = pt.parse_launch(
+        f"appsrc name=in caps={_caps_at(FRAME_DIMS)} ! tensor_filter "
+        f'framework=torch-cuda model="{model}" ! appsink name=out')
+    _reset_launches()
+    serve.start()
+    try:
+        _push_all(serve, frames[:TRAIN_SERVE])
+        serve["in"].end_stream()
+        serve.wait_eos(300)
+    finally:
+        serve.stop()
+    launches = _kernel_launches()
+    got = torch.from_numpy(np.stack(
+        [b.chunks[0].host() for b in serve["out"].buffers]))
+    apply_fn, trained, _, _ = zoo.build("vit")
+    trained = restore_params(save, trained).cuda()
+    with torch.no_grad():
+        eager = apply_fn(trained, serve_in).cpu()
+    # phase 4's ViT rule: 5e-2 absolute plus 5 % of the largest |logit|
+    scale = eager.abs().max().item()
+    tol = 5e-2 + 0.05 * scale
+    diff = (got - eager).abs().max().item() if got.shape == eager.shape \
+        else float("inf")
+    moved = (eager - seed_logits).abs().max().item()
+    log(f"train vit serve: {len(got)} of the training frames through "
+        f"{model}: {launches['attention']} attention launches "
+        f"({launches['attention'] / max(1, len(got)):.0f} a frame); logits "
+        f"against the trained module's eager forward (attn=stock) max "
+        f"|diff| {diff:.4g} (tol {tol:.4g}); the trained logits moved "
+        f"{moved:.4g} from the seed-0 ones; {smi}")
+    if launches["attention"] != VIT_LAYERS * TRAIN_SERVE \
+            or not diff <= tol or not moved > tol:
+        sys.exit("chip_smoke: train vit: serving the checkpoint failed")
+    return {"epochs": TRAIN_EPOCHS, "samples": TRAIN_SAMPLES,
+            "parameters": n_params, "losses": losses,
+            "epoch1_rel_err": loss_err, "step_ms": step_ms,
+            "samples_s": samples_s, "peak_allocated_bytes": peak,
+            "snapshot_bytes": snap_bytes,
+            "preempt_s": report["used_s"], "restore_s": restore_s,
+            "resume_max_rel_gap": max(gaps), "resume_bitwise": bitwise,
+            "serve_max_abs_diff": diff, "serve_tol": tol,
+            "train_kernel_launches": train_launches,
+            "kernel_launches": launches}
+
+
+GPT_TRAINER_PY = """\
+import torch
+from nnstreamer_tpu_torch.models import transformer as tfm
+CFG = tfm.GPTConfig({cfg})
+def get_trainer():
+    params = tfm.init_params(CFG, torch.Generator().manual_seed(0))
+    def loss_fn(m, inputs, labels):
+        return tfm.loss_fn(m, inputs[0], CFG), torch.zeros(())
+    return loss_fn, params, lambda ps: torch.optim.Adam(ps, lr=5e-2)
+"""
+
+
+def phase_train_gpt(smi, tmp):
+    """Phase 39 (a reduced width): a GPT model-config file trained on
+    next-token loss from a datareposrc, saved, and served by the llm
+    filter from params_dir (tests/test_training.py:210's loop)."""
+    import nnstreamer_tpu_torch as pt
+    from nnstreamer_tpu_torch.filters.base import FilterProperties
+    from nnstreamer_tpu_torch.filters.registry import find_filter
+
+    kw = dict(p.split("=") for p in GPT_TRAIN.split("&"))
+    cfg_py = os.path.join(tmp, "gpt_trainer.py")
+    with open(cfg_py, "w") as f:
+        f.write(GPT_TRAINER_PY.format(
+            cfg=", ".join(f"{k}={v}" for k, v in kw.items())))
+    n, t = 24, 8
+    seqs = [((np.arange(t + 1) + i) % int(kw["vocab"])).astype(np.int32)
+            for i in range(n)]
+    data, jpath = _write_datarepo(
+        tmp, "tokens", [(s, np.zeros(1, np.float32)) for s in seqs],
+        f"{t + 1}.1", "int32.float32")
+    ckpt = os.path.join(tmp, "gpt-trained")
+    _reset_launches()
+    pipe = pt.parse_launch(
+        f"datareposrc location={data} json={jpath} is-shuffle=false "
+        f"epochs=4 ! tensor_trainer name=t framework=torch-cuda "
+        f"model-config={cfg_py} model-save-path={ckpt} "
+        f"num-training-samples={n} num-validation-samples=0 epochs=4 "
+        "num-inputs=1 num-labels=1 ! appsink name=out")
+    pipe.start()
+    try:
+        pipe.wait_eos(300)
+        devices = {str(p.device) for p in pipe["t"].fw.module.parameters()}
+    finally:
+        pipe.stop()
+    losses = [float(r[0]) for _, r in _records(pipe)]
+    fw = find_filter("llm")()
+    fw.open(FilterProperties(
+        model_files=(f"zoo://gpt?{GPT_TRAIN}&params_dir={ckpt}",),
+        custom_properties="max_tokens:6,max_len:32"))
+    try:
+        toks = np.asarray(fw.invoke([np.array([4, 5, 6], np.int32)])[0])
+        device = str(fw.device)
+    finally:
+        fw.close()
+    launches = _kernel_launches()
+    log(f"train gpt ({GPT_TRAIN}, reduced): training losses {losses} on "
+        f"{devices}; llm served from params_dir on {device}: prompt "
+        f"[4, 5, 6] -> {toks.tolist()}; {smi}")
+    if len(losses) < 4 or not losses[-1] < losses[0] \
+            or devices != {"cuda:0"} or toks.shape != (6,) or toks[0] != 7:
+        sys.exit("chip_smoke: train gpt: the trained GPT does not continue "
+                 "the sequence")
+    return {"losses": losses, "tokens": toks.tolist(),
+            "kernel_launches": launches}
+
+
 def phase_pipelint(smi, lines):
-    """Phase 21: Pipeline.validate() on every launch line phases 1-24
+    """Phase 21: Pipeline.validate() on every launch line phases 1-39
     ran (0 errors, 0 crashed rules), and a defective line refused at
     start() before anything is allocated on the card."""
     import nnstreamer_tpu_torch as pt
@@ -4600,8 +4925,14 @@ def main():
     lines["serve_vit"] = timed("serve_vit", phase_serve_vit, smi, vit_local)
     lines["serve_drain"], lines["serve_router"] = timed(
         "serve_drain_router", phase_serve_drain_router, smi, clean)
+    # phases 38-39: training and the checkpoint layer
+    with tempfile.TemporaryDirectory() as tmp:
+        lines["train_vit"] = timed("train_vit", phase_train_vit, smi, tmp)
+        lines["train_gpt"] = timed("train_gpt", phase_train_gpt, smi, tmp)
+    if lines["train_vit"]["kernel_launches"]["normalize"]:
+        sys.exit("chip_smoke: the normalize kernel ran on train_vit")
     for k in ("serve_mobilenet", "serve_per_request", "serve_drain",
-              "serve_router"):
+              "serve_router", "train_gpt"):
         if lines[k]["kernel_launches"]["attention"] \
                 or lines[k]["kernel_launches"]["normalize"]:
             sys.exit(f"chip_smoke: a hand kernel ran on {k}: "
@@ -4616,7 +4947,7 @@ def main():
                          f"{row['kernel_launches']}")
     pt.parse_launch = parse
     log(f"queues: {queues['python']} Python queues on the lines of "
-        f"phases 1-37, {queues['native']} ring queues, all on the native "
+        f"phases 1-39, {queues['native']} ring queues, all on the native "
         "queue lines")
     pipelint = phase_pipelint(smi, list(dict.fromkeys(launched)))
     for k in ("clean", "retry", "skip", "restart"):

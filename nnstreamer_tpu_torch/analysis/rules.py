@@ -1,24 +1,21 @@
 """pipelint graph rules.
 
 Port of ``nnstreamer_tpu/analysis/rules.py``: the rules whose elements
-the port has (21 of the reference's 28). Each :class:`Rule` inspects the
+the port has (23 of the reference's 28). Each :class:`Rule` inspects the
 parsed-but-unstarted pipeline plus the caps inference result and yields
 findings with element/pad locations. Rules never execute elements and
 never raise past :func:`analyze` — a broken rule must not block a
 launch; :func:`analyze` lists the ids of rules that raised on the
 report's ``crashed``.
 
-The reference's other 7 rules inspect elements or options the port
+The reference's other 5 rules inspect elements or options the port
 does not have yet; each comes with the slice that ports them (ROADMAP.md,
 queue A): ``sharding-divisibility``, ``serve-mesh-divisibility`` and
 ``mesh-colocation`` with the mesh (item 12),
 ``llm-prefix-cache-lossy-link`` with the llm filter's KV link (item 8),
-``stateful-no-checkpoint`` and ``delta-lossy-gate-feeds-trainer`` with
-the checkpoint hooks and the trainer (item 11; the latter's
-``tensor_delta`` is ported, but it fires only on a ``tensor_trainer``),
 and ``autoscaler-config`` with the fleet (item 13).
-Rules keyed on kind names of such elements (``tensor_trainer``,
-``mqttsrc``) keep those branches and stay silent until then.
+Rules keyed on kind names of such elements (``mqttsrc``) keep those
+branches and stay silent until then.
 """
 from __future__ import annotations
 
@@ -701,6 +698,36 @@ class AsyncWindowRule(Rule):
         return None
 
 
+class StatefulNoCheckpointRule(Rule):
+    """An element that declares itself NOT restart-safe carries state a
+    plain stop/start loses — exactly the state a preemption
+    (``Pipeline.preempt``/SIGTERM) needs to snapshot. If it also does
+    not implement ``snapshot_state``, a preempted pipeline silently
+    discards that state on restore: frames, windows, or training
+    progress vanish without a declaration. WARN, not ERROR — the
+    pipeline still runs, it just cannot survive preemption whole."""
+
+    id = "stateful-no-checkpoint"
+    severity = Severity.WARNING
+
+    def check(self, ctx: LintContext):
+        for e in ctx.elements:
+            cls = type(e)
+            # only elements that EXPLICITLY declare RESTART_SAFE=False
+            # on their own class (inherited defaults are the base
+            # contract, not a statement about this element's state)
+            if "RESTART_SAFE" not in cls.__dict__ \
+                    or cls.RESTART_SAFE is not False:
+                continue
+            if cls.snapshot_state is Element.snapshot_state:
+                yield self.finding(
+                    f"{kind_of(e)} declares RESTART_SAFE=False but "
+                    f"implements no snapshot_state(): its state is "
+                    f"silently lost across preempt/restore; implement "
+                    f"the Checkpointable hooks or declare why the state "
+                    f"is disposable", e.name)
+
+
 class TraceExportRule(Rule):
     """A source with ``trace-export=true`` promises frame-level trace
     continuity — but the trace context rides in buffer extras, and an
@@ -762,6 +789,39 @@ class DeltaNoKeyframeIntervalRule(Rule):
                     "wire-delta-k to a positive frame count", e.name)
 
 
+class DeltaLossyGateFeedsTrainerRule(Rule):
+    """tensor_delta's gate/roi modes drop unchanged frames and tiles —
+    exactly right for inference, silently wrong for training: the
+    dropped samples are the (heavily static) majority class, so a
+    trainer downstream learns from a motion-biased subsample without
+    anyone opting in."""
+
+    id = "delta-lossy-gate-feeds-trainer"
+    severity = Severity.WARNING
+
+    def check(self, ctx: LintContext):
+        for e in ctx.of_kind("tensor_delta"):
+            mode = str(getattr(e, "mode", "gate"))
+            if mode not in ("gate", "roi"):
+                continue  # mask mode annotates only; nothing is dropped
+            seen: Set[str] = set()
+            stack = list(ctx.downstream(e))
+            while stack:
+                d = stack.pop()
+                if d.name in seen:
+                    continue
+                seen.add(d.name)
+                if kind_of(d) == "tensor_trainer":
+                    yield self.finding(
+                        f"tensor_delta mode={mode} drops unchanged "
+                        f"frames/tiles and the survivors feed trainer "
+                        f"'{d.name}': the training distribution is "
+                        "motion-biased; train from a mask-mode tap or "
+                        "the ungated stream", e.name)
+                    break
+                stack.extend(ctx.downstream(d))
+
+
 class LlmDecodeNoKvBudgetRule(Rule):
     """A paged llm filter (``paged:true``, or a decode role, which the
     port refuses at open until the KV link comes) without an explicit
@@ -795,8 +855,9 @@ ALL_RULES: List[Rule] = [
     WireConfigRule(), FusionBreakRule(), FusionTransferRule(),
     SessionReplayBudgetRule(), SessionNoReconnectRule(),
     RouterNoReplicasRule(), RouterAffinitySessionlessRule(),
-    AsyncWindowRule(), TraceExportRule(), DeltaNoKeyframeIntervalRule(),
-    LlmDecodeNoKvBudgetRule(),
+    AsyncWindowRule(), StatefulNoCheckpointRule(), TraceExportRule(),
+    LlmDecodeNoKvBudgetRule(), DeltaNoKeyframeIntervalRule(),
+    DeltaLossyGateFeedsTrainerRule(),
 ]
 
 def analyze(pipeline, rules: Optional[List[Rule]] = None) -> Report:

@@ -1,8 +1,8 @@
 """Stream-integrity sessions: acknowledged delivery over reliable links.
 
 A copy of ``nnstreamer_tpu/edge/session.py``, which is framework
-neutral, without ``ReplayRing.dump``/``load`` (the checkpoint layer
-that calls them is not ported).
+neutral; ``ReplayRing.dump``/``load`` carry a publisher's unacked
+frames across a preemption (the edgesink's snapshot hooks).
 
 Wire v1 framing (protocol.py) and wire v2 compaction (wire.py) restore a
 dropped *socket*; this module restores the *stream*. Every link that
@@ -182,6 +182,28 @@ class ReplayRing:
             lost = max(0, self.evicted_through - frm + 1)
             return ([(s, b) for s, (b, _nb) in self._frames.items()
                      if s >= frm], lost)
+
+    # -- checkpoint/restore (checkpoint/) ----------------------------------
+    def dump(self) -> Tuple[List[Tuple[int, object]], int]:
+        """Coherent (retained frames, evicted_through) view for the
+        preemption snapshot — unacked frames survive process death so a
+        resumed subscriber still gets its gap replay."""
+        with self._lock:
+            return ([(s, b) for s, (b, _nb) in self._frames.items()],
+                    self.evicted_through)
+
+    def load(self, frames: List[Tuple[int, object]],
+             evicted_through: int) -> None:
+        """Rebuild from :meth:`dump` output (restore-before-start: no
+        concurrent appenders yet, but take the lock anyway)."""
+        with self._lock:
+            self._frames.clear()
+            self._bytes = 0
+            for seq, buf in frames:
+                nb = int(getattr(buf, "nbytes", 0))
+                self._frames[seq] = (buf, nb)
+                self._bytes += nb
+            self.evicted_through = int(evicted_through)
 
 
 class SessionReceiver:

@@ -19,5 +19,8 @@ from . import edge  # noqa: F401  (edgesrc/edgesink)
 from . import sparse  # noqa: F401  (tensor_sparse_enc/dec)
 from . import delta  # noqa: F401  (tensor_delta/tensor_delta_stitch)
 from ..fault import element as fault  # noqa: F401  (tensor_fault)
+from . import datarepo  # noqa: F401  (datareposrc/datareposink)
+from . import repo  # noqa: F401  (tensor_reposink/tensor_reposrc)
+from . import trainer  # noqa: F401  (tensor_trainer)
 
 __all__: list = []

@@ -11,10 +11,9 @@ the height, since a trailing ``:1`` is not a dimension of the frame).
 ``frames-in > frames-out`` splits each input along ``frames-dim``.
 
 The window is joined, and a split input sliced, on the host, as in the
-reference; outputs are host arrays.
-
-Not ported: ``snapshot_state``/``restore_state`` (the checkpoint layer
-is not in the port).
+reference; outputs are host arrays. ``snapshot_state``/``restore_state``
+carry the partial window across a preemption (checkpoint/), as the JAX
+element's do.
 """
 from __future__ import annotations
 
@@ -35,10 +34,22 @@ class TensorAggregator(TransformElement):
              "frames-dim": 3, "concat": True, "silent": True}
     STRIPS_META = True  # output windows are fresh buffers, N inputs -> 1
     RESTART_SAFE = False  # a restart would drop the aggregation window
+    CHECKPOINTABLE = "the partial aggregation window (frames + timing)"
 
     def __init__(self, name=None, **props):
         super().__init__(name, **props)
         self._window: Deque[Buffer] = collections.deque()
+
+    def snapshot_state(self, snap_dir):
+        if not self._window:
+            return None
+        from ..checkpoint.state import dump_buffers
+        return {"window": dump_buffers(self._window)}
+
+    def restore_state(self, state, snap_dir):
+        from ..checkpoint.state import load_buffers
+        # restore runs before start(): no chain thread exists yet
+        self._window = collections.deque(load_buffers(state["window"]))
 
     def _np_axis(self, ndim: int) -> int:
         ref_dim = int(self.frames_dim)

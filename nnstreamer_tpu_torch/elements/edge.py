@@ -34,8 +34,13 @@ after a link kill starts from a keyframe.
 
 ``Pipeline.drain`` on the subscriber side acks what edgesrc delivered
 and closes the link; the frames already received are flushed before
-EOS, and the close is not counted as a link error. Not ported: the
-checkpoint/restore hooks (ROADMAP item 11).
+EOS, and the close is not counted as a link error.
+
+The checkpoint hooks are the JAX elements': an edgesink snapshots its
+seq space, the unacked replay-ring frames and each session's acked
+watermark; an edgesrc its session id and delivery watermark, which its
+first RESUME after a restore presents, so the publisher replays the
+process-death gap instead of resetting the stream.
 """
 from __future__ import annotations
 
@@ -460,6 +465,38 @@ class EdgeSink(SinkElement):
         return {"sessions": n, "ring_frames": len(self._ring),
                 "ring_bytes": self._ring.nbytes}
 
+    # -- checkpoint/restore (checkpoint/) ----------------------------------
+    CHECKPOINTABLE = ("publisher seq space + unacked replay-ring frames "
+                      "+ per-session acked watermarks")
+
+    def snapshot_state(self, snap_dir):
+        from ..checkpoint.state import dump_buffer
+        # _co_lock serializes against broadcast, so (next_seq, ring,
+        # watermarks) are one coherent instant — a restored subscriber's
+        # RESUME replays exactly the frames this snapshot retained
+        with self._co_lock:
+            frames, evicted = self._ring.dump()
+            with self._sess_lock:
+                sessions = {sid: dict(st)
+                            for sid, st in self._sessions.items()}
+            next_seq = self._next_seq
+        if not sessions and not frames and next_seq == 0:
+            return None
+        return {"next_seq": next_seq, "evicted_through": evicted,
+                "sessions": sessions,
+                "ring": [(s, dump_buffer(b)) for s, b in frames]}
+
+    def restore_state(self, state, snap_dir):
+        from ..checkpoint.state import load_buffer
+        with self._co_lock:
+            self._next_seq = int(state["next_seq"])
+            self._ring.load([(s, load_buffer(d))
+                             for s, d in state.get("ring", [])],
+                            int(state.get("evicted_through", 0)))
+            with self._sess_lock:
+                self._sessions = {sid: dict(st) for sid, st in
+                                  (state.get("sessions") or {}).items()}
+
     def on_eos(self) -> None:
         # ship any coalesced frames still waiting before the EOS marker
         with self._co_lock:
@@ -516,6 +553,10 @@ class EdgeSrc(SrcElement):
         # reconnects: it is the resume key
         self._sid = sess_mod.new_session_id()
         self._sess: Optional[sess_mod.SessionReceiver] = None
+        # delivery watermark recovered by restore_state (checkpoint/):
+        # the first RESUME after a restart presents it so the publisher
+        # replays the process-death gap instead of resetting the stream
+        self._restored_last: Optional[int] = None
         self._hb: Optional[sess_mod.Heartbeat] = None
         # link circuit breaker: consecutive link failures / dead-peer
         # declarations open it, pacing re-dials; a successful
@@ -604,7 +645,12 @@ class EdgeSrc(SrcElement):
         """RESUME handshake on a fresh socket: present (sid, last
         delivered), adopt the publisher's answer, account the declared
         gap exactly."""
-        last = self._sess.last_delivered if self._sess is not None else 0
+        if self._sess is not None:
+            last = self._sess.last_delivered
+        elif self._restored_last is not None:
+            last = self._restored_last  # resurrected: resume, not attach
+        else:
+            last = 0
         send_msg(sock, MsgKind.RESUME,
                  {"sid": self._sid, "last": last})
         kind, meta, _ = recv_msg(sock)
@@ -613,7 +659,15 @@ class EdgeSrc(SrcElement):
                                   f"got {kind}")
         if self._sess is None:
             self._sess = sess_mod.SessionReceiver(scfg)
-            self._sess.reset(int(meta.get("base", 0)))
+            if meta.get("resumed", False) and self._restored_last is not None:
+                # the publisher still knows this session: dedup resumes
+                # at the restored watermark, the gap replays below
+                self._sess.reset(self._restored_last)
+            else:
+                self._sess.reset(int(meta.get("base", 0)))
+            # written by restore_state before start(); afterwards only
+            # this source-loop resume path touches it
+            self._restored_last = None
         elif not meta.get("resumed", False):
             # the publisher no longer knows us (restarted: ring and seq
             # space gone). The in-flight gap is unresolvable — declare
@@ -821,6 +875,23 @@ class EdgeSrc(SrcElement):
 
     def drain_flushed(self) -> bool:
         return not self._rxq
+
+    # -- checkpoint/restore (checkpoint/) ----------------------------------
+    CHECKPOINTABLE = ("session id + delivery watermark (the RESUME key "
+                      "for gap replay after restart)")
+
+    def snapshot_state(self, snap_dir):
+        if not self.session:
+            return None
+        return {"sid": self._sid,
+                "last": (self._sess.last_delivered
+                         if self._sess is not None
+                         else self._restored_last)}
+
+    def restore_state(self, state, snap_dir):
+        self._sid = str(state["sid"])
+        last = state.get("last")
+        self._restored_last = int(last) if last is not None else None
 
     def drain(self) -> None:
         """Graceful local teardown: ack what we delivered, then close

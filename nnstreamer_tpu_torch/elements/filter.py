@@ -45,7 +45,11 @@ with a SHED and booked on the scheduler (fault/breaker.py
 ``shed_serve_rows``), on the synchronous path too (the reference answers
 them only under ``in-flight`` and on a breaker shed). ``drain`` settles
 the in-flight window and quiesces the ``suspend`` watchdog, so the model
-is not unloaded while upstream flushes its queues.
+is not unloaded while upstream flushes its queues. The checkpoint hooks
+delegate to the backend, as in the JAX element: a backend with
+``snapshot_state`` carries its cross-invoke state, and the ``llm``
+backend's raises :class:`~..pipeline.element.NotPortedError`, so a
+snapshot of its line refuses instead of skipping the filter.
 
 Not ported yet: a ``custom=mesh:`` option raises in the torch-cuda
 backend.
@@ -216,6 +220,8 @@ class TensorFilter(Element):
         # the graphs of every backend this element opens capture into it:
         # a restart recaptures into the same blocks; Pipeline.stop frees it
         self._graph_pool = GraphPool()
+        # backend state restored from a snapshot, applied at start()
+        self._fw_restore = None
         self.stats.update({"invoke_errors": 0, "frames_dropped": 0,
                            "qos_dropped": 0, "shed": 0,
                            "breaker_opened": 0})
@@ -276,6 +282,11 @@ class TensorFilter(Element):
     def start(self) -> None:
         super().start()
         self._open_fw()
+        if self._fw_restore is not None:
+            state, snap_dir = self._fw_restore
+            if hasattr(self.fw, "restore_state"):
+                self.fw.restore_state(state, snap_dir)
+            self._fw_restore = None
         if self.invoke_async and not self.fw.supports_async():
             raise ValueError(
                 f"{self.name}: invoke-async=true, but framework "
@@ -321,6 +332,24 @@ class TensorFilter(Element):
             else:
                 self.fw.close()
             self.fw = None
+
+    # -- checkpoint/restore (checkpoint/) ---------------------------------
+    CHECKPOINTABLE = ("whatever the loaded framework exposes (the llm "
+                      "backend refuses: its stream snapshot is not "
+                      "ported)")
+
+    def snapshot_state(self, snap_dir):
+        # delegation, not ownership: the element is stateless between
+        # frames, but a framework may carry cross-invoke state (llm
+        # continuous batching) it knows how to snapshot
+        if self.fw is not None and hasattr(self.fw, "snapshot_state"):
+            return self.fw.snapshot_state(snap_dir)
+        if self._fw_restore is not None:
+            return self._fw_restore[0]  # restored, never started: re-emit
+        return None
+
+    def restore_state(self, state, snap_dir):
+        self._fw_restore = (state, snap_dir)
 
     def teardown(self) -> None:
         """Free the graph pool the element kept across restarts."""

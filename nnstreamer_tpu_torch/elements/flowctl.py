@@ -10,10 +10,8 @@ CUDA chunk (``A_VALUE`` copies the one element it compares,
 ``TENSOR_AVERAGE_VALUE`` the whole tensor, averaged by numpy as in the
 reference). ``tensor_rate throttle=true`` sends a ``QosEvent`` upstream
 when it drops, which an upstream ``tensor_filter`` answers by skipping
-invokes.
-
-Not ported: ``tensor_rate``'s ``snapshot_state``/``restore_state`` (the
-checkpoint layer is not in the port).
+invokes. ``tensor_rate``'s ``snapshot_state``/``restore_state`` carry
+its PTS schedule across a preemption (checkpoint/).
 """
 from __future__ import annotations
 
@@ -211,6 +209,28 @@ class TensorRate(TransformElement):
             return None
         n, _, d = self.framerate.partition("/")
         return int(n), int(d or 1)
+
+    # -- checkpoint/restore (checkpoint/) ---------------------------------
+    CHECKPOINTABLE = "the PTS schedule (next emit slot + gap-fill frame)"
+
+    def snapshot_state(self, snap_dir):
+        if self._next_ts is None and self._prev is None:
+            return None
+        from ..checkpoint.state import dump_buffer
+        return {"next_ts": self._next_ts,
+                "last_in_pts": self._last_in_pts,
+                "throttling": self._throttling,
+                "prev": dump_buffer(self._prev)
+                if self._prev is not None else None}
+
+    def restore_state(self, state, snap_dir):
+        from ..checkpoint.state import load_buffer
+        # restore runs before start(): no chain thread exists yet
+        self._next_ts = state["next_ts"]
+        self._last_in_pts = state["last_in_pts"]
+        self._throttling = bool(state["throttling"])
+        self._prev = (load_buffer(state["prev"])
+                      if state.get("prev") is not None else None)
 
     def handle_event(self, pad, event) -> None:
         if isinstance(event, (SegmentEvent, FlushEvent)):

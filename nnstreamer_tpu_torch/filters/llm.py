@@ -62,8 +62,13 @@ draw the same tokens. The tokens are not JAX's; the candidate sets are.
 
 Not ported: the prefill/decode split (``role:prefill|decode``,
 ``handoff``, ``handoff_port``, ``kv_precision``: ROADMAP item 8, the KV
-link), ``snapshot_state``/``restore_state`` and ``params_dir`` (item 11);
-each raises :class:`~..pipeline.element.NotPortedError`. The
+link) and ``snapshot_state``/``restore_state`` (the stream re-adoption
+of a restored snapshot, the next item of the checkpoint layer; ROADMAP
+item 11): each raises :class:`~..pipeline.element.NotPortedError`, so a
+``Pipeline.snapshot`` of a line holding this filter refuses rather than
+losing its streams. ``zoo://gpt?...&params_dir=<dir>`` serves trained
+weights (``<dir>/params``, a ``state_dict`` file that ``tensor_trainer``
+saves; trainers/checkpoint.py) in place of the seeded init. The
 single-stream path (``n_parallel:1``) serialises its generations on one
 decode state per ``max_len``, where JAX runs each on its own cache.
 """
@@ -482,10 +487,6 @@ class LlmFilter(FilterFramework):
             name = parsed.netloc or parsed.path.lstrip("/")
             if name != "gpt":
                 raise ValueError(f"llm filter expects zoo://gpt, got {name}")
-            if "params_dir" in kwargs:
-                raise NotPortedError(
-                    "llm: params_dir (trained weights from a checkpoint) "
-                    "is not ported yet (ROADMAP item 11)")
             self._cfg = tfm.GPTConfig(
                 vocab=int(kwargs.get("vocab", "32000")),
                 d_model=int(kwargs.get("d_model", "512")),
@@ -494,6 +495,11 @@ class LlmFilter(FilterFramework):
             gen = torch.Generator(device=self.device).manual_seed(
                 int(kwargs.get("seed", "0")))
             self._params = tfm.init_params(self._cfg, gen)
+            if "params_dir" in kwargs:
+                # trained weights (e.g. saved by tensor_trainer): the
+                # seeded init above is the template they load into
+                from ..trainers.checkpoint import restore_params
+                restore_params(kwargs["params_dir"], self._params)
         elif model.endswith(".py"):
             ns: Dict[str, Any] = {}
             with open(model) as f:
@@ -576,12 +582,14 @@ class LlmFilter(FilterFramework):
         self._graph_pool = None
 
     def snapshot_state(self, snap_dir) -> None:
-        raise NotPortedError("llm: snapshot_state is not ported yet "
-                             "(ROADMAP item 11, checkpoint)")
+        raise NotPortedError("llm: snapshot_state (stream re-adoption) is "
+                             "not ported yet (ROADMAP item 11, the llm "
+                             "snapshot)")
 
     def restore_state(self, state, snap_dir) -> None:
-        raise NotPortedError("llm: restore_state is not ported yet "
-                             "(ROADMAP item 11, checkpoint)")
+        raise NotPortedError("llm: restore_state (stream re-adoption) is "
+                             "not ported yet (ROADMAP item 11, the llm "
+                             "snapshot)")
 
     def get_model_info(self):
         # prompt length is per-buffer (dynamic): input derives from caps

@@ -51,9 +51,10 @@ streams in flight, chunked equals per-token, and the noise is safe to
 capture in a graph. The candidate set (``top_k``/``top_p`` formed on the
 unscaled logits, before temperature) is JAX's.
 
-Not ported: ``loss_fn`` (training, ROADMAP item 11) and the mesh fields
-(ring/ulysses sequence parallelism, item 12): a config that asks for a
-mesh raises :class:`~..pipeline.element.NotPortedError`.
+:func:`loss_fn` is the next-token cross-entropy the trainer (a
+``tensor_trainer`` model-config file) differentiates. Not ported: the
+mesh fields (ring/ulysses sequence parallelism, item 12): a config that
+asks for a mesh raises :class:`~..pipeline.element.NotPortedError`.
 """
 from __future__ import annotations
 
@@ -243,6 +244,13 @@ def forward(params: GPT, tokens: torch.Tensor, cfg: GPTConfig) -> torch.Tensor:
         h = block(h, layer, positions, cfg)
     h = rmsnorm(h, params.ln_f)
     return (h @ params.head).float()
+
+
+def loss_fn(params: GPT, batch: torch.Tensor, cfg: GPTConfig) -> torch.Tensor:
+    """Next-token cross-entropy; batch = tokens [B,S+1] integer."""
+    inputs, targets = batch[:, :-1], batch[:, 1:]
+    logp = torch.log_softmax(forward(params, inputs, cfg), dim=-1)
+    return -logp.gather(-1, targets[..., None].long())[..., 0].mean()
 
 
 def _last(h: torch.Tensor, true_len, t: int) -> torch.Tensor:

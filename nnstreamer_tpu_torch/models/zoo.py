@@ -8,9 +8,11 @@ output_info)``: ``module`` is an ``nn.Module`` holding the weights and
 per-frame), or on a batch with one extra leading dim.
 
 Weights are seeded random init (``seed`` in the kwargs), drawn from an
-explicit ``torch.Generator``. Not ported yet: ``params_dir`` (trained
-weights from a checkpoint); weights from the JAX package's param trees
-go through :mod:`.convert` instead.
+explicit ``torch.Generator``; ``params_dir=<dir>`` loads trained weights
+into the built module from ``<dir>/params`` (a ``state_dict`` file that
+``tensor_trainer`` or :func:`..trainers.checkpoint.save_params` wrote;
+the JAX package's orbax trees are refused there and go through
+:mod:`.convert` instead).
 
 ``gpt`` (the logit model of ``models/transformer.py``, registered there
 with the JAX entry's defaults and query keys) is the model the ``llm``
@@ -40,10 +42,14 @@ def register_model(name: str):
     return deco
 
 
-def build(name: str, **kwargs):
+def build(name: str, params_dir: Optional[str] = None, **kwargs):
     if name not in _ZOO:
         raise ValueError(f"unknown zoo model {name!r}; known: {sorted(_ZOO)}")
-    return _ZOO[name](**kwargs)
+    apply_fn, module, in_info, out_info = _ZOO[name](**kwargs)
+    if params_dir is not None:
+        from ..trainers.checkpoint import restore_params
+        restore_params(params_dir, module)
+    return apply_fn, module, in_info, out_info
 
 
 class Affine(nn.Module):

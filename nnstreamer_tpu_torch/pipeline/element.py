@@ -23,8 +23,13 @@ spans.
 (``Pipeline.drain``): a source stops admitting and flushes what it
 queued behind the EOS barrier (:meth:`SrcElement.drain_flushed`).
 
-Trimmed in the port: the observability spans, per-element debug
-categories, and checkpoint/preempt.
+The checkpoint hooks (``CHECKPOINTABLE``, :meth:`Element.snapshot_state`,
+:meth:`Element.restore_state`, :meth:`Element.preempt`,
+:meth:`Element.preempt_inflight`) are the JAX package's: what
+``Pipeline.snapshot``/``restore``/``preempt`` call.
+
+Trimmed in the port: the observability spans and the per-element debug
+categories.
 
 A property the port accepts but does not implement yet is declared in
 ``NOT_PORTED`` with the one value the port supports; :meth:`Element.start`
@@ -386,6 +391,45 @@ class Element:
         element drains, EOS reaches the sinks and the pipeline closes
         with nothing half-done. Base: nothing to do (pure per-buffer
         elements hold no work between chain calls)."""
+
+    # -- checkpoint/restore (checkpoint/) ----------------------------------
+    # one-line capability note for docs/pipelint: None means the element
+    # holds no state worth snapshotting; a string describes what
+    # snapshot_state() persists (checkpoint/store.py)
+    CHECKPOINTABLE: Optional[str] = None
+
+    def snapshot_state(self, snap_dir: str) -> Optional[Dict]:
+        """Serialize this element's live state for a crash-consistent
+        snapshot. ``snap_dir`` is a per-element scratch directory inside
+        the snapshot-in-progress for bulk artifacts (the trainer's
+        params ``state_dict``); the returned dict is pickled as the
+        element's blob, and both are integrity-hashed into the snapshot
+        manifest. Return None for "no state right now" (no blob
+        written). Base: stateless, never called (Pipeline.snapshot only
+        collects from overriders)."""
+        return None
+
+    def restore_state(self, state: Dict, snap_dir: str) -> None:
+        """Rebuild state captured by :meth:`snapshot_state`. Called by
+        ``Pipeline.restore`` BEFORE ``start()`` — elements whose backing
+        resources come up in start() stash the state and apply it
+        there."""
+
+    def preempt(self) -> None:
+        """Preemption quiesce hook (``Pipeline.preempt``): cheap and
+        non-blocking — stop admitting new work and nudge in-flight work
+        toward completion, but never wait. Runs even on the degraded
+        (no-drain) path. Default: delegate to :meth:`drain`. Elements
+        whose drain() *finishes* work rather than stopping it (the
+        trainer runs epochs to completion) override to pause instead."""
+        self.drain()
+
+    def preempt_inflight(self) -> int:
+        """Frames this element has admitted but not yet settled, counted
+        at snapshot time when the grace deadline forced the no-drain
+        path. Whatever is reported here is *declared* abandoned in the
+        preempt report and snapshot manifest — never silently lost."""
+        return 0
 
     def __repr__(self) -> str:
         return f"<{type(self).__name__} {self.name!r}>"

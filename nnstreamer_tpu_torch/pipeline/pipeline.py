@@ -16,7 +16,12 @@ True): pipelint's error findings raise
 so no model is loaded and nothing is allocated on the card; warnings
 are logged. ``Pipeline.drain`` is the graceful teardown: every element's
 ``drain`` hook, then EOS through the queues behind the sources' drain
-barrier, then ``stop``. Not ported: checkpoint/restore/preempt.
+barrier, then ``stop``. ``Pipeline.snapshot``/``restore``/``preempt``
+are the checkpoint layer (checkpoint/): every element overriding
+``snapshot_state`` is written into a crash-consistent snapshot, restored
+before ``start``, and a preemption quiesces, drains what its grace
+allows, snapshots and stops, declaring what it abandoned. Not ported:
+the flight recorder's dump inside ``preempt`` (ROADMAP item 8).
 """
 from __future__ import annotations
 
@@ -219,6 +224,143 @@ class Pipeline:
         finally:
             self.stop()
         return ok
+
+    # -- checkpoint/restore (checkpoint/) ----------------------------------
+    def checkpointables(self) -> List[Element]:
+        """Elements overriding :meth:`Element.snapshot_state` — the set
+        Pipeline.snapshot collects from and Pipeline.restore feeds."""
+        return [e for e in self.elements.values()
+                if type(e).snapshot_state is not Element.snapshot_state]
+
+    def snapshot(self, directory: str, retain: int = 3,
+                 meta: Optional[Dict] = None) -> str:
+        """Write one crash-consistent snapshot of every checkpointable
+        element into the retain-N store at ``directory`` and return the
+        published snapshot path. The pipeline must be quiesced (drained
+        or preempted) first — element snapshot hooks read live state.
+        A hook that cannot snapshot raises (the ``llm`` backend's
+        :class:`~.element.NotPortedError`) and nothing is published.
+
+        Layout and integrity rules: checkpoint/store.py."""
+        import os
+        import pickle
+        from ..checkpoint.store import SnapshotStore
+
+        def writer(tmp: str) -> None:
+            edir = os.path.join(tmp, "elements")
+            os.makedirs(edir)
+            for e in self.checkpointables():
+                sdir = os.path.join(edir, f"{e.name}.d")
+                os.makedirs(sdir)
+                state = e.snapshot_state(sdir)
+                if not os.listdir(sdir):
+                    os.rmdir(sdir)
+                if state is None:
+                    continue
+                with open(os.path.join(edir, f"{e.name}.blob"), "wb") as f:
+                    f.write(pickle.dumps(state, protocol=4))
+
+        full_meta = dict(meta or {})
+        full_meta.setdefault("pipeline", self.name)
+        full_meta.setdefault("elements", {
+            e.name: type(e).__name__ for e in self.checkpointables()})
+        return SnapshotStore(directory, retain=retain).save(
+            writer, meta=full_meta)
+
+    def restore(self, directory: str) -> Dict:
+        """Rebuild element state from a snapshot BEFORE ``start()``.
+        ``directory`` is either a store root (latest snapshot wins) or
+        one ``snap-*`` directory. The snapshot is verified first — a
+        truncated blob or tampered manifest raises
+        :class:`~..checkpoint.store.SnapshotError` naming the bad blob,
+        and NO element state is touched (never a silent partial
+        restore). Returns the snapshot's meta dict."""
+        import os
+        import pickle
+        from ..checkpoint.store import (MANIFEST, SnapshotError,
+                                        SnapshotStore)
+        if self.running:
+            raise RuntimeError(
+                f"{self.name}: restore() must run before start()")
+        snap = directory
+        if not os.path.exists(os.path.join(snap, MANIFEST)):
+            snap = SnapshotStore(directory).latest()
+            if snap is None:
+                raise SnapshotError(
+                    f"no snapshot found under {directory!r}")
+        manifest = SnapshotStore.verify(snap)
+        edir = os.path.join(snap, "elements")
+        for e in self.checkpointables():
+            blob = os.path.join(edir, f"{e.name}.blob")
+            if not os.path.exists(blob):
+                continue  # element had no state at snapshot time
+            with open(blob, "rb") as f:
+                state = pickle.loads(f.read())  # noqa: S301 — verified snapshot this program wrote
+            e.restore_state(state, os.path.join(edir, f"{e.name}.d"))
+        logger.info("%s: restored from %s (seq %s)", self.name, snap,
+                    manifest.get("seq"))
+        return manifest.get("meta", {})
+
+    def preempt(self, grace_s: float, directory: str,
+                retain: int = 3) -> Dict:
+        """Preemption sequence: quiesce → bounded drain → snapshot →
+        stop, all inside ``grace_s`` seconds.
+
+        Every element's :meth:`~Element.preempt` hook runs first (cheap,
+        non-blocking: stop admission, pause the trainer). If the
+        remaining grace — minus a reserve for writing the snapshot —
+        allows, the pipeline waits for EOS to reach the sinks (a full
+        drain). Otherwise it degrades: the snapshot is taken WITHOUT
+        drain and every element's :meth:`~Element.preempt_inflight`
+        count is recorded as explicitly abandoned — declared in the
+        report, the snapshot meta, and each element's
+        ``preempt_abandoned`` counter, never silent.
+
+        Returns ``{"snapshot", "drained", "abandoned", "grace_s",
+        "used_s"}``."""
+        t0 = time.monotonic()
+        from ..obs import events as _obs_events
+        _obs_events.emit("preempt", source=self.name,
+                         grace_s=float(grace_s))
+        # the JAX package dumps its flight recorder here; the recorder
+        # is not ported yet (ROADMAP item 8)
+        self.post_message("preempt", grace_s=grace_s)
+        for e in self.elements.values():
+            try:
+                e.preempt()
+            except Exception:  # noqa: BLE001 — quiesce is best-effort per element
+                logger.warning("%s: preempt hook failed", e.name,
+                               exc_info=True)
+        # reserve a slice of the grace budget for the snapshot itself;
+        # a short grace (< ~1s) degrades straight to snapshot-no-drain
+        reserve = min(1.0, grace_s * 0.5)
+        budget = grace_s - reserve - (time.monotonic() - t0)
+        drained = budget > 0 and bool(self._eos_evt.wait(budget)) \
+            and self._error is None
+        abandoned: Dict[str, int] = {}
+        if not drained:
+            for e in self.elements.values():
+                try:
+                    n = int(e.preempt_inflight())
+                except Exception:  # noqa: BLE001 — a count is best-effort
+                    n = 0
+                if n > 0:
+                    abandoned[e.name] = n
+                    e.stats.inc("preempt_abandoned", n)
+        snap = None
+        try:
+            snap = self.snapshot(
+                directory, retain=retain,
+                meta={"preempt": {"grace_s": float(grace_s),
+                                  "drained": drained,
+                                  "abandoned": abandoned}})
+        finally:
+            self.stop()
+        report = {"snapshot": snap, "drained": drained,
+                  "abandoned": abandoned, "grace_s": float(grace_s),
+                  "used_s": time.monotonic() - t0}
+        self.post_message("preempted", **report)
+        return report
 
     def wait_eos(self, timeout: Optional[float] = None) -> bool:
         """Block until all sinks saw EOS or an error was posted.

@@ -2,7 +2,7 @@
 bucketed batches for the card.
 
 Port of ``nnstreamer_tpu/serve/batcher.py``: host arrays only, a close
-copy without the checkpoint ledger (``ledger``; ROADMAP item 11). Host
+copy (``ledger`` is what a preemption snapshot records). Host
 arrays are numpy, but bfloat16, which numpy lacks, arrives from the
 wire as a CPU tensor and is stacked as one. Three invariants drive the design:
 
@@ -210,6 +210,15 @@ class BucketBatcher:
         with self._cond:
             return {"depth": len(self._fifo),
                     "streams": len(self._per_stream)}
+
+    def ledger(self) -> List[Dict[str, Any]]:
+        """Identity of every admitted-but-unbatched request — the
+        pending ledger a preemption snapshot records so a restarted
+        replica can DECLARE what was in flight (the router's failover
+        re-dispatches them; a late duplicate settles as an orphan)."""
+        with self._cond:
+            return [{"stream": r.stream_id, "seq": r.seq, "pts": r.pts}
+                    for r in self._fifo]
 
     # -- the consumer ------------------------------------------------------
     def bucket_for(self, n: int) -> int:

@@ -29,10 +29,17 @@ shed_failed + pending`` and the ROI gate's ``serve_roi_requests ==
 serve_roi_results + serve_roi_shed + pending`` (the reference's
 ``serve-settlement`` and ``roi-settlement`` identities).
 
+The source's checkpoint hooks record its pending-request ledger and
+connected client ids: a restored replica DECLARES that ledger on its
+fresh scheduler (``recovered_pending``) and announces its restored
+sessions to the fleet on REGISTER; nothing is replayed (the reply routes
+died with the old process; the router's failover owns re-dispatch).
+``preempt_inflight`` counts the admitted-but-unbatched requests a
+no-drain preemption abandons.
+
 Not ported: ``mesh=`` (ROADMAP item 12) and ``llm-role=`` (item 8, with
 the KV handoff) raise :class:`~..pipeline.element.NotPortedError` at
-start; the checkpoint hooks ``snapshot_state``, ``restore_state`` and
-``preempt_inflight`` come with item 11.
+start.
 """
 from __future__ import annotations
 
@@ -112,6 +119,9 @@ class TensorServeSrc(SrcElement):
         self._clock = threading.Lock()
         self.scheduler: Optional[ServeScheduler] = None
         self._broker_sock: Optional[socket.socket] = None
+        # checkpoint/: pending ledger + session ids recovered by
+        # restore_state, applied (declared, not replayed) at start()
+        self._restored: Optional[Dict] = None
         # per-incarnation token (reminted by every start()), echoed in
         # CAPS_ACK so a fleet router can tell "reconnect to the same
         # process life" from "a new process at the same endpoint"
@@ -142,6 +152,11 @@ class TensorServeSrc(SrcElement):
             max_queue=int(self.max_queue),
             deadline_s=float(self.deadline_ms) / 1e3,
             name=self.name)
+        if self._restored is not None:
+            # declare (never replay) the pre-crash pending ledger: reply
+            # routes died with the old process, the router's failover
+            # owns re-dispatch, late duplicates settle as orphans
+            self.scheduler.record_recovered(self._restored.get("ledger"))
         register_scheduler(self.id, self.scheduler)
         self._listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -162,6 +177,11 @@ class TensorServeSrc(SrcElement):
                 reg_meta = dict(self.scheduler.occupancy(), role="serve")
                 if str(self.version):
                     reg_meta["version"] = str(self.version)
+                if self._restored is not None:
+                    # resurrection announcement: the router counts these
+                    # and knows the replica carries restored session ids
+                    reg_meta["restored_sessions"] = list(
+                        self._restored.get("sessions") or [])
                 send_msg(self._broker_sock, MsgKind.REGISTER,
                          {"topic": self.topic, "host": self.host,
                           "port": self.bound_port, "meta": reg_meta})
@@ -181,6 +201,7 @@ class TensorServeSrc(SrcElement):
                 self._listener = None
                 unregister_scheduler(self.id)
                 raise
+        self._restored = None
         super().start()
 
     def stop(self) -> None:
@@ -474,6 +495,30 @@ class TensorServeSrc(SrcElement):
             _sever(conn)
         self.stats.inc("link_kills", len(victims))
         return len(victims)
+
+    # -- checkpoint/restore (checkpoint/) ----------------------------------
+    CHECKPOINTABLE = ("the pending-request ledger (declared, not "
+                      "replayed) + connected client ids")
+
+    def snapshot_state(self, snap_dir):
+        if self.scheduler is None:
+            return self._restored  # restored but never started: re-emit
+        ledger = self.scheduler.pending_ledger()
+        with self._clock:
+            sessions = sorted(self._conns)
+        if not ledger and not sessions:
+            return None
+        return {"ledger": ledger, "sessions": sessions}
+
+    def restore_state(self, state, snap_dir):
+        # applied at start(): the fresh scheduler records the recovered
+        # ledger and REGISTER advertises restored_sessions to the fleet
+        self._restored = state
+
+    def preempt_inflight(self) -> int:
+        # admitted-but-unsettled requests abandoned by a degraded
+        # (no-drain) preemption — declared in the preempt report
+        return self.scheduler.pending() if self.scheduler is not None else 0
 
     # -- the src loop ------------------------------------------------------
     def create(self) -> Optional[Buffer]:

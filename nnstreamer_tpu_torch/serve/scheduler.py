@@ -27,8 +27,9 @@ batch (one copy of the stack) and never demuxed.
 
 Not ported: the mesh placement (``mesh_spec``, ``place``; ROADMAP item
 12) — batches stay where :func:`~.batcher.stack_requests` made them, on
-the host, and the bucket snap is 1 — and the pending ledger a
-checkpoint records (``pending_ledger``, ``record_recovered``; item 11).
+the host, and the bucket snap is 1. The pending ledger a checkpoint
+records (``pending_ledger``) and the one a restored replica declares
+(``record_recovered``) are the JAX scheduler's.
 """
 from __future__ import annotations
 
@@ -86,6 +87,8 @@ class ServeScheduler:
         self.stats = Counters(completed=0, rows_padded=0, bucket_rows=0,
                               result_errors=0, invoke_errors=0,
                               shed_failed=0)
+        # ledger recovered from a preemption snapshot (read under _mlock)
+        self.recovered_ledger: List[Dict[str, Any]] = []
 
     # -- producers ---------------------------------------------------------
     def admit(self, stream_id: Any, arrays: Sequence[Any], *,
@@ -160,6 +163,28 @@ class ServeScheduler:
         """Requests admitted but not yet batched (the drain barrier
         watches this reach zero)."""
         return self.batcher.depth()
+
+    # -- checkpoint/restore (checkpoint/) ----------------------------------
+    def pending_ledger(self) -> List[Dict[str, Any]]:
+        """The admitted-but-unsettled ledger a preemption snapshot
+        records: per-request (stream, seq, pts) identity. Reply routes
+        (sockets, callbacks) do not survive process death, so the ledger
+        declares — it does not replay; the fleet router's failover owns
+        re-dispatch, and a late duplicate settles as an orphan, keeping
+        ``router_requests == delivered + shed + orphaned``."""
+        return self.batcher.ledger()
+
+    def record_recovered(self, ledger: List[Dict[str, Any]]) -> None:
+        """Note a restored ledger on this (fresh) scheduler: counted and
+        kept for observability and chaos assertions; nothing is
+        re-queued here (see :meth:`pending_ledger`)."""
+        with self._mlock:
+            self.recovered_ledger = list(ledger or [])
+        if ledger:
+            self.stats.inc("recovered_pending", len(ledger))
+            logger.info("%s: restored with %d declared in-flight "
+                        "requests (router failover re-dispatches them)",
+                        self.name, len(ledger))
 
     # -- the batch side ----------------------------------------------------
     def next_batch(self, stop: Optional[threading.Event] = None):

@@ -49,8 +49,7 @@ FILTER = "tensor_filter name=f framework=simlink"
 
 DEFERRED = {
     "sharding-divisibility", "serve-mesh-divisibility", "mesh-colocation",
-    "llm-prefix-cache-lossy-link", "delta-lossy-gate-feeds-trainer",
-    "autoscaler-config", "stateful-no-checkpoint",
+    "llm-prefix-cache-lossy-link", "autoscaler-config",
 }
 
 
@@ -72,7 +71,7 @@ def findings_for(desc, rule=None):
 
 def test_rule_ids_are_the_reference_minus_the_deferred():
     assert {r.id for r in ALL_RULES} == {r.id for r in NT_RULES} - DEFERRED
-    assert len(ALL_RULES) == 21
+    assert len(ALL_RULES) == 23
 
 
 class TestCapsInference:
@@ -607,3 +606,80 @@ class TestCli:
     def test_text_output(self, capsys):
         assert cli.main([REFUSED["cycle"]]) == 2
         assert "pipelint: 2 error(s)" in capsys.readouterr().out
+
+
+class TestDeltaLossyGateFeedsTrainerRule:
+    """tests/test_analysis.py's cases of ``delta-lossy-gate-feeds-trainer``
+    (a gated or roi stream into a tensor_trainer warns on the delta;
+    mask mode, or no trainer, is clean), findings compared with the JAX
+    package's by ``findings_for``."""
+
+    def test_gated_stream_into_trainer_warns(self):
+        bad = (  # pipelint: skip — ROI-skipped stream feeding a trainer
+            f"tensortestsrc caps={CAPS_F32} ! "
+            "tensor_delta name=d mode=gate ! "
+            "tensor_trainer name=tr ! fakesink")
+        got = findings_for(bad, "delta-lossy-gate-feeds-trainer")
+        assert [(f.element, f.severity) for f in got] == \
+            [("d", Severity.WARNING)]
+        assert "motion-biased" in got[0].message
+
+    def test_roi_mode_into_trainer_warns(self):
+        bad = (  # pipelint: skip — roi crops feeding a trainer
+            f"tensortestsrc caps={CAPS_F32} ! "
+            "tensor_delta name=d mode=roi ! "
+            "tensor_trainer name=tr ! fakesink")
+        got = findings_for(bad, "delta-lossy-gate-feeds-trainer")
+        assert [f.element for f in got] == ["d"]
+
+    def test_trainer_behind_a_queue_still_warns(self):
+        bad = (  # pipelint: skip — gated stream reaching a trainer
+            f"tensortestsrc caps={CAPS_F32} ! "
+            "tensor_delta name=d mode=gate ! queue ! "
+            "tensor_trainer name=tr ! fakesink")
+        got = findings_for(bad, "delta-lossy-gate-feeds-trainer")
+        assert [f.element for f in got] == ["d"]
+
+    def test_mask_mode_into_trainer_is_clean(self):
+        ok = (f"tensortestsrc caps={CAPS_F32} ! "
+              "tensor_delta name=d mode=mask ! "
+              "tensor_trainer name=tr ! fakesink")
+        assert findings_for(ok, "delta-lossy-gate-feeds-trainer") == []
+
+    def test_gate_without_trainer_is_clean(self):
+        ok = (f"tensortestsrc caps={CAPS_U8} ! "
+              "tensor_delta name=d mode=gate ! fakesink")
+        assert findings_for(ok, "delta-lossy-gate-feeds-trainer") == []
+
+
+class TestStatefulNoCheckpointRule:
+    """``stateful-no-checkpoint`` on every element the port registers:
+    an element class declaring RESTART_SAFE=False without a
+    snapshot_state hook warns, in the port as in the JAX package; none
+    of the port's elements does, and each element's checkpointable-ness
+    is the JAX element's."""
+
+    def test_no_port_element_declares_state_it_cannot_snapshot(self):
+        from nnstreamer_tpu.pipeline.element import Element as NtElement
+        from nnstreamer_tpu.pipeline.registry import _ELEMENTS as NT_ELEMENTS
+        from nnstreamer_tpu_torch.pipeline.element import Element
+        from nnstreamer_tpu_torch.pipeline.registry import _ELEMENTS
+
+        def hooked(cls, base):
+            return cls.snapshot_state is not base.snapshot_state
+
+        for name, cls in _ELEMENTS.items():
+            if not cls.__module__.startswith("nnstreamer_tpu_torch."):
+                continue  # a test module's element
+            declares = "RESTART_SAFE" in cls.__dict__ \
+                and cls.RESTART_SAFE is False
+            assert not declares or hooked(cls, Element), name
+            if name in NT_ELEMENTS:
+                assert hooked(cls, Element) == \
+                    hooked(NT_ELEMENTS[name], NtElement), name
+
+    def test_trainer_and_aggregator_lines_are_clean(self):
+        ok = (f"tensortestsrc caps={CAPS_F32} ! tensor_rate "
+              "framerate=30/1 ! tensor_aggregator frames-out=2 "
+              "! tensor_trainer name=tr ! fakesink")
+        assert findings_for(ok, "stateful-no-checkpoint") == []

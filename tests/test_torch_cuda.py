@@ -1479,3 +1479,134 @@ def test_serve_drain_after_suspend_and_resume_answers_every_request(card):
     assert n_result + n_shed == 32 and n_result > 0
     assert rep["requests"] == rep["completed"] + rep["shed_deadline"] \
         + rep["cancelled"] + rep["shed_failed"]
+
+
+# -- training and the checkpoint layer on the card ----------------------------
+
+TINY_VIT = "size=32&patch=8&d_model=32&layers=2&heads=2&classes=4"
+
+
+def _vit_dataset(tmp_path, n=12):
+    """n seeded 32x32x3 uint8 frames with int32 labels as a datarepo
+    file and its JSON index."""
+    import json
+    rng = np.random.default_rng(0)
+    frames = rng.integers(0, 256, (n, 32, 32, 3), dtype=np.uint8)
+    labels = rng.integers(0, 4, (n, 1)).astype(np.int32)
+    data = tmp_path / "vit.data"
+    with open(data, "wb") as f:
+        for x, y in zip(frames, labels):
+            f.write(x.tobytes() + y.tobytes())
+    jpath = tmp_path / "vit.json"
+    jpath.write_text(json.dumps({
+        "gst_caps": ("other/tensors, format=(string)static, "
+                     "framerate=(fraction)0/1, num_tensors=(int)2, "
+                     "dimensions=(string)3:32:32.1, "
+                     "types=(string)uint8.int32"),
+        "total_samples": n, "sample_size": 32 * 32 * 3 + 4}))
+    return data, jpath, frames, labels
+
+
+def _vit_train_line(data, jpath, src_epochs, epochs, extra=""):
+    return (f"datareposrc location={data} json={jpath} is-shuffle=false "
+            f"epochs={src_epochs} ! tensor_trainer name=t "
+            f'framework=torch-cuda model-config="zoo://vit?{TINY_VIT}'
+            f'&lr=1e-2" num-training-samples=8 num-validation-samples=4 '
+            f"epochs={epochs} {extra} ! appsink name=out")
+
+
+def test_vit_trainer_steps_on_the_card(card, tmp_path):
+    """datareposrc ! tensor_trainer on cuda:0 by default: the weights
+    live on the card, the epoch-1 loss is the seed-0 model's
+    cross-entropy on the first batch (same card, same kernels: 1e-6
+    relative), and the loss falls."""
+    from nnstreamer_tpu_torch.models import zoo
+    data, jpath, frames, labels = _vit_dataset(tmp_path)
+    pipe = pt.parse_launch(_vit_train_line(data, jpath, 4, 4))
+    pipe.start()
+    try:
+        assert pipe.wait_eos(120)
+        devices = {str(p.device) for p in pipe["t"].fw.module.parameters()}
+    finally:
+        pipe.stop()
+    losses = [float(b.chunks[0].host()[0]) for b in pipe["out"].buffers]
+    kw = dict(p.split("=") for p in TINY_VIT.split("&"))
+    apply_fn, m, _, _ = zoo.build("vit", **kw)
+    with torch.no_grad():
+        logp = torch.log_softmax(apply_fn(m.cuda(), torch.from_numpy(
+            frames[:8]).cuda()).float(), -1)
+        want = float(-logp.gather(
+            -1, torch.from_numpy(labels[:8]).cuda().long()).mean())
+    assert devices == {"cuda:0"}
+    assert abs(losses[0] - want) <= 1e-6 * abs(want)
+    assert losses[3] < losses[0]
+
+
+def test_trainer_snapshot_restore_on_the_card(card, tmp_path):
+    """Preempt after epoch 2, restore into a 4-epoch line: epochs 3-4
+    continue the straight run (its losses within 1e-4 relative; the
+    moments come back from the snapshot onto the card)."""
+    data, jpath, _, _ = _vit_dataset(tmp_path)
+    straight = pt.parse_launch(_vit_train_line(data, jpath, 4, 4))
+    straight.run(timeout=120)
+    want = {int(b.pts): float(b.chunks[0].host()[0])
+            for b in straight["out"].buffers}
+    ckpt = str(tmp_path / "ckpt")
+    first = pt.parse_launch(_vit_train_line(data, jpath, 2, 2))
+    first.start()
+    assert first.wait_eos(120)
+    report = first.preempt(5.0, ckpt)
+    assert report["drained"] is True
+    resumed = pt.parse_launch(_vit_train_line(data, jpath, 2, 4))
+    resumed.restore(ckpt)
+    resumed.start()
+    try:
+        assert resumed.wait_eos(120)
+        opt = resumed["t"].fw.optimizer
+        moments = [s["exp_avg"].device.type for s in opt.state.values()]
+    finally:
+        resumed.stop()
+    got = [(int(b.pts), float(b.chunks[0].host()[0]))
+           for b in resumed["out"].buffers]
+    assert [e for e, _ in got] == [3, 4, 4]
+    assert moments and set(moments) == {"cuda"}
+    for e, loss in got:
+        assert abs(loss - want[e]) <= 1e-4 * abs(want[e])
+
+
+def test_params_dir_serves_trained_weights_through_the_kernel(card,
+                                                              tmp_path):
+    """zoo://vit?attn=pallas&params_dir=: the saved weights (seed 1's,
+    not the seed-0 init) served through the attention kernel, one launch
+    a layer a frame, against the same weights' eager forward with stock
+    attention (the ViT lines' bf16 rule)."""
+    from nnstreamer_tpu_torch.models import zoo
+    from nnstreamer_tpu_torch.trainers import save_params
+    kw = dict(p.split("=") for p in TINY_VIT.split("&"))
+    apply_fn, trained, _, _ = zoo.build("vit", seed="1", **kw)
+    save_params(str(tmp_path / "ckpt"), trained)
+    frames = np.random.default_rng(3).integers(
+        0, 256, (4, 32, 32, 3), dtype=np.uint8)
+    caps = ("other/tensors,format=static,num_tensors=1,types=uint8,"
+            "dimensions=3:32:32,framerate=0/1")
+    pipe = pt.parse_launch(
+        f"appsrc name=in caps={caps} ! tensor_filter framework=torch-cuda "
+        f'model="zoo://vit?{TINY_VIT}&attn=pallas&params_dir='
+        f'{tmp_path / "ckpt"}" ! appsink name=out')
+    before = attention.launches
+    pipe.start()
+    for i, f in enumerate(frames):
+        pipe["in"].push_buffer(pt.Buffer.from_arrays([f], pts=i))
+    pipe["in"].end_stream()
+    pipe.wait_eos(60)
+    pipe.stop()
+    got = torch.from_numpy(np.stack(
+        [b.chunks[0].host() for b in pipe["out"].buffers]))
+    assert attention.launches - before == 2 * len(frames)
+    with torch.no_grad():
+        want = apply_fn(trained.cuda(), torch.from_numpy(frames).cuda()).cpu()
+        _, seed0, _, _ = zoo.build("vit", **kw)
+        init = apply_fn(seed0.cuda(), torch.from_numpy(frames).cuda()).cpu()
+    tol = 5e-2 + 0.05 * want.abs().max().item()
+    assert (got - want).abs().max().item() <= tol
+    assert (init - want).abs().max().item() > tol

@@ -486,8 +486,6 @@ def test_deferred_options_raise_not_ported(custom, item):
 
 
 def test_deferred_model_options_raise_not_ported():
-    with pytest.raises(pt.NotPortedError, match="item 11"):
-        mk("max_tokens:2", ZOO + "&params_dir=/nonexistent")
     fw = mk("max_tokens:2,role:both")
     for call in (lambda: fw.snapshot_state("d"),
                  lambda: fw.restore_state({}, "d")):
@@ -875,11 +873,37 @@ def test_nucleus_formed_before_temperature():
         assert tok in (3, 11), tok
 
 
-def test_llm_loads_trained_weights_from_checkpoint():
-    """params_dir (orbax weights in the JAX package) waits for the
-    checkpoint store: NotPortedError naming item 11."""
-    with pytest.raises(pt.NotPortedError, match="item 11"):
-        mk("max_tokens:8,max_len:32", f"{ZOO}&params_dir=/tmp/gpt-ckpt")
+def test_llm_loads_trained_weights_from_checkpoint(tmp_path):
+    """zoo://gpt?params_dir=... loads the weights tensor_trainer saves
+    (the port's state_dict file; the JAX test's orbax tree, here the
+    same JAX init_params(PRNGKey(42)) tree converted and saved with the
+    port's save_params): the served weights are that tree's, bitwise,
+    generation differs from the seed-0 init and is reproducible across
+    opens. A missing directory raises instead of serving the init."""
+    from nnstreamer_tpu_torch.trainers import save_params
+    cfg = J.GPTConfig(vocab=64, d_model=32, n_heads=4, n_layers=2)
+    trained = jax.tree.map(np.asarray, jax.device_get(
+        J.init_params(cfg, jax.random.PRNGKey(42))))
+    want = gpt_params_from_jax(trained)
+    ckpt = str(tmp_path / "gpt-ckpt")
+    save_params(ckpt, want)
+    p = np.array([7, 3, 1], np.int32)
+    f = mk("max_tokens:8,max_len:32")
+    out_random = f.invoke([p])[0]
+    f.close()
+    fw_tokens = []
+    for _ in range(2):
+        f = mk("max_tokens:8,max_len:32", f"{ZOO}&params_dir={ckpt}")
+        fw_tokens.append(f.invoke([p])[0])
+        served = {k: v.float() for k, v in f._params.state_dict().items()}
+        f.close()
+    assert sorted(served) == sorted(want)
+    for k, v in want.items():
+        assert torch.equal(served[k], v.to(torch.bfloat16).float()), k
+    np.testing.assert_array_equal(fw_tokens[0], fw_tokens[1])
+    assert not np.array_equal(fw_tokens[0], out_random)
+    with pytest.raises(FileNotFoundError):
+        mk("max_tokens:8,max_len:32", f"{ZOO}&params_dir={tmp_path}/none")
 
 
 # -- mirrors of tests/test_llm_disagg.py: the paged transformer ---------------------
