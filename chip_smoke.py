@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py
 
-Phases, in order, but for 32-34, which run right after phase 1 while
-phase 2's compilers run; any failure exits non-zero and prints no result
+Phases, in order, but for 32-34 and 40-41, which run right after phase
+1 while phase 2's compilers run; any failure exits non-zero and prints no result
 line:
 
 1. device   — a CUDA device must be present; prints nvidia-smi's card
@@ -321,12 +321,41 @@ Native queue — the headline line with queue backend=native against
               from a datareposrc on the card, saved, and served by the
               llm filter from params_dir: the first token after [4, 5,
               6] is 7 (tests/test_training.py:210's loop).
+40. llm disagg — the disaggregated line at LLM_LARGE (no cut), in one
+              process over loopback: a prefill replica (role:prefill,
+              kv_precision:none) ships phase 32's 8 prompts over
+              KV_XFER to a decode replica (role:decode, 8 streams x 48
+              tokens, chunk 32, block 16, 64 blocks) after phase 32's
+              warm-up prompt: the tokens equal phase 32's bit for bit,
+              the decode replica computes no prompt token and takes 32
+              shipped tokens in 8 handoffs, the prefill replica ships 8
+              with no error; tokens/s and time to first token beside
+              phase 32's, handoff ms and wire bytes a stream, captures,
+              memory_allocated(). Then kv_precision:bf16 on bench.py's
+              disagg prompts (8 x 64, 57 shared): one stream's K/V
+              gathered from the decode arena bitwise equal to the
+              prefill pass's; the streams equal to the decode replica's
+              own monolithic run are counted.
+41. llm decode kill — TestChaosDecodeKill at LLM_LARGE (chunk 1): a
+              9-token prompt for 48 greedy tokens; both replicas closed
+              after 24 tokens, the decode replica's snapshot_state
+              through SnapshotStore and back; a fresh decode replica
+              restores it and a fresh prefill replica re-ships the
+              prompt: delivered + rest equal a monolithic paged run's
+              tokens, 9 tokens shipped, only the delivered suffix
+              recomputed.
+42. mqtt mobilenet — tensortestsrc (phase 2's seeded 224x224 frames) !
+              the full-width MobileNet-v2 on the card ! mqttsink ->
+              the port's MqttBroker -> mqttsrc ! appsink at QoS 0 and
+              1, 64 frames each: every frame once and in order, the
+              logits bitwise equal to the local line's; frames/s and
+              p50 at the subscriber, D2H copies a frame at the sink.
 Every model line runs through the backend's per-signature executable,
 one captured CUDA graph per input signature: the first frame runs
 eagerly (the capture's warm-up), every later frame is one replay, so a
 hand kernel inside the graph counts once a frame.
-Phases 8-11, 13, 16, 17, 19, 20, 22, 24, 26, 27, 29-35, 37, 39 and the
-native queue lines launch neither hand kernel
+Phases 8-11, 13, 16, 17, 19, 20, 22, 24, 26, 27, 29-35, 37, 39-42 and
+the native queue lines launch neither hand kernel
 (their models inline their input affine, as the JAX models do); their
 launch counts are read all the same and written on the kernels line as
 0. The
@@ -4090,6 +4119,407 @@ def phase_llm_single_shot(smi):
     return {"single_shot": row}
 
 
+# -- phases 40-42: the disaggregated LLM line, the MQTT transport --------
+
+# phase 40's decode replica: phase 32's streams, chunk and max_len on the
+# paged pool phase 33 sized (8 x ceil((7 + 48) / 16) = 32 blocks needed,
+# 8 x ceil((64 + 48) / 16) = 56 on the second run's prompts). Its prefix
+# cache is off so its own monolithic run of those prompts prefills each
+# whole, as the prefill replica does
+LLM_DISAGG_DECODE = (f"max_tokens:{LLM_TOKENS},role:decode,handoff_port:0,"
+                     f"n_parallel:{LLM_STREAMS},max_len:{LLM_MAX_LEN},"
+                     f"chunk:{LLM_CHUNK},block_size:{LLM_BLOCK},"
+                     f"pool_blocks:{LLM_POOL_BLOCKS},prefix_cache:false")
+LLM_KILL_PROMPT = 9        # phase 41: TestChaosDecodeKill's 9-token prompt,
+LLM_KILL_AT = 24           # both replicas closed once 24 tokens arrived
+MQTT_FRAMES = 64           # phase 42: frames a QoS level
+MQTT_WARMUP = 8            # frames before the measured ones (the capture)
+
+
+def _llm_prefill(port, precision, extra=""):
+    return _llm(f"max_tokens:{LLM_TOKENS},max_len:{LLM_MAX_LEN},"
+                f"role:prefill,handoff:127.0.0.1:{port},"
+                f"kv_precision:{precision}{extra}")
+
+
+def _llm_split_collect(pre, dec, prompts, what, timeout=300):
+    """invoke_async every prompt on the prefill replica; the decode
+    replica emits the tokens, each keyed by its stream id (the prompt's
+    token_sha). -> (tokens a prompt, t_submit, t_first, t_last)."""
+    import threading
+    from nnstreamer_tpu_torch.checkpoint.state import token_sha
+    index = {token_sha(p): i for i, p in enumerate(prompts)}
+    got, stamps = {}, []
+    lock, done = threading.Lock(), threading.Event()
+    want = len(prompts) * LLM_TOKENS
+
+    def dispatch(outs, ctx):
+        with lock:
+            stamps.append(time.perf_counter())
+            got.setdefault(index[ctx], []).append(
+                int(np.asarray(outs[0]).ravel()[0]))
+            if len(stamps) == want:
+                done.set()
+
+    dec.set_async_dispatcher(dispatch)
+    t0 = time.perf_counter()
+    for p in prompts:
+        pre.invoke_async([p])
+    if not done.wait(timeout):
+        sys.exit(f"chip_smoke: {what}: {len(stamps)} of {want} tokens; "
+                 f"prefill {pre.stats.snapshot()}")
+    return [got[i] for i in range(len(prompts))], t0, stamps[0], stamps[-1]
+
+
+def _delta(fw, before):
+    now = fw.stats.snapshot()
+    return {k: now[k] - before.get(k, 0) for k in now}
+
+
+def phase_llm_disagg(smi, ref, mono):
+    """Phase 40: the disaggregated line at LLM_LARGE's full width, in one
+    process over loopback: a prefill replica (role:prefill,
+    kv_precision:none) ships phase 32's 8 prompts to a decode replica
+    (role:decode, phase 32's 8 streams x 48 tokens, chunk 32, block 16,
+    64 blocks) after the same one-prompt warm-up; the tokens must equal
+    phase 32's bit for bit, the decode replica compute no prompt token
+    and take 32 shipped tokens in 8 handoffs. Tokens/s and time to first
+    token beside phase 32's, handoff ms and bytes a stream, captures and
+    memory_allocated(). Then a second prefill replica with
+    kv_precision:bf16 ships bench.py:1617's prompts (8 x 64, 57 shared)
+    to the same decode replica: one stream's K/V gathered back from the
+    arena equal the prefill pass's bitwise, and the tokens are compared
+    with the decode replica's own monolithic run of the prompts."""
+    from nnstreamer_tpu_torch.filters import llm as L
+    from nnstreamer_tpu_torch.models import transformer as tfm
+    out = {}
+    t_phase = time.perf_counter()
+    _reset_launches()
+    mem0 = _allocated()
+    dec, dec_open = _llm(LLM_DISAGG_DECODE)
+    pre, pre_open = _llm_prefill(dec.handoff_port, "none")
+    mem_open = _allocated()
+    t0 = time.perf_counter()
+    _llm_split_collect(pre, dec, [np.arange(8, dtype=np.int32)], "warm-up")
+    warm_s = time.perf_counter() - t0
+    p0, d0 = pre.stats.snapshot(), dec.stats.snapshot()
+    prompts = _llm_prompts()
+    toks, t0, t_first, t_last = _llm_split_collect(pre, dec, prompts,
+                                                   "llm disagg")
+    ps, ds = _delta(pre, p0), _delta(dec, d0)
+    n_tok = LLM_STREAMS * LLM_TOKENS
+    shipped = sum(p.size for p in prompts)
+    cfg = dec._cfg
+    kv_token = 2 * cfg.n_layers * cfg.n_heads * cfg.head_dim * 2
+    row = out["none"] = {
+        "streams": LLM_STREAMS, "tokens": n_tok,
+        "tokens_per_s": n_tok / (t_last - t0),
+        "ttft_ms": (t_first - t0) * 1e3,
+        "monolithic_tokens_per_s": mono["tokens_per_s"],
+        "monolithic_ttft_ms": mono["ttft_ms"],
+        "equal_monolithic": toks == ref,
+        "handoff_ms": ps["kv_handoff_ns"] / max(1, ps["kv_handoffs_out"])
+        / 1e6,
+        "bytes_per_handoff": ps["wire_bytes_out"]
+        / max(1, ps["kv_handoffs_out"]),
+        "kv_bytes_per_token": kv_token, "logits_bytes": cfg.vocab * 4,
+        "reckoned_bytes": shipped * kv_token / LLM_STREAMS + cfg.vocab * 4,
+        "prefill": {k: ps[k] for k in ("kv_handoffs_out", "kv_handoff_errors",
+                                       "prefill_rows", "wire_bytes_out")},
+        "decode": {k: ds[k] for k in ("kv_handoffs_in", "kv_shipped_tokens",
+                                      "prefill_computed_tokens",
+                                      "decode_steps", "decode_dispatches")},
+        "graph_captures": {"prefill": pre.compile_count,
+                           "decode": dec.compile_count},
+        "warmup_s": warm_s, "open_s": {"prefill": pre_open,
+                                       "decode": dec_open},
+        "allocated_open_mib": (mem_open - mem0) / 2**20,
+        "allocated_run_mib": (_allocated() - mem0) / 2**20}
+    log(f"llm disagg (LLM_LARGE, prefill -> KV_XFER -> decode over "
+        f"loopback, {LLM_STREAMS} prompts x {LLM_TOKENS} tokens, chunk "
+        f"{LLM_CHUNK}, kv_precision:none): {row['tokens_per_s']:.1f} "
+        f"tokens/s, time to first token {row['ttft_ms']:.2f} ms (phase 32 "
+        f"monolithic: {mono['tokens_per_s']:.1f} tokens/s, "
+        f"{mono['ttft_ms']:.2f} ms), tokens "
+        f"{'equal' if row['equal_monolithic'] else 'NOT EQUAL'} to phase "
+        f"32's, handoff {row['handoff_ms']:.3f} ms a stream (prefill "
+        f"pass return -> KV_ACK), {row['bytes_per_handoff']:.0f} wire "
+        f"bytes a handoff ({row['reckoned_bytes']:.0f} reckoned: "
+        f"{kv_token} B of K/V a token + {cfg.vocab * 4} B of logits), "
+        f"prefill {row['prefill']}, decode {row['decode']}, graph "
+        f"captures {row['graph_captures']}, warm-up {warm_s:.2f} s, open "
+        f"{pre_open:.2f} + {dec_open:.2f} s, memory_allocated() "
+        f"+{row['allocated_open_mib']:.1f} MiB at open, "
+        f"+{row['allocated_run_mib']:.1f} MiB after the run; {smi}")
+    if not row["equal_monolithic"] or ds["prefill_computed_tokens"] \
+            or ds["kv_shipped_tokens"] != shipped \
+            or ds["kv_handoffs_in"] != LLM_STREAMS \
+            or ps["kv_handoffs_out"] != LLM_STREAMS \
+            or ps["kv_handoff_errors"]:
+        sys.exit(f"chip_smoke: llm disagg: {row}")
+    row["kernel_launches"] = _kernel_launches()
+    pre.close()
+    # the second run: bf16 on the link, prompts that fill 4 blocks each
+    _reset_launches()
+    pre, _ = _llm_prefill(dec.handoff_port, "bf16")
+    seen = {}
+    real = L._PagedBackend.admit_handoff
+
+    def admit_handoff(self, slot, flat, kv, budget):
+        logits = real(self, slot, flat, kv, budget)
+        if not seen:
+            blocks = torch.tensor(self.blocks[slot], device=self.f.device)
+            k, v = tfm.pool_gather(self.pool, blocks)
+            n = flat.size
+            seen.update(prompt=flat.copy(), k=k[:, :n].clone(),
+                        v=v[:, :n].clone())
+        return logits
+
+    L._PagedBackend.admit_handoff = admit_handoff
+    prompts = _llm_disagg_prompts(LLM_STREAMS, 64, 57)
+    try:
+        p0, d0 = pre.stats.snapshot(), dec.stats.snapshot()
+        toks, t0, t_first, t_last = _llm_split_collect(
+            pre, dec, prompts, "llm disagg bf16")
+    finally:
+        L._PagedBackend.admit_handoff = real
+    ps, ds = _delta(pre, p0), _delta(dec, d0)
+    _, k, v = pre._prefill(LLM_MAX_LEN)(seen["prompt"])
+    n = seen["prompt"].size
+    arena_equal = bool(torch.equal(seen["k"], k[:, :n])
+                       and torch.equal(seen["v"], v[:, :n]))
+    local, _, _, _ = _llm_collect(dec, prompts, LLM_TOKENS,
+                                  "llm disagg monolithic")
+    agree = sum(a == b for a, b in zip(toks, local))
+    row = out["bf16"] = {
+        "streams": LLM_STREAMS, "tokens_per_s": n_tok / (t_last - t0),
+        "ttft_ms": (t_first - t0) * 1e3,
+        "arena_kv_equal_prefill": arena_equal,
+        "streams_equal_monolithic": agree,
+        "handoff_ms": ps["kv_handoff_ns"] / max(1, ps["kv_handoffs_out"])
+        / 1e6,
+        "bytes_per_handoff": ps["wire_bytes_out"]
+        / max(1, ps["kv_handoffs_out"]),
+        "decode": {k: ds[k] for k in ("kv_handoffs_in", "kv_shipped_tokens",
+                                      "prefill_computed_tokens")},
+        "kernel_launches": _kernel_launches(),
+        "phase_s": time.perf_counter() - t_phase}
+    log(f"llm disagg kv_precision:bf16 (bench.py:1617's 8 x 64 tokens, 57 "
+        f"shared): one stream's K/V gathered from the decode arena "
+        f"{'bitwise equal' if arena_equal else 'NOT EQUAL'} to the "
+        f"prefill pass's, {agree} of {LLM_STREAMS} streams equal the "
+        f"decode replica's monolithic run (the first token samples "
+        f"bf16-rounded logits), {row['tokens_per_s']:.1f} tokens/s, first "
+        f"token {row['ttft_ms']:.2f} ms, handoff {row['handoff_ms']:.3f} "
+        f"ms, {row['bytes_per_handoff']:.0f} wire bytes a handoff, decode "
+        f"{row['decode']}; phase 40 {row['phase_s']:.1f} s; {smi}")
+    pre.close()
+    dec.close()
+    if not arena_equal or ds["kv_shipped_tokens"] != 64 * LLM_STREAMS \
+            or ds["prefill_computed_tokens"]:
+        sys.exit(f"chip_smoke: llm disagg bf16: {row}")
+    return out
+
+
+def phase_llm_decode_kill(smi, tmp):
+    """Phase 41: TestChaosDecodeKill at LLM_LARGE on the card. A prefill
+    and a decode replica (chunk 1, phase 40's pool) run one 9-token
+    prompt for 48 greedy tokens; once 24 have arrived both close, and the
+    decode replica's snapshot_state goes through SnapshotStore and back.
+    A fresh decode replica restores it and a fresh prefill replica
+    re-ships the prompt: what was delivered plus the rest must equal a
+    monolithic paged run's tokens (none lost, none repeated), with the
+    prompt's 9 tokens shipped and only the delivered suffix recomputed."""
+    import pickle
+    import threading
+    from nnstreamer_tpu_torch.checkpoint import SnapshotStore
+    _reset_launches()
+    t_phase = time.perf_counter()
+    prompt = np.arange(1, LLM_KILL_PROMPT + 1, dtype=np.int32)
+    dec_custom = LLM_DISAGG_DECODE.replace(f"chunk:{LLM_CHUNK}", "chunk:1")
+    fw, _ = _llm(dec_custom.replace("role:decode,handoff_port:0",
+                                    "paged:true"))
+    mono = _llm_collect(fw, [prompt], LLM_TOKENS, "llm kill monolithic")[0][0]
+    fw.close()
+
+    def decode_replica(n_want):
+        dec, _ = _llm(dec_custom)
+        got, lock, evt = [], threading.Lock(), threading.Event()
+
+        def dispatch(outs, ctx):
+            with lock:
+                got.append(int(np.asarray(outs[0]).ravel()[0]))
+                if len(got) >= n_want:
+                    evt.set()
+
+        dec.set_async_dispatcher(dispatch)
+        return dec, got, lock, evt
+
+    d1, got, lock, half = decode_replica(LLM_KILL_AT)
+    p1, _ = _llm_prefill(d1.handoff_port, "none")
+    p1.invoke_async([prompt])
+    if not half.wait(300):
+        sys.exit(f"chip_smoke: llm kill: {len(got)} tokens arrived")
+    # the crash: close() joins the scheduler at a round's end, so the
+    # snapshot's emitted list is what the dispatcher delivered
+    p1.close()
+    d1.close()
+    with lock:
+        delivered = list(got)
+    snap = d1.snapshot_state(None)
+    t0 = time.perf_counter()
+    store = SnapshotStore(os.path.join(tmp, "llm"))
+
+    def writer(d):
+        with open(os.path.join(d, "llm.blob"), "wb") as f:
+            f.write(pickle.dumps(snap, protocol=4))
+
+    path = store.save(writer, meta={"phase": 41})
+    SnapshotStore.verify(path)
+    with open(os.path.join(path, "llm.blob"), "rb") as f:
+        restored = pickle.loads(f.read())  # noqa: S301 — the blob this phase wrote
+    store_s = time.perf_counter() - t0
+    # adoption consumes the restored entries: read them first
+    ent = [dict(e) for e in (restored or {}).get("streams") or [{}]]
+    d2, rest, _, done = decode_replica(LLM_TOKENS - len(delivered))
+    d2.restore_state(restored, None)
+    p2, _ = _llm_prefill(d2.handoff_port, "none")
+    p2.invoke_async([prompt])
+    if not done.wait(300):
+        sys.exit(f"chip_smoke: llm kill resume: {len(rest)} tokens arrived")
+    p2.close()
+    d2.close()
+    st = d2.stats.snapshot()
+    row = {"delivered": len(delivered), "rest": len(rest),
+           "snapshot_streams": len((snap or {}).get("streams") or []),
+           "snapshot_emitted_equal_delivered":
+               ent[0].get("emitted") == delivered,
+           "equal_monolithic": delivered + rest == mono,
+           "kv_shipped_tokens": st["kv_shipped_tokens"],
+           "prefill_computed_tokens": st["prefill_computed_tokens"],
+           "store_s": store_s, "kernel_launches": _kernel_launches(),
+           "phase_s": time.perf_counter() - t_phase}
+    first_diff = next((i for i, (a, b) in enumerate(
+        zip(delivered + rest, mono)) if a != b), None)
+    log(f"llm decode kill (LLM_LARGE, a {LLM_KILL_PROMPT}-token prompt x "
+        f"{LLM_TOKENS} greedy tokens, chunk 1): {len(delivered)} tokens "
+        f"delivered before both replicas closed, the snapshot "
+        f"({row['snapshot_streams']} stream, emitted "
+        f"{'=' if row['snapshot_emitted_equal_delivered'] else '!='} "
+        f"delivered) through SnapshotStore and back in {store_s:.3f} s, "
+        f"{len(rest)} more after the restore and re-ship: delivered + rest "
+        f"{'equals' if row['equal_monolithic'] else 'DIFFERS FROM'} the "
+        f"monolithic run (first difference at {first_diff}), "
+        f"kv_shipped_tokens {st['kv_shipped_tokens']}, "
+        f"prefill_computed_tokens {st['prefill_computed_tokens']}; phase "
+        f"41 {row['phase_s']:.1f} s; {smi}")
+    if not (row["equal_monolithic"] and row["snapshot_streams"] == 1
+            and row["snapshot_emitted_equal_delivered"]
+            and st["kv_shipped_tokens"] == LLM_KILL_PROMPT
+            and st["prefill_computed_tokens"] == len(delivered)):
+        sys.exit(f"chip_smoke: llm decode kill: {row} mono {mono} got "
+                 f"{delivered + rest}")
+    return {"kill": row}
+
+
+def _mqtt_run(qos, port, local):
+    """One MQTT line: seeded 224² frames through MobileNet-v2 on the card
+    into mqttsink (QoS ``qos``), through the broker to an mqttsrc
+    subscriber; -> (row, logits in arrival order)."""
+    import nnstreamer_tpu_torch as pt
+    from nnstreamer_tpu_torch.tensors.transfer import fetch_stats
+    topic = f"chip/q{qos}"
+    sub = pt.parse_launch(
+        f"mqttsrc name=src port={port} sub-topic={topic} mqtt-qos={qos} "
+        "ntp-sync=false timeout=120 ! appsink name=out")
+    stamps, got = [], []
+
+    def on_buffer(buf):
+        got.append((buf.pts, buf.host_arrays()[0]))
+        stamps.append(time.perf_counter())
+
+    sub["out"].connect(on_buffer)
+    pub = pt.parse_launch(
+        f"tensortestsrc caps={CAPS.format(dims=FRAME_DIMS)} pattern=random "
+        f"seed={SEED} num-buffers={MQTT_FRAMES} ! queue max-size-buffers=8 "
+        "! tensor_filter framework=torch-cuda model=zoo://mobilenet_v2 "
+        f"latency=1 ! mqttsink name=snk pub-topic={topic} port={port} "
+        f"mqtt-qos={qos} ntp-sync=false")
+    _reset_launches()
+    sub.start()
+    try:
+        time.sleep(0.3)         # the subscription reaches the broker
+        fetch_stats(reset=True)
+        pub.start()
+        pub.wait_eos(300)
+        deadline = time.monotonic() + 60
+        while len(got) < MQTT_FRAMES and time.monotonic() < deadline:
+            time.sleep(0.005)
+        fetch = fetch_stats(reset=True)
+        pub.stop()
+    finally:
+        sub.stop()
+    pts = [p for p, _ in got]
+    fps, p50 = _line_stats(stamps[MQTT_WARMUP:]) \
+        if len(stamps) > MQTT_WARMUP + 1 else (0.0, 0.0)
+    equal = len(got) == MQTT_FRAMES and all(
+        g.dtype == w.dtype and g.tobytes() == w.tobytes()
+        for (_, g), w in zip(got, local))
+    row = {"qos": qos, "frames": len(got),
+           "once_in_order": len(got) == MQTT_FRAMES and pts == sorted(pts)
+           and len(set(pts)) == len(pts),
+           "bitwise_equal_local": equal, "fps": fps, "p50_ms": p50,
+           "d2h_per_frame": fetch["rpcs"] / max(1, len(got)),
+           "fetch_rpcs": fetch["rpcs"],
+           "kernel_launches": _kernel_launches()}
+    return row
+
+
+def phase_mqtt_mobilenet(smi):
+    """Phase 42: tensortestsrc (phase 2's seeded 224² u8 frames) !
+    tensor_filter framework=torch-cuda model=zoo://mobilenet_v2 !
+    mqttsink -> the port's MqttBroker -> mqttsrc ! appsink, at QoS 0 and
+    1, 64 frames each: every frame once and in order, the logits bitwise
+    equal to the same frames through the local line; frames/s and p50
+    frame gap at the subscriber after 8 warm-up frames, D2H copies a
+    frame at the sink."""
+    import nnstreamer_tpu_torch as pt
+    from nnstreamer_tpu_torch.edge import MqttBroker
+    local_line = (f"tensortestsrc caps={CAPS.format(dims=FRAME_DIMS)} "
+                  f"pattern=random seed={SEED} num-buffers={MQTT_FRAMES} "
+                  "! queue max-size-buffers=8 ! tensor_filter "
+                  "framework=torch-cuda model=zoo://mobilenet_v2 latency=1 "
+                  "! appsink name=out")
+    pipe = pt.parse_launch(local_line)
+    pipe.start()
+    try:
+        pipe.wait_eos(300)
+    finally:
+        pipe.stop()
+    local = [b.chunks[0].host() for b in
+             sorted(pipe["out"].buffers, key=lambda b: b.pts)]
+    broker = MqttBroker(port=0).start()
+    out = {}
+    try:
+        for qos in (0, 1):
+            row = out[f"qos{qos}"] = _mqtt_run(qos, broker.bound_port, local)
+            log(f"mqtt mobilenet QoS {qos} (tensortestsrc ! MobileNet-v2 on "
+                f"the card ! mqttsink -> MqttBroker -> mqttsrc ! appsink, "
+                f"{MQTT_FRAMES} frames): {row['frames']} arrived, once and "
+                f"in order {row['once_in_order']}, logits "
+                f"{'bitwise equal' if row['bitwise_equal_local'] else 'NOT EQUAL'}"
+                f" to the local line's, {row['fps']:.2f} frames/s and p50 "
+                f"{row['p50_ms']:.3f} ms at the subscriber (after "
+                f"{MQTT_WARMUP}), {row['d2h_per_frame']:.2f} D2H copies (fetch "
+                f"RPCs) a frame at the sink; {smi}")
+            if not (row["once_in_order"] and row["bitwise_equal_local"]
+                    and row["d2h_per_frame"] == 1):
+                sys.exit(f"chip_smoke: mqtt QoS {qos}: {row}")
+    finally:
+        broker.stop()
+    return out
+
+
 SERVE_CLIENTS = 8          # bench.py:488 bench_serve_row: 8 clients,
 SERVE_WINDOW = 16          # max-request 16 each,
 SERVE_WARMUP = 8           # 8 warm-up frames and
@@ -4866,6 +5296,12 @@ def main():
                               llm_tokens)
     llm["llm_single_shot"] = timed("llm_single_shot",
                                    phase_llm_single_shot, smi)
+    # phases 40-41: the disaggregated line, phases 32-34's filters closed
+    llm["llm_disagg"] = timed("llm_disagg", phase_llm_disagg, smi,
+                              llm_tokens, llm["llm_decode"]["decode"])
+    with tempfile.TemporaryDirectory() as tmp:
+        llm["llm_decode_kill"] = timed("llm_decode_kill",
+                                       phase_llm_decode_kill, smi, tmp)
     hmma = timed("build", phase_build, building)
     rows = timed("kernels", phase_kernels)
     norm_rows, norm_err = timed("normalize", phase_normalize)
@@ -4929,6 +5365,9 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         lines["train_vit"] = timed("train_vit", phase_train_vit, smi, tmp)
         lines["train_gpt"] = timed("train_gpt", phase_train_gpt, smi, tmp)
+    # phase 42: MQTT
+    multi["mqtt_mobilenet"] = timed("mqtt_mobilenet", phase_mqtt_mobilenet,
+                                    smi)
     if lines["train_vit"]["kernel_launches"]["normalize"]:
         sys.exit("chip_smoke: the normalize kernel ran on train_vit")
     for k in ("serve_mobilenet", "serve_per_request", "serve_drain",
@@ -4939,7 +5378,8 @@ def main():
                      f"{lines[k]['kernel_launches']}")
     multi.update(llm)
     for k in ("delta_link", "delta_gate", "sparse", "native_queue",
-              "llm_decode", "llm_parity", "llm_single_shot"):
+              "llm_decode", "llm_parity", "llm_single_shot", "llm_disagg",
+              "llm_decode_kill", "mqtt_mobilenet"):
         for line, row in multi[k].items():
             if row["kernel_launches"]["attention"] \
                     or row["kernel_launches"]["normalize"]:
@@ -4947,7 +5387,7 @@ def main():
                          f"{row['kernel_launches']}")
     pt.parse_launch = parse
     log(f"queues: {queues['python']} Python queues on the lines of "
-        f"phases 1-39, {queues['native']} ring queues, all on the native "
+        f"phases 1-42, {queues['native']} ring queues, all on the native "
         "queue lines")
     pipelint = phase_pipelint(smi, list(dict.fromkeys(launched)))
     for k in ("clean", "retry", "skip", "restart"):

@@ -1,21 +1,18 @@
 """pipelint graph rules.
 
 Port of ``nnstreamer_tpu/analysis/rules.py``: the rules whose elements
-the port has (23 of the reference's 28). Each :class:`Rule` inspects the
+the port has (24 of the reference's 28). Each :class:`Rule` inspects the
 parsed-but-unstarted pipeline plus the caps inference result and yields
 findings with element/pad locations. Rules never execute elements and
 never raise past :func:`analyze` — a broken rule must not block a
 launch; :func:`analyze` lists the ids of rules that raised on the
 report's ``crashed``.
 
-The reference's other 5 rules inspect elements or options the port
+The reference's other 4 rules inspect elements or options the port
 does not have yet; each comes with the slice that ports them (ROADMAP.md,
 queue A): ``sharding-divisibility``, ``serve-mesh-divisibility`` and
-``mesh-colocation`` with the mesh (item 12),
-``llm-prefix-cache-lossy-link`` with the llm filter's KV link (item 8),
-and ``autoscaler-config`` with the fleet (item 13).
-Rules keyed on kind names of such elements (``mqttsrc``) keep those
-branches and stay silent until then.
+``mesh-colocation`` with the mesh (item 12), and ``autoscaler-config``
+with the fleet (item 13).
 """
 from __future__ import annotations
 
@@ -823,8 +820,7 @@ class DeltaLossyGateFeedsTrainerRule(Rule):
 
 
 class LlmDecodeNoKvBudgetRule(Rule):
-    """A paged llm filter (``paged:true``, or a decode role, which the
-    port refuses at open until the KV link comes) without an explicit
+    """A paged llm filter (``paged:true``, or a decode role) without an explicit
     ``pool_blocks`` budget sizes its KV pool from n_parallel x max_len —
     the contiguous worst case — so admission is not token-budgeted."""
 
@@ -848,6 +844,37 @@ class LlmDecodeNoKvBudgetRule(Rule):
                 "pool explicitly", filt.name, "sink")
 
 
+class LlmPrefixCacheLossyLinkRule(Rule):
+    """fp16 KV handoff feeding a content-addressed prefix cache: the
+    chain digest says 'same tokens, same KV' but the shipped blocks
+    were rounded through float16 (bf16 KV loses mantissa width, the
+    f32 logits lose range), so cached blocks differ bitwise from what
+    a local prefill would compute — hits stop being exact."""
+
+    id = "llm-prefix-cache-lossy-link"
+    severity = Severity.WARNING
+
+    def check(self, ctx: LintContext):
+        from ..filters.base import parse_custom_properties
+        for filt in ctx.of_kind("tensor_filter"):
+            opts = parse_custom_properties(str(filt.custom or ""))
+            if opts.get("kv_precision") != "fp16":
+                continue
+            ships = "handoff" in opts or opts.get("role") in ("prefill",
+                                                              "decode")
+            caches = opts.get("prefix_cache", "true").lower() \
+                not in ("0", "false", "no")
+            if ships and caches:
+                yield self.finding(
+                    "kv_precision:fp16 on a prefix-caching llm link: "
+                    "shipped KV blocks are float16-rounded, so the "
+                    "content-addressed cache serves blocks that no "
+                    "longer match a local prefill bit-for-bit; use "
+                    "kv_precision:bf16 (byte-exact for bf16 KV) or "
+                    "disable prefix_cache on this replica",
+                    filt.name, "sink")
+
+
 ALL_RULES: List[Rule] = [
     DanglingPadRule(), CycleRule(), TeeNoQueueRule(), JitSignatureRule(),
     SinklessBranchRule(), CombinerDtypeRule(), UnboundedAdmissionRule(),
@@ -856,7 +883,8 @@ ALL_RULES: List[Rule] = [
     SessionReplayBudgetRule(), SessionNoReconnectRule(),
     RouterNoReplicasRule(), RouterAffinitySessionlessRule(),
     AsyncWindowRule(), StatefulNoCheckpointRule(), TraceExportRule(),
-    LlmDecodeNoKvBudgetRule(), DeltaNoKeyframeIntervalRule(),
+    LlmDecodeNoKvBudgetRule(), LlmPrefixCacheLossyLinkRule(),
+    DeltaNoKeyframeIntervalRule(),
     DeltaLossyGateFeedsTrainerRule(),
 ]
 

@@ -1,8 +1,8 @@
 """Shared TCP listener scaffolding for the edge-layer servers.
 
 A copy of ``nnstreamer_tpu/edge/listener.py``, which is framework
-neutral. In the port it backs the discovery broker; the MQTT-style
-broker and the gRPC bridge are not ported yet.
+neutral. In the port it backs the discovery broker, the MQTT broker and
+the KV handoff receiver; the gRPC bridge is not ported yet.
 
 One implementation of the bind/SO_REUSEADDR/listen/accept-thread/close
 pattern used by the discovery broker, the MQTT-style message broker,

@@ -16,6 +16,7 @@ from . import query  # noqa: F401  (tensor_query_*)
 from ..serve import elements as serve  # noqa: F401  (tensor_serve_src/sink)
 from ..serve import router as serve_router  # noqa: F401  (tensor_serve_router)
 from . import edge  # noqa: F401  (edgesrc/edgesink)
+from . import mqtt  # noqa: F401  (mqttsrc/mqttsink)
 from . import sparse  # noqa: F401  (tensor_sparse_enc/dec)
 from . import delta  # noqa: F401  (tensor_delta/tensor_delta_stitch)
 from ..fault import element as fault  # noqa: F401  (tensor_fault)

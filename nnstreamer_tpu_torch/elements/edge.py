@@ -63,10 +63,12 @@ from ..tensors.caps import Caps
 from ..utils.log import logger
 
 
-# the other among-device elements of the JAX package, still to port
-for _kind in ("mqttsrc", "mqttsink", "tensor_src_grpc", "tensor_sink_grpc"):
-    refuse_element(_kind, "the MQTT and gRPC transports are still to port "
-                          "(ROADMAP.md queue A, item 8)")
+# the gRPC bridge of the JAX package, still to port: it encodes through
+# the codecs (interop/tensor_codec.py) and needs grpcio
+for _kind in ("tensor_src_grpc", "tensor_sink_grpc"):
+    refuse_element(_kind, "the gRPC transport is still to port: it waits "
+                          "for the codecs slice (interop/tensor_codec.py) "
+                          "and needs grpcio (ROADMAP.md queue A, item 8)")
 
 
 class _Sub:

@@ -47,9 +47,8 @@ them only under ``in-flight`` and on a breaker shed). ``drain`` settles
 the in-flight window and quiesces the ``suspend`` watchdog, so the model
 is not unloaded while upstream flushes its queues. The checkpoint hooks
 delegate to the backend, as in the JAX element: a backend with
-``snapshot_state`` carries its cross-invoke state, and the ``llm``
-backend's raises :class:`~..pipeline.element.NotPortedError`, so a
-snapshot of its line refuses instead of skipping the filter.
+``snapshot_state`` carries its cross-invoke state (the ``llm``
+backend's streams, re-adopted after a restore).
 
 Not ported yet: a ``custom=mesh:`` option raises in the torch-cuda
 backend.
@@ -335,8 +334,7 @@ class TensorFilter(Element):
 
     # -- checkpoint/restore (checkpoint/) ---------------------------------
     CHECKPOINTABLE = ("whatever the loaded framework exposes (the llm "
-                      "backend refuses: its stream snapshot is not "
-                      "ported)")
+                      "backend's continuous-batching streams)")
 
     def snapshot_state(self, snap_dir):
         # delegation, not ownership: the element is stateless between

@@ -15,8 +15,9 @@ models/transformer.py on the filter's device: ``cuda:0`` unless
 numpy arrays (converted by ``gpt_params_from_jax``). ``.gguf`` is
 claimed for auto-detection and refused. Custom properties
 (``custom=key:value,...``): max_tokens, temperature (0 = greedy), top_k,
-top_p, seed, max_len, n_parallel, chunk, and the paged pool's paged,
-block_size, pool_blocks, prefix_cache.
+top_p, seed, max_len, n_parallel, chunk, the paged pool's paged,
+block_size, pool_blocks, prefix_cache, and the phase split's role,
+handoff, handoff_port, kv_precision.
 
 ``n_parallel:M`` (M > 1) turns on continuous batching: up to M prompts
 share one decode step; prompts are admitted into slots as they free up.
@@ -44,12 +45,11 @@ captures. Only the tokens (per-token mode), the active mask and, after
 an admission, the table are staged per step. On the CPU the same
 functions run eagerly.
 
-Every prompt is prefilled in one pass over a ``max_len``-row window
-(``prefill_with_past`` over the cached prefix, zeros without one), where
-JAX pads to a power-of-two bucket: with one shape per filter, a row's
-K/V come out with the same bits whichever path computed them, so paged
-equals contiguous and a prefix-cache hit equals a miss, token for token,
-on the card too. The paged table points the columns past a stream's
+A prefill pads the computed tokens to a power-of-two bucket of at least
+8 rows, and a cached prefix to its own, as JAX does (``_Prefill``, one
+graph a bucket pair), so paged equals contiguous by construction (the
+same shapes); a prefix hit runs fewer rows than the miss it replaces.
+The paged table points the columns past a stream's
 blocks at the arena's discard block (JAX points them at block 0), so a
 lane that runs past its budget inside a chunk cannot write into a block
 another stream owns.
@@ -60,13 +60,30 @@ Sampling: per-stream (seed, tokens drawn) counters and the hash noise of
 on its neighbours, and chunked, per-token, paged and single-stream runs
 draw the same tokens. The tokens are not JAX's; the candidate sets are.
 
-Not ported: the prefill/decode split (``role:prefill|decode``,
-``handoff``, ``handoff_port``, ``kv_precision``: ROADMAP item 8, the KV
-link) and ``snapshot_state``/``restore_state`` (the stream re-adoption
-of a restored snapshot, the next item of the checkpoint layer; ROADMAP
-item 11): each raises :class:`~..pipeline.element.NotPortedError`, so a
-``Pipeline.snapshot`` of a line holding this filter refuses rather than
-losing its streams. ``zoo://gpt?...&params_dir=<dir>`` serves trained
+Disaggregated serving, as in JAX: ``role:prefill|decode|both`` splits
+the phases across replicas. A prefill replica runs only the prompt pass
+and ships the prompt's K/V (``[L, T, H, Dh]``, off the card in one copy
+batch) and last logits to ``handoff:host:port`` over the negotiated
+KV_XFER link (``edge/kv.py``, ``kv_precision:none|bf16|fp16``; bf16 K/V
+ride byte-exact under any precision, only f32 payloads are downcast). A
+decode replica (implies ``paged``) listens on ``handoff_port:N`` (0 =
+ephemeral; see ``handoff_port``) and folds each shipped stream into its
+block arena on the scheduler thread (through pinned memory), seated
+with the shipped sampling seed, so a split emits the monolithic stream.
+Its KV_ACK answers ``adopted=False`` for a stream it cannot fold (no
+paged pool, or more blocks than ``pool_blocks`` holds), where the JAX
+filter acks such a stream and its scheduler drops it later.
+
+``snapshot_state`` records each queued or running stream as ``{prompt,
+emitted, remaining}`` (``None`` when there is none); ``restore_state``
+stashes them, and a re-submitted prompt, or a re-shipped handoff, whose
+digest (``checkpoint/state.py`` ``token_sha``) matches one continues
+it: the emitted tokens join the prefill (over the shipped K/V, one
+``prefill_with_past`` over the suffix) and only the rest of the budget
+is generated. A re-adopted stream seats its sampling counter at the
+number of tokens it emitted, so it continues the straight run's draws at
+any temperature (JAX resumes with a fresh key: continuity for greedy
+streams only). ``zoo://gpt?...&params_dir=<dir>`` serves trained
 weights (``<dir>/params``, a ``state_dict`` file that ``tensor_trainer``
 saves; trainers/checkpoint.py) in place of the seeded init. The
 single-stream path (``n_parallel:1``) serialises its generations on one
@@ -75,6 +92,7 @@ decode state per ``max_len``, where JAX runs each on its own cache.
 from __future__ import annotations
 
 import threading
+import time
 import urllib.parse
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -82,9 +100,8 @@ import numpy as np
 import torch
 
 from ..models import transformer as tfm
-from ..pipeline.element import NotPortedError
 from ..tensors.info import TensorsInfo
-from ..tensors.transfer import is_device_tensor, submit_fetch
+from ..tensors.transfer import fetch_host, is_device_tensor, submit_fetch
 from ..utils.atomic import Counters
 from ..utils.log import logger
 from .base import (FilterFramework, FilterProperties,
@@ -99,13 +116,26 @@ DEFAULT_BATCH_MAX_LEN = 128
 
 _TRUE = ("1", "true", "yes", "on")
 
-# custom options of the JAX filter that wait for a later slice
-_DEFERRED = {
-    "role": "the prefill/decode split",
-    "handoff": "the KV handoff",
-    "handoff_port": "the KV handoff listener",
-    "kv_precision": "the KV link's precision",
-}
+
+def _ctx_of(ctx: Any):
+    """The TraceContext riding on a Buffer-shaped invoke ctx, if any
+    (plain correlation tokens, ints or strings, carry none)."""
+    try:
+        from ..obs import context as _obs_ctx
+        return _obs_ctx.ctx_of(ctx)
+    except Exception:  # noqa: BLE001 — tracing is best-effort by design
+        return None
+
+
+def _on_device(x, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """A shipped host value (ndarray, or a CPU bf16 tensor) as a tensor
+    of ``dtype`` on ``device``: on the card one H2D copy from pinned
+    memory."""
+    t = x if isinstance(x, torch.Tensor) else \
+        torch.from_numpy(np.ascontiguousarray(x))
+    if device.type == "cuda":
+        t = t.pin_memory().to(device, non_blocking=True)
+    return t.to(device=device, dtype=dtype)
 
 
 def _stage(dst: torch.Tensor, host: np.ndarray) -> None:
@@ -222,11 +252,14 @@ class _Backend:
 
     @torch.no_grad()
     def seat(self, slot: int, plen: int, logits: torch.Tensor,
-             seed: int) -> None:
+             seed: int, drawn: int = 0) -> None:
+        """Seat a stream: its position, first logits, and sampling seed
+        with ``drawn`` draws already taken (a re-adopted stream's emitted
+        tokens), so it continues the straight run's draws."""
         self.index[slot] = plen
         self.logits[slot] = logits[0]
         self.rng["seed"][slot] = seed
-        self.rng["counter"][slot] = 0
+        self.rng["counter"][slot] = drawn
 
     @torch.no_grad()
     def sample(self, temperature: float) -> torch.Tensor:
@@ -272,6 +305,11 @@ class _Backend:
 
     def free(self, slot: int) -> None:
         pass
+
+    def admit_handoff(self, slot: int, flat: np.ndarray, kv: Dict,
+                      budget: int) -> torch.Tensor:
+        raise ValueError("llm: the contiguous cache cannot adopt a KV "
+                         "handoff; decode replicas need custom=paged:true")
 
 
 class _ContigBackend(_Backend):
@@ -336,8 +374,7 @@ class _PagedBackend(_Backend):
         self.blocks: List[List[int]] = [[] for _ in range(m)]
 
     def _need(self, plen: int, budget: int) -> int:
-        span = max(plen, min(plen + int(budget), self.max_len))
-        return -(-span // self.bs)
+        return self.f._need_blocks(plen, budget)
 
     def _insert_span(self, blocks: List[int], k: torch.Tensor,
                      v: torch.Tensor, valid: int) -> None:
@@ -403,6 +440,57 @@ class _PagedBackend(_Backend):
             raise
         return l1
 
+    @torch.no_grad()
+    def admit_handoff(self, slot: int, flat: np.ndarray, kv: Dict,
+                      budget: int) -> torch.Tensor:
+        """Fold a shipped K/V prefix (an ``edge/kv.py`` handoff dict) into
+        fresh blocks seated in slot ``slot``; returns the stream's first
+        logits. ``flat`` may extend the shipped prompt with tokens a
+        replica emitted before a crash (snapshot re-adoption): that
+        suffix is regrown by one ``prefill_with_past`` over the shipped
+        prefix, so a resume costs the suffix, not the prompt."""
+        f = self.f
+        cfg = f._cfg
+        plen = int(flat.size)
+        t_ship = int(np.asarray(kv["prompt"]).size)
+        if len(kv["k"].shape) != 4 or kv["k"].shape[1] < t_ship:
+            raise ValueError(
+                f"llm: malformed KV handoff {tuple(kv['k'].shape)}")
+        k = _on_device(kv["k"], f.device, cfg.dtype)[:, :t_ship]
+        v = _on_device(kv["v"], f.device, cfg.dtype)[:, :t_ship]
+        f.stats.add(kv_shipped_tokens=t_ship)
+        if plen > t_ship:
+            l1, sk, sv = f._prefill(self.max_len)(flat[t_ship:], (k, v),
+                                                  t_ship)
+            f.stats.add(prefill_dispatches=1,
+                        prefill_computed_tokens=plen - t_ship)
+            k = torch.cat([k, sk[:, :plen - t_ship]], dim=1)
+            v = torch.cat([v, sv[:, :plen - t_ship]], dim=1)
+        else:
+            l1 = _on_device(kv["logits"], f.device,
+                            torch.float32).reshape(1, -1)
+        need = self._need(plen, budget)
+        fresh = self.mgr.alloc(need)
+        if fresh is None:
+            raise _PoolFull(f"need {need} blocks")
+        try:
+            self._insert_span(fresh, k, v, plen)
+            if f._prefix_cache:
+                from .kvpool import chain_hashes
+                hashes = chain_hashes(np.asarray(kv["prompt"], np.int32),
+                                      self.bs)
+                usable = min(len(hashes), need)
+                if usable:
+                    self.mgr.commit(hashes[:usable], fresh[:usable])
+            self._seat(slot, list(fresh), need)
+        except BaseException:
+            # a failed fold must not strand the blocks: the sender counts
+            # only kv_handoff_errors, so a leaked ref would shrink the
+            # pool for good
+            self.mgr.release(list(fresh))
+            raise
+        return l1
+
     def _seat(self, slot: int, allb: List[int], need: int) -> None:
         self.table_np[slot, :need] = allb
         self.table_np[slot, need:] = self.discard
@@ -455,6 +543,15 @@ class LlmFilter(FilterFramework):
         self._pending: List[tuple] = []
         self._cond = threading.Condition()
         self._sched: Optional[threading.Thread] = None
+        # the live slot table (published by _sched_body; stream
+        # bookkeeping mutated under _cond) and the streams recovered from
+        # a snapshot, adopted when a matching prompt arrives
+        self._streams: Optional[List[Optional[Dict[str, Any]]]] = None
+        self._recovered: Optional[Dict[str, Any]] = None
+        # the prefill/decode split (role, the KV link's two ends)
+        self._role = "both"
+        self._kv_rx = None
+        self._kv_tx = None
         self._paged = False
         self._backend: Optional[_Backend] = None
         self._pool_mgr = None
@@ -473,11 +570,6 @@ class LlmFilter(FilterFramework):
     def open(self, props: FilterProperties) -> None:
         model = props.model_files[0] if props.model_files else ""
         opts = _parse_custom(props.custom_properties)
-        for key, what in _DEFERRED.items():
-            if key in opts and not (key == "role" and opts[key] == "both"):
-                raise NotPortedError(
-                    f"llm: custom={key}:{opts[key]} — {what} is not ported "
-                    "yet (ROADMAP item 8, the KV link)")
         self.device = device_for(props.accelerators)
         full_f32_numerics()
         if model.startswith("zoo://"):
@@ -527,7 +619,14 @@ class LlmFilter(FilterFramework):
         # cost is admission latency (a new prompt waits for the chunk)
         self._chunk = max(1, int(opts.get("chunk", "1")))
         self._sampling_cache = None
-        self._paged = opts.get("paged", "false").lower() in _TRUE
+        self._role = opts.get("role", "both")
+        if self._role not in ("both", "prefill", "decode"):
+            raise ValueError(f"llm: unknown role {self._role!r}; "
+                             "expected prefill|decode|both")
+        # a decode replica folds shipped K/V into the block pool
+        self._paged = (opts.get("paged", "false").lower() in _TRUE
+                       or self._role == "decode")
+        self._kv_precision = opts.get("kv_precision", "none")
         self._prefix_cache = opts.get("prefix_cache",
                                       "true").lower() in _TRUE
         self._block_size = max(1, int(opts.get("block_size", "16")))
@@ -540,8 +639,8 @@ class LlmFilter(FilterFramework):
         if self._paged:
             if self._n_parallel < 2:
                 raise ValueError(
-                    "llm: paged mode requires n_parallel>1 — the block "
-                    "pool backs the continuous-batching scheduler")
+                    "llm: paged/decode mode requires n_parallel>1 — the "
+                    "block pool backs the continuous-batching scheduler")
             from .kvpool import KVBlockPool
             w = -(-self._batch_max_len // self._block_size)
             # the default budget is the contiguous layout's worst case
@@ -551,27 +650,50 @@ class LlmFilter(FilterFramework):
         with self._cond:
             # prompts queued before a close() belong to the last session
             self._pending.clear()
+            self._streams = None
         self._stop.clear()
         # prefill passes, the prompt tokens they computed or found in
         # the prefix cache, and the rows they ran (the computed tokens
         # padded to their bucket); decode_steps counts the weight-reading
         # steps run (a chunk of k counts k), decode_dispatches the
-        # decode rounds (one a step, or one a chunk)
+        # decode rounds (one a step, or one a chunk); the kv_ counters
+        # are the phase split's: prompt tokens that arrived as shipped
+        # K/V, streams shipped and adopted, ships that failed or were
+        # refused, and the host ns from each prefill pass's return to its
+        # KV_ACK (the copy off the card, the wire, the receiver's queue)
         self.stats = Counters(prefill_dispatches=0, decode_dispatches=0,
                               decode_steps=0, prefill_computed_tokens=0,
-                              prefill_cached_tokens=0, prefill_rows=0)
+                              prefill_cached_tokens=0, prefill_rows=0,
+                              kv_shipped_tokens=0, kv_handoffs_in=0,
+                              kv_handoffs_out=0, kv_handoff_errors=0,
+                              kv_handoff_ns=0)
+        if self._role == "decode" or "handoff_port" in opts:
+            from ..edge.kv import KvReceiver
+            self._kv_rx = KvReceiver(
+                "0.0.0.0", int(opts.get("handoff_port", "0")),
+                self._on_kv_handoff, precision=self._kv_precision,
+                name="llm-kv-rx", stats=self.stats).start()
         logger.info("llm filter opened %s on %s", model, self.device)
 
     def close(self) -> None:
         self._stop.set()
         with self._cond:
             self._cond.notify_all()
+        if self._kv_rx is not None:
+            self._kv_rx.stop()
+            self._kv_rx = None
         for t in self._threads:
             t.join(timeout=5.0)
         self._threads.clear()
         if self._sched is not None:
+            # the scheduler stops at a round's end, after the round's
+            # tokens are dispatched and booked: _streams stays readable
+            # for snapshot_state, its emitted lists what was delivered
             self._sched.join(timeout=5.0)
             self._sched = None
+        if self._kv_tx is not None:
+            self._kv_tx.close()
+            self._kv_tx = None
         with self._single_lock:
             self._single.clear()
         self._prefills.clear()
@@ -581,15 +703,11 @@ class LlmFilter(FilterFramework):
             self._graph_pool.release()
         self._graph_pool = None
 
-    def snapshot_state(self, snap_dir) -> None:
-        raise NotPortedError("llm: snapshot_state (stream re-adoption) is "
-                             "not ported yet (ROADMAP item 11, the llm "
-                             "snapshot)")
-
-    def restore_state(self, state, snap_dir) -> None:
-        raise NotPortedError("llm: restore_state (stream re-adoption) is "
-                             "not ported yet (ROADMAP item 11, the llm "
-                             "snapshot)")
+    @property
+    def handoff_port(self) -> Optional[int]:
+        """The bound KV_XFER port of a decode-role filter (handoff_port:0
+        resolved to the port the OS picked)."""
+        return self._kv_rx.bound_port if self._kv_rx is not None else None
 
     def get_model_info(self):
         # prompt length is per-buffer (dynamic): input derives from caps
@@ -720,15 +838,30 @@ class LlmFilter(FilterFramework):
 
     def invoke_async(self, inputs: Sequence[Any], ctx: Any = None) -> None:
         """1-in/N-out: one output frame per generated token, each
-        dispatched with this invoke's ``ctx``."""
+        dispatched with this invoke's ``ctx``. A prefill-role filter
+        dispatches nothing: it ships the prompt's K/V to its decode home,
+        and the decode replica emits the tokens."""
         prompt = np.asarray(inputs[0])
+        if self._role == "prefill":
+            flat = prompt.reshape(-1).astype(np.int32)
+            self._check_prompt(flat, self._batch_max_len)
+            self._spawn(self._prefill_and_ship, (flat, ctx),
+                        "llm-prefill-ship")
+            return
         if self._n_parallel > 1:
             # validate on the caller's thread: an oversized prompt is a
             # visible invoke error, not a silent scheduler drop
             flat = prompt.reshape(-1)
             self._check_prompt(flat, self._batch_max_len)
             with self._cond:
-                self._enqueue_stream_locked((flat, ctx))
+                rem, drawn = None, 0
+                if self._recovered is not None:
+                    # a re-submitted prompt that matches a snapshotted
+                    # stream continues it: the emitted tokens (delivered
+                    # before the crash) join the prefill and only the
+                    # rest of the budget is generated
+                    rem, flat, drawn = self._adopt_recovered_locked(flat)
+                self._enqueue_stream_locked((flat, ctx, rem, None, drawn))
             return
 
         def run():
@@ -738,8 +871,13 @@ class LlmFilter(FilterFramework):
             except Exception:  # noqa: BLE001
                 logger.exception("llm generation failed")
 
+        self._spawn(run, (), "llm-generate")
+
+    def _spawn(self, target, args: tuple, name: str) -> None:
+        """One invoke's worker thread; close() joins the live ones."""
         self._threads = [t for t in self._threads if t.is_alive()]
-        t = threading.Thread(target=run, name="llm-generate", daemon=True)
+        t = threading.Thread(target=target, args=args, name=name,
+                             daemon=True)
         self._threads.append(t)
         t.start()
 
@@ -753,7 +891,172 @@ class LlmFilter(FilterFramework):
                 target=self._sched_loop, name="llm-sched", daemon=True)
             self._sched.start()
 
+    # -- prefill/decode split (role, the KV handoff) ----------------------
+    def _handoff_sender(self):
+        with self._cond:
+            if self._kv_tx is None:
+                target = self._opts.get("handoff", "")
+                if not target:
+                    raise ValueError(
+                        "llm: role:prefill requires custom=handoff:host:port")
+                host, _, port = target.rpartition(":")
+                from ..edge.kv import KvSender
+                self._kv_tx = KvSender(host or "127.0.0.1", int(port),
+                                       precision=self._kv_precision,
+                                       stats=self.stats)
+            return self._kv_tx
+
+    def _prefill_and_ship(self, flat: np.ndarray, ctx: Any) -> None:
+        """Prefill-role path: one prompt pass, then the prompt's K/V and
+        last logits to the decode home over KV_XFER, off the card in one
+        copy batch. The trace context (minted here when the invoke
+        carried none) rides the wire, so prefill -> handoff -> decode is
+        one tree."""
+        from ..checkpoint.state import token_sha
+        from ..obs import spans as _spans
+        try:
+            max_tokens = int(self._opts.get("max_tokens", "16"))
+            t0 = time.time_ns()
+            tctx = _ctx_of(ctx)
+            if tctx is None and _spans.ENABLED:
+                from ..obs import context as _obs_ctx
+                tctx = _obs_ctx.TraceContext(_obs_ctx.next_id(), 0, t0)
+            l1, k, v = self._prefill_prompt(flat, self._batch_max_len)
+            t_pass = time.perf_counter_ns()
+            t = int(flat.size)
+            k_h, v_h, l_h = fetch_host([k[:, :t], v[:, :t], l1[0]])
+            if tctx is not None:
+                _spans.record_span("llm-prefill", "llm", t0,
+                                   max(0, time.time_ns() - t0), tctx)
+            ack = self._handoff_sender().send(
+                token_sha(flat), flat, k_h, v_h, l_h, remaining=max_tokens,
+                seed=int(self._opts.get("seed", "0")), ctx=tctx)
+            self.stats.add(kv_handoffs_out=1,
+                           kv_handoff_ns=time.perf_counter_ns() - t_pass)
+            if not ack.get("adopted"):
+                self.stats.inc("kv_handoff_errors")
+                logger.error("llm: decode replica refused stream %s",
+                             ack.get("sid"))
+        except Exception:  # noqa: BLE001 — a failed ship is counted and logged, not fatal
+            self.stats.inc("kv_handoff_errors")
+            logger.exception("llm: kv handoff failed")
+
+    def _need_blocks(self, plen: int, budget: int) -> int:
+        """Blocks a paged stream of ``plen`` prompt tokens and ``budget``
+        new ones takes: ceil(min(plen + budget, max_len) / block_size),
+        at least the prompt's."""
+        span = max(plen, min(plen + int(budget), self._batch_max_len))
+        return -(-span // self._block_size)
+
+    def _on_kv_handoff(self, d: Dict) -> bool:
+        """KvReceiver callback (on the link's thread): queue a shipped
+        stream for paged admission. The return is the KV_ACK's
+        ``adopted``: False tells the prefill side to try another decode
+        home. A filter without the paged pool, or a stream that needs
+        more blocks than the whole pool holds, is refused here; the JAX
+        filter acks either and its scheduler drops the stream later, so
+        the prefill side counted it adopted."""
+        if self._stop.is_set() or self._params is None:
+            return False
+        if not self._paged:
+            logger.error("llm: KV handoff %s refused: only a paged filter "
+                         "(role:decode or paged:true) adopts one",
+                         d.get("sid"))
+            return False
+        flat = np.asarray(d["prompt"], np.int32).reshape(-1)
+        try:
+            self._check_prompt(flat, self._batch_max_len)
+        except ValueError:
+            logger.exception("llm: rejected KV handoff %s", d.get("sid"))
+            return False
+        with self._cond:
+            rem = int(d.get("remaining", 0)) or None
+            drawn = 0
+            if self._recovered is not None:
+                # a re-shipped conversation adopts its snapshot: the
+                # emitted tokens join the context, the rest is generated
+                rem2, flat, drawn = self._adopt_recovered_locked(flat)
+                if rem2 is not None:
+                    rem = rem2
+            budget = int(self._opts.get("max_tokens", "16")) \
+                if rem is None else rem
+            if self._need_blocks(flat.size, budget) > \
+                    self._pool_mgr.n_blocks:
+                logger.error(
+                    "llm: KV handoff %s of %d tokens needs more blocks "
+                    "than pool_blocks=%d holds; refused", d.get("sid"),
+                    int(flat.size), self._pool_mgr.n_blocks)
+                return False
+            self._enqueue_stream_locked((flat, d.get("sid"), rem, d, drawn))
+        self.stats.inc("kv_handoffs_in")
+        return True
+
+    # -- checkpoint/restore (checkpoint/) ----------------------------------
+    def snapshot_state(self, snap_dir) -> Optional[Dict[str, Any]]:
+        """Continuous-batching state for a snapshot: per stream (queued
+        or running) the prompt, the tokens already emitted and the
+        remaining budget. The KV cache is not saved: adoption recomputes
+        it with one prefill over prompt + emitted. Single-stream mode
+        (``n_parallel:1``) keeps no scheduler state and snapshots
+        nothing."""
+        with self._cond:
+            pend = [{"prompt": np.asarray(e[0], np.int32).tolist(),
+                     "emitted": [],
+                     "remaining": e[2] if len(e) > 2 else None}
+                    for e in self._pending]
+            act = [{"prompt": s["prompt"].tolist(),
+                    "emitted": list(s["emitted"]),
+                    "remaining": int(s["remaining"])}
+                   for s in (self._streams or [])
+                   if s is not None and s["remaining"] > 0]
+        if not pend and not act:
+            return None
+        return {"streams": act + pend}
+
+    def restore_state(self, state, snap_dir) -> None:
+        """Stash recovered streams; a re-submitted prompt or a re-shipped
+        handoff that matches one adopts it (invoke_async,
+        _on_kv_handoff)."""
+        with self._cond:
+            self._recovered = state
+
+    def _adopt_recovered_locked(self, flat: np.ndarray):
+        """Match an incoming prompt against the recovered streams (caller
+        holds _cond) by content digest (``token_sha``, the digest that
+        names handoffs), each entry's computed once. On a hit the stream
+        continues: prompt + emitted become the prefill context and only
+        the remaining budget is generated. Returns (remaining override,
+        prompt to queue, draws already taken)."""
+        from ..checkpoint.state import token_sha
+
+        entries = self._recovered.get("streams") or []
+        sha = token_sha(flat)
+        for i, ent in enumerate(entries):
+            esha = ent.get("_sha")
+            if esha is None:
+                esha = ent["_sha"] = token_sha(
+                    np.asarray(ent.get("prompt") or [], np.int32))
+            if esha == sha:
+                entries.pop(i)
+                if not entries:
+                    self._recovered = None
+                emitted = np.asarray(ent.get("emitted") or [], np.int32)
+                if emitted.size:
+                    flat = np.concatenate([flat.astype(np.int32), emitted])
+                return ent.get("remaining"), flat, int(emitted.size)
+        return None, flat, 0
+
     # -- continuous-batching scheduler (n_parallel > 1) --------------------
+    def _finish_span(self, s: Dict[str, Any]) -> None:
+        """A stream finished: close its llm-decode span, the terminal
+        node of its trace tree on this replica."""
+        tctx = s.get("tctx")
+        if tctx is None:
+            return
+        from ..obs import spans as _spans
+        _spans.record_span("llm-decode", "llm", s["t0"],
+                           max(0, time.time_ns() - s["t0"]), tctx)
+
     def _sched_loop(self) -> None:
         """Decode M streams per step: pending prompts are prefilled into
         free slots, every active slot advances one token per shared
@@ -775,6 +1078,8 @@ class LlmFilter(FilterFramework):
                    else _ContigBackend(self, m, max_len))
         self._backend = backend
         streams: List[Optional[Dict[str, Any]]] = [None] * m
+        with self._cond:
+            self._streams = streams  # published for snapshot_state
         while not self._stop.is_set():
             with self._cond:
                 while all(s is None for s in streams) and not self._pending \
@@ -788,10 +1093,16 @@ class LlmFilter(FilterFramework):
                         admit.append((slot, self._pending.pop(0)))
             requeue = []
             for slot, entry in admit:
-                prompt, ctx = entry
+                prompt, ctx, rem, kv, drawn = entry
+                budget = max_tokens if rem is None else int(rem)
+                t_admit = time.time_ns()
                 try:
-                    self._check_prompt(prompt, max_len)
-                    logits = backend.admit(slot, prompt, max_tokens)
+                    if kv is not None:
+                        logits = backend.admit_handoff(slot, prompt, kv,
+                                                       budget)
+                    else:
+                        self._check_prompt(prompt, max_len)
+                        logits = backend.admit(slot, prompt, budget)
                 except _PoolFull:
                     # not enough KV blocks now: running streams release
                     # blocks as they finish
@@ -800,11 +1111,26 @@ class LlmFilter(FilterFramework):
                 except Exception:  # noqa: BLE001 — drop THIS prompt only
                     logger.exception("llm: prompt rejected at admission")
                     continue
+                tctx = kv.get("ctx") if kv is not None else _ctx_of(ctx)
+                if tctx is not None and kv is None:
+                    from ..obs import spans as _spans
+                    _spans.record_span("llm-prefill", "llm", t_admit,
+                                       max(0, time.time_ns() - t_admit),
+                                       tctx)
                 # per-stream seed: the draws match the n_parallel=1 path
-                # whatever else is in flight
-                backend.seat(slot, int(prompt.size), logits, seed)
-                streams[slot] = {"ctx": ctx, "remaining": max_tokens,
-                                 "pos": int(prompt.size)}
+                # whatever else is in flight; a handoff stream samples
+                # with the seed its prefill replica shipped (the split
+                # emits the monolithic stream), a re-adopted one from
+                # the draws it already took
+                backend.seat(slot, int(prompt.size), logits,
+                             int(kv["seed"]) if kv is not None else seed,
+                             drawn)
+                streams[slot] = {"ctx": ctx, "remaining": budget,
+                                 "pos": int(prompt.size),
+                                 "prompt": np.asarray(prompt,
+                                                      np.int32).copy(),
+                                 "emitted": [], "tctx": tctx,
+                                 "t0": t_admit}
             if requeue:
                 with self._cond:
                     if all(s is None for s in streams):
@@ -830,8 +1156,12 @@ class LlmFilter(FilterFramework):
                 if s is None:
                     continue
                 self._dispatch([tok_host[slot:slot + 1]], s["ctx"])
-                s["remaining"] -= 1
-                s["pos"] += 1
+                with self._cond:
+                    # booked under _cond: a snapshot reads (prompt,
+                    # emitted, remaining) coherently
+                    s["emitted"].append(int(tok_host[slot]))
+                    s["remaining"] -= 1
+                    s["pos"] += 1
                 # pos is one past the next decode's write position, so
                 # the stream survives while pos <= max_len: the
                 # single-stream loop's emit-then-check order
@@ -839,6 +1169,7 @@ class LlmFilter(FilterFramework):
                     streams[slot] = None
                     active_np[slot] = False   # no trailing write/advance
                     backend.free(slot)
+                    self._finish_span(s)
             if active_np.any():
                 backend.step(tok, active_np)
                 self.stats.add(decode_dispatches=1, decode_steps=1)
@@ -863,9 +1194,12 @@ class LlmFilter(FilterFramework):
             for j in range(min(k, emits_left[slot])):
                 self._dispatch([toks[j, slot:slot + 1].astype(np.int32)],
                                s["ctx"])
-                s["remaining"] -= 1
-                s["pos"] += 1
+                with self._cond:
+                    s["emitted"].append(int(toks[j, slot]))
+                    s["remaining"] -= 1
+                    s["pos"] += 1
             if s["remaining"] <= 0 or s["pos"] > max_len:
                 streams[slot] = None
                 backend.free(slot)
+                self._finish_span(s)
 

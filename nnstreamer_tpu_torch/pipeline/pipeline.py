@@ -238,8 +238,8 @@ class Pipeline:
         element into the retain-N store at ``directory`` and return the
         published snapshot path. The pipeline must be quiesced (drained
         or preempted) first — element snapshot hooks read live state.
-        A hook that cannot snapshot raises (the ``llm`` backend's
-        :class:`~.element.NotPortedError`) and nothing is published.
+        A hook that raises aborts the snapshot, and nothing is
+        published.
 
         Layout and integrity rules: checkpoint/store.py."""
         import os

@@ -37,9 +37,10 @@ died with the old process; the router's failover owns re-dispatch).
 ``preempt_inflight`` counts the admitted-but-unbatched requests a
 no-drain preemption abandons.
 
-Not ported: ``mesh=`` (ROADMAP item 12) and ``llm-role=`` (item 8, with
-the KV handoff) raise :class:`~..pipeline.element.NotPortedError` at
-start.
+``llm-role=prefill|decode|both`` advertises a disaggregated LLM
+replica's phase on REGISTER and on every PONG's load report, which the
+fleet router's phase-aware pick reads. Not ported: ``mesh=`` (ROADMAP
+item 12) raises :class:`~..pipeline.element.NotPortedError` at start.
 """
 from __future__ import annotations
 
@@ -95,14 +96,18 @@ class TensorServeSrc(SrcElement):
              "deadline-ms": 0.0,
              # the retry-after hint carried by SHED replies
              "retry-after-ms": 50.0,
+             # disaggregated LLM serving: advertise this replica's phase
+             # ("prefill" | "decode" | "both"; "" = not an LLM replica)
+             # so the fleet router can steer prompt frames to prefill
+             # capacity and pin each stream's decode home
+             "llm-role": "",
              # model/config version tag, advertised on REGISTER and
              # every PONG load report: the fleet's blue/green rollout
              # verifies the whole ring converged on the new version
              # before retiring the old one ("" = unversioned)
              "version": ""}
-    # mesh-aware serving (ROADMAP item 12) and the disaggregated LLM
-    # replica's phase (item 8): only the per-card, role-free default
-    NOT_PORTED = {"mesh": "", "llm-role": ""}
+    # mesh-aware serving (ROADMAP item 12): only the per-card default
+    NOT_PORTED = {"mesh": ""}
 
     def __init__(self, name=None, **props):
         super().__init__(name, **props)
@@ -175,6 +180,8 @@ class TensorServeSrc(SrcElement):
                     (self.dest_host or "localhost", int(self.dest_port)),
                     timeout=self.timeout)
                 reg_meta = dict(self.scheduler.occupancy(), role="serve")
+                if str(self.llm_role):
+                    reg_meta["llm_role"] = str(self.llm_role)
                 if str(self.version):
                     reg_meta["version"] = str(self.version)
                 if self._restored is not None:
@@ -289,6 +296,8 @@ class TensorServeSrc(SrcElement):
                     # RESULT the sink thread is writing)
                     load = (self.scheduler.occupancy()
                             if self.scheduler is not None else {})
+                    if str(self.llm_role):
+                        load = dict(load, llm_role=str(self.llm_role))
                     if str(self.version):
                         load = dict(load, version=str(self.version))
                     self._send(cid, MsgKind.PONG,

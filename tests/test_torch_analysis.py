@@ -49,7 +49,7 @@ FILTER = "tensor_filter name=f framework=simlink"
 
 DEFERRED = {
     "sharding-divisibility", "serve-mesh-divisibility", "mesh-colocation",
-    "llm-prefix-cache-lossy-link", "autoscaler-config",
+    "autoscaler-config",
 }
 
 
@@ -71,7 +71,7 @@ def findings_for(desc, rule=None):
 
 def test_rule_ids_are_the_reference_minus_the_deferred():
     assert {r.id for r in ALL_RULES} == {r.id for r in NT_RULES} - DEFERRED
-    assert len(ALL_RULES) == 23
+    assert len(ALL_RULES) == 24
 
 
 class TestCapsInference:

@@ -491,10 +491,11 @@ def test_single_shot_runs_on_the_card_by_default(mlp_py, monkeypatch):
 
 def test_new_modules_import_no_jax():
     """The backends, SingleShot, the watchdog, the sparse and delta ops
-    and elements, the delta wire codec, the broker, the native ring and
-    the serving stack (and chip_smoke.py, read as text) import nothing of
-    JAX or of the JAX package; the modules are imported in a fresh
-    interpreter."""
+    and elements, the delta wire codec, the broker, the native ring, the
+    serving stack, the KV link, the MQTT transport, NTP, the span rings
+    and the llm filter (and chip_smoke.py, read as text) import nothing
+    of JAX or of the JAX package (ml_dtypes included); the modules are
+    imported in a fresh interpreter."""
     code = ("import sys; import nnstreamer_tpu_torch.filters.custom, "
             "nnstreamer_tpu_torch.filters.custom_c, "
             "nnstreamer_tpu_torch.filters.torch_backend, "
@@ -511,13 +512,20 @@ def test_new_modules_import_no_jax():
             "nnstreamer_tpu_torch.serve.batcher, "
             "nnstreamer_tpu_torch.serve.scheduler, "
             "nnstreamer_tpu_torch.serve.elements, "
-            "nnstreamer_tpu_torch.serve.router; "
+            "nnstreamer_tpu_torch.serve.router, "
+            "nnstreamer_tpu_torch.edge.kv, "
+            "nnstreamer_tpu_torch.edge.mqtt_wire, "
+            "nnstreamer_tpu_torch.edge.mqtt, "
+            "nnstreamer_tpu_torch.edge.ntp, "
+            "nnstreamer_tpu_torch.elements.mqtt, "
+            "nnstreamer_tpu_torch.obs.spans, "
+            "nnstreamer_tpu_torch.filters.llm; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes', "
             "'nnstreamer_tpu')]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT)
     import re
-    pattern = re.compile(r"^\s*(from|import)\s+(jax|flax|optax|"
+    pattern = re.compile(r"^\s*(from|import)\s+(jax|flax|optax|ml_dtypes|"
                          r"nnstreamer_tpu)(\.|\s|$)", re.M)
     sources = [os.path.join(ROOT, "chip_smoke.py")] + [
         os.path.join(d, f) for d, _, files in os.walk(

@@ -3,8 +3,8 @@ Pipeline.snapshot/restore/preempt, fault/preempt.py and the elements'
 snapshot hooks) against the JAX package's, on the CPU.
 
 Mirrors tests/test_checkpoint.py's ``TestSnapshotStore``,
-``TestPipelinePreemptRestore``, ``TestElementRoundTrips`` (without the
-llm case: the port refuses it, below), ``TestStatefulNoCheckpointRule``,
+``TestPipelinePreemptRestore``, ``TestElementRoundTrips`` (the llm
+case is in tests/test_torch_llm_disagg.py), ``TestStatefulNoCheckpointRule``,
 ``TestTrainerResume`` and ``TestPreemptChaos::
 test_sigterm_mid_training_resumes_exact_step`` (a child process killed
 with SIGTERM mid-training; 80 epochs here, not the reference's 400, so
@@ -358,27 +358,6 @@ class TestPipelinePreemptRestore:
         kinds = [m.kind for m in pipe.bus.drain()]
         assert kinds.index("preempt") < kinds.index("preempted")
         assert report["grace_s"] == 0.2 and report["used_s"] >= 0
-
-    def test_llm_line_refuses_to_snapshot(self, tmp_path):
-        """The llm backend's stream snapshot is not ported: a snapshot of
-        its line raises NotPortedError (the filter delegates, it is not
-        skipped) and publishes nothing."""
-        ckpt = str(tmp_path / "ckpt")
-        pipe = pt.parse_launch(
-            'appsrc name=in caps="other/tensors,format=flexible" '
-            "! tensor_filter name=f framework=llm accelerator=true:cpu "
-            'model="zoo://gpt?vocab=32&d_model=16&n_heads=2&n_layers=1" '
-            'custom="max_tokens:2,max_len:16" invoke-async=true '
-            "! appsink name=out")
-        pipe.start()
-        try:
-            assert [e.name for e in pipe.checkpointables()] == ["f"]
-            with pytest.raises(pt.NotPortedError, match="llm"):
-                pipe.snapshot(ckpt)
-        finally:
-            pipe["in"].end_stream()
-            pipe.stop()
-        assert SnapshotStore(ckpt).latest() is None
 
 
 # ------------------------------------------------ element round trips

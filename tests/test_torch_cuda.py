@@ -1610,3 +1610,103 @@ def test_params_dir_serves_trained_weights_through_the_kernel(card,
     tol = 5e-2 + 0.05 * want.abs().max().item()
     assert (got - want).abs().max().item() <= tol
     assert (init - want).abs().max().item() > tol
+
+
+def _llm_split(custom, prompts, n):
+    """A prefill replica shipping ``prompts`` to a decode replica over
+    loopback, both on the card: -> (prefill, decode, {sid: tokens}); the
+    caller closes both."""
+    import threading
+    mk = pt.filters.find_filter("llm")
+    dec = mk()
+    dec.open(pt.filters.FilterProperties(
+        model_files=(LLM_ZOO,), custom_properties=custom +
+        ",n_parallel:3,role:decode,handoff_port:0,block_size:8,"
+        "pool_blocks:24"))
+    got, done = {}, threading.Event()
+
+    def dispatch(outs, ctx):
+        got.setdefault(ctx, []).append(int(np.asarray(outs[0]).ravel()[0]))
+        if sum(map(len, got.values())) == n * len(prompts):
+            done.set()
+
+    dec.set_async_dispatcher(dispatch)
+    pre = mk()
+    pre.open(pt.filters.FilterProperties(
+        model_files=(LLM_ZOO,), custom_properties=custom +
+        f",role:prefill,handoff:127.0.0.1:{dec.handoff_port}"))
+    for p in prompts:
+        pre.invoke_async([p])
+    assert done.wait(120)
+    return pre, dec, got
+
+
+@pytest.mark.parametrize("precision", ["none", "bf16"])
+def test_llm_handoff_lands_bit_equal_in_the_arena(card, precision):
+    """The prefill replica's K/V of a prompt, gathered back from the
+    decode replica's block arena, equal the prefill pass's bitwise under
+    kv_precision none and bf16 (bf16 K/V are never downcast)."""
+    from nnstreamer_tpu_torch.filters import llm as L
+    from nnstreamer_tpu_torch.models import transformer as tfm
+    prompt = LLM_PROMPTS[2]
+    captured = {}
+    real = L._Backend.seat
+
+    def seat(self, slot, plen, logits, seed, drawn=0):
+        if isinstance(self, L._PagedBackend):
+            blocks = torch.tensor(self.blocks[slot], device="cuda")
+            k, v = tfm.pool_gather(self.pool, blocks)
+            captured["kv"] = (k[:, :plen].clone(), v[:, :plen].clone())
+        return real(self, slot, plen, logits, seed, drawn)
+
+    L._Backend.seat = seat
+    try:
+        pre, dec, _ = _llm_split(f"max_tokens:4,max_len:64,"
+                                 f"kv_precision:{precision}", [prompt], 4)
+    finally:
+        L._Backend.seat = real
+    try:
+        _, k, v = pre._prefill(64)(prompt)
+        n = prompt.size
+        assert torch.equal(captured["kv"][0], k[:, :n])
+        assert torch.equal(captured["kv"][1], v[:, :n])
+        assert dec.stats["kv_shipped_tokens"] == n
+    finally:
+        pre.close()
+        dec.close()
+
+
+def test_llm_prefill_kv_leaves_the_card_in_one_copy(card):
+    """A prefill replica's K/V and logits leave the card in one copy
+    batch a stream (one fetch RPC), not one copy a layer."""
+    from nnstreamer_tpu_torch.tensors.transfer import fetch_stats
+    fetch_stats(reset=True)
+    pre, dec, _ = _llm_split("max_tokens:1,max_len:64", [LLM_PROMPTS[0]], 1)
+    try:
+        assert pre.stats["kv_handoffs_out"] == 1
+        # two fetches in all: the handoff's three tensors, and the decode
+        # replica's one token (max_tokens:1 runs no decode step)
+        assert dec.stats["decode_dispatches"] == 0
+        assert fetch_stats()["rpcs"] == 2
+    finally:
+        pre.close()
+        dec.close()
+
+
+def test_llm_split_equals_monolithic_on_the_card(card):
+    """The split's greedy tokens equal a monolithic paged run's on the
+    card, and the decode replica computed no prompt token."""
+    from nnstreamer_tpu_torch.checkpoint.state import token_sha
+    base = "max_tokens:10,max_len:64"
+    fw, mono = _llm_tokens(base + ",n_parallel:3,paged:true,block_size:8,"
+                           "pool_blocks:24", LLM_PROMPTS, 10)
+    fw.close()
+    pre, dec, got = _llm_split(base, LLM_PROMPTS, 10)
+    try:
+        assert got == {token_sha(p): mono[i]
+                       for i, p in enumerate(LLM_PROMPTS)}
+        assert dec.stats["prefill_computed_tokens"] == 0
+        assert pre.stats["kv_handoff_errors"] == 0
+    finally:
+        pre.close()
+        dec.close()

@@ -9,9 +9,11 @@ The filter (``filters/llm.py``) emits the JAX filter's greedy tokens at
 float32 through a ``get_lm()`` file each. Then the port's own mirrors of
 tests/test_llm.py and of tests/test_llm_disagg.py's paged-pool classes:
 paged equals contiguous, chunked equals per-token, the prefix cache hits
-with exact tokens. The deferred options (the KV link, checkpoints, the
-mesh) raise NotPortedError. Sampled tokens are the port's own (per-stream
-hash noise, not ``jax.random``); the candidate sets are JAX's.
+with exact tokens. The mesh options raise NotPortedError; the KV link
+and the stream snapshot have their own file,
+tests/test_torch_llm_disagg.py. Sampled tokens are the port's own
+(per-stream hash noise, not ``jax.random``); the candidate sets are
+JAX's.
 """
 import os
 import subprocess
@@ -476,22 +478,7 @@ def test_out_of_vocab_and_oversized_prompts_are_refused_on_the_host():
     fw.close()
 
 
-@pytest.mark.parametrize("custom,item", [
-    ("role:prefill", "item 8"), ("role:decode,n_parallel:2", "item 8"),
-    ("handoff:127.0.0.1:9", "item 8"), ("handoff_port:0", "item 8"),
-    ("kv_precision:bf16", "item 8")])
-def test_deferred_options_raise_not_ported(custom, item):
-    with pytest.raises(pt.NotPortedError, match=item):
-        mk(custom)
-
-
 def test_deferred_model_options_raise_not_ported():
-    fw = mk("max_tokens:2,role:both")
-    for call in (lambda: fw.snapshot_state("d"),
-                 lambda: fw.restore_state({}, "d")):
-        with pytest.raises(pt.NotPortedError, match="item 11"):
-            call()
-    fw.close()
     with pytest.raises(pt.NotPortedError, match="item 12"):
         T.GPTConfig(seq_axis="seq")
     with pytest.raises(NotImplementedError, match="gguf"):
@@ -1105,15 +1092,21 @@ def test_budget_constrained_admission_completes_all():
 
 
 def test_decode_role_requires_parallel():
-    """role:decode belongs to the prefill/decode split (item 8)."""
-    with pytest.raises(pt.NotPortedError, match="item 8"):
+    """role:decode implies the paged pool, which backs the scheduler."""
+    with pytest.raises(ValueError, match="n_parallel"):
         mk("role:decode")
 
 
 def test_handoff_rejected_by_contiguous_backend():
-    """A KV handoff (item 8) is refused at open, before any backend."""
-    with pytest.raises(pt.NotPortedError, match="item 8"):
-        mk("max_tokens:4,n_parallel:2,max_len:32,handoff:127.0.0.1:9")
+    """The contiguous lanes cannot adopt shipped K/V."""
+    f = mk("max_tokens:4,n_parallel:2,max_len:32")
+    try:
+        from nnstreamer_tpu_torch.filters.llm import _ContigBackend
+        be = _ContigBackend(f, 2, 32)
+        with pytest.raises(ValueError, match="paged"):
+            be.admit_handoff(0, np.array([1], np.int32), {}, 4)
+    finally:
+        f.close()
 
 
 BASE = "max_tokens:4,n_parallel:2,max_len:32,paged:true,block_size:8"
@@ -1143,10 +1136,27 @@ def test_admit_failure_releases_all_blocks():
 
 
 def test_handoff_failure_releases_all_blocks():
-    """The handoff fold waits for the KV link (item 8): a decode
-    replica's listener is refused at open."""
-    with pytest.raises(pt.NotPortedError, match="item 8"):
-        mk(BASE + ",handoff_port:0")
+    """A failed handoff fold hands back every block it took."""
+    f = mk(BASE + ",handoff_port:0")
+    try:
+        be = _paged_backend(f)
+        used0 = f._pool_mgr.stats_dict()["blocks_used"]
+
+        def boom(*a, **k):
+            raise RuntimeError("insert failed")
+
+        be._insert_span = boom
+        prompt = np.arange(1, 7, dtype=np.int32)
+        kv = {"prompt": prompt,
+              "k": torch.zeros(2, 6, 4, 8, dtype=torch.bfloat16),
+              "v": torch.zeros(2, 6, 4, 8, dtype=torch.bfloat16),
+              "logits": np.zeros(64, np.float32)}
+        with pytest.raises(RuntimeError, match="insert failed"):
+            be.admit_handoff(0, prompt, kv, 4)
+        assert f._pool_mgr.stats_dict()["blocks_used"] == used0, \
+            "failed handoff fold leaked block refs"
+    finally:
+        f.close()
 
 
 def test_pool_recovers_after_failed_admissions():

@@ -30,7 +30,7 @@ port's classes, and adds what only a two-package run can show:
 * the settlement of the filter's failure paths (an invoke error on the
   synchronous path, a breaker-open shed) and of ``Pipeline.drain`` with
   a ``suspend`` filter;
-* the refusals (``mesh=``, ``llm-role=``) and pipelint's
+* the refusal of ``mesh=`` and pipelint's
   ``unbounded-admission`` with the serve halves of ``jit-signatures``,
   ``shed-no-retry-after`` and ``async-window``, on the JAX rule tests'
   own lines (findings compared with the JAX package's).
@@ -1236,7 +1236,7 @@ def test_vit_serve_path_matches_jax_interpreted_kernel(tmp_path,
         assert int(got[i].argmax()) == int(want[i].argmax())
 
 
-@pytest.mark.parametrize("prop", ["mesh=4x1x1", "llm-role=decode"])
+@pytest.mark.parametrize("prop", ["mesh=4x1x1"])
 def test_refused_properties_raise_not_ported(prop):
     p = pt.parse_launch(
         f"tensor_serve_src name=src port=0 {prop} "
