@@ -350,15 +350,57 @@ Native queue — the headline line with queue backend=native against
               1, 64 frames each: every frame once and in order, the
               logits bitwise equal to the local line's; frames/s and
               p50 at the subscriber, D2H copies a frame at the sink.
+43. obs vit — the ViT-B/16 attn=pallas labeling line at full width
+              (tensortestsrc ! queue ! tensor_filter ! tensor_decoder
+              mode=image_labeling ! appsink, 64 frames) behind a
+              MetricsServer on port 0, in turns with span recording on
+              and off (obs.spans.set_enabled; on, off, off, on): the
+              scraped nns_e2e_latency_seconds_count equals the frames at
+              the sink and every element has its counters; every frame's
+              span tree is connected (one root; source, queue, filter,
+              decoder and sink hops); RECORDER.dump() is valid Chrome
+              trace_event JSON; the logits into the decoder are bitwise
+              equal in every run; 12 attention launches a frame; fps and
+              p50 of each run. A Pipeline.preempt and a tensor_fault abort
+              each write a flight dump. Then phase 35's serve MobileNet-v2
+              line again, its spans summed by category and name (host
+              clocks: queue waits, batches, element hops, wire).
+44. fleet vit — replica subprocesses (python -m
+              nnstreamer_tpu_torch.fleet.replica_main) of tensor_serve_src
+              buckets=1,2,4,8 max-wait-ms=4 max-queue=64 ! the full-width
+              ViT-B/16 attn=pallas !
+              tensor_serve_sink: (a) a cold, a cache-seeding and a
+              compile-cache-warm replica serve 20 single frames each: the
+              warm first frame within max(2 x steady p50, 50 ms), the cold
+              one above it, the warm replica captured its bucket at open
+              and nothing on a frame; spawn-to-ready seconds; (b) an
+              Autoscaler (min 2) behind a DiscoveryBroker and a
+              tensor_serve_router, 4 clients x 32 of phase 23's frames, one
+              replica SIGTERMed after a third: it snapshots and resurrects,
+              every request answered once, router-settlement and
+              fleet-replica-lifecycle hold, replies within phase 36's rule
+              of phase 23's logits; (c) a blue/green rollout to v2 under a
+              stream of frames with the same checks; (d) each replica's
+              ReplicaSpec.prelude prints its launch counts at exit:
+              attention = 12 x the backend's invokes in every replica,
+              normalize 0.
+45. cli     — python -m nnstreamer_tpu_torch in five subprocesses started
+              together: the headline
+              MobileNet-v2 line (16 frames) with --stats exits 0 with the
+              filter's 16 buffers; lint exits 0, 1 and 2 on a clean, a
+              warned and a defective line; top --json against phase 44's
+              MetricsServer and a second one gives one row an endpoint.
 Every model line runs through the backend's per-signature executable,
 one captured CUDA graph per input signature: the first frame runs
 eagerly (the capture's warm-up), every later frame is one replay, so a
 hand kernel inside the graph counts once a frame.
-Phases 8-11, 13, 16, 17, 19, 20, 22, 24, 26, 27, 29-35, 37, 39-42 and
-the native queue lines launch neither hand kernel
+Phases 8-11, 13, 16, 17, 19, 20, 22, 24, 26, 27, 29-35, 37, 39-42, 43's
+serve line, 45 and the native queue lines launch neither hand kernel
 (their models inline their input affine, as the JAX models do); their
 launch counts are read all the same and written on the kernels line as
-0. The
+0. Phase 44's replicas count in their own processes: the kernels line
+gives their sum as fleet_vit_replicas (the parent's own, 0, as
+fleet_vit). The
 tracer's times are host times: a filter's proctime is its dispatch
 (staging and the graph launch), not the device time.
 
@@ -5208,6 +5250,836 @@ def phase_train_gpt(smi, tmp):
             "kernel_launches": launches}
 
 
+OBS_FRAMES = 64            # phase 43: frames of each ViT-B/16 run
+OBS_TURNS = ("on", "off", "off", "on")  # recording on/off, in turns
+OBS_HOP_CALLS = 20000      # phase 43: calls a turn of the span-cost reads
+FLEET_TOPIC = "fleet-vit"  # phase 44's discovery topic
+FLEET_SINGLE = 20          # phase 44(a): single frames a replica life
+FLEET_CLIENTS = 4          # phase 44(b): 4 clients x 32 frames (phase
+FLEET_FRAMES = 32          # 23's 16 seeded frames), one SIGTERM
+FLEET_GRACE_S = 3.0        # a replica's preemption grace
+FLEET_READY_S = 300.0      # a replica's spawn-to-ready limit
+ROLLOUT_GAP_S = 0.02       # phase 44(c): a frame every 20 ms meanwhile
+ROLLOUT_MAX = 2000
+FIRST_FRAME_FLOOR_MS = 50.0  # tests/test_fleet.py:604's budget floor
+CLI_FRAMES = 16            # phase 45: frames of the CLI's headline line
+
+# A replica's prelude (ReplicaSpec.prelude): prints the backend's
+# counters at open and on a frame that captures, and, at exit, the hand
+# kernels' launch counts (ops/_tally.py) beside the backend's invokes
+# and the SHEDs its serve src sent: shed_sent in all, shed_closed refused
+# at admission after a drain closed it, shed_full refused by a full
+# queue. A preempted replica leaves through os._exit, which skips
+# atexit, so the prelude runs the atexit hooks first.
+FLEET_PRELUDE = """
+import atexit, os, threading
+import nnstreamer_tpu_torch.filters.torch_cuda_backend as _b
+from nnstreamer_tpu_torch.ops import attention as _A, normalize as _N
+from nnstreamer_tpu_torch.serve import batcher as _sb, elements as _se
+_sheds, _shed_lock = {"sent": 0, "closed": 0, "full": 0}, threading.Lock()
+def _count_shed(kind):
+    with _shed_lock:
+        _sheds[kind] += 1
+_submit = _sb.BucketBatcher.submit
+def _submitted(self, req):
+    with self._cond:   # the verdict and its reason under one hold
+        closed = self._draining
+        ok = _submit(self, req)
+    if not ok:
+        _count_shed("closed" if closed else "full")
+    return ok
+_sb.BucketBatcher.submit = _submitted
+_on_shed = _se.TensorServeSrc._on_shed
+def _shed_sent(self, req):
+    _count_shed("sent")
+    _on_shed(self, req)
+_se.TensorServeSrc._on_shed = _shed_sent
+_open, _invoke = _b.TorchCudaFilter.open, _b.TorchCudaFilter.invoke
+_invokes = [0]
+def _opened(self, props):
+    _open(self, props)
+    self._serving = True
+    print(f"backend-open prewarmed={self.prewarmed} "
+          f"compiles={self.compile_count}", flush=True)
+def _invoked(self, inputs):
+    _invokes[0] += 1
+    n = self.compile_count
+    out = _invoke(self, inputs)
+    if getattr(self, "_serving", False) and self.compile_count != n:
+        print(f"backend-frame-capture compiles={self.compile_count}",
+              flush=True)
+    return out
+_b.TorchCudaFilter.open, _b.TorchCudaFilter.invoke = _opened, _invoked
+def _launches():
+    print(f"replica-launches attention={_A.launches} "
+          f"normalize={_N.launches} invokes={_invokes[0]} "
+          f"shed_sent={_sheds['sent']} shed_closed={_sheds['closed']} "
+          f"shed_full={_sheds['full']}", flush=True)
+atexit.register(_launches)
+_exit = os._exit
+def _exit_after_atexit(code):
+    atexit._run_exitfuncs()
+    _exit(code)
+os._exit = _exit_after_atexit
+"""
+
+
+# Phase 45's run: the CLI's module run as ``python -m`` runs it
+# (runpy, as __main__, argv from the command line) after a hook that
+# prints the hand kernels' launch counts (ops/_tally.py) to stderr at
+# exit: the run's kernels launch in that process, not in this one.
+CLI_HOOK = """
+import atexit, runpy, sys
+from nnstreamer_tpu_torch.ops import attention as _A, normalize as _N
+atexit.register(lambda: print(f"cli-launches attention={_A.launches} "
+                              f"normalize={_N.launches}", file=sys.stderr,
+                              flush=True))
+runpy.run_module("nnstreamer_tpu_torch", run_name="__main__", alter_sys=True)
+"""
+
+
+def _spans_of(traces):
+    """The live ring spans of ``traces``, by trace id."""
+    from nnstreamer_tpu_torch.obs import spans
+    got = {t: [] for t in traces}
+    for _tid, s in spans.snapshot():
+        if s[4] in got:
+            got[s[4]].append(s)
+    return got
+
+
+def _connected(spans_):
+    """One root and no orphan parent."""
+    ids = {s[5] for s in spans_}
+    return [s[6] for s in spans_].count(0) == 1 and all(
+        s[6] == 0 or s[6] in ids for s in spans_)
+
+
+def _flight_files(kind):
+    d = os.environ.get("NNS_TPU_FLIGHT_DIR", "")
+    return sorted(f for f in os.listdir(d) if f"-{kind}-" in f) \
+        if d and os.path.isdir(d) else []
+
+
+def _obs_vit_run(labels, server):
+    """One run of phase 43's line with the counts zeroed just before it;
+    with ``server`` the exposition is scraped at EOS, before stop()
+    unregisters the pipeline. Returns (pipeline, sink arrival stamps,
+    the decoder's input logits in order, launches, samples)."""
+    import nnstreamer_tpu_torch as pt
+    from nnstreamer_tpu_torch.obs import metrics
+    from nnstreamer_tpu_torch.obs.server import scrape
+    pipe = pt.parse_launch(
+        f"tensortestsrc name=src caps={CAPS.format(dims='3:224:224')} "
+        f"pattern=random seed={SEED} num-buffers={OBS_FRAMES} ! queue name=q "
+        '! tensor_filter name=f framework=torch-cuda model="zoo://vit?'
+        'attn=pallas" ! tensor_decoder name=d mode=image_labeling '
+        f"option1={labels} ! appsink name=out")
+    arrivals, logits = [], []
+    pipe["out"].connect(lambda buf: arrivals.append(time.perf_counter()))
+    chain = pipe["d"].do_chain
+
+    def tapped(pad, buf):
+        logits.append(buf.chunks[0].host().copy())
+        chain(pad, buf)
+
+    pipe["d"].do_chain = tapped
+    metrics.reset()
+    _reset_launches()
+    pipe.start()
+    samples = None
+    try:
+        if not pipe.wait_eos(600):
+            sys.exit("chip_smoke: obs vit: no EOS")
+        if server is not None:
+            samples = metrics.parse(scrape("127.0.0.1", server.bound_port))
+    finally:
+        pipe.stop()
+    return pipe, arrivals, logits, _kernel_launches(), samples
+
+
+def _obs_checks(pipe, samples, launches):
+    """Phase 43's checks on the first recorded run; returns its row."""
+    from nnstreamer_tpu_torch.obs import context as obs_ctx
+    from nnstreamer_tpu_torch.obs.recorder import RECORDER
+    bufs = pipe["out"].buffers
+    e2e = samples.get(("nns_e2e_latency_seconds_count",
+                       (("pipeline", pipe.name), ("sink", "out"))))
+    counters = {}
+    for (name, labels), v in samples.items():
+        lab = dict(labels)
+        if name == "nns_element_counter_total" \
+                and lab.get("pipeline") == pipe.name:
+            counters.setdefault(lab["element"], {})[lab["counter"]] = v
+    traces = [obs_ctx.ctx_of(b).trace_id for b in bufs]
+    by_trace = _spans_of(traces)
+    names_ok = all({"src", "q", "f", "d", "out"}
+                   <= {s[0] for s in by_trace[t]} for t in traces)
+    trees_ok = all(_connected(by_trace[t]) for t in traces)
+    doc = json.loads(json.dumps(RECORDER.dump()))
+    evs = doc["traceEvents"]
+    hexes = {f"{t:x}" for t in traces}
+    dumped = {e["args"]["trace"] for e in evs
+              if e["ph"] == "X" and e["args"]["trace"] in hexes}
+    dump_ok = (all(e["ph"] in ("M", "X", "i") for e in evs)
+               and dumped == hexes and doc["displayTimeUnit"] == "ms")
+    per_element = {e: counters.get(e, {}).get("buffers")
+                   for e in pipe.elements}
+    row = {"frames": len(bufs), "e2e_count": e2e,
+           "element_buffers": per_element,
+           "every_element_counted": set(counters) == set(pipe.elements),
+           "distinct_traces": len(set(traces)), "trees_connected": trees_ok,
+           "hops": names_ok, "dump_events": len(evs),
+           "dump_valid": dump_ok, "kernel_launches": launches}
+    if not (len(bufs) == OBS_FRAMES and e2e == OBS_FRAMES
+            and row["every_element_counted"]
+            and all(per_element[e] == OBS_FRAMES
+                    for e in ("q", "f", "d", "out"))
+            and len(set(traces)) == OBS_FRAMES and trees_ok and names_ok
+            and dump_ok
+            and launches["attention"] == VIT_LAYERS * OBS_FRAMES
+            and launches["normalize"] == 0):
+        sys.exit(f"chip_smoke: obs vit: {row}")
+    return row
+
+
+def _flight_triggers(tmp):
+    """A Pipeline.preempt and a tensor_fault abort each write a flight
+    dump; returns the files they wrote."""
+    import nnstreamer_tpu_torch as pt
+    from nnstreamer_tpu_torch.obs.recorder import RECORDER
+    caps = CAPS.format(dims="3:4:4")
+    before = _flight_files("preempt")
+    pipe = pt.parse_launch(f"tensortestsrc caps={caps} num-buffers=4 "
+                           "! queue ! appsink name=out")
+    pipe.start()
+    deadline = time.monotonic() + 30
+    while len(pipe["out"].buffers) < 4 and time.monotonic() < deadline:
+        time.sleep(0.01)
+    report = pipe.preempt(1.0, os.path.join(tmp, "obs-preempt"))
+    preempt = sorted(set(_flight_files("preempt")) - set(before))
+    # an abort dump is rate-limited to one per 30 s; an earlier phase's
+    # abort (phases 19-20) must not hide this one
+    RECORDER._last_abort_dump = 0.0
+    before = _flight_files("abort")
+    pipe = pt.parse_launch(f"tensortestsrc caps={caps} num-buffers=4 "
+                           "! tensor_fault mode=raise every=2 "
+                           "! appsink name=out")
+    pipe.start()
+    deadline = time.monotonic() + 30
+    while pipe._error is None and time.monotonic() < deadline:
+        time.sleep(0.01)
+    pipe.stop()
+    abort = sorted(set(_flight_files("abort")) - set(before))
+    if not report.get("snapshot") or len(preempt) != 1 or len(abort) != 1:
+        sys.exit(f"chip_smoke: obs vit: flight dumps {preempt} {abort} "
+                 f"(preempt report {report})")
+    return {"preempt_dump": preempt[0], "abort_dump": abort[0]}
+
+
+def _span_cost():
+    """The host time span recording adds, read directly in ABBA turns of
+    recording on and off: (1) a chain hop, ``identity ! fakesink`` driven
+    by OBS_HOP_CALLS chain() calls on this thread (two hops a call, the
+    second terminal and settling the e2e histogram); (2) a frame of
+    ``tensortestsrc ! queue ! identity ! fakesink`` (the source's root
+    stamp, the queue's entry stamp and wait span, two chain hops), over
+    OBS_HOP_CALLS frames of 48 bytes to EOS. Returns ns a hop and ns a
+    frame, per turn."""
+    import nnstreamer_tpu_torch as pt
+    from nnstreamer_tpu_torch.obs import context as obs_ctx, spans
+    caps = CAPS.format(dims="3:4:4")
+    hop = pt.parse_launch(f"appsrc name=a caps={caps} ! identity name=i "
+                          "! fakesink name=s")
+    buf = pt.Buffer.from_arrays([np.zeros((4, 4, 3), np.uint8)])
+    obs_ctx.stamp(buf)
+    pad, chain = hop["i"].sink_pads["sink"], hop["i"].chain
+    out = {"hop_ns": {"on": [], "off": []}, "frame_ns": {"on": [], "off": []}}
+    try:
+        for turn in ("on", "off", "off", "on"):
+            spans.set_enabled(turn == "on")
+            t0 = time.perf_counter_ns()
+            for _ in range(OBS_HOP_CALLS):
+                chain(pad, buf)
+            out["hop_ns"][turn].append(
+                (time.perf_counter_ns() - t0) / (2 * OBS_HOP_CALLS))
+        for turn in ("on", "off", "off", "on"):
+            spans.set_enabled(turn == "on")
+            line = pt.parse_launch(
+                f"tensortestsrc caps={caps} num-buffers={OBS_HOP_CALLS} "
+                "! queue ! identity ! fakesink name=s")
+            t0 = time.perf_counter_ns()
+            line.start()
+            try:
+                if not line.wait_eos(120):
+                    sys.exit("chip_smoke: obs span cost: no EOS")
+                out["frame_ns"][turn].append(
+                    (time.perf_counter_ns() - t0) / OBS_HOP_CALLS)
+            finally:
+                line.stop()
+    finally:
+        spans.set_enabled(True)
+    return out
+
+
+def _span_breakdown(spans_):
+    """Host ms a span name and category: count, total, p50 and p95 us."""
+    by = {}
+    for s in spans_:
+        by.setdefault((s[1], s[0]), []).append(s[3] / 1e3)
+    return {f"{cat}:{name}": {
+        "count": len(us), "total_ms": float(np.sum(us)) / 1e3,
+        "p50_us": float(np.percentile(us, 50)),
+        "p95_us": float(np.percentile(us, 95))}
+        for (cat, name), us in sorted(by.items())}
+
+
+def phase_obs_vit(smi, clean, tmp):
+    """Phase 43: the ViT-B/16 attn=pallas labeling line (64 frames)
+    behind a MetricsServer, in turns with recording on and off; a
+    preempt's and an abort's flight dumps; then phase 35's serve line
+    with its spans broken down by category."""
+    import nnstreamer_tpu_torch as pt
+    from nnstreamer_tpu_torch.obs import spans
+    from nnstreamer_tpu_torch.obs.recorder import RECORDER
+    labels = os.path.join(tmp, "labels-obs.txt")
+    with open(labels, "w") as f:
+        f.write("\n".join(f"class{i}" for i in range(1000)))
+    server = pt.obs.serve_metrics(port=0)
+    runs, checked, first = [], None, None
+    try:
+        for turn in OBS_TURNS:
+            on = turn == "on"
+            spans.set_enabled(on)
+            if on and checked is None:
+                spans.clear()
+                RECORDER.clear()
+            pipe, arrivals, logits, launches, samples = _obs_vit_run(
+                labels, server if on else None)
+            fps, p50 = _line_stats(arrivals[1:])
+            if first is None:
+                first = logits
+            equal = len(logits) == OBS_FRAMES and all(
+                a.tobytes() == b.tobytes() for a, b in zip(logits, first))
+            row = {"recording": turn, "fps": fps, "p50_ms": p50,
+                   "bitwise_equal_first": equal, "kernel_launches": launches}
+            if on and checked is None:
+                checked = _obs_checks(pipe, samples, launches)
+            runs.append(row)
+            log(f"obs vit ({turn}): {OBS_FRAMES} frames, steady {fps:.2f} "
+                f"fps, p50 frame time {p50:.3f} ms (frames 3..{OBS_FRAMES}),"
+                f" logits {'bitwise equal' if equal else 'NOT EQUAL'} to the"
+                f" first run's, kernel launches {launches}; {smi}")
+            if not equal or launches["attention"] != VIT_LAYERS * OBS_FRAMES \
+                    or launches["normalize"]:
+                sys.exit(f"chip_smoke: obs vit: {row}")
+    finally:
+        spans.set_enabled(True)
+        server.stop()
+    log(f"obs vit checks: e2e count {checked['e2e_count']}, element "
+        f"buffers {checked['element_buffers']}, {checked['distinct_traces']}"
+        f" traces, trees connected {checked['trees_connected']}, hops "
+        f"src/q/f/d/out {checked['hops']}, dump of "
+        f"{checked['dump_events']} trace events valid "
+        f"{checked['dump_valid']}, server scrapes {server.scrapes}")
+    dumps = _flight_triggers(tmp)
+    log(f"obs flight dumps: {dumps}")
+    cost = _span_cost()
+    for k, what in (("hop_ns", "a chain hop"), ("frame_ns", "a frame")):
+        on, off = np.mean(cost[k]["on"]), np.mean(cost[k]["off"])
+        cost[k.replace("_ns", "_added_ns")] = float(on - off)
+        log(f"obs span cost, {what}: recording on {cost[k]['on']} ns, off "
+            f"{cost[k]['off']} ns (ABBA, {OBS_HOP_CALLS} calls a turn): "
+            f"{on - off:.1f} ns added; {smi}")
+    on = [r for r in runs if r["recording"] == "on"]
+    off = [r for r in runs if r["recording"] == "off"]
+    # phase 35's serve line again, its spans read back by category
+    frames = _frames(QUERY_DISTINCT, _frame_shape()).numpy()
+    want = _headline_logits(clean, QUERY_DISTINCT)
+    spans.clear()
+    served = _serve_line_run("obs serve mobilenet", "zoo://mobilenet_v2",
+                             frames, want, FANOUT_REL_TOL, smi)
+    breakdown = _span_breakdown([s for _tid, s in spans.snapshot()])
+    log(f"obs serve mobilenet spans ({served['batches']} batches, "
+        f"{served['replies']} requests; host clocks): "
+        f"{json.dumps(breakdown)}; {smi}")
+    return {"vit": {"checks": checked, "runs": runs,
+                    "fps_on": [r["fps"] for r in on],
+                    "fps_off": [r["fps"] for r in off],
+                    "p50_on_ms": [r["p50_ms"] for r in on],
+                    "p50_off_ms": [r["p50_ms"] for r in off],
+                    "kernel_launches": checked["kernel_launches"],
+                    "span_cost": cost, **dumps},
+            "serve_mobilenet": {
+                "batches": served["batches"], "replies": served["replies"],
+                "fps": served["fps"], "spans": breakdown,
+                "kernel_launches": served["kernel_launches"]}}
+
+
+def _fleet_desc(ident, extra=""):
+    """The replicas' serve line over the full-width ViT-B/16, with
+    phase 35's batching (bench_serve_row's buckets, max-wait 4 ms,
+    max-queue 64: behind the router every client shares one stream, so
+    the default 16 would shed while a replica captures a new bucket)."""
+    return ("tensor_serve_src name=src port={port} id=%d "
+            "buckets=%s max-wait-ms=4 max-queue=64 %s"
+            "! tensor_filter name=f framework=torch-cuda "
+            'model="zoo://vit?attn=pallas" ! tensor_serve_sink id=%d'
+            % (ident, SERVE_BUCKETS, extra, ident))
+
+
+def _replica_lines(rp, prefix, wait_s=0.0):
+    """The lines of a replica's output that start with ``prefix``,
+    waiting up to ``wait_s`` for one (the parent's reader thread reads
+    the child's last words after the child has exited)."""
+    deadline = time.monotonic() + wait_s
+    while True:
+        got = [ln for ln in rp.tail(400).splitlines()
+               if ln.startswith(prefix)]
+        if got or time.monotonic() >= deadline:
+            return got
+        time.sleep(0.02)
+
+
+def _fleet_life(spec, ident, frames, want, tol):
+    """One replica life: spawn, FLEET_SINGLE single frames one at a time
+    through a query client, preempt. Returns its row."""
+    import nnstreamer_tpu_torch as pt
+    from nnstreamer_tpu_torch.fleet import ReplicaProcess
+    rp = ReplicaProcess(spec, ident)
+    t0 = time.perf_counter()
+    rp.spawn()
+    try:
+        port = rp.wait_ready(timeout=FLEET_READY_S)
+        ready_s = time.perf_counter() - t0
+        client = pt.parse_launch(
+            f"appsrc name=in caps={_caps_at(FRAME_DIMS)} ! "
+            f"tensor_query_client name=qc port={port} timeout=120 "
+            "max-request=1 ! appsink name=out")
+        client.start()
+        lat = []
+        try:
+            for i in range(FLEET_SINGLE):
+                n0 = len(client["out"].buffers)
+                t = time.perf_counter()
+                client["in"].push_buffer(pt.Buffer.from_arrays(
+                    [frames[i % len(frames)]], pts=i))
+                deadline = time.monotonic() + 120
+                while len(client["out"].buffers) <= n0:
+                    if time.monotonic() > deadline:
+                        sys.exit(f"chip_smoke: fleet {ident}: frame {i} "
+                                 f"unanswered\n{rp.tail()}")
+                    time.sleep(0.0002)
+                lat.append((time.perf_counter() - t) * 1e3)
+            got = [b.chunks[0].host() for b in client["out"].buffers]
+        finally:
+            client["in"].end_stream()
+            client.stop()
+        report = rp.preempt(timeout=120)
+    finally:
+        rp.kill()
+    worst = max(float(np.abs(g - want[i % len(want)]).max())
+                for i, g in enumerate(got))
+    steady = float(np.percentile(lat[5:], 50))
+    return {"ready_s": ready_s, "first_ms": lat[0], "steady_p50_ms": steady,
+            "latencies_ms": lat, "max_abs_diff": worst, "tol": tol,
+            "opened": _replica_lines(rp, "backend-open"),
+            "frame_captures": _replica_lines(rp, "backend-frame-capture"),
+            "launches": _replica_lines(rp, "replica-launches", 30.0),
+            "preempted": bool(report and report.get("snapshot"))}
+
+
+def _parse_launches(line):
+    return {k: int(v) for k, v in
+            (tok.split("=") for tok in line.split()[1:])}
+
+
+def _stream_client(port, frames, stop, pushed, arrived):
+    """A query client pushing phase 23's frames one every ROLLOUT_GAP_S
+    (pts = its index) until ``stop`` is set; returns (pipeline, thread)."""
+    import threading
+    import nnstreamer_tpu_torch as pt
+    client = pt.parse_launch(
+        f"appsrc name=in caps={_caps_at(FRAME_DIMS)} ! tensor_query_client "
+        f"name=qc port={port} timeout=120 max-request=8 ! appsink name=out")
+    client["out"].connect(lambda buf: arrived.append(
+        (buf.pts, buf.chunks[0].host())))
+    client.start()
+
+    def push():
+        while not stop.is_set() and pushed[0] < ROLLOUT_MAX:
+            i = pushed[0]
+            client["in"].push_buffer(pt.Buffer.from_arrays(
+                [frames[i % len(frames)]], pts=i))
+            pushed[0] += 1
+            time.sleep(ROLLOUT_GAP_S)
+
+    t = threading.Thread(target=push, name="rollout-pusher", daemon=True)
+    t.start()
+    return client, t
+
+
+def phase_fleet_vit(smi, vit_local, tmp):
+    """Phase 44: replica subprocesses of the ViT-B/16 serve line: (a) a
+    cold replica that seeds the compile cache and a warm one's first
+    frame; (b) a fleet of two behind a router under 4 clients, one
+    SIGTERM; (c) a blue/green rollout under traffic; (d) the attention
+    kernel's launches and the SHEDs in every replica. The counts of this
+    (the router's) process are zeroed at the start. Returns (row, the
+    parent's MetricsServer, left running for phase 45)."""
+    import signal
+    import threading
+    import nnstreamer_tpu_torch as pt
+    from nnstreamer_tpu_torch.analysis.flow import check_identities
+    from nnstreamer_tpu_torch.edge.broker import DiscoveryBroker
+    from nnstreamer_tpu_torch.fleet import (Autoscaler, AutoscalerConfig,
+                                            BlueGreenRollout, ReplicaSpec)
+    frames = _frames(FRAMES, _frame_shape()).numpy()
+    scale = max(float(np.abs(w).max()) for w in vit_local)
+    tol = 5e-2 + 0.05 * scale      # phase 36's rule for a served ViT row
+    cache = os.path.join(tmp, "compile-cache")
+    single = _fleet_desc(44)
+    _reset_launches()
+
+    # (a) warm start: a cold life on the empty cache, which seeds it,
+    # then a warm one
+    lives = {}
+    for ident in ("cold", "warm"):
+        spec = ReplicaSpec(desc_template=single,
+                           ckpt_root=os.path.join(tmp, "fleet-a"),
+                           compile_cache=cache, prelude=FLEET_PRELUDE,
+                           ready_timeout_s=FLEET_READY_S)
+        lives[ident] = row = _fleet_life(spec, ident, frames, vit_local, tol)
+        log(f"fleet vit ({ident} replica, compile cache):"
+            f" spawn to ready {row['ready_s']:.2f} s; first frame "
+            f"{row['first_ms']:.2f} ms, steady p50 "
+            f"{row['steady_p50_ms']:.3f} ms over {FLEET_SINGLE} single "
+            f"frames; {row['opened']} {row['frame_captures']} "
+            f"{row['launches']}; max |diff| vs phase 23's logits "
+            f"{row['max_abs_diff']:.4g} (tol {tol:.4g}); {smi}")
+        if row["max_abs_diff"] > tol or not row["preempted"] \
+                or len(row["launches"]) != 1:
+            sys.exit(f"chip_smoke: fleet vit {ident}: {row}")
+    cold, warm = lives["cold"], lives["warm"]
+    budget = max(2.0 * warm["steady_p50_ms"], FIRST_FRAME_FLOOR_MS)
+    warm_ok = (warm["first_ms"] <= budget and cold["first_ms"] > budget
+               and cold["opened"] == ["backend-open prewarmed=0 compiles=0"]
+               and cold["frame_captures"]
+               and warm["opened"] == ["backend-open prewarmed=1 compiles=1"]
+               and not warm["frame_captures"])
+    log(f"fleet vit warm start: first frame warm {warm['first_ms']:.2f} ms "
+        f"against a budget of {budget:.2f} ms (max(2 x steady p50 "
+        f"{warm['steady_p50_ms']:.3f}, {FIRST_FRAME_FLOOR_MS:.0f})), cold "
+        f"{cold['first_ms']:.2f} ms; spawn to ready cold "
+        f"{cold['ready_s']:.2f} s, warm {warm['ready_s']:.2f} s")
+    if not warm_ok:
+        sys.exit(f"chip_smoke: fleet vit warm start: cold {cold} warm {warm}")
+
+    # (b) + (c): a fleet behind a router, with the compile cache
+    broker = DiscoveryBroker(port=0).start()
+    router = pt.parse_launch(
+        f"tensor_serve_router name=rt port=0 topic={FLEET_TOPIC} "
+        f"dest-port={broker.bound_port} requery-ms=100 heartbeat-ms=50 "
+        "breaker-reset-ms=300")
+    router.start()
+    rt = router["rt"]
+    # the SHEDs the router answers itself (no replica to take a request),
+    # apart from those it forwards from a replica
+    own_sheds, shed_to_client = [0], rt.router._shed_to_client
+
+    def own_shed(*args, **kwargs):
+        own_sheds[0] += 1
+        shed_to_client(*args, **kwargs)
+
+    rt.router._shed_to_client = own_shed
+    metrics_srv = pt.obs.serve_metrics(port=0)
+    spec = ReplicaSpec(
+        desc_template=_fleet_desc(
+            45, f"connect-type=HYBRID topic={FLEET_TOPIC} "
+                f"dest-port={broker.bound_port} version={{version}} "),
+        ckpt_root=os.path.join(tmp, "fleet-b"), grace_s=FLEET_GRACE_S,
+        compile_cache=cache, prelude=FLEET_PRELUDE, version="v1",
+        ready_timeout_s=FLEET_READY_S)
+    auto = Autoscaler(spec, router=rt, config=AutoscalerConfig(
+        min_replicas=2, max_replicas=3, interval_s=0.1,
+        # failover and rollout, not the control law: the target is high
+        # enough that only the kill and the rollout change the fleet
+        target_delay_ms=1e6,
+        metrics_url=f"127.0.0.1:{metrics_srv.bound_port}"), name="fleet")
+    handles = {}
+
+    def track():
+        for ident in auto.replicas():
+            rp = auto.handle(ident)
+            if rp is not None:
+                handles[id(rp)] = rp
+
+    def wait(pred, what, timeout=FLEET_READY_S):
+        deadline = time.monotonic() + timeout
+        while not pred():
+            if time.monotonic() > deadline:
+                sys.exit(f"chip_smoke: fleet vit: {what} "
+                         f"({auto.lifecycle()})")
+            time.sleep(0.05)
+
+    killed = {}
+    try:
+        t0 = time.perf_counter()
+        auto.start()
+        wait(lambda: len(rt.router.replica_keys()) >= 2, "two replicas")
+        fleet_ready_s = time.perf_counter() - t0
+        track()
+
+        def kill():
+            serving = sorted(i for i, s in auto.replicas().items()
+                             if s == "serving")
+            corpse = auto.handle(serving[0])
+            killed["ident"], killed["rp"] = serving[0], corpse
+            os.kill(corpse.pid, signal.SIGTERM)  # an external preemption
+
+        n_all = FLEET_CLIENTS * FLEET_FRAMES
+        _, results, stats = _fanout(rt.bound_port, frames, FLEET_CLIENTS, 0,
+                                    FLEET_FRAMES, 8, during=(n_all // 3, kill))
+        wait(lambda: auto.lifecycle()["resurrections"] >= 1
+             and auto.lifecycle()["replicas_serving"] >= 2
+             and auto.lifecycle()["replicas_resurrecting"] == 0,
+             "the killed replica did not resurrect")
+        track()
+        corpse = killed["rp"]
+        wait(lambda: corpse.preempt_report is not None,
+             "the killed replica reported no preemption", 60)
+        n_result = sum(len(r["replies"]) for r in results)
+        sheds = sum(s["shed"] for s in stats)
+        lost = sum(s["session_declared_lost"] for s in stats)
+        worst, _, _, _ = _replies_vs(results, vit_local, in_order=False)
+        check_identities(rt.stats.snapshot(), names=["router-settlement"])
+        auto.check()
+        st = rt.stats.snapshot()
+        own_b = own_sheds[0]
+        victim = _replica_lines(corpse, "replica-launches", 30.0)
+        victim = _parse_launches(victim[0]) if len(victim) == 1 else {}
+        kill_row = {"clients": FLEET_CLIENTS,
+                    "frames_per_client": FLEET_FRAMES,
+                    "killed": killed["ident"],
+                    "snapshot": bool(corpse.preempt_report.get("snapshot")),
+                    "abandoned": corpse.preempt_report.get("abandoned"),
+                    "results": n_result, "shed": sheds,
+                    "router_own_shed": own_b,
+                    "victim_shed": {k: victim.get(k) for k in (
+                        "shed_sent", "shed_closed", "shed_full")},
+                    "declared_lost": lost, "max_abs_diff": worst,
+                    "tol": tol, "fleet_ready_s": fleet_ready_s,
+                    "lifecycle": auto.lifecycle(),
+                    **{k: v for k, v in st.items()
+                       if k.startswith("router_")}}
+        log(f"fleet vit SIGTERM: 2 replicas ready in {fleet_ready_s:.2f} s,"
+            f" {FLEET_CLIENTS} clients x {FLEET_FRAMES} frames, "
+            f"{killed['ident']} SIGTERMed after a third: snapshot "
+            f"{kill_row['snapshot']}, abandoned {kill_row['abandoned']}, "
+            f"resurrected; {n_result} RESULT + {sheds} SHED of {n_all}, "
+            f"{lost} declared lost; the victim sent {victim.get('shed_sent')}"
+            f" SHED ({victim.get('shed_closed')} after its drain closed "
+            f"admission, {victim.get('shed_full')} on a full queue), the "
+            f"router {own_b} of its own; router requests "
+            f"{st['router_requests']} = delivered {st['router_delivered']}"
+            f" + shed {st['router_shed']} + orphaned "
+            f"{st['router_orphaned']}, "
+            f"redispatched {st['router_redispatched']}; lifecycle "
+            f"{auto.lifecycle()}; max |diff| {worst:.4g} (tol {tol:.4g}); "
+            f"{smi}")
+        # every SHED is the victim's, refused after its drain closed
+        # admission ((d) holds each replica's SHEDs to that); the router
+        # sheds nothing of its own
+        if n_result + sheds != n_all or lost or not kill_row["snapshot"] \
+                or worst > tol or own_b or not victim \
+                or st["router_shed"] != sheds \
+                or sheds > victim["shed_closed"]:
+            sys.exit(f"chip_smoke: fleet vit SIGTERM: {kill_row}")
+
+        # (c) blue/green to v2 under a stream of frames
+        stop, pushed, arrived = threading.Event(), [0], []
+        client, pusher = _stream_client(rt.bound_port, frames, stop, pushed,
+                                        arrived)
+        try:
+            wait(lambda: len(arrived) >= 10, "no replies before the rollout",
+                 120)
+            t0 = time.perf_counter()
+            res = BlueGreenRollout(auto, "v2",
+                                   routable_timeout_s=FLEET_READY_S).run()
+            rollout_s = time.perf_counter() - t0
+            stop.set()
+            pusher.join(timeout=30)
+            client["in"].end_stream()
+            client.wait_eos(300)
+            qc = client["qc"].stats.snapshot()
+        finally:
+            stop.set()
+            client.stop()
+        track()
+        states = auto.replicas()
+        versions = sorted(auto.handle(i).version for i in states)
+        loads = sorted(v["load"].get("version", "")
+                       for v in rt.router_report().values()
+                       if v["state"] == "healthy")
+        pts = [p for p, _ in arrived]
+        once = sorted(pts) == sorted(set(pts))
+        worst_c = max(float(np.abs(g - vit_local[p % len(vit_local)]).max())
+                      for p, g in arrived)
+        check_identities(rt.stats.snapshot(), names=["router-settlement"])
+        auto.check()
+        own_c = own_sheds[0] - own_b
+        roll_row = {"replaced": res["replaced"], "spawned": res["spawned"],
+                    "seconds": rollout_s, "pushed": pushed[0],
+                    "results": len(arrived), "shed": qc["shed"],
+                    "router_own_shed": own_c,
+                    "declared_lost": qc["session_declared_lost"],
+                    "once": once, "versions": versions,
+                    "router_versions": loads, "max_abs_diff": worst_c}
+        log(f"fleet vit rollout to v2: {res['replaced']} replaced by "
+            f"{res['spawned']} in {rollout_s:.2f} s under a stream of "
+            f"{pushed[0]} frames ({ROLLOUT_GAP_S * 1e3:.0f} ms apart): "
+            f"{len(arrived)} RESULT + {qc['shed']} SHED ({own_c} the "
+            f"router's own), {qc['session_declared_lost']} declared lost, "
+            f"each once "
+            f"{once}; versions {versions}, router loads {loads}; max |diff|"
+            f" {worst_c:.4g} (tol {tol:.4g}); lifecycle {auto.lifecycle()}")
+        if res["replaced"] != 2 or versions != ["v2", "v2"] \
+                or loads != ["v2", "v2"] or not once \
+                or len(arrived) + qc["shed"] != pushed[0] or own_c \
+                or qc["session_declared_lost"] or worst_c > tol:
+            sys.exit(f"chip_smoke: fleet vit rollout: {roll_row}")
+    finally:
+        try:
+            auto.stop()
+        finally:
+            # stop() preempts every replica it holds: one still alive
+            # (or one a failed check left behind) is killed here, and a
+            # phase that got this far fails for it below
+            left = [rp for rp in handles.values() if rp.alive()]
+            for rp in left:
+                rp.kill()
+            router.stop()
+            broker.stop()
+    if left:
+        sys.exit(f"chip_smoke: fleet vit: replicas alive after the "
+                 f"autoscaler stopped: {[(rp.ident, rp.pid) for rp in left]}")
+    auto.check()
+    # (d) the attention kernel in the replica processes
+    per_replica = []
+    for rp in handles.values():
+        lines = _replica_lines(rp, "replica-launches", 30.0)
+        if len(lines) != 1:
+            sys.exit(f"chip_smoke: fleet vit: replica {rp.ident} reported "
+                     f"{lines}\n{rp.tail()}")
+        per_replica.append({"ident": rp.ident, "version": rp.version,
+                            **_parse_launches(lines[0])})
+    for ident, life in lives.items():
+        per_replica.append({"ident": ident, "version": "",
+                            **_parse_launches(life["launches"][0])})
+    replica_launches = {
+        "attention": sum(r["attention"] for r in per_replica),
+        "normalize": sum(r["normalize"] for r in per_replica)}
+    log(f"fleet vit replica launches and SHEDs (ReplicaSpec.prelude's "
+        f"atexit, ops/_tally.py): {per_replica}; {smi}")
+    # a replica sheds only what reaches it after a drain (the SIGTERM's
+    # or the rollout's) closed its admission, and only (b)'s victim and
+    # the replicas (c) replaced drained under traffic
+    fleet_sheds = sum(r["shed_sent"] for r in per_replica)
+    if any(r["attention"] != VIT_LAYERS * r["invokes"] or r["normalize"]
+           or r["shed_full"] or r["shed_sent"] != r["shed_closed"]
+           for r in per_replica) or not replica_launches["attention"] \
+            or len(handles) < 5 \
+            or kill_row["shed"] + roll_row["shed"] > fleet_sheds \
+            or any(r["shed_sent"] for r in per_replica
+                   if r["version"] == "v2" or r["ident"] in lives):
+        sys.exit(f"chip_smoke: fleet vit: attention launches or SHEDs in "
+                 f"the replicas {per_replica}")
+    row = {"warm_start": {"budget_ms": budget, "cold": cold, "warm": warm},
+           "sigterm": kill_row, "rollout": roll_row,
+           "replicas": per_replica,
+           "replica_kernel_launches": replica_launches,
+           "kernel_launches": _kernel_launches()}
+    return row, metrics_srv
+
+
+def phase_cli(smi, metrics_srv):
+    """Phase 45: ``python -m nnstreamer_tpu_torch`` in subprocesses, all
+    started together (each pays the interpreter's and torch's start-up):
+    the headline MobileNet-v2 line on the card with --stats (through
+    CLI_HOOK, which reports the kernels' launches in that process),
+    ``lint`` on a clean, a warned and a defective line, and ``top``
+    against phase 44's MetricsServer and a second endpoint."""
+    import nnstreamer_tpu_torch as pt
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    line = (f"tensortestsrc caps={CAPS.format(dims=FRAME_DIMS)} "
+            f"pattern=random seed={SEED} num-buffers={CLI_FRAMES} "
+            "! queue backend=python max-size-buffers=8 ! tensor_filter name=f "
+            "framework=torch-cuda model=zoo://mobilenet_v2 prefetch-host=true "
+            "! queue backend=python max-size-buffers=32 ! appsink name=out")
+    caps = CAPS.format(dims="3:4:4")
+    second = pt.obs.serve_metrics(port=0)
+    targets = [f"127.0.0.1:{metrics_srv.bound_port}",
+               f"127.0.0.1:{second.bound_port}"]
+    module = ("-m", "nnstreamer_tpu_torch")
+    commands = {
+        "run": ("-c", CLI_HOOK, line, "--stats"),
+        "clean": (*module, "lint", "--quiet", f"tensortestsrc caps={caps} "
+                  "! tensor_converter ! appsink name=out"),
+        "warned": (*module, "lint", "--quiet", f"tensortestsrc caps={caps} "
+                   "! tee name=t ! fakesink t. ! queue ! fakesink"),
+        "defective": (*module, "lint", "--quiet",
+                      f"tensortestsrc caps={caps} "
+                      "! other/tensors,format=sparse ! fakesink"),
+        "top": (*module, "top", "--json", "--targets", ",".join(targets))}
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(
+        [sys.executable, *args], cwd=root,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for k, args in commands.items()}
+    out, seconds = {}, {}
+    try:
+        for k, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=300)
+            out[k] = (proc.returncode, stdout, stderr)
+            seconds[k] = time.perf_counter() - t0
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        second.stop()
+        metrics_srv.stop()
+    rc, stdout, stderr = out["run"]
+    try:
+        invokes = json.loads(stdout)["f"]["buffers"]
+    except (ValueError, KeyError):
+        invokes = None
+    counted = [ln for ln in stderr.splitlines()
+               if ln.startswith("cli-launches ")]
+    launches = _parse_launches(counted[0]) if len(counted) == 1 else None
+    log(f"cli run: exit {rc} in {seconds['run']:.2f} s, the filter's "
+        f"buffers {invokes} of {CLI_FRAMES}, kernel launches in the run's "
+        f"process {launches}; {smi}")
+    if rc != 0 or invokes != CLI_FRAMES or launches is None:
+        sys.exit(f"chip_smoke: cli run: {rc}\n{stderr[-2000:]}")
+    lint = {k: out[k][0] for k in ("clean", "warned", "defective")}
+    top_rc, top_out, top_err = out["top"]
+    rows = json.loads(top_out) if top_rc == 0 else []
+    log(f"cli lint exit codes {lint}; top rows {rows}; the five "
+        f"subprocesses ended after {max(seconds.values()):.2f} s")
+    if lint != {"clean": 0, "warned": 1, "defective": 2} \
+            or [row.get("endpoint") for row in rows] != targets \
+            or any(isinstance(row.get("events"), str) for row in rows):
+        sys.exit(f"chip_smoke: cli: lint {lint}, top {top_rc} {rows}"
+                 f"\n{top_err[-2000:]}")
+    return {"run": {"returncode": rc, "seconds": seconds["run"],
+                    "invokes": invokes},
+            "lint": lint, "top_endpoints": targets,
+            "seconds": max(seconds.values()),
+            "kernel_launches": launches}
+
+
 def phase_pipelint(smi, lines):
     """Phase 21: Pipeline.validate() on every launch line phases 1-39
     ran (0 errors, 0 crashed rules), and a defective line refused at
@@ -5368,10 +6240,24 @@ def main():
     # phase 42: MQTT
     multi["mqtt_mobilenet"] = timed("mqtt_mobilenet", phase_mqtt_mobilenet,
                                     smi)
+    # phases 43-45: the telemetry plane, the elastic fleet and the CLI
+    with tempfile.TemporaryDirectory() as tmp:
+        obs = timed("obs_vit", phase_obs_vit, smi, clean, tmp)
+        lines["obs_vit"] = obs["vit"]
+        lines["obs_serve_mobilenet"] = obs["serve_mobilenet"]
+        lines["fleet_vit"], metrics_srv = timed(
+            "fleet_vit", phase_fleet_vit, smi, vit_local, tmp)
+    lines["fleet_vit_replicas"] = {"kernel_launches": lines["fleet_vit"].pop(
+        "replica_kernel_launches")}
+    lines["cli"] = timed("cli", phase_cli, smi, metrics_srv)
     if lines["train_vit"]["kernel_launches"]["normalize"]:
         sys.exit("chip_smoke: the normalize kernel ran on train_vit")
+    for k in ("obs_vit", "fleet_vit_replicas"):
+        if lines[k]["kernel_launches"]["normalize"]:
+            sys.exit(f"chip_smoke: the normalize kernel ran on {k}")
     for k in ("serve_mobilenet", "serve_per_request", "serve_drain",
-              "serve_router", "train_gpt"):
+              "serve_router", "train_gpt", "obs_serve_mobilenet",
+              "fleet_vit", "cli"):
         if lines[k]["kernel_launches"]["attention"] \
                 or lines[k]["kernel_launches"]["normalize"]:
             sys.exit(f"chip_smoke: a hand kernel ran on {k}: "
@@ -5387,7 +6273,7 @@ def main():
                          f"{row['kernel_launches']}")
     pt.parse_launch = parse
     log(f"queues: {queues['python']} Python queues on the lines of "
-        f"phases 1-42, {queues['native']} ring queues, all on the native "
+        f"phases 1-45, {queues['native']} ring queues, all on the native "
         "queue lines")
     pipelint = phase_pipelint(smi, list(dict.fromkeys(launched)))
     for k in ("clean", "retry", "skip", "restart"):
@@ -5445,6 +6331,9 @@ def main():
                     "tile_error": tile_error,
                     "native_build_s": native_build_s, "queues": queues,
                     "pipelint": pipelint, "card": smi}))
+    running = {pid: v for pid, v in _descendants().items() if v[0] != "Z"}
+    log(f"processes of this run still running after phase 45: "
+        f"{running or 'none'}")
     log(f"phase seconds: {PHASE_S}; "
         f"{time.perf_counter() - T_START:.1f} s since the script started")
     log(json.dumps({"kernels": kernels}))
@@ -5453,5 +6342,96 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
+def _become_subreaper():
+    """Make this process the reaper of its orphaned descendants (Linux
+    prctl PR_SET_CHILD_SUBREAPER): a process whose parent died before it
+    (a tool a killed child had started) is re-parented here, where
+    stop_descendants() finds it."""
+    import ctypes
+    try:
+        ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0)
+    except (OSError, AttributeError):
+        pass
+
+
+def _descendants():
+    """{pid: (state, command line)} of every descendant of this process,
+    zombies included."""
+    procs = {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{name}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(
+                    errors="replace")
+        except OSError:
+            continue
+        fields = stat[stat.rfind(")") + 2:].split()
+        procs[int(name)] = (int(fields[1]), fields[0], cmd.strip()[:200])
+    out, frontier = {}, [os.getpid()]
+    while frontier:
+        parent = frontier.pop()
+        for pid, (ppid, state, cmd) in procs.items():
+            if ppid == parent and pid not in out:
+                out[pid] = (state, cmd)
+                frontier.append(pid)
+    return out
+
+
+def _reap_children():
+    while True:
+        try:
+            pid, _ = os.waitpid(-1, os.WNOHANG)
+        except ChildProcessError:
+            return
+        if pid == 0:
+            return
+
+
+def stop_descendants(grace_s=5.0):
+    """Stop every process this run started that is still there, and reap
+    them: SIGTERM, SIGKILL after ``grace_s``. Each one still running is
+    named on stderr (the phases stop their own; this is the net under a
+    phase that failed or a child that outlived its parent)."""
+    import signal
+    left = {pid: v for pid, v in _descendants().items() if v[0] != "Z"}
+    for pid, (state, cmd) in left.items():
+        print(f"chip_smoke: stopping process {pid} ({state}) left "
+              f"running: {cmd}", file=sys.stderr, flush=True)
+    for sig, wait_s in ((signal.SIGTERM, grace_s), (signal.SIGKILL, 10.0)):
+        for pid in left:
+            try:
+                os.kill(pid, sig)
+            except OSError:
+                pass
+        deadline = time.monotonic() + wait_s
+        while True:
+            _reap_children()
+            left = {pid: v for pid, v in _descendants().items()
+                    if v[0] != "Z"}
+            if not left or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+        if not left:
+            break
+    _reap_children()
+    if left:
+        print(f"chip_smoke: processes that outlived SIGKILL: {left}",
+              file=sys.stderr, flush=True)
+
+
 if __name__ == "__main__":
-    main()
+    # the flight recorder's dumps (aborts, preemptions) go to a directory
+    # of this run, not into the checkout
+    import shutil
+    _become_subreaper()
+    flight_dir = tempfile.mkdtemp(prefix="nns-flight-")
+    os.environ["NNS_TPU_FLIGHT_DIR"] = flight_dir
+    try:
+        main()
+    finally:
+        stop_descendants()
+        shutil.rmtree(flight_dir, ignore_errors=True)

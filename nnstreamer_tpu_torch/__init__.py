@@ -19,6 +19,7 @@ from . import elements  # noqa: F401  (registers tensor_* elements)
 from . import decoders  # noqa: F401  (registers decoder modes)
 from . import filters  # noqa: F401  (registers filter backends)
 from . import models  # noqa: F401  (registers zoo models)
+from . import fleet  # noqa: F401  (registers tensor_autoscaler)
 from .single import SingleShot
 
 __all__ = [

@@ -1,18 +1,16 @@
 """pipelint graph rules.
 
 Port of ``nnstreamer_tpu/analysis/rules.py``: the rules whose elements
-the port has (24 of the reference's 28). Each :class:`Rule` inspects the
+the port has (25 of the reference's 28). Each :class:`Rule` inspects the
 parsed-but-unstarted pipeline plus the caps inference result and yields
 findings with element/pad locations. Rules never execute elements and
 never raise past :func:`analyze` — a broken rule must not block a
 launch; :func:`analyze` lists the ids of rules that raised on the
 report's ``crashed``.
 
-The reference's other 4 rules inspect elements or options the port
-does not have yet; each comes with the slice that ports them (ROADMAP.md,
-queue A): ``sharding-divisibility``, ``serve-mesh-divisibility`` and
-``mesh-colocation`` with the mesh (item 12), and ``autoscaler-config``
-with the fleet (item 13).
+The reference's other 3 rules inspect the mesh options the port does
+not have yet: ``sharding-divisibility``, ``serve-mesh-divisibility`` and
+``mesh-colocation`` come with the mesh (ROADMAP.md, queue A, item 12).
 """
 from __future__ import annotations
 
@@ -875,6 +873,45 @@ class LlmPrefixCacheLossyLinkRule(Rule):
                     filt.name, "sink")
 
 
+class AutoscalerConfigRule(Rule):
+    """Autoscaler control-law sanity. ERROR on a bound inversion
+    (``min-replicas > max-replicas``: the floor-repair and scale-up
+    paths fight forever) and on a non-positive drain deadline (every
+    scale-down then skips the drain wait and preempts replicas with
+    requests still in flight — scale-down stops being zero-loss). WARN
+    when the autoscaler has neither a router element nor a metrics URL:
+    ``observe()`` always reads 0, so it can only ever hold the floor
+    and the elastic behavior the element exists for is silently off."""
+
+    id = "autoscaler-config"
+    severity = Severity.ERROR
+
+    def check(self, ctx: LintContext):
+        for e in ctx.of_kind("tensor_autoscaler"):
+            lo = int(getattr(e, "min_replicas", 1))
+            hi = int(getattr(e, "max_replicas", 4))
+            if lo > hi:
+                yield self.finding(
+                    f"min-replicas={lo} > max-replicas={hi}: the floor "
+                    "repair wants more replicas than scale-up may ever "
+                    "grant — the fleet thrashes at the cap and never "
+                    "reaches the declared minimum", e.name)
+            dd = float(getattr(e, "drain_deadline_ms", 2000.0))
+            if dd <= 0:
+                yield self.finding(
+                    f"drain-deadline-ms={dd:g}: scale-down preempts "
+                    "without waiting for in-flight requests to settle, "
+                    "so every scale-down orphans live work; set a "
+                    "positive drain deadline", e.name)
+            if not str(getattr(e, "metrics_url", "") or "").strip() \
+                    and not str(getattr(e, "router", "") or "").strip():
+                yield self.finding(
+                    "no metrics source: neither router= nor "
+                    "metrics-url= is set, so observed queue delay is "
+                    "always 0 and the autoscaler only ever holds "
+                    "min-replicas", e.name, severity=Severity.WARNING)
+
+
 ALL_RULES: List[Rule] = [
     DanglingPadRule(), CycleRule(), TeeNoQueueRule(), JitSignatureRule(),
     SinklessBranchRule(), CombinerDtypeRule(), UnboundedAdmissionRule(),
@@ -885,7 +922,7 @@ ALL_RULES: List[Rule] = [
     AsyncWindowRule(), StatefulNoCheckpointRule(), TraceExportRule(),
     LlmDecodeNoKvBudgetRule(), LlmPrefixCacheLossyLinkRule(),
     DeltaNoKeyframeIntervalRule(),
-    DeltaLossyGateFeedsTrainerRule(),
+    DeltaLossyGateFeedsTrainerRule(), AutoscalerConfigRule(),
 ]
 
 def analyze(pipeline, rules: Optional[List[Rule]] = None) -> Report:

@@ -229,7 +229,10 @@ class TensorFilter(Element):
     def _open_fw(self) -> None:
         if self.fw is not None:
             return
-        models = tuple(m for m in self.model.split(",") if m) \
+        from ..utils.models import resolve
+        # model:// and mlagent://model/ URIs resolve through the model
+        # registry (≙ ml_agent.c URI resolution); plain paths untouched
+        models = tuple(resolve(m) for m in self.model.split(",") if m) \
             if self.model else ()
         fw_name = self.framework
         if fw_name in ("auto", ""):

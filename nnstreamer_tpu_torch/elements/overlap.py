@@ -1,7 +1,7 @@
 """K-frame in-flight invoke window: dispatcher/completer split.
 
-Port of ``nnstreamer_tpu/elements/overlap.py`` without its observability
-spans (the port records no pipeline spans yet). The synchronous chain path pays H2D +
+Port of ``nnstreamer_tpu/elements/overlap.py``, with its dispatch and
+complete spans (host clocks). The synchronous chain path pays H2D +
 invoke + D2H serially per frame; the backend's ``dispatch`` only
 enqueues the frame's graph on the card and records an event, so the fix
 is to stop blocking the chain thread on completion:
@@ -42,6 +42,8 @@ import time
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from ..obs import context as _obs_ctx
+from ..obs import spans as _obs_spans
 from ..tensors.transfer import InFlightWindow
 
 log = logging.getLogger(__name__)
@@ -197,6 +199,15 @@ class OverlapExecutor:
         already hold a window slot (``window.acquire()``) — the element
         acquires BEFORE dispatching so backpressure lands before device
         work is queued, and passes the returned timestamp here."""
+        if _obs_spans.ENABLED:
+            # harness stubs may hand the executor bare objects; only
+            # real Buffers carry the extras dict a context rides in
+            extras = getattr(buf, "extras", None)
+            ctx = extras.get(_obs_ctx.CTX_KEY) if extras is not None \
+                else None
+            if ctx is not None:
+                _obs_spans.record_span(f"{self._name}:dispatch", "dispatch",
+                                       time.time_ns(), 0, ctx)
         with self._cv:
             self._ensure_thread()
             entry = _InFlight(self._seq, buf, payload, t_dispatch_ns)
@@ -258,10 +269,21 @@ class OverlapExecutor:
             try:
                 outbuf: Any = None
                 err: Optional[BaseException] = None
+                t_wall = time.time_ns() if _obs_spans.ENABLED else 0
                 try:
                     outbuf = self._complete_cb(entry)
                 except BaseException as exc:  # noqa: BLE001 — accounted
                     err = exc
+                if t_wall:
+                    extras = getattr(entry.buf, "extras", None)
+                    ctx = extras.get(_obs_ctx.CTX_KEY) \
+                        if extras is not None else None
+                    if ctx is not None:
+                        dur = time.time_ns() - t_wall
+                        _obs_spans.record_span(f"{self._name}:complete",
+                                               "complete", t_wall, dur,
+                                               ctx)
+                        ctx.c_ns += dur
                 if err is None:
                     ready = ([outbuf] if self._reorder is None
                              else self._reorder.push(entry.seq, outbuf))

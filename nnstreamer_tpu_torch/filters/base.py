@@ -46,6 +46,7 @@ class FilterEvent(enum.Enum):
     rest, which no port element sends yet)."""
 
     RELOAD_MODEL = "reload_model"
+    CHECK_HW_AVAILABILITY = "check_hw_availability"
     SUSPEND = "suspend"
     RESUME = "resume"
 

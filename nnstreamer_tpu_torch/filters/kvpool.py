@@ -28,13 +28,15 @@ Sharing discipline (what makes the in-place decode writes safe):
 * :meth:`KVBlockPool.cow` is the copy-on-write escape hatch for a
   caller that must mutate a shared block.
 
-Not ported: the weak ``POOL_TABLE`` registry that the JAX package's
-``obs/metrics.py`` reads; it comes with that module (ROADMAP item 8).
+Pools register in :data:`POOL_TABLE` (weakly) so obs/metrics.py can
+render ``nns_kv_blocks_{free,used,cached}`` and the prefix-cache hit
+ratio without holding a pool alive.
 """
 from __future__ import annotations
 
 import hashlib
 import threading
+import weakref
 from collections import OrderedDict, deque
 from typing import Dict, List, Optional, Sequence
 
@@ -42,6 +44,11 @@ import numpy as np
 
 from ..utils import flowmarks as flow
 from ..utils.atomic import Counters
+
+_POOL_LOCK = threading.Lock()
+POOL_TABLE: "weakref.WeakValueDictionary[str, KVBlockPool]" = \
+    weakref.WeakValueDictionary()
+
 
 def chain_hashes(tokens, block_size: int) -> List[str]:
     """Digest chain over the FULL blocks of ``tokens`` (partial tail
@@ -85,6 +92,13 @@ class KVBlockPool:
         self._cache: "OrderedDict[str, _CacheEntry]" = OrderedDict()
         self.stats = Counters(prefix_hits=0, prefix_misses=0,
                               prefix_evictions=0, alloc_failures=0)
+        with _POOL_LOCK:
+            key, n = name, 1
+            while key in POOL_TABLE:
+                n += 1
+                key = f"{name}-{n}"
+            self.name = key
+            POOL_TABLE[key] = self
 
     # -- allocation ----------------------------------------------------
 

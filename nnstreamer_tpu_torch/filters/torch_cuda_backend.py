@@ -59,9 +59,17 @@ every replay reuses, and the outputs are clones out of the graph's pool
 (on the CPU there is no staging at all). The backend accepts the request
 and says so once in an INFO log; no tensor handed to it is written.
 
+The persistent compile cache (fleet/cache.py): with a cache installed
+(``NNS_COMPILE_CACHE``, as the autoscaler's replicas inherit it) every
+signature this model captures is recorded, and ``open`` captures every
+recorded one — an eager run and a capture on zeros of that shape and
+dtype, the same static-input signature a later frame replays — before
+the element reports ready, counted in ``prewarmed``. A CUDA graph does
+not outlive its process, so the cache keeps the signatures, not the
+graphs.
+
 Not ported yet: mesh mode (``custom=mesh:...`` raises
-:class:`~..pipeline.element.NotPortedError`) and the persistent compile
-cache.
+:class:`~..pipeline.element.NotPortedError`).
 """
 from __future__ import annotations
 
@@ -177,6 +185,9 @@ class TorchCudaFilter(FilterFramework):
         # executables made, one per new input signature (≙ the JAX
         # backend's compile_count)
         self.compile_count = 0
+        # signatures captured at open from the compile cache
+        self.prewarmed = 0
+        self._cache_key = ""
         # dispatch runs on the chain thread while complete runs on the
         # completer: the cache and the capture sit under this lock
         self._lock = threading.Lock()
@@ -196,6 +207,27 @@ class TorchCudaFilter(FilterFramework):
          self._in_info, self._out_info) = self._load(props)
         logger.info("torch-cuda filter opened model=%s on %s",
                     props.model_files[:1], self.device)
+        self._cache_key = props.model_files[0] if props.model_files else ""
+        self._prewarm_from_cache()
+
+    def _prewarm_from_cache(self) -> None:
+        """Capture every signature this model captured in earlier lives
+        (fleet/cache.py) before the first frame arrives — and before a
+        serve pipeline REGISTERs on the broker — so a resurrected or
+        scaled-up replica replays a graph on its first frame."""
+        from ..fleet import cache as compile_cache
+
+        def capture(xs) -> bool:
+            if signature(xs) in self._executables:
+                return False
+            self.invoke(xs)
+            return True
+
+        self.prewarmed += compile_cache.prewarm(
+            self.NAME, self._cache_key, capture, "torch-cuda filter")
+        if self.prewarmed:
+            logger.info("torch-cuda filter: prewarmed %d signature(s) for "
+                        "%s", self.prewarmed, self._cache_key)
 
     def _load(self, props: FilterProperties):
         """``(apply_fn, module on the device, in_info, out_info)``."""
@@ -234,7 +266,10 @@ class TorchCudaFilter(FilterFramework):
             self.compile_count += 1
             outs = exe(inputs)
             self._executables[sig] = exe
-            return outs
+        from ..fleet import cache as compile_cache
+        compile_cache.record_quietly(self.NAME, self._cache_key, sig,
+                                     "torch-cuda filter")
+        return outs
 
     # -- overlapped execution ---------------------------------------------
     def dispatch(self, inputs: Sequence[Any], donate: bool = False) -> Any:
@@ -282,6 +317,9 @@ class TorchCudaFilter(FilterFramework):
 
     # -- events -----------------------------------------------------------
     def handle_event(self, event: FilterEvent, data=None) -> bool:
+        if event == FilterEvent.CHECK_HW_AVAILABILITY:
+            from ..utils.hw import is_available
+            return is_available((data or {}).get("hw", "default"))
         if event == FilterEvent.RELOAD_MODEL:
             # keep serving the old model while the new one loads
             # (≙ is-updatable reload, nnstreamer_plugin_api_filter.h:359-365)

@@ -42,7 +42,12 @@ With tracing on, each frame's host dispatch time (the executable's
 lookup, input staging and the graph launch) is observed as the series
 ``fusion/<name>``, which the tracer folds into its fusion block.
 
-Not ported: the mesh branch and the persistent compile cache.
+The persistent compile cache (fleet/cache.py): each signature the
+segment captures is recorded under its members' names, and ``start``
+captures every recorded one on zeros before the first frame
+(``jit_prewarmed``), as the JAX segment compiles them.
+
+Not ported: the mesh branch.
 """
 from __future__ import annotations
 
@@ -101,7 +106,7 @@ class FusedSegment(TransformElement):
         self._programs: dict = {}
         # kept across restarts, freed by teardown (filters/executable.py)
         self._pool = GraphPool()
-        self.stats.update(jit_hits=0, jit_misses=0, shed=0,
+        self.stats.update(jit_hits=0, jit_misses=0, jit_prewarmed=0, shed=0,
                           breaker_opened=0, fused_elements=len(members))
         # strongest member breaker settings win; 0 threshold = no breaker
         self._breaker = None
@@ -148,6 +153,39 @@ class FusedSegment(TransformElement):
                 name=self.name,
                 reorder=bool(self.reorder),
                 reorder_deadline_s=float(self.reorder_deadline_ms) / 1e3)
+        self._prewarm_from_cache()
+
+    def _cache_key(self) -> str:
+        """Segment identity for the persistent compile cache: the
+        member names (launch-string stable) — the same fused run in a
+        resurrected replica maps to the same signature bucket."""
+        return "+".join(m.name for m in self.members)
+
+    def _prewarm_from_cache(self) -> None:
+        """Capture (an eager run on zeros, then the graph) every
+        signature this segment's earlier incarnations served, so the
+        first real frame replays a graph (fleet/cache.py)."""
+        from ..fleet import cache as compile_cache
+
+        def capture(arrays) -> bool:
+            device = self._device(arrays)
+            key = (signature(arrays), str(device))
+            if key in self._programs:
+                return False
+            exe = Executable(self._program, device,
+                             self._pool.handle_for(device)
+                             if device.type == "cuda" else None)
+            exe(arrays)
+            self._programs[key] = exe
+            return True
+
+        self.stats.inc("jit_prewarmed", compile_cache.prewarm(
+            "fusion", self._cache_key(), capture, self.name))
+
+    def _record_signature(self, sig) -> None:
+        from ..fleet import cache as compile_cache
+        compile_cache.record_quietly("fusion", self._cache_key(), sig,
+                                     self.name)
 
     def stop(self) -> None:
         super().stop()
@@ -232,7 +270,9 @@ class FusedSegment(TransformElement):
                 if device.type == "cuda":
                     done = torch.cuda.Event()
                     done.record(torch.cuda.current_stream(device))
-                self._programs[sig] = exe
+                if sig not in self._programs:
+                    self._programs[sig] = exe
+                    self._record_signature(sig[0])
                 self._overlap.submit(buf, (outs, done), t_disp)
             except BaseException:
                 # never strand the slot on a failed enqueue: the
@@ -242,7 +282,9 @@ class FusedSegment(TransformElement):
             return
         outs = self._run(exe, arrays)
         self._observe_dispatch(t0)
-        self._programs[sig] = exe
+        if sig not in self._programs:
+            self._programs[sig] = exe
+            self._record_signature(sig[0])
         if self._breaker is not None:
             self._breaker.record_success()
         self.push(buf.with_chunks(self._out_chunks(outs)))

@@ -1,16 +1,15 @@
 """TraceContext: the per-frame identity a span tree hangs off.
 
-Port of ``nnstreamer_tpu/obs/context.py``, which is framework neutral,
-without the chain thread's current context (the reference's elements
-that mint fresh buffers inherit it; the port's pipeline records no
-element spans yet). In the port the wire and the serve
-src's batch adoption use contexts.
+A copy of ``nnstreamer_tpu/obs/context.py``, which is framework
+neutral.
 
 One context object rides in ``Buffer.extras[CTX_KEY]`` from the source
 that stamped it to whatever finally settles the frame — across queue
 hops (extras survive the queue), element rewrites (``copy_meta_from`` /
-``with_chunks`` copy extras), and wire hops (``edge.wire`` re-creates
-the context on the receiving side from the negotiated trace field).
+``with_chunks`` copy extras; elements that mint fresh buffers inherit
+the chain thread's current context, mirroring ``utils.trace``'s
+birth-stamp inheritance), and wire hops (``edge.wire`` re-creates the
+context on the receiving side from the negotiated trace field).
 
 The context is deliberately mutable: each recorded span advances
 ``span_id`` so the next hop parents onto it — frame causality is a
@@ -24,12 +23,16 @@ from __future__ import annotations
 
 import itertools
 import random
+import threading
 import time
 from typing import Optional
 
 # extras key; must not collide with utils.trace's "_trace*" namespace
 # (test_trace pins that tracing-off leaves no "_trace" keys behind)
 CTX_KEY = "_obs_ctx"
+# queue-entry wall stamp (pipeline/basic.py Queue): set on put, consumed
+# on the worker's pop to record the queue-wait span
+QT_KEY = "_obs_qns"
 
 # id allocation: a per-process random 63-bit base with a low 24-bit
 # counter — unique across the fleet without paying getrandbits() per
@@ -65,21 +68,50 @@ class TraceContext:
         return (f"TraceContext({self.trace_id:#x}, span={self.span_id:#x}, "
                 f"q={self.q_ns} c={self.c_ns} w={self.w_ns})")
 
+    # pickle support for checkpointed buffers (slots, no __dict__)
+    def __getstate__(self):
+        return (self.trace_id, self.span_id, self.t0_ns,
+                self.q_ns, self.c_ns, self.w_ns)
+
+    def __setstate__(self, state):
+        (self.trace_id, self.span_id, self.t0_ns,
+         self.q_ns, self.c_ns, self.w_ns) = state
+
+
+# chain-thread inheritance for elements that mint fresh buffers
+# (converter, mux, aggregator, decoders): the last context seen on this
+# thread re-attaches, exactly like utils.trace's birth inheritance
+_tls = threading.local()
+
+
+def ctx_of(buf) -> Optional[TraceContext]:
+    return buf.extras.get(CTX_KEY)
+
+
+def ensure_ctx(buf) -> Optional[TraceContext]:
+    """The chain-path lookup: the buffer's own context, else the chain
+    thread's inherited one (re-attached), else None."""
+    ctx = buf.extras.get(CTX_KEY)
+    if ctx is None:
+        ctx = getattr(_tls, "ctx", None)
+        if ctx is not None:
+            buf.extras[CTX_KEY] = ctx
+    else:
+        _tls.ctx = ctx
+    return ctx
+
 
 def stamp(buf) -> TraceContext:
     """Source-side root: mint a fresh trace for this frame (the root
     span itself is recorded by the caller so children never dangle)."""
     ctx = TraceContext(next_id(), 0, time.time_ns())
     buf.extras[CTX_KEY] = ctx
+    _tls.ctx = ctx
     return ctx
 
 
 def attach(buf, ctx: TraceContext) -> None:
     buf.extras[CTX_KEY] = ctx
-
-
-def ctx_of(buf) -> Optional[TraceContext]:
-    return buf.extras.get(CTX_KEY)
 
 
 # -- wire encoding ------------------------------------------------------

@@ -1,13 +1,11 @@
 """Bounded, lock-cheap per-thread span rings.
 
-Port of the recording half of ``nnstreamer_tpu/obs/spans.py`` (which is
-framework neutral): ``enabled``/``set_enabled``, the per-thread rings,
-``snapshot``, ``thread_names``, ``clear``, ``record_span`` and
-``record_root``. The readers in the port are the trace-tree tests and
-the KV handoff's ``llm-prefill`` -> ``kv-handoff`` -> ``llm-decode``
-chain. The pipeline's per-element spans (``chain_span``) and the flight
-recorder that dumps the rings are not ported yet (``ROADMAP.md`` item
-8, with ``obs/{metrics,recorder,server,top}.py``).
+A copy of ``nnstreamer_tpu/obs/spans.py``, which is framework neutral.
+Every element hop (:func:`chain_span`, from ``Element.chain``), queue
+wait, wire hop, in-flight dispatch and completion, serve batch and KV
+handoff records a span here; the flight recorder (``recorder.py``) dumps
+the rings. Spans read host clocks only: a hop never synchronises the
+card, so recording adds no device wait to the frame path.
 
 The hot path touches no shared lock: each thread appends fixed-shape
 tuples to its own bounded ``deque`` (C-level append, maxlen eviction).
@@ -27,7 +25,8 @@ import threading
 from collections import deque
 from typing import List, Optional, Tuple
 
-from .context import _BASE, _IDS, TraceContext, next_id
+from .context import CTX_KEY, _BASE, _IDS, TraceContext, next_id
+from .context import _tls as _ctx_tls
 
 # per-thread ring capacity (spans); NNS_TPU_OBS_RING overrides it
 RING_SPANS = int(os.environ.get("NNS_TPU_OBS_RING", "8192"))
@@ -119,3 +118,38 @@ def record_root(name: str, ctx: TraceContext) -> int:
     _ring().append((name, "source", ctx.t0_ns, 0, ctx.trace_id, sid, 0))
     ctx.span_id = sid
     return sid
+
+
+_observe_e2e = None    # metrics.observe_e2e, bound on first sink frame
+
+
+def chain_span(element, buf, ts_ns: int, dur_ns: int) -> None:
+    """The per-element hop: one span per buffer through ``chain()``,
+    attributed to compute. Sinks additionally settle the frame's
+    end-to-end histogram. ``ensure_ctx`` + ``record_span`` are inlined:
+    this is the hottest call in the obs plane (once per element per
+    frame)."""
+    extras = buf.extras
+    ctx = extras.get(CTX_KEY)
+    if ctx is None:                  # fresh buffer: chain-thread inherit
+        ctx = getattr(_ctx_tls, "ctx", None)
+        if ctx is None:
+            return
+        extras[CTX_KEY] = ctx
+    else:
+        _ctx_tls.ctx = ctx
+    sid = _BASE | (next(_IDS) & 0xFFFFFF)
+    try:
+        ring = _tls.ring
+    except AttributeError:
+        ring = _new_ring()
+    ring.append((element.name, "element", ts_ns, dur_ns,
+                 ctx.trace_id, sid, ctx.span_id))
+    ctx.span_id = sid
+    ctx.c_ns += dur_ns
+    if not element.src_pads:         # terminal: the frame settles here
+        global _observe_e2e
+        if _observe_e2e is None:
+            from .metrics import observe_e2e as _obs
+            _observe_e2e = _obs
+        _observe_e2e(element, ctx, ts_ns + dur_ns)

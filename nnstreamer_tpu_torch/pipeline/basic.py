@@ -19,6 +19,8 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from ..obs import context as _obs_ctx
+from ..obs import spans as _obs_spans
 from ..tensors.buffer import Buffer, Chunk
 from ..tensors.caps import Caps
 from ..tensors.types import TensorType
@@ -160,7 +162,20 @@ class Queue(Element):
                     pass
         if self._thread is not None and self._thread is not threading.current_thread():
             self._thread.join(timeout=5.0)
+            if not self._thread.is_alive() and not self.is_native:
+                self._drop_sentinel()
             self._thread = None
+
+    def _drop_sentinel(self) -> None:
+        """Take back a stop sentinel the exited worker never popped: a
+        worker that saw ``_running`` go false between two items leaves
+        it queued, where it would read as a queued buffer and stop the
+        restarted worker at its first pop."""
+        with self._q.mutex:
+            kept = [x for x in self._q.queue if x is not _SENTINEL]
+            self._q.queue.clear()
+            self._q.queue.extend(kept)
+            self._q.not_full.notify_all()
 
     def _put(self, item) -> None:
         """Blocking put (backpressure) that gives up once the queue is
@@ -186,6 +201,10 @@ class Queue(Element):
         tracer = getattr(self.pipeline, "tracer", None)
         if tracer is not None:
             tracer.record(self, item)
+        if _obs_spans.ENABLED:
+            # entry stamp: the worker's pop turns it into the
+            # queue-wait span (+ queue attribution on the context)
+            item.extras[_obs_ctx.QT_KEY] = time.time_ns()
         if self.leaky == "upstream":
             # GStreamer leaky=upstream: drop the incoming buffer when full
             try:
@@ -234,6 +253,15 @@ class Queue(Element):
                         self.forward_event(item)
                 else:
                     self.stats.add(buffers=1, bytes=item.nbytes)
+                    if _obs_spans.ENABLED:
+                        qt = item.extras.pop(_obs_ctx.QT_KEY, None)
+                        if qt is not None:
+                            ctx = item.extras.get(_obs_ctx.CTX_KEY)
+                            if ctx is not None:
+                                wait = max(0, time.time_ns() - qt)
+                                _obs_spans.record_span(self.name, "queue",
+                                                       qt, wait, ctx)
+                                ctx.q_ns += wait
                     self.srcpad.push(item)
             except FlowError:
                 break

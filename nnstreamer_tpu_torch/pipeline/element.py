@@ -16,8 +16,12 @@ default) posts the error and ends the stream, ``skip``, ``retry`` and
 ``restart`` consume or recover the failing buffer, and a source's
 streaming loop runs under a fault.Supervisor applying the same policy.
 ``trace-export`` on a source declares intent only (pipelint's
-trace-export rule reads it and ``STRIPS_META``); the port records no
-spans.
+trace-export rule reads it and ``STRIPS_META``).
+
+Every buffer through :meth:`Element.chain` records one span
+(obs/spans.py ``chain_span``, host clocks only), and a source stamps
+each frame's trace context and root span before it pushes it, as the
+JAX package's elements do.
 
 :meth:`Element.drain` is the graceful-teardown hook
 (``Pipeline.drain``): a source stops admitting and flushes what it
@@ -28,8 +32,7 @@ The checkpoint hooks (``CHECKPOINTABLE``, :meth:`Element.snapshot_state`,
 :meth:`Element.preempt_inflight`) are the JAX package's: what
 ``Pipeline.snapshot``/``restore``/``preempt`` call.
 
-Trimmed in the port: the observability spans and the per-element debug
-categories.
+Trimmed in the port: the per-element debug categories.
 
 A property the port accepts but does not implement yet is declared in
 ``NOT_PORTED`` with the one value the port supports; :meth:`Element.start`
@@ -42,6 +45,8 @@ import threading
 import time
 from typing import Any, Dict, Optional, Union
 
+from ..obs import context as _obs_ctx
+from ..obs import spans as _obs_spans
 from ..tensors.buffer import Buffer
 from ..tensors.caps import Caps
 from ..utils.atomic import Counters
@@ -301,6 +306,7 @@ class Element:
         tracer = getattr(self.pipeline, "tracer", None)
         if tracer is not None:
             tracer.record(self, item)
+        t_wall = time.time_ns() if _obs_spans.ENABLED else 0
         t0 = time.perf_counter_ns()
         try:
             self.do_chain(pad, item)
@@ -315,6 +321,9 @@ class Element:
                 return  # buffer consumed by the policy (skipped)
         dt = time.perf_counter_ns() - t0
         self.stats.add(buffers=1, bytes=item.nbytes, proctime_ns=dt)
+        if _obs_spans.ENABLED:
+            # per-hop frame span into the per-thread ring (obs/spans.py)
+            _obs_spans.chain_span(self, item, t_wall, dt)
 
     def do_chain(self, pad: Pad, buf: Buffer) -> None:
         raise NotImplementedError
@@ -621,6 +630,10 @@ class SrcElement(Element):
             tracer = getattr(self.pipeline, "tracer", None)
             if tracer is not None:
                 tracer.stamp(buf)
+            if _obs_spans.ENABLED and _obs_ctx.ctx_of(buf) is None:
+                # root of this frame's span tree (a source that already
+                # attached a context — serve batch adoption — keeps it)
+                _obs_spans.record_root(self.name, _obs_ctx.stamp(buf))
             self.srcpad.push(buf)
             self._pushed += 1
         self.srcpad.push(EosEvent())

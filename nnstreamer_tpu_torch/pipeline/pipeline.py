@@ -20,8 +20,13 @@ barrier, then ``stop``. ``Pipeline.snapshot``/``restore``/``preempt``
 are the checkpoint layer (checkpoint/): every element overriding
 ``snapshot_state`` is written into a crash-consistent snapshot, restored
 before ``start``, and a preemption quiesces, drains what its grace
-allows, snapshots and stops, declaring what it abandoned. Not ported:
-the flight recorder's dump inside ``preempt`` (ROADMAP item 8).
+allows, snapshots and stops, declaring what it abandoned.
+
+The telemetry plane (obs/): ``start`` registers the pipeline with
+obs/metrics.py and ``stop`` unregisters it, so a scrape renders its
+element counters; the first error of a run emits an ``abort`` event and
+dumps the flight recorder (rate-limited), and ``preempt`` dumps it
+unconditionally.
 """
 from __future__ import annotations
 
@@ -121,10 +126,20 @@ class Pipeline:
     # -- messages ---------------------------------------------------------
     def post_message(self, kind: str, **data) -> None:
         if kind == "error":
+            first = False
             with self._lock:
                 if self._error is None:
                     self._error = data.get("error")
+                    first = True
             self._eos_evt.set()  # unblock waiters
+            if first:
+                # black-box: any abort records the event and dumps the
+                # last-N-seconds flight recording (rate-limited)
+                from ..obs import events as _obs_events
+                from ..obs.recorder import RECORDER
+                _obs_events.emit("abort", source=self.name, level=10,
+                                 error=repr(data.get("error")))
+                RECORDER.dump_abort(f"{self.name}-abort")
         self.bus.post(Message(kind, data))
 
     def _sink_eos(self, sink: Element) -> None:
@@ -181,6 +196,8 @@ class Pipeline:
         for e in srcs:
             e.start()
         self.running = True
+        from ..obs import metrics as _obs_metrics
+        _obs_metrics.register_pipeline(self)
         return self
 
     def stop(self) -> "Pipeline":
@@ -193,6 +210,8 @@ class Pipeline:
         for e in self.elements.values():
             e.teardown()
         self.running = False
+        from ..obs import metrics as _obs_metrics
+        _obs_metrics.unregister_pipeline(self)
         return self
 
     def drain(self, deadline: float = 10.0) -> bool:
@@ -320,10 +339,13 @@ class Pipeline:
         "used_s"}``."""
         t0 = time.monotonic()
         from ..obs import events as _obs_events
+        from ..obs.recorder import RECORDER
         _obs_events.emit("preempt", source=self.name,
                          grace_s=float(grace_s))
-        # the JAX package dumps its flight recorder here; the recorder
-        # is not ported yet (ROADMAP item 8)
+        # the black-box dump is deliberate here (force past the abort
+        # rate limit): a preemption is the canonical "what was the
+        # fleet doing in its last seconds" question
+        RECORDER.dump_abort(f"{self.name}-preempt", force=True)
         self.post_message("preempt", grace_s=grace_s)
         for e in self.elements.values():
             try:

@@ -224,6 +224,10 @@ class ServeScheduler:
         # ONE batched D2H for every card output (host data passes
         # through) — a per-tensor .cpu() here would block once a tensor
         hosts = fetch_host(outputs)
+        # booked before the first reply leaves: a client holding its
+        # answer must never read a report that has not counted it yet
+        with self._mlock:
+            self.stats.inc("completed", len(batch))
         for i, req in enumerate(batch):
             row = [row_of(h, i) if h.ndim >= 1
                    and h.shape[0] >= len(batch) else h for h in hosts]
@@ -247,8 +251,6 @@ class ServeScheduler:
                     self.stats.inc("result_errors")
                 logger.warning("%s: result callback failed for stream %s",
                                self.name, req.stream_id, exc_info=True)
-        with self._mlock:
-            self.stats.inc("completed", len(batch))
 
     # -- metrics -----------------------------------------------------------
     def occupancy(self) -> Dict[str, Any]:

@@ -46,10 +46,20 @@ delaying a lone frame by more than 5% of the measured RPC time.
 
 ``transfer_stats()`` reports both directions; ``fetch_stats()`` keeps
 the historical download-only contract.
+
+Process exit: the coalescer threads are daemons, and a daemon thread
+still inside a torch call when the interpreter finalizes aborts the
+process ("terminate called without an active exception"). A program
+that exits right after its last frame (``python -m
+nnstreamer_tpu_torch``) can leave the last frames' copies in flight, so
+the first coalescer thread to start registers an ``atexit`` hook that
+waits, up to ``EXIT_WAIT_S``, for both coalescers to go idle.
 """
 from __future__ import annotations
 
+import atexit
 import threading
+import time
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -65,6 +75,9 @@ _MAX_ARRAYS_PER_RPC = 256
 # weather. Applied inside the transfer threads only — never on a chain
 # thread — so it models the link, not the host. 0.0 = off.
 _sim_rtt_s = 0.0
+# longest wait at process exit for the transfers in flight to land
+EXIT_WAIT_S = 30.0
+_exit_hook_registered = False
 
 
 def set_simulated_rtt_ms(ms: float) -> None:
@@ -139,6 +152,8 @@ class _Coalescer:
         self._q: List[_Ticket] = []
         self._cv = threading.Condition()
         self._thread: Optional[threading.Thread] = None
+        # a grabbed batch is being copied and delivered (under _cv)
+        self._busy = False
         # achieved-depth accounting: frames (tickets) per RPC is THE
         # number that says whether the service actually amortizes the
         # link round trip (1.0 = degenerated to frame-at-a-time)
@@ -165,10 +180,26 @@ class _Coalescer:
             self._stats["arrays"] += n_arrays
 
     def _ensure_thread(self) -> None:
+        global _exit_hook_registered
         if self._thread is None or not self._thread.is_alive():
+            if not _exit_hook_registered:
+                atexit.register(_quiesce_at_exit)
+                _exit_hook_registered = True
             self._thread = threading.Thread(
                 target=self._run, name=self.THREAD_NAME, daemon=True)
             self._thread.start()
+
+    def wait_idle(self, timeout: float) -> bool:
+        """Wait until no ticket is queued and no batch is in flight;
+        False when ``timeout`` seconds pass first."""
+        deadline = time.monotonic() + timeout
+        with self._cv:
+            while self._q or self._busy:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    return False
+                self._cv.wait(left)
+        return True
 
     def submit(self, ticket: _Ticket) -> None:
         with self._cv:
@@ -189,11 +220,15 @@ class _Coalescer:
                 t = self._q.pop(0)
                 grab.append(t)
                 n += len(t.arrays or ())
+            self._busy = bool(grab)
         return grab
 
-    def _run(self) -> None:
-        import time as _time
+    def _idle(self) -> None:
+        with self._cv:
+            self._busy = False
+            self._cv.notify_all()
 
+    def _run(self) -> None:
         last_rpc = 0.0
         while True:
             with self._cv:
@@ -217,47 +252,56 @@ class _Coalescer:
                 with self._cv:
                     backlog = sum(len(t.arrays or ()) for t in self._q)
                 if backlog < _MAX_ARRAYS_PER_RPC:
-                    _time.sleep(linger)
+                    time.sleep(linger)
             grab = self._grab_batch()
             if not grab:
                 continue
-            flat = [a for t in grab for a in (t.arrays or ())]
-            t0 = _time.perf_counter()
             try:
-                if _sim_rtt_s > 0.0:
-                    _time.sleep(_sim_rtt_s)
-                results = self._rpc(grab, flat)
-                last_rpc = _time.perf_counter() - t0
-                self._account(len(grab), len(flat))
-            except BaseException:  # noqa: BLE001 - isolate per frame below
-                # one poisoned array (donated buffer, transient RPC error)
-                # must not fail every frame sharing the RPC: retry each
-                # ticket alone so only the genuinely bad frame errors out.
-                # The failed round trip still cost a full RTT: count it
-                # (0 frames delivered) so frames_per_rpc_avg cannot read
-                # BETTER than reality on an unhealthy link; account each
-                # retry before delivering so a resolve-then-reset caller
-                # never sees counts land after its reset. The failed
-                # attempt still measured real link time — keep the
-                # linger's RPC estimate live through error storms.
-                last_rpc = _time.perf_counter() - t0
-                self._account(0, 0)
-                for t in grab:
-                    t1 = _time.perf_counter()
-                    try:
-                        res1 = self._rpc([t], list(t.arrays or []))
-                        last_rpc = _time.perf_counter() - t1
-                        self._account(1, len(t.arrays or ()))
-                        t._deliver(res1)
-                    except BaseException as exc:  # noqa: BLE001
-                        self._account(0, 0)
-                        t._deliver(None, exc)
-                continue
-            i = 0
+                last_rpc = self._drain(grab, last_rpc)
+            finally:
+                self._idle()
+
+    def _drain(self, grab: List[_Ticket], last_rpc: float) -> float:
+        """One batched RPC for ``grab`` and the delivery of its results;
+        returns the RPC's measured seconds (the linger's estimate)."""
+        flat = [a for t in grab for a in (t.arrays or ())]
+        t0 = time.perf_counter()
+        try:
+            if _sim_rtt_s > 0.0:
+                time.sleep(_sim_rtt_s)
+            results = self._rpc(grab, flat)
+            last_rpc = time.perf_counter() - t0
+            self._account(len(grab), len(flat))
+        except BaseException:  # noqa: BLE001 - isolate per frame below
+            # one poisoned array (donated buffer, transient RPC error)
+            # must not fail every frame sharing the RPC: retry each
+            # ticket alone so only the genuinely bad frame errors out.
+            # The failed round trip still cost a full RTT: count it
+            # (0 frames delivered) so frames_per_rpc_avg cannot read
+            # BETTER than reality on an unhealthy link; account each
+            # retry before delivering so a resolve-then-reset caller
+            # never sees counts land after its reset. The failed
+            # attempt still measured real link time — keep the
+            # linger's RPC estimate live through error storms.
+            last_rpc = time.perf_counter() - t0
+            self._account(0, 0)
             for t in grab:
-                k = len(t.arrays or ())
-                t._deliver(results[i:i + k])
-                i += k
+                t1 = time.perf_counter()
+                try:
+                    res1 = self._rpc([t], list(t.arrays or []))
+                    last_rpc = time.perf_counter() - t1
+                    self._account(1, len(t.arrays or ()))
+                    t._deliver(res1)
+                except BaseException as exc:  # noqa: BLE001
+                    self._account(0, 0)
+                    t._deliver(None, exc)
+            return last_rpc
+        i = 0
+        for t in grab:
+            k = len(t.arrays or ())
+            t._deliver(results[i:i + k])
+            i += k
+        return last_rpc
 
 
 class _Downloader(_Coalescer):
@@ -314,6 +358,13 @@ class _Uploader(_Coalescer):
 
 _downloader = _Downloader()
 _uploader = _Uploader()
+
+
+def _quiesce_at_exit() -> None:
+    """atexit: let the transfers in flight land before the interpreter
+    finalizes (see the module's docstring)."""
+    for coalescer in (_downloader, _uploader):
+        coalescer.wait_idle(EXIT_WAIT_S)
 
 
 class PendingHost:

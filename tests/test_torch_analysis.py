@@ -49,7 +49,6 @@ FILTER = "tensor_filter name=f framework=simlink"
 
 DEFERRED = {
     "sharding-divisibility", "serve-mesh-divisibility", "mesh-colocation",
-    "autoscaler-config",
 }
 
 
@@ -71,7 +70,7 @@ def findings_for(desc, rule=None):
 
 def test_rule_ids_are_the_reference_minus_the_deferred():
     assert {r.id for r in ALL_RULES} == {r.id for r in NT_RULES} - DEFERRED
-    assert len(ALL_RULES) == 24
+    assert len(ALL_RULES) == 25
 
 
 class TestCapsInference:
@@ -683,3 +682,43 @@ class TestStatefulNoCheckpointRule:
               "framerate=30/1 ! tensor_aggregator frames-out=2 "
               "! tensor_trainer name=tr ! fakesink")
         assert findings_for(ok, "stateful-no-checkpoint") == []
+
+
+class TestAutoscalerConfigRule:
+    """``autoscaler-config`` on the JAX tests' own lines (both packages
+    find the same set, see ``findings_for``)."""
+
+    def test_inverted_bounds_error(self):
+        bad = (  # pipelint: skip — floor above the ceiling
+            "tensor_autoscaler name=a router=rt "
+            "min-replicas=5 max-replicas=2")
+        got = findings_for(bad, "autoscaler-config")
+        assert [(f.element, f.severity) for f in got] == \
+            [("a", Severity.ERROR)]
+        assert "min-replicas=5 > max-replicas=2" in got[0].message
+
+    def test_nonpositive_drain_deadline_error(self):
+        bad = (  # pipelint: skip — zero drain deadline orphans work
+            "tensor_autoscaler name=a router=rt drain-deadline-ms=0")
+        got = findings_for(bad, "autoscaler-config")
+        assert [(f.element, f.severity) for f in got] == \
+            [("a", Severity.ERROR)]
+        assert "drain-deadline-ms" in got[0].message
+
+    def test_no_metrics_source_warns(self):
+        blind = (  # pipelint: skip — nothing feeds the control law
+            "tensor_autoscaler name=a min-replicas=1 max-replicas=3")
+        got = findings_for(blind, "autoscaler-config")
+        assert [(f.element, f.severity) for f in got] == \
+            [("a", Severity.WARNING)]
+        assert "metrics source" in got[0].message
+
+    def test_metrics_url_counts_as_source(self):
+        ok = ("tensor_autoscaler name=a max-replicas=3 "
+              "metrics-url=http://localhost:9090/metrics")
+        assert findings_for(ok, "autoscaler-config") == []
+
+    def test_routered_autoscaler_is_clean(self):
+        ok = ("tensor_autoscaler name=a router=rt "
+              "min-replicas=1 max-replicas=4 drain-deadline-ms=2000")
+        assert findings_for(ok, "autoscaler-config") == []

@@ -492,8 +492,11 @@ def test_single_shot_runs_on_the_card_by_default(mlp_py, monkeypatch):
 def test_new_modules_import_no_jax():
     """The backends, SingleShot, the watchdog, the sparse and delta ops
     and elements, the delta wire codec, the broker, the native ring, the
-    serving stack, the KV link, the MQTT transport, NTP, the span rings
-    and the llm filter (and chip_smoke.py, read as text) import nothing
+    serving stack, the KV link, the MQTT transport, NTP, the span rings,
+    the llm filter, the telemetry plane (recorder, metrics, scrape
+    server, top), flowcheck's runtime half, the model registry, the
+    device probe, the fleet and the CLI (and chip_smoke.py, read as
+    text) import nothing
     of JAX or of the JAX package (ml_dtypes included); the modules are
     imported in a fresh interpreter."""
     code = ("import sys; import nnstreamer_tpu_torch.filters.custom, "
@@ -519,7 +522,20 @@ def test_new_modules_import_no_jax():
             "nnstreamer_tpu_torch.edge.ntp, "
             "nnstreamer_tpu_torch.elements.mqtt, "
             "nnstreamer_tpu_torch.obs.spans, "
-            "nnstreamer_tpu_torch.filters.llm; "
+            "nnstreamer_tpu_torch.filters.llm, "
+            "nnstreamer_tpu_torch.obs.recorder, "
+            "nnstreamer_tpu_torch.obs.metrics, "
+            "nnstreamer_tpu_torch.obs.server, "
+            "nnstreamer_tpu_torch.obs.top, "
+            "nnstreamer_tpu_torch.analysis.flow, "
+            "nnstreamer_tpu_torch.utils.models, "
+            "nnstreamer_tpu_torch.utils.hw, "
+            "nnstreamer_tpu_torch.fleet.cache, "
+            "nnstreamer_tpu_torch.fleet.replica, "
+            "nnstreamer_tpu_torch.fleet.replica_main, "
+            "nnstreamer_tpu_torch.fleet.autoscaler, "
+            "nnstreamer_tpu_torch.fleet.rollout, "
+            "nnstreamer_tpu_torch.__main__; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes', "
             "'nnstreamer_tpu')]; assert not bad, bad")

@@ -1710,3 +1710,98 @@ def test_llm_split_equals_monolithic_on_the_card(card):
     finally:
         pre.close()
         dec.close()
+
+
+# -- the telemetry plane and the fleet --------------------------------------
+
+def test_scrape_on_the_card_line(card, tmp_path, monkeypatch):
+    """The small MobileNet-v2 line on the card behind a MetricsServer:
+    the scraped e2e count equals the frames at the sink, every element
+    has its counters, and each frame's span tree is connected (spans
+    read host clocks only)."""
+    from nnstreamer_tpu_torch.obs import context as obs_ctx
+    from nnstreamer_tpu_torch.obs import metrics, spans
+    from nnstreamer_tpu_torch.obs.server import MetricsServer, scrape
+    monkeypatch.setenv("NNS_TPU_FLIGHT_DIR", str(tmp_path))
+    metrics.reset()
+    srv = MetricsServer(port=0).start()
+    p = pt.parse_launch(
+        f"appsrc name=in caps={MN_CAPS} ! queue name=q "
+        f"! tensor_filter name=f framework=torch-cuda model={MN_SMALL} "
+        "! appsink name=out")
+    p.start()
+    try:
+        for i, f in enumerate(_mn_frames(8)):
+            p["in"].push_buffer(pt.Buffer.from_arrays([f], pts=i))
+        p["in"].end_stream()
+        assert p.wait_eos(120)
+        samples = metrics.parse(scrape("localhost", srv.bound_port))
+    finally:
+        p.stop()
+        srv.stop()
+    assert samples[("nns_e2e_latency_seconds_count",
+                    (("pipeline", p.name), ("sink", "out")))] == 8.0
+    for name in ("q", "f", "out"):
+        assert samples[("nns_element_counter_total",
+                        (("counter", "buffers"), ("element", name),
+                         ("pipeline", p.name)))] == 8.0
+    traces = {obs_ctx.ctx_of(b).trace_id for b in p["out"].buffers}
+    assert len(traces) == 8
+    got = {}
+    for _tid, s in spans.snapshot():
+        if s[4] in traces:
+            got.setdefault(s[4], []).append(s)
+    for t in traces:
+        ids = {s[5] for s in got[t]}
+        assert [s[6] for s in got[t]].count(0) == 1
+        assert all(s[6] == 0 or s[6] in ids for s in got[t])
+        assert {"in", "q", "f", "out"} <= {s[0] for s in got[t]}
+
+
+def test_warm_replica_captures_before_replica_ready(card, tmp_path):
+    """A replica of the small MobileNet-v2 serve line with the compile
+    cache: one life seeds it; the next captures its bucket's graph at
+    open — before it prints replica-ready — and its frames capture
+    nothing more."""
+    from nnstreamer_tpu_torch.fleet import ReplicaProcess, ReplicaSpec
+    prelude = (
+        "import nnstreamer_tpu_torch.filters.torch_cuda_backend as _b\n"
+        "_open, _invoke = _b.TorchCudaFilter.open, _b.TorchCudaFilter.invoke\n"
+        "def _opened(self, props):\n"
+        "    _open(self, props)\n"
+        "    self._serving = True\n"
+        "    print(f'backend-open prewarmed={self.prewarmed} '\n"
+        "          f'compiles={self.compile_count}', flush=True)\n"
+        "def _invoked(self, inputs):\n"
+        "    n = self.compile_count\n"
+        "    out = _invoke(self, inputs)\n"
+        "    if getattr(self, '_serving', False) and self.compile_count != n:\n"
+        "        print('backend-frame-capture', flush=True)\n"
+        "    return out\n"
+        "_b.TorchCudaFilter.open = _opened\n"
+        "_b.TorchCudaFilter.invoke = _invoked\n")
+    desc = ("tensor_serve_src name=src port={port} id=97 buckets=1 "
+            "max-wait-ms=2 ! tensor_filter name=f framework=torch-cuda "
+            f"model={MN_SMALL} ! tensor_serve_sink id=97")
+    spec = ReplicaSpec(desc_template=desc, ckpt_root=str(tmp_path / "ck"),
+                       compile_cache=str(tmp_path / "cc"), prelude=prelude)
+    lines = []
+    for life in ("seed", "warm"):
+        rp = ReplicaProcess(spec, life)
+        rp.spawn()
+        try:
+            port = rp.wait_ready(timeout=180)
+            got = _serve_clients(port, list(_mn_frames(2)), 1)
+            assert [pts for pts, _ in got[0]] == [0, 1]
+            rp.preempt(timeout=60)
+        finally:
+            rp.kill()
+        lines.append(rp.tail(400).splitlines())
+    seed, warm = lines
+    assert "backend-open prewarmed=0 compiles=0" in seed
+    assert "backend-frame-capture" in seed
+    assert "backend-frame-capture" not in warm
+    opened = warm.index("backend-open prewarmed=1 compiles=1")
+    ready = next(i for i, ln in enumerate(warm)
+                 if ln.startswith("replica-ready "))
+    assert opened < ready

@@ -292,3 +292,33 @@ class TestInFlightWindow:
         assert got and got[0] is not None
         w.release(got[0])
         assert w.report()["blocked_ms"] > 0
+
+
+def test_coalescer_waits_idle_for_a_batch_in_flight():
+    """``wait_idle`` (what the exit hook waits on) returns only once the
+    queue is empty and the batch being copied was delivered; the first
+    coalescer thread registers the exit hook."""
+    import threading
+
+    from nnstreamer_tpu_torch.tensors import transfer
+
+    release, entered = threading.Event(), threading.Event()
+
+    class Held(transfer._Coalescer):
+        THREAD_NAME = "test-held"
+
+        def _rpc(self, tickets, flat):
+            entered.set()
+            assert release.wait(10)
+            return list(flat)
+
+    c = Held()
+    assert c.wait_idle(0.01)
+    ticket = transfer._Ticket([np.ones(3, np.float32)])
+    c.submit(ticket)
+    assert entered.wait(10)
+    assert not c.wait_idle(0.05)          # the batch is in flight
+    release.set()
+    assert c.wait_idle(10)
+    np.testing.assert_array_equal(ticket.wait(), [np.ones(3, np.float32)])
+    assert transfer._exit_hook_registered

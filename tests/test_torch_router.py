@@ -25,8 +25,8 @@ run can show:
 
 Waits are on the router's own state (its replica report, its counters),
 not on fixed sleeps. The reference's slow ``TestFleetChaos`` and
-``TestRejoinResurrect`` need ``fleet/`` (ROADMAP item 13) and are not
-mirrored.
+``TestRejoinResurrect`` are not mirrored; a replica killed mid-serving
+behind this router is tests/test_torch_fleet.py's SIGTERM arm.
 """
 import socket
 import threading

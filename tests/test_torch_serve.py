@@ -601,8 +601,10 @@ def _drain_run(pkg, ident, filt_extra="", sent=12):
     _push(pkg, client, range(sent))
 
     def in_flight():
-        with client["qc"]._plock:
-            return bool(client["qc"]._pending)
+        # admitted by the server, not only sent by the client: a drain
+        # that lands before the first frame arrives sheds all twelve
+        stats = server["src"].scheduler.batcher.stats.snapshot()
+        return stats["submitted"] > 0
 
     _wait(in_flight, 10)
     ok = server.drain(deadline=30)

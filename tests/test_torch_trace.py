@@ -11,6 +11,9 @@ every element and block, and the reference's bounds must hold for both.
 Times are host times and differ run to run, so they are held to the
 reference test's bounds, not to each other; counts are equal.
 """
+import threading
+import time
+
 import numpy as np
 import pytest
 
@@ -18,6 +21,7 @@ import nnstreamer_tpu as nt
 import nnstreamer_tpu_torch as pt
 from nnstreamer_tpu.tensors.transfer import \
     transfer_stats as jax_transfer_stats
+from nnstreamer_tpu_torch.filters import register_custom_easy
 from nnstreamer_tpu_torch.tensors.transfer import transfer_stats
 from nnstreamer_tpu_torch.utils.trace import Reservoir, WindowReservoir
 
@@ -31,19 +35,44 @@ RUN2 = ("tensor_transform name=a mode=arithmetic option=mul:2 ! "
         "tensor_transform name=b mode=transpose option=1:0:2")
 
 
-def _traced(desc, fuse=True):
+def _traced(desc, fuse=True, at_eos=False):
     """Run ``desc`` traced in both packages (the coalescing transfer
     counters reset first: they are process-wide); returns the two
-    (pipeline, report) pairs, JAX first."""
+    (pipeline, report) pairs, JAX first. The report is read after
+    ``stop()``, or with ``at_eos`` once EOS reached the sinks and
+    before ``stop()``."""
     out = []
     for pkg, reset in ((nt, jax_transfer_stats), (pt, transfer_stats)):
         reset(reset=True)
         p = pkg.parse_launch(desc)
         p.fuse = fuse
         tracer = p.enable_tracing()
-        p.run(60)
-        out.append((p, tracer.report(p)))
+        if at_eos:
+            p.start()
+            try:
+                assert p.wait_eos(60)
+                _settle_queues(p)
+                rep = tracer.report(p)
+            finally:
+                p.stop()
+        else:
+            p.run(60)
+            rep = tracer.report(p)
+        out.append((p, rep))
     return out
+
+
+def _settle_queues(pipe, timeout=10.0):
+    """Wait until every queue of ``pipe`` has popped what it holds. A
+    combiner forwards EOS once any of its pads is done, so a queue on
+    the other leg can still hold its own EOS event when the pipeline's
+    EOS arrives; its worker pops it a moment later."""
+    queues = [e for e in pipe.elements.values()
+              if hasattr(getattr(e, "_q", None), "qsize")]
+    deadline = time.monotonic() + timeout
+    while any(q._q.qsize() for q in queues) \
+            and time.monotonic() < deadline:
+        time.sleep(0.005)
 
 
 def _same_keys(want, got):
@@ -142,7 +171,15 @@ def test_ensemble_report_has_the_reference_keys():
     """A tee into two legs, recombined by tensor_mux and split again by
     tensor_demux: every element the port has reports the reference's
     keys, queue levels included; the mux's collection bypasses the
-    per-buffer hooks in both packages, so its entry is empty."""
+    per-buffer hooks in both packages, so its entry is empty.
+
+    The reports are read at EOS once every queue has popped its EOS:
+    ``tensor_mux`` forwards EOS when either leg is done, so the slower
+    leg's queue can still hold its EOS when the pipeline's arrives, and
+    after ``stop()`` it would stay there. After ``stop()`` the JAX
+    queue's level can also read 1 for the stop sentinel a worker never
+    popped (``Queue.stop``, nnstreamer_tpu/pipeline/basic.py:125-141);
+    the port takes it back, so its levels read 0 after ``stop()`` too."""
     (jp, want), (p, rep) = _traced(
         "tensor_mux name=m sync-mode=slowest ! tensor_demux name=d "
         "d.src_0 ! queue name=qa ! appsink name=a "
@@ -151,7 +188,7 @@ def test_ensemble_report_has_the_reference_keys():
         "t. ! queue name=q0 ! tensor_filter name=f0 framework=simlink "
         "custom=rtt:2 ! m.sink_0 "
         "t. ! queue name=q1 ! tensor_filter name=f1 framework=simlink "
-        "custom=rtt:1 ! m.sink_1")
+        "custom=rtt:1 ! m.sink_1", at_eos=True)
     _same_keys(want, rep)
     for r, pipe in ((want, jp), (rep, p)):
         assert r["m"] == {}
@@ -160,6 +197,56 @@ def test_ensemble_report_has_the_reference_keys():
         assert r["a"]["buffers"] == r["b"]["buffers"] == 6
         assert r["a"]["interlatency_us_avg"] >= 1500
         assert len(pipe["a"].buffers) == len(pipe["b"].buffers) == 6
+    after = p.tracer.report(p)
+    for q in ("q0", "q1", "qa", "qb"):
+        assert after[q]["queue_level"] == 0
+
+
+def test_stopped_queue_takes_back_its_stop_sentinel():
+    """A queue stopped while its worker is inside a push: the worker
+    sees the queue stopping before its next pop and exits, leaving the
+    stop sentinel queued. The port's ``Queue.stop`` takes it back, so
+    the stopped queue is empty and a restarted one passes buffers (the
+    JAX queue keeps the sentinel: its restarted worker would pop it and
+    exit at once)."""
+    entered, gate = threading.Event(), threading.Event()
+
+    def hold(x):
+        entered.set()
+        assert gate.wait(10)
+        return x
+
+    register_custom_easy("trace_hold", hold)
+    p = pt.parse_launch(
+        f'appsrc name=in caps="{CAPS}" ! queue name=q backend=python '
+        "! tensor_filter framework=custom-easy model=trace_hold "
+        "! appsink name=out")
+    p.start()
+    q = p["q"]
+    try:
+        p["in"].push_buffer(pt.Buffer.from_arrays(
+            [np.ones(8, np.float32)]))
+        assert entered.wait(10)
+        stopper = threading.Thread(target=q.stop)
+        stopper.start()
+        deadline = time.monotonic() + 10
+        while q._running and time.monotonic() < deadline:
+            time.sleep(0.01)
+        time.sleep(0.05)                 # stop() has queued its sentinel
+        gate.set()
+        stopper.join(timeout=10)
+        assert not stopper.is_alive()
+        assert q._q.qsize() == 0
+        q.start()
+        p["in"].push_buffer(pt.Buffer.from_arrays(
+            [np.ones(8, np.float32)]))
+        deadline = time.monotonic() + 10
+        while len(p["out"].buffers) < 2 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert len(p["out"].buffers) == 2
+    finally:
+        gate.set()
+        p.stop()
 
 
 def test_reservoirs_match_the_reference():
