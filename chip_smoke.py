@@ -390,12 +390,35 @@ Native queue — the headline line with queue backend=native against
               filter's 16 buffers; lint exits 0, 1 and 2 on a clean, a
               warned and a defective line; top --json against phase 44's
               MetricsServer and a second one gives one row an endpoint.
+46. codecs  — the ViT-B/16 attn=pallas line at full width, 16 frames,
+              through a tee: one leg straight to an appsink, one leg a
+              codec for each of tensor_decoder mode=flatbuf, flexbuf and
+              protobuf ! tensor_converter, and mode=octet_stream !
+              tensor_converter input-dim=1000 input-type=float32: every
+              round trip's logits bitwise equal to the straight leg's, 12
+              attention launches a frame; each codec's bytes a frame and
+              the host ms a frame to pack and to unpack the logits.
+47. interop — tools/torch_model_files.py writes MobileNet-v2 at width
+              1.0 and 224x224 (seeded random weights, BatchNorm folded
+              but in the .pb) as a float and a u8 .tflite, a float and a
+              QLinear .onnx and a GraphDef .pb; each runs through
+              tensortestsrc ! tensor_filter framework=tensorflow-lite |
+              onnxruntime | tensorflow model=<file> ! appsink, 8 + 48
+              frames (fps, p50), held against the port's run of the
+              same file on the CPU (accelerator=true:cpu): f32 outputs
+              within 1e-4 x max |CPU| (TF32 off), u8 outputs within 1 LSB
+              with the same argmax on every frame. On the backend itself:
+              replay bitwise equal to the eager module, SUSPEND, RESUME
+              and RELOAD_MODEL each leave the next frame equal, and the
+              replay's device ms a frame (CUDA events); framework=auto
+              picks the same backend for each extension. Neither hand
+              kernel runs.
 Every model line runs through the backend's per-signature executable,
 one captured CUDA graph per input signature: the first frame runs
 eagerly (the capture's warm-up), every later frame is one replay, so a
 hand kernel inside the graph counts once a frame.
 Phases 8-11, 13, 16, 17, 19, 20, 22, 24, 26, 27, 29-35, 37, 39-42, 43's
-serve line, 45 and the native queue lines launch neither hand kernel
+serve line, 45, 47 and the native queue lines launch neither hand kernel
 (their models inline their input affine, as the JAX models do); their
 launch counts are read all the same and written on the kernels line as
 0. Phase 44's replicas count in their own processes: the kernels line
@@ -6130,6 +6153,248 @@ def phase_pipelint(smi, lines):
             "allocated_before": before, "allocated_after": after}
 
 
+CODEC_FRAMES = 16          # phase 46: frames of the ViT-B/16 codec line
+VIT_CLASSES = 1000         # its logits, the octet leg's input-dim
+CODEC_MODES = ("flatbuf", "flexbuf", "protobuf")
+INTEROP_WIDTH = 1.0        # phase 47: MobileNet-v2 at its published width
+INTEROP_SIZE = 224         # and resolution
+INTEROP_WARMUP = 8
+INTEROP_FRAMES = 48
+INTEROP_REPLAYS = 50       # device time a frame: graph replays timed
+INTEROP_F32_REL = 1e-4     # card vs CPU: max |diff| / max |CPU output|
+INTEROP_FORMS = (          # (writer form, framework)
+    ("tflite", "tensorflow-lite"), ("tflite_u8", "tensorflow-lite"),
+    ("onnx", "onnxruntime"), ("onnx_qlinear", "onnxruntime"),
+    ("pb", "tensorflow"))
+
+
+def _model_files():
+    """tools/torch_model_files.py, loaded by path (it imports neither
+    package and is not part of one)."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "torch_model_files.py")
+    spec = importlib.util.spec_from_file_location("torch_model_files", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_codecs(smi):
+    """Phase 46: the ViT-B/16 attn=pallas line at full width fanned out
+    through a tee: one leg straight to an appsink, the others through
+    tensor_decoder mode=flatbuf|flexbuf|protobuf ! tensor_converter and
+    mode=octet_stream ! tensor_converter input-dim/input-type. Every round
+    trip gives back the straight leg's logits bit for bit; 12 attention
+    launches a frame. Then each codec's bytes a frame and host ms a frame
+    to pack and to unpack those logits (the port's interop/tensor_codec.py
+    on the host clock)."""
+    from nnstreamer_tpu_torch.interop import tensor_codec as tc
+    legs = "".join(
+        f"t. ! queue ! tensor_decoder mode={m} ! tensor_converter "
+        f"! appsink name=rt_{m} " for m in CODEC_MODES)
+    line = (f"tensortestsrc caps={CAPS.format(dims='3:224:224')} "
+            f"pattern=random seed={SEED} num-buffers={CODEC_FRAMES} "
+            "! tensor_filter name=f framework=torch-cuda "
+            'model="zoo://vit?attn=pallas" ! tee name=t '
+            "t. ! queue ! appsink name=out " + legs +
+            "t. ! queue ! tensor_decoder mode=octet_stream ! tensor_converter "
+            f"input-dim={VIT_CLASSES} input-type=float32 ! appsink name=rt_octet")
+    pipe, row = _run_line("codecs", line, 0, CODEC_FRAMES, smi)
+    want = [b.chunks[0].host() for b in pipe["out"].buffers]
+    if len(want) != CODEC_FRAMES or any(
+            w.dtype != np.float32 or w.size != VIT_CLASSES
+            or not np.isfinite(w).all() for w in want):
+        sys.exit("chip_smoke: codecs: the straight leg's logits are not "
+                 f"{CODEC_FRAMES} finite f32 [{VIT_CLASSES}] frames")
+    for m in CODEC_MODES + ("octet",):
+        got = [b.chunks[0].host() for b in pipe[f"rt_{m}"].buffers]
+        if len(got) != CODEC_FRAMES or any(
+                g.dtype != w.dtype or g.tobytes() != w.tobytes()
+                for g, w in zip(got, want)):
+            sys.exit(f"chip_smoke: codecs: the {m} round trip is not the "
+                     "straight leg's logits bit for bit")
+    if row["kernel_launches"]["attention"] != VIT_LAYERS * CODEC_FRAMES:
+        sys.exit(f"chip_smoke: codecs: {row['kernel_launches']} for "
+                 f"{CODEC_FRAMES} frames, expected {VIT_LAYERS} attention "
+                 "launches a frame")
+    codecs = {}
+    for m in CODEC_MODES + ("octet",):
+        pack = getattr(tc, f"pack_{m}")
+        unpack = getattr(tc, f"unpack_{m}", None)
+        t0 = time.perf_counter()
+        blobs = [pack(tc.Frame([w], [""], 0, 1)) for w in want]
+        pack_ms = (time.perf_counter() - t0) * 1e3 / len(want)
+        unpack_ms = None
+        if unpack is not None:
+            t0 = time.perf_counter()
+            back = [unpack(b).arrays[0] for b in blobs]
+            unpack_ms = (time.perf_counter() - t0) * 1e3 / len(want)
+            if any(b.tobytes() != w.tobytes() for b, w in zip(back, want)):
+                sys.exit(f"chip_smoke: codecs: {m} unpack differs")
+        codecs[m] = {"bytes": len(blobs[0]), "pack_ms": pack_ms,
+                     "unpack_ms": unpack_ms}
+    log(f"codecs: every round trip bitwise equal to the straight leg over "
+        f"{CODEC_FRAMES} frames; per frame of {VIT_CLASSES} f32 logits "
+        f"({4 * VIT_CLASSES} bytes of data): " + "; ".join(
+            f"{m} {c['bytes']} bytes, pack {c['pack_ms']:.4f} ms"
+            + (f", unpack {c['unpack_ms']:.4f} ms"
+               if c["unpack_ms"] is not None else "")
+            for m, c in codecs.items()) + f" (host clock); {smi}")
+    row["codecs"] = codecs
+    return row
+
+
+def _interop_frames(info, n):
+    """tensortestsrc's random frames for an imported model's input (u8
+    in [0, 255] or f32 in [0, 1), seed SEED), drawn as it draws them,
+    in the model's declared shape."""
+    import nnstreamer_tpu_torch as pt
+    caps = _interop_caps(info)
+    pipe = pt.parse_launch(f"tensortestsrc caps={caps} pattern=random "
+                           f"seed={SEED} num-buffers={n} ! appsink name=out")
+    pipe.run(timeout=120)
+    return [np.asarray(b.chunks[0].host()).reshape(info.shape)
+            for b in pipe["out"].buffers]
+
+
+def _interop_caps(info):
+    dims = ":".join(str(d) for d in reversed(info.shape))
+    return ("other/tensors,format=static,num_tensors=1,"
+            f"types=(string){info.type},dimensions=(string){dims},"
+            "framerate=(fraction)0/1")
+
+
+def _outputs_close(got, want, what):
+    """f32: max |diff| <= INTEROP_F32_REL x max |want| on every frame;
+    integers: at most 1 LSB and the same argmax on every frame. Returns
+    the worst figure."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        if w.dtype.kind == "f":
+            err = float(np.abs(g.astype(np.float64) - w).max()
+                        / max(float(np.abs(w).max()), 1e-30))
+            if not err <= INTEROP_F32_REL:
+                sys.exit(f"chip_smoke: interop {what}: card vs CPU "
+                         f"{err:.3g} of max |CPU| > {INTEROP_F32_REL}")
+        else:
+            err = float(np.abs(g.astype(np.int64) - w.astype(np.int64)).max())
+            if err > 1 or np.argmax(g) != np.argmax(w):
+                sys.exit(f"chip_smoke: interop {what}: card vs CPU {err} LSB, "
+                         f"argmax {np.argmax(g)} vs {np.argmax(w)}")
+        worst = max(worst, err)
+    return worst
+
+
+def _replay_checks(fw, x, what):
+    """On an opened backend: the first invoke (eager warm-up, then the
+    capture) against a replay of the same frame and against an eager run
+    of the module, bitwise; SUSPEND, RESUME and RELOAD_MODEL (the same
+    file) each leave the next frame equal; the replay's device ms a
+    frame from CUDA events."""
+    from nnstreamer_tpu_torch.filters import FilterEvent
+    first = [o.cpu() for o in fw.invoke([x])]
+    replay = [o.cpu() for o in fw.invoke([x])]
+    with torch.inference_mode():
+        xs = torch.from_numpy(np.ascontiguousarray(x)).cuda().reshape(
+            fw.get_model_info()[0][0].shape)
+        eager = [o.cpu() for o in fw._module(xs)]
+    if not all(torch.equal(a, b) for a, b in zip(first, replay)) or \
+            not all(torch.equal(a, b) for a, b in zip(eager, replay)):
+        sys.exit(f"chip_smoke: interop {what}: replay differs from eager")
+    for event in ("SUSPEND", "RESUME", "RELOAD_MODEL"):
+        data = {"model_files": fw._props.model_files} \
+            if event == "RELOAD_MODEL" else None
+        if not fw.handle_event(getattr(FilterEvent, event), data):
+            sys.exit(f"chip_smoke: interop {what}: {event} not handled")
+        after = [o.cpu() for o in fw.invoke([x])]
+        if not all(torch.equal(a, b) for a, b in zip(after, replay)):
+            sys.exit(f"chip_smoke: interop {what}: the frame after "
+                     f"{event} differs")
+    xc = torch.from_numpy(np.ascontiguousarray(x)).cuda()
+    device_ms = _event_ms(lambda: fw.invoke([xc]), INTEROP_REPLAYS)
+    return device_ms, fw.compile_count
+
+
+def phase_interop(smi, tmp):
+    """Phase 47: tools/torch_model_files.py writes MobileNet-v2 at width
+    1.0 and 224x224 as a float and a u8 .tflite, a float and a QLinear
+    .onnx and a GraphDef .pb; each runs through tensortestsrc !
+    tensor_filter framework=<fw> model=<file> ! appsink (8 warm-up and 48
+    measured frames: fps, p50), the card's outputs held against the
+    port's run of the same file and frames on the CPU
+    (accelerator=true:cpu); replay against eager, bitwise; SUSPEND,
+    RESUME, RELOAD_MODEL; framework=auto for each extension; neither hand
+    kernel runs."""
+    import nnstreamer_tpu_torch as pt
+    from nnstreamer_tpu_torch.filters import (FilterProperties,
+                                              detect_framework, find_filter)
+    mf = _model_files()
+    t0 = time.perf_counter()
+    paths = mf.write_mobilenet_v2(tmp, INTEROP_WIDTH, INTEROP_SIZE, SEED)
+    write_s = time.perf_counter() - t0
+    log(f"interop: wrote {len(paths)} MobileNet-v2 files (width "
+        f"{INTEROP_WIDTH}, {INTEROP_SIZE}x{INTEROP_SIZE}) in {write_s:.2f} s: "
+        + ", ".join(f"{os.path.basename(p)} {os.path.getsize(p)} bytes"
+                    for p in paths.values()))
+    n = INTEROP_WARMUP + INTEROP_FRAMES
+    rows = {}
+    for form, fw_name in INTEROP_FORMS:
+        path = paths[form]
+        ext = os.path.splitext(path)[1]
+        if detect_framework((path,)) != fw_name:
+            sys.exit(f"chip_smoke: interop: framework=auto picks "
+                     f"{detect_framework((path,))} for {ext}")
+        fw = find_filter(fw_name)()
+        fw.open(FilterProperties(framework=fw_name, model_files=(path,)))
+        try:
+            info = fw.get_model_info()[0][0]
+            frames = _interop_frames(info, n)
+            device_ms, captures = _replay_checks(fw, frames[0], form)
+        finally:
+            fw.close()
+        caps = _interop_caps(info)
+        line = (f"tensortestsrc caps={caps} pattern=random seed={SEED} "
+                f"num-buffers={n} ! tensor_filter name=f framework={fw_name} "
+                f"model={path} ! appsink name=out")
+        pipe, row = _run_line(f"interop {form}", line, INTEROP_WARMUP,
+                              INTEROP_FRAMES, smi)
+        got = [np.asarray(b.chunks[0].host()) for b in pipe["out"].buffers]
+        cpu, _ = _run_timed(line.replace(
+            f"framework={fw_name} ", f"framework={fw_name} "
+            "accelerator=true:cpu "), 0, n)
+        want = [np.asarray(b.chunks[0].host()) for b in cpu["out"].buffers]
+        worst = _outputs_close(got, want, form)
+        if any(row["kernel_launches"].values()):
+            sys.exit(f"chip_smoke: interop {form}: a hand kernel ran: "
+                     f"{row['kernel_launches']}")
+        # framework=auto in a line: the same backend, the same frames
+        auto_n = 2
+        auto, _ = _run_timed(
+            f"tensortestsrc caps={caps} pattern=random seed={SEED} "
+            f"num-buffers={auto_n} ! tensor_filter name=f model={path} "
+            "! appsink name=out", 0, auto_n,
+            probe=lambda p: type(p["f"].fw).NAME)
+        if auto.probed != fw_name or any(
+                np.asarray(b.chunks[0].host()).tobytes() != g.tobytes()
+                for b, g in zip(auto["out"].buffers, got)):
+            sys.exit(f"chip_smoke: interop {form}: framework=auto ran "
+                     f"{auto.probed} or other frames")
+        tol = (f"{INTEROP_F32_REL:g} x max |CPU|" if want[0].dtype.kind == "f"
+               else "1 LSB and the same argmax")
+        log(f"interop {form} ({fw_name}, {ext}, in {info.type} "
+            f"{tuple(info.shape)}, out {want[0].dtype} {want[0].shape}): "
+            f"card vs CPU worst {worst:.3g} over {n} frames (tol {tol}); "
+            f"replay = eager bitwise, SUSPEND/RESUME/RELOAD_MODEL equal, "
+            f"{captures} captures; device {device_ms:.3f} ms a frame "
+            f"(CUDA events, {INTEROP_REPLAYS} replays); auto picks "
+            f"{auto.probed}; {smi}")
+        row.update({"card_vs_cpu": worst, "device_ms": device_ms,
+                    "captures": captures})
+        rows[form] = row
+    return rows
+
+
 def main():
     smi = timed("device", phase_device)
     kind = torch.cuda.get_device_name(0)
@@ -6250,6 +6515,11 @@ def main():
     lines["fleet_vit_replicas"] = {"kernel_launches": lines["fleet_vit"].pop(
         "replica_kernel_launches")}
     lines["cli"] = timed("cli", phase_cli, smi, metrics_srv)
+    # phases 46-47: the wire codecs and the imported-model backends
+    lines["codecs"] = timed("codecs", phase_codecs, smi)
+    codec_sizes = lines["codecs"].pop("codecs")
+    with tempfile.TemporaryDirectory() as tmp:
+        multi["interop"] = timed("interop", phase_interop, smi, tmp)
     if lines["train_vit"]["kernel_launches"]["normalize"]:
         sys.exit("chip_smoke: the normalize kernel ran on train_vit")
     for k in ("obs_vit", "fleet_vit_replicas"):
@@ -6265,7 +6535,7 @@ def main():
     multi.update(llm)
     for k in ("delta_link", "delta_gate", "sparse", "native_queue",
               "llm_decode", "llm_parity", "llm_single_shot", "llm_disagg",
-              "llm_decode_kill", "mqtt_mobilenet"):
+              "llm_decode_kill", "mqtt_mobilenet", "interop"):
         for line, row in multi[k].items():
             if row["kernel_launches"]["attention"] \
                     or row["kernel_launches"]["normalize"]:
@@ -6273,7 +6543,7 @@ def main():
                          f"{row['kernel_launches']}")
     pt.parse_launch = parse
     log(f"queues: {queues['python']} Python queues on the lines of "
-        f"phases 1-45, {queues['native']} ring queues, all on the native "
+        f"phases 1-47, {queues['native']} ring queues, all on the native "
         "queue lines")
     pipelint = phase_pipelint(smi, list(dict.fromkeys(launched)))
     for k in ("clean", "retry", "skip", "restart"):
@@ -6330,9 +6600,10 @@ def main():
                     "segment_clean_after": segment["clean_after"],
                     "tile_error": tile_error,
                     "native_build_s": native_build_s, "queues": queues,
+                    "codec_sizes": codec_sizes,
                     "pipelint": pipelint, "card": smi}))
     running = {pid: v for pid, v in _descendants().items() if v[0] != "Z"}
-    log(f"processes of this run still running after phase 45: "
+    log(f"processes of this run still running after phase 47: "
         f"{running or 'none'}")
     log(f"phase seconds: {PHASE_S}; "
         f"{time.perf_counter() - T_START:.1f} s since the script started")

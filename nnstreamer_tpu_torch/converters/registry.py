@@ -3,9 +3,8 @@
 Port of ``nnstreamer_tpu/converters/registry.py``: the hook
 ``tensor_converter`` looks up for ``mode=custom-code:<name>``,
 ``mode=custom-script:<path>`` and media types it has no built-in path
-for. The JAX package's codec converters (flatbuf, flexbuf, protobuf;
-``converters/codecs.py``) are not ported yet: ``tensor_converter``
-refuses their media types.
+for; the codec converters (converters/codecs.py) register their
+media types here.
 
 Kinds:
   * ``media``         — claims a media mimetype (auto-dispatch by caps name)

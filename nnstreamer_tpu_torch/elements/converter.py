@@ -2,10 +2,10 @@
 
 Port of ``nnstreamer_tpu/elements/converter.py``: video, audio, text and
 octet streams, other/tensor(s) flexible->static, ``frames-per-tensor``,
-``input-dim`` / ``input-type`` and the custom converters. The codec
-media types (flatbuf, flexbuf, protobuf) raise
-:class:`~..pipeline.element.NotPortedError`. ``static_transfer`` declares
-the out caps for the fusion planner's caps inference.
+``input-dim`` / ``input-type``, the custom converters and the codec
+media types (flatbuf, flexbuf, protobuf; converters/codecs.py), which
+dispatch through the media-converter registry. ``static_transfer``
+declares the out caps for the fusion planner's caps inference.
 
 ≙ gst/nnstreamer/elements/gsttensor_converter.c: video/x-raw, audio/x-raw,
 text/x-raw, application/octet-stream, and flexible->static conversion,
@@ -19,7 +19,7 @@ from typing import Optional
 import numpy as np
 
 from ..converters.registry import find_converter
-from ..pipeline.element import NotPortedError, TransformElement
+from ..pipeline.element import TransformElement
 from ..pipeline.pad import Pad
 from ..pipeline.registry import register_element
 from ..tensors.buffer import Buffer, Chunk
@@ -27,10 +27,6 @@ from ..tensors.caps import Caps
 from ..tensors.info import TensorsConfig, TensorsInfo
 from ..tensors.types import TensorFormat, TensorType
 from .media import _VIDEO_CHANNELS
-
-# the JAX package's codec media types (converters/codecs.py)
-_CODEC_MEDIA = ("other/flatbuf-tensor", "other/flexbuf",
-                "other/protobuf-tensor")
 
 
 @register_element("tensor_converter")
@@ -94,10 +90,6 @@ class TensorConverter(TransformElement):
             base = caps.to_config()
             cfg = TensorsConfig(base.info, TensorFormat.STATIC,
                                 base.rate_n, base.rate_d)
-        elif s.name in _CODEC_MEDIA:
-            raise NotPortedError(
-                f"{self.name}: {s.name} streams need the codec converters, "
-                "which are not ported yet")
         else:
             conv = find_converter("media", s.name, optional=True)
             if conv is None:

@@ -63,12 +63,13 @@ from ..tensors.caps import Caps
 from ..utils.log import logger
 
 
-# the gRPC bridge of the JAX package, still to port: it encodes through
-# the codecs (interop/tensor_codec.py) and needs grpcio
+# the gRPC bridge of the JAX package, still to port: the codecs it
+# encodes through are ported (interop/tensor_codec.py); it waits for its
+# own slice and needs grpcio, which the card's machine does not have
 for _kind in ("tensor_src_grpc", "tensor_sink_grpc"):
     refuse_element(_kind, "the gRPC transport is still to port: it waits "
-                          "for the codecs slice (interop/tensor_codec.py) "
-                          "and needs grpcio (ROADMAP.md queue A, item 8)")
+                          "for its own slice and needs grpcio, which the "
+                          "card's machine lacks (ROADMAP.md queue A, item 8)")
 
 
 class _Sub:

@@ -1,6 +1,7 @@
 """Filter-backend subplugins and their registry."""
-from . import (custom, custom_c, llm, simlink,  # noqa: F401
-               torch_backend, torch_cuda_backend)  # (register built-in backends)
+from . import (custom, custom_c, llm, onnx_backend,  # noqa: F401
+               simlink, tf_backend, tflite_backend, torch_backend,
+               torch_cuda_backend)  # (register built-in backends)
 from .base import (Accelerator, FilterEvent, FilterFramework,
                    FilterProperties, InvokeDrop)
 from .custom import register_custom_easy, unregister_custom_easy

@@ -26,13 +26,17 @@ _DEFAULT_PATHS = ("./nnstreamer_tpu.ini", "/etc/nnstreamer_tpu.ini")
 
 # the JAX package's default order with its native backend ("jax") swapped
 # for the port's, so a ``.py`` model resolves to torch-cuda where the JAX
-# package picks jax; the importers it lists are not ported
-DEFAULT_PRIORITY = ["torch-cuda", "custom-easy", "python3"]
+# package picks jax (it also lists "flax", which the port does not have)
+DEFAULT_PRIORITY = ["torch-cuda", "custom-easy", "python3",
+                    "tensorflow-lite", "onnxruntime"]
 
 # the aliases the JAX package registers at import (``torch`` for its
-# TorchScript backend, ``llamacpp``/``llama2c`` for its LLM backend);
+# TorchScript backend, ``llamacpp``/``llama2c`` for its LLM backend,
+# ``tensorflow2-lite``/``tflite`` and ``onnx`` for its importers);
 # [filter-aliases] and the variable override them
-DEFAULT_ALIASES = {"torch": "pytorch", "llamacpp": "llm", "llama2c": "llm"}
+DEFAULT_ALIASES = {"torch": "pytorch", "llamacpp": "llm", "llama2c": "llm",
+                   "tensorflow2-lite": "tensorflow-lite",
+                   "tflite": "tensorflow-lite", "onnx": "onnxruntime"}
 
 
 def _split(s: str) -> List[str]:

@@ -495,8 +495,9 @@ def test_new_modules_import_no_jax():
     serving stack, the KV link, the MQTT transport, NTP, the span rings,
     the llm filter, the telemetry plane (recorder, metrics, scrape
     server, top), flowcheck's runtime half, the model registry, the
-    device probe, the fleet and the CLI (and chip_smoke.py, read as
-    text) import nothing
+    device probe, the fleet, the CLI, the wire codecs and the
+    imported-model importers and backends (and chip_smoke.py and
+    tools/torch_model_files.py, read as text) import nothing
     of JAX or of the JAX package (ml_dtypes included); the modules are
     imported in a fresh interpreter."""
     code = ("import sys; import nnstreamer_tpu_torch.filters.custom, "
@@ -535,7 +536,22 @@ def test_new_modules_import_no_jax():
             "nnstreamer_tpu_torch.fleet.replica_main, "
             "nnstreamer_tpu_torch.fleet.autoscaler, "
             "nnstreamer_tpu_torch.fleet.rollout, "
-            "nnstreamer_tpu_torch.__main__; "
+            "nnstreamer_tpu_torch.__main__, "
+            "nnstreamer_tpu_torch.interop.protowire, "
+            "nnstreamer_tpu_torch.interop.flatbuf, "
+            "nnstreamer_tpu_torch.interop.flatbuild, "
+            "nnstreamer_tpu_torch.interop.flexbuf, "
+            "nnstreamer_tpu_torch.interop.tensor_codec, "
+            "nnstreamer_tpu_torch.interop.graph, "
+            "nnstreamer_tpu_torch.interop.tflite, "
+            "nnstreamer_tpu_torch.interop.onnx, "
+            "nnstreamer_tpu_torch.interop.tf_graphdef, "
+            "nnstreamer_tpu_torch.decoders.codecs, "
+            "nnstreamer_tpu_torch.converters.codecs, "
+            "nnstreamer_tpu_torch.filters.interop_base, "
+            "nnstreamer_tpu_torch.filters.tflite_backend, "
+            "nnstreamer_tpu_torch.filters.onnx_backend, "
+            "nnstreamer_tpu_torch.filters.tf_backend; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes', "
             "'nnstreamer_tpu')]; assert not bad, bad")
@@ -543,7 +559,8 @@ def test_new_modules_import_no_jax():
     import re
     pattern = re.compile(r"^\s*(from|import)\s+(jax|flax|optax|ml_dtypes|"
                          r"nnstreamer_tpu)(\.|\s|$)", re.M)
-    sources = [os.path.join(ROOT, "chip_smoke.py")] + [
+    sources = [os.path.join(ROOT, "chip_smoke.py"),
+               os.path.join(ROOT, "tools", "torch_model_files.py")] + [
         os.path.join(d, f) for d, _, files in os.walk(
             os.path.join(ROOT, "nnstreamer_tpu_torch"))
         for f in files if f.endswith(".py")]

@@ -807,8 +807,40 @@ def _queue_line(backend):
             "! appsink name=out")
 
 
+@pytest.fixture
+def ring_library(monkeypatch):
+    """The ring library whole on disk, and both packages' loaders able to
+    load it. Under parallel test workers (pytest-xdist) another process's
+    ``make native`` can be relinking the library while this one loads
+    it: the file exists (so this process's ``make`` finds it up to date)
+    but is still short, ``ctypes`` raises "file too short", and the JAX
+    loader never tries again in that process (its one-shot ``_tried``,
+    nnstreamer_tpu/native/lib.py:60-69). So the library is made here
+    until a load succeeds, and a JAX loader that gave up is let try
+    once more; the port's loader retries a failed load by itself."""
+    import ctypes
+    import os
+    import subprocess
+    import time
+
+    import nnstreamer_tpu.native.lib as jax_lib
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for _ in range(50):
+        subprocess.run(["make", "-C", root, "native"], capture_output=True,
+                       timeout=120)
+        try:
+            ctypes.CDLL(jax_lib._LIB_PATH)
+            break
+        except OSError:
+            time.sleep(0.1)
+    else:
+        pytest.fail(f"{jax_lib._LIB_PATH} never became loadable")
+    if jax_lib._lib is None:
+        monkeypatch.setattr(jax_lib, "_tried", False)
+
+
 @pytest.mark.parametrize("pkg", [nt, pt], ids=["jax", "torch"])
-def test_native_queue_line_equals_python_queue_line(pkg):
+def test_native_queue_line_equals_python_queue_line(pkg, ring_library):
     """queue backend=native carries the same frames, in order, as
     backend=python, in both packages, and the port's equal the JAX
     package's."""
