@@ -413,12 +413,41 @@ Native queue — the headline line with queue backend=native against
               replay's device ms a frame (CUDA events); framework=auto
               picks the same backend for each extension. Neither hand
               kernel runs.
+48. media   — tools/torch_image_files.py writes 16 seeded 320x240 RGB
+              PNGs and 16 baseline 4:2:0 JPEGs; multifilesrc ! pngdec !
+              videoscale width=224 height=224 ! videoconvert format=RGB !
+              tensor_converter ! tensor_filter framework=torch-cuda
+              model="zoo://vit?attn=pallas" ! tensor_decoder
+              mode=image_labeling (a tee keeps the logits), the same with
+              jpegdec: ViT-B/16 at full width, 12 attention launches a
+              frame, fps and p50, the host ms a frame of the decoder and
+              of videoscale from the tracer (each element's proctime less
+              the next one's: a chain call holds every element after it),
+              the logits of the first frames against the same line with
+              accelerator=true:cpu at phase 4's tolerance; each JPEG's
+              decode against the SHA-256 of PIL's decode of the same file
+              (constants below; the card's machine has no PIL). The
+              reference's TFLite golden line, filesrc ! pngdec ! videoscale
+              ! tensor_converter ! tensor_filter framework=tensorflow-lite
+              (phase 47's u8 MobileNet-v2) ! tensor_decoder
+              mode=image_labeling, within 1 LSB of its CPU run, the argmax
+              equal. videotestsrc ! tensor_converter ! a custom-easy
+              filter that stages the frame on the card ! tensor_transform
+              mode=arithmetic (torch ops on the card) ! tensor_decoder
+              mode=direct_video: bitwise numpy's clip-and-cast of the same
+              arithmetic. tensor_src_iio over a fake sysfs tree and buffer
+              file (a 3-axis s16 accelerometer, 1,000 samples a buffer):
+              bitwise a numpy decode of the same bytes. Phase 4's ViT line
+              through tensor_sink_grpc server=true -> tensor_src_grpc for
+              both IDLs, bitwise; a line says so where the machine has no
+              grpcio, and the step is skipped.
 Every model line runs through the backend's per-signature executable,
 one captured CUDA graph per input signature: the first frame runs
 eagerly (the capture's warm-up), every later frame is one replay, so a
 hand kernel inside the graph counts once a frame.
 Phases 8-11, 13, 16, 17, 19, 20, 22, 24, 26, 27, 29-35, 37, 39-42, 43's
-serve line, 45, 47 and the native queue lines launch neither hand kernel
+serve line, 45, 47, 48's TFLite, direct_video and iio lines and the
+native queue lines launch neither hand kernel
 (their models inline their input affine, as the JAX models do); their
 launch counts are read all the same and written on the kernels line as
 0. Phase 44's replicas count in their own processes: the kernels line
@@ -6395,6 +6424,348 @@ def phase_interop(smi, tmp):
     return rows
 
 
+MEDIA_FRAMES = 16          # phase 48: 16 PNGs and 16 JPEGs,
+MEDIA_WIDTH = 320          # 320 x 240 RGB,
+MEDIA_HEIGHT = 240
+MEDIA_SEED = 0             # seeds MEDIA_SEED, MEDIA_SEED + 1, ...
+MEDIA_JPEG_QUALITY = 75    # baseline 4:2:0 at quality 75
+MEDIA_CPU_FRAMES = 4       # frames of each ViT line also run on the CPU
+MEDIA_IIO_CAPACITY = 1000  # samples a tensor_src_iio buffer
+MEDIA_IIO_BUFFERS = 16
+# SHA-256 of PIL's Image.open(...).convert("RGB") of each JPEG of
+# tools/torch_image_files.py write_jpeg_series(dir, MEDIA_FRAMES,
+# MEDIA_WIDTH, MEDIA_HEIGHT, MEDIA_SEED, MEDIA_JPEG_QUALITY, "420");
+# tests/test_torch_media.py recomputes them with PIL
+MEDIA_JPEG_SHA256 = (
+    "fdf053cdb3144a96d0153a8abe8a53e6b0df6d16007735ed1c2dad3ea169784e",
+    "6fd065debbdd3fd6e1c7dd90e6b6736a3dc97ff2f92b8e54a6c7c2f93388cd40",
+    "c5065f750094919d1570da2253fada3e2dd20a35bfb6d7ff1ef8be2eed8b02f6",
+    "8bc2afc70defa47ef9d8725a4b129d94826dd06d0530a7d554feed99c4e5321b",
+    "fcaf67d84b79ee8af5e5cf66178f2239b538d55165d14293fa107f8b9722f845",
+    "39c22021b8eaa883539b2d24ded8c45fbf243d4dc4d88f1d452685c419c8584b",
+    "0f6d4cadc5c4cb8e551d9e577302b85cd9ddd84733f4b3cbd0bfca3e5a5ffd52",
+    "394a92571d8bdd4757b3bce9b4e52e73eb0c54d12a3ca0817b7422e67f7692e5",
+    "beb99b6220f3bd2e7fd198fc295d283af9b444490dff13f7dfeeffcec012b4fe",
+    "e85a69fdc3169d31cfea541dfed5265676e7785dd116a8672d0651aebe4edcf4",
+    "07341c5c040fb5c6364d73b54c4115ba62c31e2a10dfc969c2e567514b224b56",
+    "2aa84bc28461d7cb0d2be0808964bcd70f1fde1aba81ea06d3bcd4b928cc59f9",
+    "b36ae28f7e201db7640a9db8cfad527ab4affbd89fa3aa255a1de1956a94afa6",
+    "e54f801a89179d0506b8467beed3193aa1f51ab43a0d0dfb40106a053e291573",
+    "eac10d21c46e2081bb8b6dde4e6d3fe10c134b175105334c58500a4385d56ea2",
+    "574e91ad7d1eb9027934608d563f1cae21f488f5475faa72fb0f393590b89f10")
+
+
+def _image_files():
+    """tools/torch_image_files.py, loaded by path (it imports neither
+    package and is not part of one)."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "torch_image_files.py")
+    spec = importlib.util.spec_from_file_location("torch_image_files", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _vit_tol(cpu):
+    """Phase 4's bf16 tolerance: 5e-2 absolute plus 5 % of the largest
+    |logit|."""
+    return 5e-2 + 0.05 * float(np.abs(cpu).max())
+
+
+def _media_vit_line(name, pattern, dec, smi):
+    """Phase 48's golden-shape ViT line over ``pattern``'s files: traced,
+    the counts zeroed just before it; then its first MEDIA_CPU_FRAMES
+    frames again with accelerator=true:cpu. Returns the stats row."""
+    from nnstreamer_tpu_torch.tensors.transfer import fetch_stats
+
+    def line(extra, n):
+        return (f"multifilesrc location={pattern} stop-index={n - 1} "
+                f"! {dec} name=dec ! videoscale name=scale width=224 "
+                "height=224 ! videoconvert name=conv format=RGB "
+                "! tensor_converter ! tensor_filter name=f "
+                f'framework=torch-cuda {extra}model="zoo://vit?attn=pallas" '
+                "! tee name=t t. ! queue ! tensor_decoder mode=image_labeling "
+                "! appsink name=out t. ! queue ! appsink name=logits")
+
+    _reset_launches()
+    fetch_stats(reset=True)
+    pipe, stamps = _run_timed(line("", MEDIA_FRAMES), 1, MEDIA_FRAMES - 1,
+                              trace=True)
+    fetch = fetch_stats(reset=True)
+    launches = _kernel_launches()
+    fps, p50 = _line_stats(stamps)
+    logits = [np.asarray(b.chunks[0].host()) for b in pipe["logits"].buffers]
+    labels = [b.extras["label_index"] for b in pipe["out"].buffers]
+    if len(logits) != MEDIA_FRAMES or any(
+            g.shape != (1000,) or not np.isfinite(g).all() for g in logits):
+        sys.exit(f"chip_smoke: media {name}: the logits are not "
+                 f"{MEDIA_FRAMES} finite [1000] frames")
+    if labels != [int(np.argmax(g)) for g in logits]:
+        sys.exit(f"chip_smoke: media {name}: labels are not the logits' "
+                 "argmax")
+    if launches != {"attention": VIT_LAYERS * MEDIA_FRAMES, "normalize": 0}:
+        sys.exit(f"chip_smoke: media {name}: kernel launches {launches}, "
+                 f"expected {VIT_LAYERS} attention launches a frame")
+    steady = {k: v.get("steady_us") for k, v in pipe.trace.items()
+              if isinstance(v, dict)}
+    dec_ms = (steady["dec"] - steady["scale"]) / 1e3
+    scale_ms = (steady["scale"] - steady["conv"]) / 1e3
+    cpu = _sink_arrays(line("accelerator=true:cpu ", MEDIA_CPU_FRAMES), "logits")
+    worst, tol = 0.0, 0.0
+    for g, c in zip(logits, cpu):
+        tol = _vit_tol(c)
+        err = float(np.abs(g - c).max())
+        if not err <= tol or np.argmax(g) != np.argmax(c):
+            sys.exit(f"chip_smoke: media {name}: card vs CPU {err:.4g} "
+                     f"(tol {tol:.4g}), argmax {np.argmax(g)} vs "
+                     f"{np.argmax(c)}")
+        worst = max(worst, err)
+    log(f"media {name}: {MEDIA_FRAMES} {MEDIA_WIDTH}x{MEDIA_HEIGHT} files "
+        f"through {dec} ! videoscale 224x224 ! ViT-B/16 attn=pallas: steady "
+        f"{fps:.2f} fps, p50 frame time {p50:.3f} ms (frames 2..), {dec} "
+        f"{dec_ms:.3f} ms a frame, videoscale {scale_ms:.3f} ms a frame "
+        f"(host, tracer), kernel launches {launches}, fetch {fetch}; card "
+        f"vs CPU over {MEDIA_CPU_FRAMES} frames worst {worst:.4g} (tol "
+        f"{tol:.4g}), argmax equal; {smi}")
+    return {"frames": MEDIA_FRAMES, "measured": MEDIA_FRAMES - 1, "fps": fps,
+            "p50_ms": p50, "decode_ms": dec_ms, "videoscale_ms": scale_ms,
+            "card_vs_cpu": worst, "fetch": fetch, "kernel_launches": launches,
+            "trace": pipe.trace}
+
+
+def _sink_arrays(line, sink, timeout=600):
+    """Run a line to EOS; the host arrays of ``sink``'s buffers."""
+    import nnstreamer_tpu_torch as pt
+    pipe = pt.parse_launch(line)
+    pipe.run(timeout=timeout)
+    return [np.asarray(b.chunks[0].host()) for b in pipe[sink].buffers]
+
+
+def _media_jpeg_digests(pattern):
+    """The port's jpegdec on the card's machine against PIL's digests;
+    the host ms a frame of the decode alone."""
+    import hashlib
+    t0 = time.perf_counter()
+    frames = _sink_arrays(f"multifilesrc location={pattern} ! jpegdec "
+                    "! appsink name=out", "out")
+    ms = (time.perf_counter() - t0) * 1e3 / max(len(frames), 1)
+    got = tuple(hashlib.sha256(f.tobytes()).hexdigest() for f in frames)
+    if got != MEDIA_JPEG_SHA256:
+        bad = [i for i, (g, w) in enumerate(zip(got, MEDIA_JPEG_SHA256))
+               if g != w]
+        sys.exit(f"chip_smoke: media: {len(got)} JPEG decodes, frames {bad} "
+                 "differ from PIL's digests")
+    return ms
+
+
+def _media_tflite(u8_tflite, png, smi):
+    """The reference's golden line over one PNG into the u8 TFLite
+    MobileNet-v2: the card within 1 LSB of the CPU, the argmax equal."""
+    line = (f"filesrc location={png} ! pngdec ! videoscale width=224 "
+            "height=224 ! tensor_converter ! tensor_filter "
+            f"framework=tensorflow-lite {{}}model={u8_tflite} ! tee name=t "
+            "t. ! queue ! tensor_decoder mode=image_labeling ! appsink "
+            "name=out t. ! queue ! appsink name=scores")
+    import nnstreamer_tpu_torch as pt
+    _reset_launches()
+    pipe = pt.parse_launch(line.format(""))
+    pipe.run(timeout=600)
+    launches = _kernel_launches()
+    card = [np.asarray(b.chunks[0].host()) for b in pipe["scores"].buffers]
+    label = pipe["out"].buffers[0].extras["label_index"]
+    cpu = _sink_arrays(line.format("accelerator=true:cpu "), "scores")
+    if len(card) != 1 or len(cpu) != 1 or card[0].dtype != np.uint8:
+        sys.exit(f"chip_smoke: media tflite: {len(card)}/{len(cpu)} frames")
+    lsb = int(np.abs(card[0].astype(np.int64) - cpu[0]).max())
+    if lsb > 1 or np.argmax(card[0]) != np.argmax(cpu[0]) \
+            or label != int(np.argmax(card[0])):
+        sys.exit(f"chip_smoke: media tflite: {lsb} LSB, argmax "
+                 f"{np.argmax(card[0])} vs {np.argmax(cpu[0])}, label {label}")
+    if any(launches.values()):
+        sys.exit(f"chip_smoke: media tflite: a hand kernel ran: {launches}")
+    log(f"media tflite golden line: filesrc ! pngdec ! videoscale ! "
+        f"tensor_converter ! tensorflow-lite u8 MobileNet-v2 ! image_labeling"
+        f": label {label}, card vs CPU {lsb} LSB over {card[0].size} "
+        f"scores, argmax equal; kernel launches {launches}; {smi}")
+    return {"frames": 1, "card_vs_cpu_lsb": lsb, "label": label,
+            "kernel_launches": launches}
+
+
+def _media_direct_video(smi):
+    """videotestsrc frames staged on the card by a custom-easy filter,
+    arithmetic on the card, direct_video's clip-and-cast on the host."""
+    from nnstreamer_tpu_torch.filters.custom import register_custom_easy
+    from nnstreamer_tpu_torch.tensors.info import TensorsInfo
+    w, h, n = 640, 480, 16
+    info = TensorsInfo.make("uint8", f"3:{w}:{h}")
+    on_card = []
+
+    def to_card(x):
+        t = torch.from_numpy(np.ascontiguousarray(x)).cuda()
+        on_card.append(t.is_cuda)
+        return t
+
+    # stays registered: phase 21's pipelint validates this line later
+    register_custom_easy("chip_smoke_to_card", to_card, info, info)
+    src = (f"videotestsrc pattern=random seed=3 num-buffers={n} "
+           f'caps="video/x-raw,format=RGB,width={w},height={h},'
+           'framerate=30/1" ! tensor_converter')
+    _reset_launches()
+    got = _sink_arrays(f"{src} ! tensor_filter framework=custom-easy "
+                 "model=chip_smoke_to_card ! tensor_transform "
+                 "mode=arithmetic option=typecast:float32,mul:1.5,add:-20 "
+                 "! tensor_decoder mode=direct_video ! appsink name=out", "out")
+    launches = _kernel_launches()
+    frames = _sink_arrays(f"{src} ! appsink name=out", "out")
+    want = [np.clip(f.reshape(h, w, 3).astype(np.float32) * np.float32(1.5)
+                    + np.float32(-20), 0, 255).astype(np.uint8)
+            for f in frames]
+    if len(got) != n or not all(on_card) or len(on_card) != n or any(
+            g.shape != (h, w, 3) or g.tobytes() != x.tobytes()
+            for g, x in zip(got, want)):
+        sys.exit(f"chip_smoke: media direct_video: {len(got)} frames, on the "
+                 f"card {sum(on_card)}, not numpy's clip-and-cast bitwise")
+    if any(launches.values()):
+        sys.exit(f"chip_smoke: media direct_video: a hand kernel ran: "
+                 f"{launches}")
+    log(f"media direct_video: {n} {w}x{h} frames, arithmetic on the card, "
+        f"decoded frames bitwise numpy's clip-and-cast; kernel launches "
+        f"{launches}; {smi}")
+    return {"frames": n, "kernel_launches": launches}
+
+
+def _media_iio(tmp, smi):
+    """tensor_src_iio over a fake sysfs tree: three s16 axes (scale
+    0.0095768, the y axis offset 3), 1,000 samples a buffer."""
+    base = os.path.join(tmp, "sys")
+    dev = os.path.join(base, "iio:device0")
+    scan = os.path.join(dev, "scan_elements")
+    os.makedirs(scan)
+    devdir = os.path.join(tmp, "dev")
+    os.makedirs(devdir)
+    with open(os.path.join(dev, "name"), "w") as f:
+        f.write("accel_3d\n")
+    axes = ("in_accel_x", "in_accel_y", "in_accel_z")
+    for i, ch in enumerate(axes):
+        for suffix, value in (("_en", "1"), ("_index", str(i)),
+                              ("_type", "le:s16/16>>0")):
+            with open(os.path.join(scan, ch + suffix), "w") as f:
+                f.write(value)
+        with open(os.path.join(dev, ch + "_scale"), "w") as f:
+            f.write("0.0095768")
+    with open(os.path.join(dev, "in_accel_y_offset"), "w") as f:
+        f.write("3")
+    n = MEDIA_IIO_CAPACITY * MEDIA_IIO_BUFFERS
+    raw = np.random.default_rng(SEED).integers(-32768, 32768, (n, 3),
+                                               dtype=np.int16)
+    with open(os.path.join(devdir, "iio:device0"), "wb") as f:
+        f.write(raw.astype("<i2").tobytes())
+    _reset_launches()
+    t0 = time.perf_counter()
+    got = _sink_arrays(f"tensor_src_iio device=accel_3d base-dir={base} "
+                 f"dev-dir={devdir} buffer-capacity={MEDIA_IIO_CAPACITY} "
+                 f"num-buffers={MEDIA_IIO_BUFFERS} ! appsink name=out", "out")
+    secs = time.perf_counter() - t0
+    launches = _kernel_launches()
+    scale = np.float32(0.0095768)
+    offset = np.array([0, 3, 0], np.float32)
+    want = ((raw.astype(np.float32) + offset) * scale).reshape(
+        MEDIA_IIO_BUFFERS, MEDIA_IIO_CAPACITY, 3)
+    if len(got) != MEDIA_IIO_BUFFERS or any(
+            g.dtype != np.float32 or g.tobytes() != w.tobytes()
+            for g, w in zip(got, want)):
+        sys.exit(f"chip_smoke: media iio: {len(got)} buffers, not a numpy "
+                 "decode of the same bytes bitwise")
+    log(f"media iio: {MEDIA_IIO_BUFFERS} buffers of {MEDIA_IIO_CAPACITY} x 3 "
+        f"f32 samples bitwise a numpy decode, {secs * 1e3 / len(got):.3f} ms "
+        f"a buffer (host); kernel launches {launches}; {smi}")
+    return {"buffers": len(got), "kernel_launches": launches}
+
+
+def _media_grpc(smi):
+    """Phase 4's ViT line into tensor_sink_grpc server=true, read back by
+    tensor_src_grpc, bitwise, for each IDL; skipped (one line) without
+    grpcio."""
+    import importlib.util
+    if importlib.util.find_spec("grpc") is None:
+        log("media grpc: skipped: this machine has no grpcio, which the "
+            "gRPC elements need")
+        return {}
+    import nnstreamer_tpu_torch as pt
+    rows = {}
+    for idl in ("protobuf", "flatbuf"):
+        port = _free_port()
+        send = pt.parse_launch(
+            f"tensortestsrc caps={CAPS.format(dims='3:224:224')} "
+            f"pattern=random seed={SEED} num-buffers={FRAMES} "
+            "! tensor_filter framework=torch-cuda "
+            'model="zoo://vit?attn=pallas" ! tee name=t t. ! queue '
+            "! appsink name=out t. ! queue ! tensor_sink_grpc server=true "
+            f"port={port} idl={idl} timeout=60")
+        recv = pt.parse_launch(
+            f"tensor_src_grpc server=false port={port} idl={idl} "
+            "timeout=60 ! appsink name=out")
+        _reset_launches()
+        send.start()
+        try:
+            recv.start()
+            try:
+                deadline = time.monotonic() + 300
+                while len(recv["out"].buffers) < FRAMES \
+                        and time.monotonic() < deadline:
+                    time.sleep(0.05)
+                send.wait_eos(60)
+            finally:
+                recv.stop()
+        finally:
+            send.stop()
+        launches = _kernel_launches()
+        want = [np.asarray(b.chunks[0].host()) for b in send["out"].buffers]
+        got = [np.asarray(b.chunks[0].host()) for b in recv["out"].buffers]
+        if len(got) != FRAMES or len(want) != FRAMES or any(
+                g.dtype != w.dtype or g.tobytes() != w.tobytes()
+                for g, w in zip(got, want)):
+            sys.exit(f"chip_smoke: media grpc {idl}: {len(got)} of {FRAMES} "
+                     "frames, not the sender's logits bitwise")
+        if launches["attention"] != VIT_LAYERS * FRAMES:
+            sys.exit(f"chip_smoke: media grpc {idl}: {launches}")
+        log(f"media grpc {idl}: {FRAMES} ViT-B/16 logits through "
+            f"tensor_sink_grpc -> tensor_src_grpc bitwise; kernel launches "
+            f"{launches}; {smi}")
+        rows[f"grpc_{idl}"] = {"frames": FRAMES, "kernel_launches": launches}
+    return rows
+
+
+def phase_media(smi, tmp):
+    """Phase 48 (see the module doc)."""
+    imf = _image_files()
+    mf = _model_files()
+    pdir, jdir = os.path.join(tmp, "png"), os.path.join(tmp, "jpeg")
+    t0 = time.perf_counter()
+    pngs = imf.write_png_series(pdir, MEDIA_FRAMES, MEDIA_WIDTH,
+                                MEDIA_HEIGHT, MEDIA_SEED)
+    imf.write_jpeg_series(jdir, MEDIA_FRAMES, MEDIA_WIDTH, MEDIA_HEIGHT,
+                          MEDIA_SEED, MEDIA_JPEG_QUALITY, "420")
+    log(f"media: wrote {MEDIA_FRAMES} PNGs and {MEDIA_FRAMES} JPEGs of "
+        f"{MEDIA_WIDTH}x{MEDIA_HEIGHT} in {time.perf_counter() - t0:.2f} s")
+    jpeg_ms = _media_jpeg_digests(os.path.join(jdir, "frame.%03d.jpg"))
+    log(f"media jpegdec: {MEDIA_FRAMES} decodes equal PIL's SHA-256 digests; "
+        f"{jpeg_ms:.3f} ms a frame through multifilesrc ! jpegdec ! appsink "
+        f"(host); {smi}")
+    rows = {"png_vit": _media_vit_line(
+        "png", os.path.join(pdir, "frame.%03d.png"), "pngdec", smi)}
+    rows["jpeg_vit"] = _media_vit_line(
+        "jpeg", os.path.join(jdir, "frame.%03d.jpg"), "jpegdec", smi)
+    rows["jpeg_vit"]["jpegdec_alone_ms"] = jpeg_ms
+    rows["tflite"] = _media_tflite(
+        os.path.join(tmp, mf.MOBILENET_FILES["tflite_u8"]), pngs[0], smi)
+    rows["direct_video"] = _media_direct_video(smi)
+    rows["iio"] = _media_iio(tmp, smi)
+    rows.update(_media_grpc(smi))
+    return rows
+
+
 def main():
     smi = timed("device", phase_device)
     kind = torch.cuda.get_device_name(0)
@@ -6520,6 +6891,9 @@ def main():
     codec_sizes = lines["codecs"].pop("codecs")
     with tempfile.TemporaryDirectory() as tmp:
         multi["interop"] = timed("interop", phase_interop, smi, tmp)
+        # phase 48: the media elements, decoders and sources (it reads
+        # phase 47's u8 .tflite)
+        multi["media"] = timed("media", phase_media, smi, tmp)
     if lines["train_vit"]["kernel_launches"]["normalize"]:
         sys.exit("chip_smoke: the normalize kernel ran on train_vit")
     for k in ("obs_vit", "fleet_vit_replicas"):
@@ -6543,7 +6917,7 @@ def main():
                          f"{row['kernel_launches']}")
     pt.parse_launch = parse
     log(f"queues: {queues['python']} Python queues on the lines of "
-        f"phases 1-47, {queues['native']} ring queues, all on the native "
+        f"phases 1-48, {queues['native']} ring queues, all on the native "
         "queue lines")
     pipelint = phase_pipelint(smi, list(dict.fromkeys(launched)))
     for k in ("clean", "retry", "skip", "restart"):
@@ -6603,7 +6977,7 @@ def main():
                     "codec_sizes": codec_sizes,
                     "pipelint": pipelint, "card": smi}))
     running = {pid: v for pid, v in _descendants().items() if v[0] != "Z"}
-    log(f"processes of this run still running after phase 47: "
+    log(f"processes of this run still running after phase 48: "
         f"{running or 'none'}")
     log(f"phase seconds: {PHASE_S}; "
         f"{time.perf_counter() - T_START:.1f} s since the script started")

@@ -17,6 +17,8 @@ from ..serve import elements as serve  # noqa: F401  (tensor_serve_src/sink)
 from ..serve import router as serve_router  # noqa: F401  (tensor_serve_router)
 from . import edge  # noqa: F401  (edgesrc/edgesink)
 from . import mqtt  # noqa: F401  (mqttsrc/mqttsink)
+from . import grpc  # noqa: F401  (tensor_src_grpc/tensor_sink_grpc)
+from . import iio  # noqa: F401  (tensor_src_iio)
 from . import sparse  # noqa: F401  (tensor_sparse_enc/dec)
 from . import delta  # noqa: F401  (tensor_delta/tensor_delta_stitch)
 from ..fault import element as fault  # noqa: F401  (tensor_fault)

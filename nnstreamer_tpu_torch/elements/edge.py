@@ -57,19 +57,10 @@ from ..edge.protocol import MsgKind, recv_msg, send_msg, sever_socket as _sever
 from ..obs import events as _obs_events
 from ..pipeline.element import SinkElement, SrcElement
 from ..pipeline.pad import Pad
-from ..pipeline.registry import refuse_element, register_element
+from ..pipeline.registry import register_element
 from ..tensors.buffer import Buffer
 from ..tensors.caps import Caps
 from ..utils.log import logger
-
-
-# the gRPC bridge of the JAX package, still to port: the codecs it
-# encodes through are ported (interop/tensor_codec.py); it waits for its
-# own slice and needs grpcio, which the card's machine does not have
-for _kind in ("tensor_src_grpc", "tensor_sink_grpc"):
-    refuse_element(_kind, "the gRPC transport is still to port: it waits "
-                          "for its own slice and needs grpcio, which the "
-                          "card's machine lacks (ROADMAP.md queue A, item 8)")
 
 
 class _Sub:

@@ -1,13 +1,13 @@
 """Media-side elements: videotestsrc/audiotestsrc analogs and file IO.
 
 Port of ``nnstreamer_tpu/elements/media.py``: videotestsrc, audiotestsrc,
-videoconvert, filesrc, multifilesrc, filesink and multifilesink, all
-numpy on the host as in the JAX package. Not ported: ``videoscale``,
-``pngdec`` and ``jpegdec``, which the JAX package builds on PIL; the
-parser refuses them with :class:`~..pipeline.element.NotPortedError`
-(``_PIL_ELEMENTS`` below). Sources declare their caps through the
-element base's ``static_src_caps``; videoconvert declares its
-``static_transfer``.
+videoconvert, videoscale, pngdec, jpegdec, filesrc, multifilesrc,
+filesink and multifilesink, all numpy on the host as in the JAX package.
+The JAX package's ``pngdec``/``jpegdec`` and ``videoscale`` call PIL;
+here they call the port's own decoders and Pillow's BILINEAR resize in
+numpy (``imaging/``), which give the same bytes without PIL. Sources
+declare their caps through the element base's ``static_src_caps``;
+videoconvert and videoscale declare their ``static_transfer``.
 
 The reference's pipelines are fed by GStreamer core elements
 (videotestsrc, filesrc, multifilesink — e.g. tests/nnstreamer_converter/
@@ -23,19 +23,15 @@ import os
 from typing import List, Optional
 
 import numpy as np
+import torch
 
+from ..imaging import decode_image, resize_bilinear
 from ..pipeline.element import SinkElement, SrcElement, TransformElement
-from ..pipeline.registry import refuse_element, register_element
+from ..pipeline.registry import register_element
 from ..tensors.buffer import Buffer, Chunk
 from ..tensors.caps import Caps
 
 _VIDEO_CHANNELS = {"RGB": 3, "BGR": 3, "RGBA": 4, "BGRx": 4, "GRAY8": 1}
-
-_PIL_ELEMENTS = ("videoscale", "pngdec", "jpegdec")
-for _kind in _PIL_ELEMENTS:
-    refuse_element(_kind, "the JAX package's element decodes or scales "
-                          "with PIL, which the port does not use; a numpy "
-                          "resize matching PIL's BILINEAR is still to port")
 
 
 def video_frame_shape(caps: Caps):
@@ -201,6 +197,94 @@ class MultiFileSrc(SrcElement):
             data = f.read()
         self._idx += 1
         return Buffer([Chunk(np.frombuffer(data, np.uint8))])
+
+
+def _host_frame(buf: Buffer) -> np.ndarray:
+    """The buffer's one chunk on the host as an ndarray (a chunk on the
+    card comes through the buffer's coalesced fetch)."""
+    frame = buf.fetch_host()[0]
+    return frame.numpy() if isinstance(frame, torch.Tensor) \
+        else np.asarray(frame)
+
+
+@register_element("pngdec")
+class PngDec(TransformElement):
+    """Decode PNG or JPEG buffers into video/x-raw RGB frames (≙ gst
+    pngdec in the reference's golden pipelines,
+    tests/nnstreamer_filter_tensorflow2_lite/runTest.sh:77). The format
+    is sniffed from the magic bytes, as PIL does for the JAX package's
+    element (``jpegdec`` is the same element). The frame equals PIL's
+    ``Image.open(...).convert("RGB")`` (``imaging/png.py``,
+    ``imaging/jpeg.py``). Output caps are fixed from the first decoded
+    frame."""
+
+    SINK_TEMPLATES = {"sink": None}
+    SRC_TEMPLATES = {"src": "video/x-raw"}
+
+    def on_sink_caps(self, pad, caps) -> None:
+        pass  # frame size unknown until the first buffer decodes
+
+    def static_transfer(self, in_caps):
+        """Unknown output: frame dims come from the decoded file."""
+        return {"src": None}
+
+    def transform(self, buf: Buffer) -> Optional[Buffer]:
+        frame = decode_image(_host_frame(buf).tobytes())
+        if self.srcpad.caps is None:
+            h, w = frame.shape[:2]
+            self.set_src_caps(Caps(
+                f"video/x-raw,format=RGB,width={w},height={h},"
+                "framerate=0/1"))
+        return Buffer([Chunk(frame)], pts=buf.pts, duration=buf.duration)
+
+
+register_element("jpegdec")(PngDec)
+
+
+@register_element("videoscale")
+class VideoScale(TransformElement):
+    """Scale video frames to ``width`` x ``height`` with Pillow's
+    BILINEAR resize, bit for bit (``imaging/resample.py``; a 4-channel
+    frame's last byte is alpha to it, as to PIL). The gst videoscale
+    negotiates its target size with a downstream capsfilter; this
+    runtime's negotiation is push-based, so the target is given as
+    properties instead."""
+
+    SINK_TEMPLATES = {"sink": "video/x-raw"}
+    SRC_TEMPLATES = {"src": "video/x-raw"}
+    PROPS = {"width": 0, "height": 0}
+
+    def _out_caps(self, caps: Caps) -> Caps:
+        (h, w, _), fmt = video_frame_shape(caps)
+        out_w = self.width or w
+        out_h = self.height or h
+        s = caps.structures[0]
+        rate = s.fields.get("framerate", "0/1")
+        return Caps(
+            f"video/x-raw,format={fmt},width={out_w},height={out_h},"
+            f"framerate={rate}")
+
+    def on_sink_caps(self, pad, caps) -> None:
+        self.set_src_caps(self._out_caps(caps))
+
+    def static_transfer(self, in_caps):
+        """Scaled width/height on the declared video caps."""
+        caps = in_caps.get("sink")
+        if caps is None or not caps.is_fixed():
+            return {"src": None}
+        return {"src": self._out_caps(caps)}
+
+    def transform(self, buf: Buffer) -> Optional[Buffer]:
+        (h, w, _), _ = video_frame_shape(self.srcpad.caps)
+        shape = buf.chunks[0].shape
+        if shape[0] == h and shape[1] == w:
+            return buf
+        frame = _host_frame(buf)
+        gray = frame.ndim == 3 and frame.shape[-1] == 1
+        out = resize_bilinear(frame[..., 0] if gray else frame, w, h)
+        if gray:
+            out = out[..., None]
+        return Buffer([Chunk(out)], pts=buf.pts, duration=buf.duration)
 
 
 @register_element("videoconvert")

@@ -11,8 +11,6 @@ from __future__ import annotations
 from typing import Dict
 
 _ELEMENTS: Dict[str, type] = {}
-# element names of the JAX package the port refuses, with the reason
-_REFUSED: Dict[str, str] = {}
 
 
 def register_element(name: str):
@@ -23,12 +21,6 @@ def register_element(name: str):
         cls.ELEMENT_NAME = name
         return cls
     return deco
-
-
-def refuse_element(name: str, reason: str) -> None:
-    """Make :func:`make_element` raise :class:`NotPortedError` for
-    ``name``, an element of the JAX package the port does not have."""
-    _REFUSED[name] = reason
 
 
 # core plumbing elements exempt from the allowlist: the reference's
@@ -49,9 +41,6 @@ def make_element(kind: str, name=None, **props):
         # product element allowlisting (≙ enable_element_restriction,
         # meson_options.txt:52-53)
         raise ValueError(f"element {kind!r} is restricted by configuration")
-    if kind in _REFUSED:
-        from .element import NotPortedError
-        raise NotPortedError(f"element {kind!r} is not ported: {_REFUSED[kind]}")
     try:
         cls = _ELEMENTS[kind]
     except KeyError:

@@ -26,6 +26,7 @@ import nnstreamer_tpu as nt
 import nnstreamer_tpu_torch as pt
 from nnstreamer_tpu.analysis import ALL_RULES as NT_RULES
 from nnstreamer_tpu.analysis import analyze as nt_analyze
+from nnstreamer_tpu.pipeline.element import Element as NtElement
 from nnstreamer_tpu.pipeline.element import \
     TransformElement as NtTransformElement
 from nnstreamer_tpu.pipeline.pipeline import Pipeline as NtPipeline
@@ -34,7 +35,7 @@ from nnstreamer_tpu_torch.analysis import (ALL_RULES,
                                            PipelineValidationError, Report,
                                            Rule, Severity, analyze)
 from nnstreamer_tpu_torch.analysis import cli
-from nnstreamer_tpu_torch.pipeline.element import TransformElement
+from nnstreamer_tpu_torch.pipeline.element import Element, TransformElement
 from nnstreamer_tpu_torch.pipeline.pipeline import Pipeline
 from nnstreamer_tpu_torch.tensors.caps import Caps
 
@@ -59,9 +60,16 @@ def _keys(report):
 
 def findings_for(desc, rule=None):
     """The port's findings for ``desc``, after checking that the JAX
-    package finds the same (rule, element, pad, severity) set."""
+    package finds the same (rule, element, pad, severity) set. Each
+    package names an unnamed element from its own process-wide counter,
+    which the test files run before this one in the same process move
+    unequally; both counters start from the same value here, so the
+    same line gets the same names in both packages."""
+    start = max(Element._anon_counter[0], NtElement._anon_counter[0])
+    Element._anon_counter[0] = NtElement._anon_counter[0] = start
     report = analyze(pt.parse_launch(desc))
     assert not report.crashed
+    NtElement._anon_counter[0] = start
     assert _keys(report) == _keys(nt_analyze(nt.parse_launch(desc)))
     if rule is None:
         return report.findings

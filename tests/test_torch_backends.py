@@ -495,11 +495,13 @@ def test_new_modules_import_no_jax():
     serving stack, the KV link, the MQTT transport, NTP, the span rings,
     the llm filter, the telemetry plane (recorder, metrics, scrape
     server, top), flowcheck's runtime half, the model registry, the
-    device probe, the fleet, the CLI, the wire codecs and the
-    imported-model importers and backends (and chip_smoke.py and
-    tools/torch_model_files.py, read as text) import nothing
-    of JAX or of the JAX package (ml_dtypes included); the modules are
-    imported in a fresh interpreter."""
+    device probe, the fleet, the CLI, the wire codecs, the
+    imported-model importers and backends, the image codecs and the
+    media, gRPC and IIO elements and the direct_video and python3
+    decoders (and chip_smoke.py, tools/torch_model_files.py and
+    tools/torch_image_files.py, read as text) import nothing of JAX or
+    of the JAX package (ml_dtypes included), and nothing of PIL; the
+    modules are imported in a fresh interpreter."""
     code = ("import sys; import nnstreamer_tpu_torch.filters.custom, "
             "nnstreamer_tpu_torch.filters.custom_c, "
             "nnstreamer_tpu_torch.filters.torch_backend, "
@@ -551,16 +553,25 @@ def test_new_modules_import_no_jax():
             "nnstreamer_tpu_torch.filters.interop_base, "
             "nnstreamer_tpu_torch.filters.tflite_backend, "
             "nnstreamer_tpu_torch.filters.onnx_backend, "
-            "nnstreamer_tpu_torch.filters.tf_backend; "
+            "nnstreamer_tpu_torch.filters.tf_backend, "
+            "nnstreamer_tpu_torch.imaging.png, "
+            "nnstreamer_tpu_torch.imaging.jpeg, "
+            "nnstreamer_tpu_torch.imaging.resample, "
+            "nnstreamer_tpu_torch.elements.media, "
+            "nnstreamer_tpu_torch.elements.grpc, "
+            "nnstreamer_tpu_torch.elements.iio, "
+            "nnstreamer_tpu_torch.decoders.direct_video, "
+            "nnstreamer_tpu_torch.decoders.python3; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes', "
-            "'nnstreamer_tpu')]; assert not bad, bad")
+            "'nnstreamer_tpu', 'PIL')]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT)
     import re
     pattern = re.compile(r"^\s*(from|import)\s+(jax|flax|optax|ml_dtypes|"
-                         r"nnstreamer_tpu)(\.|\s|$)", re.M)
+                         r"nnstreamer_tpu|PIL)(\.|\s|$)", re.M)
     sources = [os.path.join(ROOT, "chip_smoke.py"),
-               os.path.join(ROOT, "tools", "torch_model_files.py")] + [
+               os.path.join(ROOT, "tools", "torch_model_files.py"),
+               os.path.join(ROOT, "tools", "torch_image_files.py")] + [
         os.path.join(d, f) for d, _, files in os.walk(
             os.path.join(ROOT, "nnstreamer_tpu_torch"))
         for f in files if f.endswith(".py")]

@@ -2,7 +2,7 @@
 JAX package's, on the CPU.
 
 Runs tests/test_cli.py's cases against the port's module: the element
-list (the JAX list minus the elements ROADMAP.md names as not ported),
+list (exactly the JAX package's),
 one element's properties, the filter backends, a launched line's stats,
 an error's exit code, ``lint`` with the JAX package's exit code for the
 same line (0 clean, 1 warnings, 2 errors and parse failures) and its
@@ -25,10 +25,8 @@ from nnstreamer_tpu_torch.obs.server import MetricsServer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# ROADMAP.md queue A: item 14 (videoscale, pngdec, jpegdec,
-# tensor_src_iio) and item 8's gRPC half
-NOT_PORTED_ELEMENTS = {"videoscale", "pngdec", "jpegdec", "tensor_src_iio",
-                       "tensor_src_grpc", "tensor_sink_grpc"}
+# every element of the JAX package is ported
+NOT_PORTED_ELEMENTS = set()
 CAPS8 = ('"other/tensors,format=static,num_tensors=1,'
          'types=(string)float32,dimensions=(string)8"')
 LINT_CAPS = ('"other/tensors,format=static,num_tensors=1,'

@@ -267,12 +267,6 @@ def test_codec_media_is_refused(media):
     assert "flexible" in str(pipe["out"].sinkpad.caps)
 
 
-@pytest.mark.parametrize("element", ["videoscale", "pngdec", "jpegdec"])
-def test_pil_elements_are_refused(element):
-    with pytest.raises(pt.NotPortedError, match="PIL"):
-        pt.parse_launch(f"videotestsrc ! {element} ! fakesink")
-
-
 # -- tensor_transform: the host path, byte for byte ------------------------
 
 TRANSFORMS = [

@@ -624,11 +624,3 @@ def test_ntp_sync_source_falls_back_to_the_local_clock():
     finally:
         sub.stop()
         broker.stop()
-
-
-def test_grpc_elements_stay_refused():
-    for kind in ("tensor_src_grpc", "tensor_sink_grpc"):
-        with pytest.raises(pt.NotPortedError, match="grpcio"):
-            pt.parse_launch(f"{kind} name=g ! fakesink"
-                            if kind == "tensor_src_grpc"
-                            else f"appsrc ! {kind} name=g")
