@@ -441,13 +441,31 @@ Native queue — the headline line with queue backend=native against
               through tensor_sink_grpc server=true -> tensor_src_grpc for
               both IDLs, bitwise; a line says so where the machine has no
               grpcio, and the step is skipped.
+49. mesh    — mesh mode (parallel/) on the card's one rank, a world of
+              one: the batch-64 ViT-B/16 line with custom=mesh:auto
+              (resolved to 1x1x1) bitwise equal to the same line without
+              it, 12 attention launches an invoke, then the eager mesh
+              invoke against the captured one (32 warm invokes each, in
+              turns, medians); zoo://gpt at the zoo defaults
+              with custom=mesh:1x1x1,rules:gpt bitwise equal to the line
+              without; tensor_serve_src mesh=1x1x1 into MobileNet-v2
+              custom=mesh:1x1x1 (3 clients x 8 frames): every request
+              answered, placed_batches > 0, each answer within phase
+              22's rule of its batch-1 logits and of the unsharded serve
+              line's; tensor_trainer mesh=1x1x1 rules=gpt on the zoo GPT
+              for 4 steps against the trainer without a mesh;
+              ring_attention_sharded and ulysses_attention_sharded at
+              (2, 2048, 8, 64) bf16 against dense_reference in f32 over
+              8 seeds (MESH_ATTN_TOL; one seq rank rotates no block);
+              custom=mesh:2x1x1 refused with "needs 2
+              devices, have 1"; the world stopped, no follower left.
 Every model line runs through the backend's per-signature executable,
 one captured CUDA graph per input signature: the first frame runs
 eagerly (the capture's warm-up), every later frame is one replay, so a
 hand kernel inside the graph counts once a frame.
 Phases 8-11, 13, 16, 17, 19, 20, 22, 24, 26, 27, 29-35, 37, 39-42, 43's
-serve line, 45, 47, 48's TFLite, direct_video and iio lines and the
-native queue lines launch neither hand kernel
+serve line, 45, 47, 48's TFLite, direct_video and iio lines, 49's lines
+but its ViT line, and the native queue lines launch neither hand kernel
 (their models inline their input affine, as the JAX models do); their
 launch counts are read all the same and written on the kernels line as
 0. Phase 44's replicas count in their own processes: the kernels line
@@ -5243,7 +5261,7 @@ def get_trainer():
     params = tfm.init_params(CFG, torch.Generator().manual_seed(0))
     def loss_fn(m, inputs, labels):
         return tfm.loss_fn(m, inputs[0], CFG), torch.zeros(())
-    return loss_fn, params, lambda ps: torch.optim.Adam(ps, lr=5e-2)
+    return loss_fn, params, lambda ps: torch.optim.Adam(ps, lr={lr})
 """
 
 
@@ -5259,7 +5277,7 @@ def phase_train_gpt(smi, tmp):
     cfg_py = os.path.join(tmp, "gpt_trainer.py")
     with open(cfg_py, "w") as f:
         f.write(GPT_TRAINER_PY.format(
-            cfg=", ".join(f"{k}={v}" for k, v in kw.items())))
+            cfg=", ".join(f"{k}={v}" for k, v in kw.items()), lr="5e-2"))
     n, t = 24, 8
     seqs = [((np.arange(t + 1) + i) % int(kw["vocab"])).astype(np.int32)
             for i in range(n)]
@@ -6766,6 +6784,371 @@ def phase_media(smi, tmp):
     return rows
 
 
+# -- phase 49: mesh mode on the card's one rank ------------------------------
+
+MESH_VIT_BUFFERS = 3       # batch-64 ViT-B/16 buffers through each line
+MESH_VIT_TIMED = 32        # warm invokes of each ViT filter, timed in turns
+MESH_GPT_URI = "zoo://gpt"  # the zoo defaults: vocab 32000, d 512, 8 x 6
+MESH_GPT_SEQ = 128
+MESH_GPT_FRAMES = 4
+MESH_SERVE_CLIENTS = 3     # clients x frames through the serve lines
+MESH_SERVE_FRAMES = 8
+MESH_TRAIN_SAMPLES = 8     # token sequences an epoch; one step an epoch
+MESH_TRAIN_STEPS = 4
+MESH_TRAINER_CFG = "vocab=32000, d_model=512, n_heads=8, n_layers=6"
+MESH_ATTN_SHAPE = (2, 2048, 8, 64)
+MESH_ATTN_SEEDS = tuple(range(8))
+# ring and Ulysses in bf16, and dense_reference in bf16 beside them, each
+# against dense_reference in f32 on the same inputs (q, k, v upcast):
+# the largest of |out - ref| / (|ref| + rms(ref)), element by element.
+# bf16 rounds the scores, the probabilities and the output (2^-8 of each
+# value), so the plain bf16 computation itself reads a few hundredths:
+# over these 8 seeds on an H100, 0.042-0.065 for the ring, Ulysses and
+# the bf16 dense reference alike (PERF.md section 6). The limit is 1.5x
+# the largest reading; a wrong mask or a lost block reads near 1
+MESH_ATTN_TOL = 0.1
+# the mesh trainer's losses against the one without: on one rank the
+# step runs the same kernels on the same rows and averages nothing, so
+# they agree to the bit; the bound only names what a difference would be
+MESH_TRAIN_RTOL = 1e-3
+
+
+def _mesh_vit_times():
+    """ms an invoke of the batch-64 ViT-B/16 filter, captured (no mesh)
+    and eager (custom=mesh:auto), on one host batch: both filters warm,
+    then MESH_VIT_TIMED invokes of each, taken in turns with the order
+    flipped every pair (ABBA), each synchronised; medians and ranges."""
+    from nnstreamer_tpu_torch.filters import FilterProperties, find_filter
+    x = _frames(VIT_BATCH, (224, 224, 3))
+    fws = {}
+    for key, custom in (("captured", ""), ("eager", "mesh:auto")):
+        fw = find_filter("torch-cuda")()
+        fw.open(FilterProperties(framework="torch-cuda",
+                                 model_files=("zoo://vit?attn=pallas",),
+                                 custom_properties=custom))
+        for _ in range(3):
+            fw.invoke([x])
+        fws[key] = fw
+    torch.cuda.synchronize()
+    ms = {k: [] for k in fws}
+    try:
+        for i in range(MESH_VIT_TIMED):
+            for k in (("captured", "eager") if i % 2 == 0
+                      else ("eager", "captured")):
+                t0 = time.perf_counter()
+                fws[k].invoke([x])
+                torch.cuda.synchronize()
+                ms[k].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        for fw in fws.values():
+            fw.close()
+    return {k: {"median_ms": float(np.median(v)), "min_ms": float(min(v)),
+                "max_ms": float(max(v)), "invokes": len(v)}
+            for k, v in ms.items()}
+
+
+def _mesh_vit(smi):
+    """ViT-B/16 at batch 64 with custom=mesh:auto against the same line
+    without: 1x1x1, bitwise, 12 attention launches an invoke; then the
+    invokes of both filters timed in turns."""
+    from nnstreamer_tpu_torch.parallel import mesh as pmesh
+    n = MESH_VIT_BUFFERS
+    line = (f"tensortestsrc caps={CAPS.format(dims=f'3:224:224:{VIT_BATCH}')} "
+            f"pattern=random seed={SEED} num-buffers={n} ! tensor_filter "
+            'name=f framework=torch-cuda model="zoo://vit?attn=pallas" '
+            "{custom} ! appsink name=out")
+    plain, _ = _run_timed(line.format(custom=""), 1, n - 1)
+    _reset_launches()
+    meshed, _ = _run_timed(
+        line.format(custom="custom=mesh:auto"), 1, n - 1,
+        probe=lambda p: pmesh.factorization(p["f"].fw.mesh))
+    launches = _kernel_launches()
+    dims = meshed.probed
+    same = all(torch.equal(torch.from_numpy(a.chunks[0].host()),
+                           torch.from_numpy(b.chunks[0].host()))
+               for a, b in zip(plain["out"].buffers, meshed["out"].buffers))
+    times = _mesh_vit_times()
+    row = {"mesh": list(dims), "bitwise": same, "buffers": n,
+           "invoke_ms": times, "kernel_launches": launches}
+    cap, eag = times["captured"], times["eager"]
+    log(f"mesh vit: custom=mesh:auto resolved to {'x'.join(map(str, dims))}"
+        f"; {n} batch-{VIT_BATCH} buffers bitwise equal to the line without "
+        f"custom=mesh: {same}; {launches['attention']} attention launches "
+        f"({launches['attention'] / n:.0f} an invoke); ms an invoke, "
+        f"median of {cap['invokes']} warm invokes each, in turns (ABBA): "
+        f"eager mesh {eag['median_ms']:.3f} ({eag['min_ms']:.3f}-"
+        f"{eag['max_ms']:.3f}), captured {cap['median_ms']:.3f} "
+        f"({cap['min_ms']:.3f}-{cap['max_ms']:.3f}); {smi}")
+    if tuple(dims) != (1, 1, 1) or not same \
+            or launches["attention"] != VIT_LAYERS * n \
+            or launches["normalize"]:
+        sys.exit(f"chip_smoke: mesh vit: {row}")
+    return row
+
+
+def _mesh_gpt(smi):
+    """zoo://gpt at the zoo defaults with custom=mesh:1x1x1,rules:gpt
+    against the line without; bitwise: on one rank no weight is split
+    and the invoke runs the captured line's kernels eagerly."""
+    import nnstreamer_tpu_torch as pt
+    caps = ("other/tensors,format=static,num_tensors=1,types=(string)int32,"
+            f"dimensions=(string){MESH_GPT_SEQ},framerate=(fraction)0/1")
+    rng = np.random.default_rng(SEED)
+    frames = [rng.integers(0, 32000, MESH_GPT_SEQ).astype(np.int32)
+              for _ in range(MESH_GPT_FRAMES)]
+    outs = {}
+    for key, custom in (("plain", ""), ("mesh", "custom=mesh:1x1x1,rules:gpt")):
+        _reset_launches()
+        pipe = pt.parse_launch(
+            f'appsrc name=in caps="{caps}" ! tensor_filter name=f '
+            f"framework=torch-cuda model={MESH_GPT_URI} {custom} "
+            "! appsink name=out")
+        pipe.start()
+        try:
+            for f in frames:
+                pipe["in"].push_buffer(pt.Buffer.from_arrays([f]))
+            pipe["in"].end_stream()
+            pipe.wait_eos(300)
+        finally:
+            pipe.stop()
+        outs[key] = [b.chunks[0].host() for b in pipe["out"].buffers]
+        outs[key + "_launches"] = _kernel_launches()
+    same = len(outs["mesh"]) == len(outs["plain"]) == MESH_GPT_FRAMES and \
+        all(np.array_equal(a, b) for a, b in zip(outs["plain"], outs["mesh"]))
+    finite = all(np.isfinite(a).all() and a.shape == (MESH_GPT_SEQ, 32000)
+                 for a in outs["mesh"])
+    row = {"bitwise": same, "frames": MESH_GPT_FRAMES,
+           "kernel_launches": outs["mesh_launches"]}
+    log(f"mesh gpt: {MESH_GPT_URI} custom=mesh:1x1x1,rules:gpt, "
+        f"{MESH_GPT_FRAMES} frames of {MESH_GPT_SEQ} tokens: logits "
+        f"[{MESH_GPT_SEQ}, 32000] finite {finite}, bitwise equal to the "
+        f"line without a mesh: {same}; kernel launches "
+        f"{outs['mesh_launches']}; {smi}")
+    if not same or not finite or any(outs["mesh_launches"].values()):
+        sys.exit(f"chip_smoke: mesh gpt: {row}")
+    return row
+
+
+def _mesh_serve(smi):
+    """tensor_serve_src mesh=1x1x1 into MobileNet-v2 custom=mesh:1x1x1
+    against the unsharded serve line: every request answered, batches
+    placed on the mesh, each answer within phase 22's rule of the batch-1
+    logits of its frame and of the unsharded line's answer (a bucket
+    runs other cuDNN blockings than one frame, and the two runs stack
+    other buckets)."""
+    import nnstreamer_tpu_torch as pt
+    from nnstreamer_tpu_torch.filters import FilterProperties, find_filter
+    frames = _frames(QUERY_DISTINCT, _frame_shape()).numpy()
+    fw = find_filter("torch-cuda")()
+    fw.open(FilterProperties(framework="torch-cuda",
+                             model_files=("zoo://mobilenet_v2",)))
+    want = [fw.invoke([torch.from_numpy(f)])[0].cpu().numpy()
+            for f in frames]
+    fw.close()
+    runs = {}
+    for key, src, filt in (("plain", "", ""),
+                           ("mesh", "mesh=1x1x1", "custom=mesh:1x1x1 ")):
+        port = _free_port()
+        _reset_launches()
+        server = pt.parse_launch(
+            f"tensor_serve_src name=ssrc port={port} id={port} "
+            f"buckets={SERVE_BUCKETS} max-wait-ms=4 max-queue=64 {src} "
+            "! tensor_filter name=sf framework=torch-cuda "
+            f'model="zoo://mobilenet_v2" prefetch-host=true {filt}'
+            "! queue max-size-buffers=32 ! tensor_serve_sink name=sk "
+            f"id={port}")
+        server.start()
+        try:
+            _, results, _ = _fanout(port, frames, MESH_SERVE_CLIENTS, 1,
+                                      MESH_SERVE_FRAMES, SERVE_WINDOW)
+            rep = server["ssrc"].scheduler.report()
+        finally:
+            server.stop()
+        worst, worst_rel, top1, n = _replies_vs(results, want)
+        runs[key] = {"replies": n, "max_rel_diff": worst_rel,
+                     "top1_equal": top1, "report": rep,
+                     "answers": [r for res in results
+                                 for _, r in res["replies"]],
+                     "kernel_launches": _kernel_launches()}
+    pair = max(_max_diff(a, b)[1] for a, b in
+               zip(runs["plain"]["answers"], runs["mesh"]["answers"]))
+    rep = runs["mesh"]["report"]
+    n_all = MESH_SERVE_CLIENTS * (1 + MESH_SERVE_FRAMES)
+    row = {k: runs["mesh"][k] for k in ("replies", "max_rel_diff",
+                                        "top1_equal", "kernel_launches")}
+    row.update(placed_batches=rep.get("placed_batches", 0),
+               devices=rep.get("devices"), batches=rep["batches"],
+               vs_plain_rel=pair)
+    log(f"mesh serve: {MESH_SERVE_CLIENTS} clients x (1 + "
+        f"{MESH_SERVE_FRAMES}) frames through tensor_serve_src mesh=1x1x1 into MobileNet-v2 "
+        f"custom=mesh:1x1x1: {row['replies']} replies, {rep['batches']} "
+        f"batches, placed_batches {row['placed_batches']} on "
+        f"{row['devices']} device(s); relative {row['max_rel_diff']:.3g} to "
+        f"the batch-1 logits and {pair:.3g} to the unsharded serve line's "
+        f"answers (tol {FANOUT_REL_TOL}); {smi}")
+    if row["replies"] != n_all or row["placed_batches"] <= 0 \
+            or row["max_rel_diff"] > FANOUT_REL_TOL \
+            or pair > FANOUT_REL_TOL or any(row["kernel_launches"].values()):
+        sys.exit(f"chip_smoke: mesh serve: {row}")
+    return row
+
+
+def _mesh_train(smi, tmp):
+    """tensor_trainer mesh=1x1x1 rules=gpt on the zoo GPT defaults for
+    four steps against the same trainer without a mesh."""
+    import nnstreamer_tpu_torch as pt
+    cfg_py = os.path.join(tmp, "gpt_mesh_trainer.py")
+    with open(cfg_py, "w") as f:
+        f.write(GPT_TRAINER_PY.format(cfg=MESH_TRAINER_CFG, lr="1e-3"))
+    t = MESH_GPT_SEQ
+    rng = np.random.default_rng(SEED)
+    seqs = [rng.integers(0, 32000, t + 1).astype(np.int32)
+            for _ in range(MESH_TRAIN_SAMPLES)]
+    data, jpath = _write_datarepo(
+        tmp, "mesh_tokens", [(s, np.zeros(1, np.float32)) for s in seqs],
+        f"{t + 1}.1", "int32.float32")
+    losses = {}
+    for key, extra in (("plain", ""), ("mesh", "mesh=1x1x1 rules=gpt ")):
+        _reset_launches()
+        pipe = pt.parse_launch(
+            f"datareposrc location={data} json={jpath} is-shuffle=false "
+            f"epochs={MESH_TRAIN_STEPS} ! tensor_trainer name=t "
+            f"framework=torch-cuda model-config={cfg_py} {extra}"
+            f"num-training-samples={MESH_TRAIN_SAMPLES} "
+            f"num-validation-samples=0 epochs={MESH_TRAIN_STEPS} "
+            "num-inputs=1 num-labels=1 ! appsink name=out")
+        t0 = time.perf_counter()
+        pipe.run(timeout=600)
+        losses[key] = [float(r[0]) for _, r in _records(pipe)]
+        losses[key + "_s"] = time.perf_counter() - t0
+        losses[key + "_launches"] = _kernel_launches()
+    a, b = np.array(losses["plain"]), np.array(losses["mesh"])
+    # one record an epoch, and the last again at the end of training
+    ok = a.shape == b.shape == (MESH_TRAIN_STEPS + 1,) and \
+        np.allclose(b, a, rtol=MESH_TRAIN_RTOL, atol=0)
+    row = {"losses": losses["mesh"], "plain_losses": losses["plain"],
+           "bitwise": bool(np.array_equal(a, b)), "seconds": losses["mesh_s"],
+           "plain_seconds": losses["plain_s"],
+           "kernel_launches": losses["mesh_launches"]}
+    log(f"mesh train: tensor_trainer mesh=1x1x1 rules=gpt, GPT "
+        f"({MESH_TRAINER_CFG}), {MESH_TRAIN_STEPS} steps of "
+        f"{MESH_TRAIN_SAMPLES} x {t} tokens: losses {losses['mesh']} against "
+        f"{losses['plain']} without a mesh (bitwise {row['bitwise']}, rtol "
+        f"{MESH_TRAIN_RTOL}); {losses['mesh_s']:.2f} s against "
+        f"{losses['plain_s']:.2f} s (lines with start-up); {smi}")
+    if not ok or not b[-1] < b[0] or any(row["kernel_launches"].values()):
+        sys.exit(f"chip_smoke: mesh train: {row}")
+    return row
+
+
+def _attn_err(got, ref):
+    """max of |got - ref| / (|ref| + rms(ref)), element by element."""
+    rms = ref.pow(2).mean().sqrt()
+    return ((got.float() - ref).abs() / (ref.abs() + rms)).max().item()
+
+
+def _mesh_attention(smi):
+    """ring_attention_sharded and ulysses_attention_sharded on the
+    (1,1,1) mesh at (2, 2048, 8, 64) bf16, and dense_reference in bf16,
+    against dense_reference in f32 on the same inputs, for each seed of
+    MESH_ATTN_SEEDS (see MESH_ATTN_TOL). One seq rank holds the whole
+    sequence as one block: no K/V block is rotated and no running
+    maximum rescaled, so this checks the local block's numerics on the
+    card and the command path, not the ring; the rotation is held to the
+    JAX ring on the CPU's 8-rank world (tests/test_torch_parallel.py)."""
+    from nnstreamer_tpu_torch.parallel.mesh import make_mesh
+    from nnstreamer_tpu_torch.parallel.ring import (dense_reference,
+                                                    ring_attention_sharded)
+    from nnstreamer_tpu_torch.parallel.ulysses import \
+        ulysses_attention_sharded
+    mesh = make_mesh((1, 1, 1))
+    fns = (("ring", ring_attention_sharded),
+           ("ulysses", ulysses_attention_sharded))
+    _reset_launches()
+    errs = {name: [] for name in ("dense_bf16", "ring", "ulysses")}
+    for seed in MESH_ATTN_SEEDS:
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        q, k, v = (torch.randn(MESH_ATTN_SHAPE, generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        ref = dense_reference(q.float(), k.float(), v.float())
+        errs["dense_bf16"].append(_attn_err(dense_reference(q, k, v), ref))
+        for name, fn in fns:
+            got = fn(q, k, v, mesh, "data", "seq", "model")
+            if got.shape != ref.shape:
+                sys.exit(f"chip_smoke: mesh {name} attention: shape "
+                         f"{tuple(got.shape)}")
+            errs[name].append(_attn_err(got, ref))
+    row = {"shape": list(MESH_ATTN_SHAPE), "dtype": "bfloat16",
+           "seeds": list(MESH_ATTN_SEEDS), "tol": MESH_ATTN_TOL,
+           "err_vs_f32": errs,
+           "dense_ms": time_ms(lambda: dense_reference(q, k, v), iters=5,
+                               warmup=1)}
+    for name, fn in fns:
+        row[f"{name}_ms"] = time_ms(
+            lambda: fn(q, k, v, mesh, "data", "seq", "model"), iters=5,
+            warmup=1)
+    row["kernel_launches"] = _kernel_launches()
+    fmt = {k: ", ".join(f"{e:.4g}" for e in v) for k, v in errs.items()}
+    log(f"mesh attention: ring and Ulysses on the (1,1,1) mesh at "
+        f"{MESH_ATTN_SHAPE} bf16, seeds {list(MESH_ATTN_SEEDS)}, against "
+        f"dense_reference in f32, max |err|/(|ref|+rms(ref)): ring "
+        f"[{fmt['ring']}], ulysses [{fmt['ulysses']}], dense_reference in "
+        f"bf16 [{fmt['dense_bf16']}] (tol {MESH_ATTN_TOL}; one seq rank: no "
+        f"block rotated); ms a call ring {row['ring_ms']:.3f}, ulysses "
+        f"{row['ulysses_ms']:.3f}, dense {row['dense_ms']:.3f} (CUDA "
+        f"events, 5 calls); {smi}")
+    for name, _ in fns:
+        if not max(errs[name]) <= MESH_ATTN_TOL:
+            sys.exit(f"chip_smoke: mesh {name} attention: {errs[name]} "
+                     f"(tol {MESH_ATTN_TOL})")
+    return row
+
+
+def _mesh_refusal(smi):
+    """custom=mesh:2x1x1 on one card fails to open with the error the
+    JAX package gives on one chip."""
+    import nnstreamer_tpu_torch as pt
+    pipe = pt.parse_launch(
+        f"tensortestsrc caps={CAPS.format(dims='3:224:224')} num-buffers=1 "
+        "! tensor_filter framework=torch-cuda model=zoo://mobilenet_v2 "
+        "custom=mesh:2x1x1 ! appsink name=out")
+    try:
+        pipe.start()
+    except ValueError as exc:
+        msg = str(exc)
+    else:
+        msg = ""
+    finally:
+        pipe.stop()
+    log(f"mesh refusal: custom=mesh:2x1x1 on {torch.cuda.device_count()} "
+        f"card(s): {msg!r}; {smi}")
+    if "needs 2 devices, have 1" not in msg:
+        sys.exit("chip_smoke: mesh refusal: custom=mesh:2x1x1 opened or "
+                 f"failed otherwise: {msg!r}")
+    return {"error": msg, "kernel_launches": {"attention": 0,
+                                              "normalize": 0}}
+
+
+def phase_mesh(smi, tmp):
+    """Phase 49 (see the module doc): every mesh entry point on the
+    card's one rank; the world is stopped at the end and no follower
+    outlives it."""
+    from nnstreamer_tpu_torch.parallel import world
+    rows = {"vit": _mesh_vit(smi), "gpt": _mesh_gpt(smi),
+            "serve": _mesh_serve(smi), "train": _mesh_train(smi, tmp),
+            "attention": _mesh_attention(smi),
+            "refusal": _mesh_refusal(smi)}
+    size = world.world().size if world.started() else 0
+    world.shutdown()
+    left = [cmd for _, cmd in _descendants().values()
+            if "parallel.follower" in cmd]
+    log(f"mesh: world of {size} rank(s) stopped; followers left: "
+        f"{left or 'none'}")
+    if world.started() or left or size > 1:
+        sys.exit(f"chip_smoke: mesh world not stopped: {left}")
+    return rows
+
+
 def main():
     smi = timed("device", phase_device)
     kind = torch.cuda.get_device_name(0)
@@ -6894,6 +7277,9 @@ def main():
         # phase 48: the media elements, decoders and sources (it reads
         # phase 47's u8 .tflite)
         multi["media"] = timed("media", phase_media, smi, tmp)
+    # phase 49: mesh mode on the card's one rank
+    with tempfile.TemporaryDirectory() as tmp:
+        multi["mesh"] = timed("mesh", phase_mesh, smi, tmp)
     if lines["train_vit"]["kernel_launches"]["normalize"]:
         sys.exit("chip_smoke: the normalize kernel ran on train_vit")
     for k in ("obs_vit", "fleet_vit_replicas"):
@@ -6917,7 +7303,7 @@ def main():
                          f"{row['kernel_launches']}")
     pt.parse_launch = parse
     log(f"queues: {queues['python']} Python queues on the lines of "
-        f"phases 1-48, {queues['native']} ring queues, all on the native "
+        f"phases 1-49, {queues['native']} ring queues, all on the native "
         "queue lines")
     pipelint = phase_pipelint(smi, list(dict.fromkeys(launched)))
     for k in ("clean", "retry", "skip", "restart"):
@@ -6977,7 +7363,7 @@ def main():
                     "codec_sizes": codec_sizes,
                     "pipelint": pipelint, "card": smi}))
     running = {pid: v for pid, v in _descendants().items() if v[0] != "Z"}
-    log(f"processes of this run still running after phase 48: "
+    log(f"processes of this run still running after phase 49: "
         f"{running or 'none'}")
     log(f"phase seconds: {PHASE_S}; "
         f"{time.perf_counter() - T_START:.1f} s since the script started")

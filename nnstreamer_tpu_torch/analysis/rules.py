@@ -1,20 +1,17 @@
 """pipelint graph rules.
 
-Port of ``nnstreamer_tpu/analysis/rules.py``: the rules whose elements
-the port has (25 of the reference's 28). Each :class:`Rule` inspects the
+Port of ``nnstreamer_tpu/analysis/rules.py``: all 28 of the
+reference's rules. Each :class:`Rule` inspects the
 parsed-but-unstarted pipeline plus the caps inference result and yields
 findings with element/pad locations. Rules never execute elements and
 never raise past :func:`analyze` — a broken rule must not block a
 launch; :func:`analyze` lists the ids of rules that raised on the
 report's ``crashed``.
-
-The reference's other 3 rules inspect the mesh options the port does
-not have yet: ``sharding-divisibility``, ``serve-mesh-divisibility`` and
-``mesh-colocation`` come with the mesh (ROADMAP.md, queue A, item 12).
 """
 from __future__ import annotations
 
 import math
+import re
 from dataclasses import dataclass
 from typing import Iterable, List, Optional, Set
 
@@ -226,6 +223,147 @@ class JitSignatureRule(Rule):
                     f"compile per distinct shape (unbounded signature "
                     f"cardinality); bucket via tensor_serve_src or pin "
                     f"dims with a capsfilter", filt.name, "sink")
+
+
+class ShardingRule(Rule):
+    """tensor_filter custom=mesh:DxSxT shards the batch over D data-
+    parallel devices; a batch not divisible by D runs replicated on every rank instead of
+    split (the port's mesh invoke; JAX's device_put fails)."""
+
+    id = "sharding-divisibility"
+    severity = Severity.WARNING
+    _MESH = re.compile(r"(?:^|,)mesh:(\d+)x(\d+)x(\d+)")
+
+    def check(self, ctx: LintContext):
+        from ..tensors.info import TensorsInfo
+        for filt in ctx.of_kind("tensor_filter"):
+            m = self._MESH.search(str(filt.custom))
+            if not m:
+                continue
+            dp = int(m.group(1))
+            if dp <= 1:
+                continue
+            pad = filt.sink_pads.get("sink")
+            if pad is None or pad.peer is None:
+                continue
+            cfg = config_of(ctx.inference.pad_caps.get(pad.peer))
+            if cfg is None or cfg.format != TensorFormat.STATIC \
+                    or not len(cfg.info):
+                continue
+            stream = cfg.info[0]
+            if filt.input and filt.inputtype:
+                # declared model dims make the batch axis provable
+                try:
+                    model = TensorsInfo.make(filt.inputtype, filt.input)[0]
+                except ValueError:
+                    continue
+                if len(stream.shape) != len(model.shape) + 1:
+                    continue  # unbatched (or mismatched: caps rule's job)
+                batch = int(stream.shape[0])
+                if batch % dp:
+                    yield self.finding(
+                        f"batch {batch} is not divisible by the mesh's "
+                        f"data-parallel axis {dp} (custom="
+                        f"{filt.custom!r})", filt.name, "sink",
+                        severity=Severity.ERROR)
+            elif stream.shape and int(stream.shape[0]) % dp:
+                yield self.finding(
+                    f"leading dim {int(stream.shape[0])} is not divisible "
+                    f"by the mesh's data-parallel axis {dp}; if it is the "
+                    f"batch axis, it runs replicated on every rank", filt.name,
+                    "sink")
+
+
+class ServeMeshRule(Rule):
+    """Serve topology of the sharding rule: a bucketed
+    ``tensor_serve_src`` stacks batches at its configured bucket sizes,
+    so when the stream feeds a ``mesh:DxSxT`` filter every bucket must
+    divide the data-parallel axis — one indivisible bucket means every
+    batch that lands in it runs replicated (all rows on every chip)
+    instead of sharded. The src's own ``mesh=`` property snaps buckets
+    to dp multiples at start; the ERROR fires on the buckets as they
+    would actually stack."""
+
+    id = "serve-mesh-divisibility"
+    severity = Severity.ERROR
+    _MESH = re.compile(r"(?:^|,)mesh:(\d+)x(\d+)x(\d+)")
+
+    @staticmethod
+    def _effective_buckets(src) -> List[int]:
+        try:
+            buckets = [int(b) for b in str(src.buckets).split(",")
+                       if b.strip()]
+        except ValueError:
+            return []
+        spec = str(getattr(src, "mesh", "") or "")
+        if spec:
+            from ..parallel.mesh import spec_dims
+            dims = spec_dims(spec)
+            if dims is not None and dims[0] > 1:
+                snap = dims[0]
+                buckets = sorted({-(-b // snap) * snap
+                                  for b in buckets if b > 0})
+        return buckets
+
+    def check(self, ctx: LintContext):
+        for filt in ctx.of_kind("tensor_filter"):
+            m = self._MESH.search(str(filt.custom))
+            if not m:
+                continue
+            dp = int(m.group(1))
+            if dp <= 1:
+                continue
+            for src in ctx.sources_feeding(filt):
+                if kind_of(src) != "tensor_serve_src":
+                    continue
+                bad = [b for b in self._effective_buckets(src) if b % dp]
+                if bad:
+                    yield self.finding(
+                        f"serve buckets {bad} do not divide the mesh's "
+                        f"data-parallel axis {dp} (custom="
+                        f"{filt.custom!r}); those batches run replicated "
+                        f"on every chip — declare mesh= on {src.name!r} "
+                        f"to snap buckets, or fix the bucket list",
+                        filt.name, "sink")
+
+
+class MeshColocationRule(Rule):
+    """Train/serve colocation shares ONE device pool: a
+    ``tensor_trainer mesh=X`` next to a serving path declaring
+    ``mesh:Y`` (filter custom or serve src property) with X != Y builds
+    two different Mesh objects over the same chips — params cannot stay
+    mesh-resident across both, so each side's placement evicts the
+    other's layout. Declaring one spec makes them share the memoized
+    mesh (parallel/mesh.py ``shared_mesh``)."""
+
+    id = "mesh-colocation"
+    severity = Severity.WARNING
+    _MESH = re.compile(r"(?:^|,)mesh:([^,]+)")
+
+    def check(self, ctx: LintContext):
+        serve_specs = {}
+        for filt in ctx.of_kind("tensor_filter"):
+            m = self._MESH.search(str(filt.custom))
+            if m and m.group(1).strip():
+                serve_specs.setdefault(m.group(1).strip(), filt.name)
+        for src in ctx.of_kind("tensor_serve_src"):
+            spec = str(getattr(src, "mesh", "") or "").strip()
+            if spec:
+                serve_specs.setdefault(spec, src.name)
+        if not serve_specs:
+            return
+        for tr in ctx.of_kind("tensor_trainer"):
+            spec = str(getattr(tr, "mesh", "") or "").strip()
+            if not spec:
+                continue
+            for other, where in sorted(serve_specs.items()):
+                if other != spec:
+                    yield self.finding(
+                        f"trainer mesh={spec!r} but {where!r} declares "
+                        f"mesh {other!r} on the same device pool: the "
+                        f"two sides rebuild different meshes and evict "
+                        f"each other's params; declare one spec so they "
+                        f"share the mesh", tr.name)
 
 
 class SinklessBranchRule(Rule):
@@ -914,6 +1052,7 @@ class AutoscalerConfigRule(Rule):
 
 ALL_RULES: List[Rule] = [
     DanglingPadRule(), CycleRule(), TeeNoQueueRule(), JitSignatureRule(),
+    ShardingRule(), ServeMeshRule(), MeshColocationRule(),
     SinklessBranchRule(), CombinerDtypeRule(), UnboundedAdmissionRule(),
     ShedNoRetryAfterRule(), LinkResilienceRule(), ErrorPolicyRule(),
     WireConfigRule(), FusionBreakRule(), FusionTransferRule(),

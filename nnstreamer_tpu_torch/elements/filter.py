@@ -50,8 +50,9 @@ delegate to the backend, as in the JAX element: a backend with
 ``snapshot_state`` carries its cross-invoke state (the ``llm``
 backend's streams, re-adopted after a restore).
 
-Not ported yet: a ``custom=mesh:`` option raises in the torch-cuda
-backend.
+A ``custom=mesh:DxSxT`` filter runs each invoke over a device mesh (the
+torch-cuda backend's mesh mode); its in-flight window budgets one slot
+a mesh invoke and reports the mesh's size as ``devices``.
 """
 from __future__ import annotations
 
@@ -309,6 +310,7 @@ class TensorFilter(Element):
                             self.name, window, self.fw.NAME)
             else:
                 from .overlap import OverlapExecutor
+                mesh = getattr(self.fw, "mesh", None)
                 self._overlap = OverlapExecutor(
                     window,
                     complete_cb=self._complete_frame,
@@ -316,7 +318,9 @@ class TensorFilter(Element):
                     push_cb=self.push,
                     name=self.name,
                     reorder=bool(self.reorder),
-                    reorder_deadline_s=float(self.reorder_deadline_ms) / 1e3)
+                    reorder_deadline_s=float(self.reorder_deadline_ms) / 1e3,
+                    devices=(int(mesh.mesh.numel())
+                             if mesh is not None else 1))
 
     def stop(self) -> None:
         super().stop()
@@ -496,7 +500,7 @@ class TensorFilter(Element):
     def mesh_spec(self) -> str:
         """The declared ``mesh:`` custom option, "" when unsharded. The
         planner breaks runs at mesh-spec boundaries, as the JAX planner
-        does; the port's backend refuses a mesh at open."""
+        does."""
         for part in str(self.custom or "").split(","):
             part = part.strip()
             if part.startswith("mesh:"):

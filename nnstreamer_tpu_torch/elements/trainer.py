@@ -13,8 +13,8 @@ parses it: empty trains on ``cuda:0`` (start raises without CUDA),
 ``true:cpu`` or ``false`` on the CPU. The JAX element has no such
 property: JAX places the trainer on its default device.
 
-Not ported: ``mesh``/``rules`` (the sharded train step, ROADMAP item
-12) raise :class:`~..pipeline.element.NotPortedError` at start.
+``mesh=DxSxT``/``rules=<table>`` train on a device mesh, the sharded
+train step of trainers/mesh.py.
 """
 from __future__ import annotations
 
@@ -52,8 +52,8 @@ class TensorTrainer(TransformElement):
         "num-inputs": 1,
         "num-labels": 1,
         "accelerator": "",
-        # the sharded train step over a device mesh: refused by the
-        # trainer at start (ROADMAP item 12)
+        # the sharded train step over a device mesh ("DxSxT"/"auto")
+        # and its parameter rule table ("gpt")
         "mesh": "",
         "rules": "",
     }

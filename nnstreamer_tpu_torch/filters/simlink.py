@@ -1,9 +1,9 @@
 """framework=simlink — deterministic slow-link queueing model.
 
 A copy of ``nnstreamer_tpu/filters/simlink.py``, which is framework
-neutral (numpy and the host clock). The one change: ``mesh`` takes an
-explicit ``DxSxT`` spec only (``auto`` means dp=1), since the port has
-no device mesh to consult.
+neutral (numpy and the host clock); ``mesh`` reads its data-parallel
+degree with parallel/mesh.py ``spec_dp`` (``auto`` factors the pool's
+device count, as JAX's factors its devices).
 
 A filter backend that behaves, timing-wise, like a model served over a
 remote-attached chip: every frame pays a link round trip (``rtt``) plus
@@ -52,16 +52,6 @@ from .base import (FilterFramework, FilterProperties,
                    parse_custom_properties as _parse_custom)
 from .registry import register_filter
 
-
-def _spec_dp(spec: str) -> int:
-    """The data-parallel factor of an explicit ``DxSxT`` spec; 1 for
-    anything else."""
-    try:
-        dims = [int(d) for d in str(spec).lower().split("x")]
-    except ValueError:
-        return 1
-    return dims[0] if dims and all(d >= 1 for d in dims) else 1
-
 # live link weather, keyed by override scope (None = all simlink
 # instances). Written only from the bench/test (API) thread via
 # set_weather and read per frame — single-writer plain store.
@@ -104,7 +94,8 @@ class SimLinkFilter(FilterFramework):
         self._svc_row_s = float(opts.get("svc-row", 0.0)) / 1e3
         self._dp = 1
         if "mesh" in opts:
-            self._dp = max(1, _spec_dp(str(opts["mesh"])))
+            from ..parallel.mesh import spec_dp
+            self._dp = max(1, spec_dp(str(opts["mesh"])))
         self._fail_every = int(opts.get("fail-every", 0))
         self._in_info = props.input_info
 

@@ -68,8 +68,26 @@ the element reports ready, counted in ``prewarmed``. A CUDA graph does
 not outlive its process, so the cache keeps the signatures, not the
 graphs.
 
-Not ported yet: mesh mode (``custom=mesh:...`` raises
-:class:`~..pipeline.element.NotPortedError`).
+**Mesh mode** (after the JAX backend's): ``custom=mesh:<dp>x<sp>x<tp>``
+(or ``mesh:auto``) builds a parallel/mesh.py mesh over the mesh world's
+ranks (parallel/world.py) on the device ``accelerator`` names, as a
+per-card open does (the cards, or the host CPU's gloo ranks on an
+explicit opt-out; no CUDA raises), opens the model on every rank and
+places the weights by the ``rules:`` table (``gpt``: Megatron TP;
+default: replicate; rank 0's weights reach every rank), and each invoke
+is one mesh command: the batch (dim 0, when the input carries one
+beyond the model's frame rank) is split over ``data`` as
+parallel/sharding.py ``batch_sharding`` says (an indivisible batch is
+replicated), each
+rank runs the model on its rows, and the rows come back whole on rank
+0. Inputs already placed on the mesh (``tensor_serve_src mesh=``) pass
+through. A hand kernel inside the model (``ops/attention.py``) runs on
+each rank's local tensors. A mesh invoke runs eagerly, without graph
+capture: the command's collectives and DTensor's host-side dispatch
+do not belong in a captured graph, and on one card (a world of one
+rank) the invoke is the same kernels the captured line replays.
+``mesh`` names the live mesh (None per-card), read by the fused
+segment, the in-flight window and the tracer.
 """
 from __future__ import annotations
 
@@ -79,6 +97,7 @@ import threading
 import urllib.parse
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..tensors.info import TensorsInfo
@@ -191,13 +210,61 @@ class TorchCudaFilter(FilterFramework):
         # dispatch runs on the chain thread while complete runs on the
         # completer: the cache and the capture sit under this lock
         self._lock = threading.Lock()
+        # mesh mode: the DeviceMesh and the model kept on every rank
+        self._mesh = None
+        self.mesh_model: Optional["MeshModel"] = None
+        self._mesh_suspended = False
+        self._mesh_sigs: set = set()
+
+    # -- mesh mode ----------------------------------------------------------
+    @property
+    def mesh(self):
+        """The live DeviceMesh in mesh mode (None per-card)."""
+        return self._mesh
+
+    def _open_mesh(self, props: FilterProperties, opts: Dict) -> None:
+        from ..parallel import mesh as pmesh, sharding, world
+        # the card unless the caller opts out; raises without CUDA
+        device = device_for(props.accelerators)
+        mesh = pmesh.mesh_from_spec(str(opts["mesh"]), device.type)
+        rules = sharding.rules_by_name(str(opts.get("rules", "")))
+        world.retain(device.type)
+        try:
+            self._props = props
+            self.device = world.local_device()
+            full_f32_numerics()
+            model = props.model_files[0] if props.model_files else ""
+            self.mesh_model = world.run(open_on_mesh, model, rules, mesh)
+        except BaseException:
+            world.release()
+            raise
+        self._mesh = mesh
+        self._in_info = self.mesh_model.in_info
+        self._out_info = self.mesh_model.out_info
+        self._apply = self.mesh_model.apply
+        self._cache_key = ""
+        logger.info("torch-cuda filter opened model=%s on mesh %s",
+                    props.model_files[:1], pmesh.shape_of(mesh))
+
+    def _mesh_call(self, inputs: Sequence[Any]) -> List[Any]:
+        from ..parallel import world
+        inputs = mesh_inputs(inputs)
+        sig = signature(inputs)
+        with self._lock:
+            if sig not in self._mesh_sigs:
+                self._mesh_sigs.add(sig)  # eager: counted, not captured
+                self.compile_count += 1
+            if self._mesh_suspended:
+                world.run(move_mesh_model, self.mesh_model, False)
+                self._mesh_suspended = False
+            return world.run(mesh_invoke, [self.mesh_model], inputs,
+                             self._mesh)
 
     def open(self, props: FilterProperties) -> None:
-        if "mesh" in parse_custom_properties(props.custom_properties):
-            from ..pipeline.element import NotPortedError
-            raise NotPortedError(
-                f"custom={props.custom_properties!r}: mesh mode is not "
-                "ported yet")
+        opts = parse_custom_properties(props.custom_properties)
+        if "mesh" in opts:
+            self._open_mesh(props, opts)
+            return
         self._props = props
         self.device = device_for(props.accelerators)
         self._own_pool = props.graph_pool is None
@@ -236,6 +303,15 @@ class TorchCudaFilter(FilterFramework):
         return apply_fn, module.to(self.device).eval(), in_info, out_info
 
     def close(self) -> None:
+        if self._mesh is not None:
+            from ..parallel import world
+            with self._lock:
+                self.mesh_model = None
+                self._mesh = None
+                self._apply = None
+                self._mesh_sigs.clear()
+            world.release()
+            return
         with self._lock:
             self._apply = None
             self._module = self._host_module = None
@@ -251,6 +327,8 @@ class TorchCudaFilter(FilterFramework):
         """Run one frame through its signature's executable; a new
         signature makes one (one compile) and keeps it once its first
         call succeeded."""
+        if self._mesh is not None:
+            return self._mesh_call(inputs)
         sig = signature(inputs)
         with self._lock:
             if self._host_module is not None:
@@ -302,7 +380,11 @@ class TorchCudaFilter(FilterFramework):
         """The eager ``apply(module, *xs)`` closure over the loaded model,
         for a fused segment to compose into its program. It holds the
         module it was made with: a later suspend or reload leaves that
-        module, and so the fused program, as it is."""
+        module, and so the fused program, as it is. In mesh mode: the
+        model's apply on this rank's local tensors (the fused segment's
+        mesh branch runs it inside its command)."""
+        if self._mesh is not None:
+            return self.mesh_model.local_fn()
         with self._lock:
             if self._host_module is not None:
                 self._resume()
@@ -320,6 +402,10 @@ class TorchCudaFilter(FilterFramework):
         if event == FilterEvent.CHECK_HW_AVAILABILITY:
             from ..utils.hw import is_available
             return is_available((data or {}).get("hw", "default"))
+        if self._mesh is not None and event in (
+                FilterEvent.SUSPEND, FilterEvent.RESUME,
+                FilterEvent.RELOAD_MODEL):
+            return self._mesh_event(event, data)
         if event == FilterEvent.RELOAD_MODEL:
             # keep serving the old model while the new one loads
             # (≙ is-updatable reload, nnstreamer_plugin_api_filter.h:359-365)
@@ -349,6 +435,31 @@ class TorchCudaFilter(FilterFramework):
             return True
         return False
 
+    def _mesh_event(self, event: FilterEvent, data) -> bool:
+        """Suspend takes each rank's weights to the host, keeping their
+        placement; the next invoke (or RESUME) brings them back. A
+        reload opens the new model on the mesh beside the old one."""
+        from ..parallel import sharding, world
+        if event == FilterEvent.RELOAD_MODEL:
+            props = self._props if not data else \
+                dataclasses.replace(self._props, **data)
+            opts = parse_custom_properties(props.custom_properties)
+            rules = sharding.rules_by_name(str(opts.get("rules", "")))
+            model = props.model_files[0] if props.model_files else ""
+            fresh = world.run(open_on_mesh, model, rules, self._mesh)
+            with self._lock:
+                self.mesh_model = fresh
+                self._in_info, self._out_info = fresh.in_info, fresh.out_info
+                self._props = props
+                self._mesh_suspended = False
+            return True
+        with self._lock:
+            want = event == FilterEvent.SUSPEND
+            if want != self._mesh_suspended:
+                world.run(move_mesh_model, self.mesh_model, want)
+                self._mesh_suspended = want
+        return True
+
     def _settle(self) -> None:
         """Wait for every replay already queued on the card, then drop
         the executables: a captured graph reads the weights at raw
@@ -363,3 +474,89 @@ class TorchCudaFilter(FilterFramework):
         of each signature captures afresh. The caller holds the lock."""
         self._module = _moved(self._host_module, self.device)
         self._host_module = None
+
+
+# -- mesh mode: the commands every rank runs (parallel/world.py) --------------
+
+class MeshModel:
+    """A model opened on every rank of a mesh: the apply function, the
+    placed module and the model's tensor infos (rank 0's copy is the
+    one the backend holds; each follower keeps its own)."""
+
+    def __init__(self, apply_fn, module, in_info, out_info, mesh):
+        self.apply = apply_fn
+        self.module = module
+        self.in_info = in_info
+        self.out_info = out_info
+        self.mesh = mesh
+
+    def batched(self, i: int, x) -> bool:
+        """Whether input ``i`` carries a batch dim beyond the frame."""
+        if self.in_info is None or i >= len(self.in_info):
+            return True
+        return x.dim() > len(self.in_info[i].shape)
+
+    def local_fn(self):
+        apply_fn, module = self.apply, self.module
+
+        def fn(*xs):
+            return apply_fn(module, *xs)
+
+        return fn
+
+
+def mesh_inputs(inputs: Sequence[Any]) -> List[Any]:
+    """Host arrays as tensors (a command carries a tensor's shape, and
+    the command places rank 0's data); tensors as they are."""
+    return [x if isinstance(x, torch.Tensor)
+            else torch.as_tensor(np.ascontiguousarray(x)) for x in inputs]
+
+
+def open_on_mesh(model: str, rules, mesh) -> MeshModel:
+    """Open ``model`` on this rank and place it on ``mesh`` (rank 0's
+    weights; a follower's own draws are overwritten)."""
+    from ..parallel import world
+    from ..parallel.sharding import place_module
+    apply_fn, module, in_info, out_info = load_model(model)
+    module = place_module(module.eval(), rules, mesh)
+    mm = MeshModel(apply_fn, module, in_info, out_info, mesh)
+    return world.keep(mm, int(mesh.mesh.numel()))
+
+
+def move_mesh_model(mm: MeshModel, to_host: bool) -> None:
+    """Take each rank's weights to the host (SUSPEND) or back."""
+    from ..parallel import world
+    dev = torch.device("cpu") if to_host else world.local_device()
+    mm.module = mm.module.to(dev)
+
+
+def _place_inputs(mm: MeshModel, inputs, mesh):
+    """This rank's block of each input and whether rows were split."""
+    from torch.distributed.tensor import Replicate, Shard
+    from ..parallel.sharding import distribute, is_placed, place_local
+    xs, split = [], False
+    for i, x in enumerate(inputs):
+        if is_placed(x, mesh):
+            d = x
+        elif mm.batched(i, x):
+            d = place_local(x, mesh)
+        else:
+            d = distribute(x, mesh, [Replicate()] * mesh.ndim)
+        xs.append(d.to_local())
+        split = split or any(isinstance(p, Shard) for p in d.placements)
+    return xs, split
+
+
+def mesh_invoke(models: Sequence[MeshModel], inputs, mesh) -> List[Any]:
+    """One (fused) invoke on every rank: place the inputs, run each
+    model on this rank's rows (a fused run's members back to back, the
+    blocks staying batch-major on the mesh between them), gather the
+    rows whole."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from ..parallel.sharding import gather_rows
+    xs, split = _place_inputs(models[0], inputs, mesh)
+    with torch.no_grad(), implicit_replication():
+        for mm in models:
+            outs = mm.apply(mm.module, *xs)
+            xs = list(outs) if isinstance(outs, (list, tuple)) else [outs]
+        return [gather_rows(o, mesh, split) for o in xs]

@@ -163,9 +163,7 @@ def _policy_of(elem: Element) -> str:
 def _mesh_of(elem: Element) -> str:
     """The member's declared ``mesh:`` spec ("" = unsharded). A fused
     program runs under ONE placement: every member must agree, so a
-    spec change breaks the run. The port has no mesh mode (a filter
-    declaring one raises at start); the break is kept so the plans
-    stay the reference's."""
+    spec change breaks the run."""
     get = getattr(elem, "mesh_spec", None)
     return str(get()) if callable(get) else ""
 

@@ -47,7 +47,15 @@ segment captures is recorded under its members' names, and ``start``
 captures every recorded one on zeros before the first frame
 (``jit_prewarmed``), as the JAX segment compiles them.
 
-Not ported: the mesh branch.
+The mesh branch (after the JAX segment's): when the members run on a
+device mesh (their backends' ``custom=mesh:``; the planner breaks runs
+on a spec change, so they share one), each frame is one mesh command
+(filters/torch_cuda_backend.py ``mesh_invoke``): the inputs are laid
+out batch-major on the mesh once, every member runs on each rank's
+rows back to back — the blocks stay on the mesh across the member
+boundary, pinned batch-major — and the rows come back whole at the
+segment's output. ``stats["devices"]`` is the mesh's size. It runs
+eagerly (a mesh invoke is never captured) and prewarms nothing.
 """
 from __future__ import annotations
 
@@ -109,6 +117,14 @@ class FusedSegment(TransformElement):
         self.stats.update(jit_hits=0, jit_misses=0, jit_prewarmed=0, shed=0,
                           breaker_opened=0, fused_elements=len(members))
         # strongest member breaker settings win; 0 threshold = no breaker
+        # the run's mesh (uniform: the planner breaks runs on a spec
+        # change) and the members' models kept on it; None per-card
+        self._mesh = next(
+            (getattr(m.fw, "mesh", None) for m in members
+             if getattr(getattr(m, "fw", None), "mesh", None) is not None),
+            None)
+        self.stats["devices"] = int(self._mesh.mesh.numel()) \
+            if self._mesh is not None else 1
         self._breaker = None
         self.breaker_threshold = max(
             (int(getattr(m, "breaker_threshold", 0) or 0) for m in members),
@@ -152,8 +168,10 @@ class FusedSegment(TransformElement):
                 push_cb=self.push,
                 name=self.name,
                 reorder=bool(self.reorder),
-                reorder_deadline_s=float(self.reorder_deadline_ms) / 1e3)
-        self._prewarm_from_cache()
+                reorder_deadline_s=float(self.reorder_deadline_ms) / 1e3,
+                devices=int(self.stats["devices"]))
+        if self._mesh is None:
+            self._prewarm_from_cache()
 
     def _cache_key(self) -> str:
         """Segment identity for the persistent compile cache: the
@@ -235,6 +253,14 @@ class FusedSegment(TransformElement):
             arrays = fn(arrays)
         return arrays
 
+    def _mesh_program(self, arrays):
+        """One mesh command for the whole run (see the module docstring)."""
+        from ..filters.torch_cuda_backend import mesh_inputs, mesh_invoke
+        from ..parallel import world
+        models = [m.fw.mesh_model for m in self.members]
+        return world.run(mesh_invoke, models, mesh_inputs(arrays),
+                         self._mesh)
+
     def do_chain(self, pad: Pad, buf: Buffer) -> None:
         if self._overlap is not None:
             # a completion error latched by the completer surfaces HERE,
@@ -253,7 +279,10 @@ class FusedSegment(TransformElement):
         sig = (signature(arrays), str(device))
         t0 = time.perf_counter_ns()
         exe = self._programs.get(sig)
-        if exe is None:
+        if exe is None and self._mesh is not None:
+            self.stats.inc("jit_misses")
+            exe = self._mesh_program
+        elif exe is None:
             self.stats.inc("jit_misses")
             exe = Executable(self._program, device,
                              self._pool.handle_for(device)

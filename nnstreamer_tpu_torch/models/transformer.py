@@ -52,9 +52,21 @@ capture in a graph. The candidate set (``top_k``/``top_p`` formed on the
 unscaled logits, before temperature) is JAX's.
 
 :func:`loss_fn` is the next-token cross-entropy the trainer (a
-``tensor_trainer`` model-config file) differentiates. Not ported: the
-mesh fields (ring/ulysses sequence parallelism, item 12): a config that
-asks for a mesh raises :class:`~..pipeline.element.NotPortedError`.
+``tensor_trainer`` model-config file) differentiates.
+
+The mesh fields (``mesh``, ``data_axis``, ``seq_axis``, ``model_axis``,
+``seq_scheme``) are the JAX config's. With a mesh, :func:`forward` and
+:func:`loss_fn` called outside a mesh command run as one
+(parallel/world.py): the token batch is split over ``data`` (as
+parallel/sharding.py ``batch_sharding`` splits it), each rank takes its
+block of the sequence when the ``seq`` axis is larger than 1 and
+attends across the blocks with ring or Ulysses attention, and weights a
+rule shards over ``model`` are DTensors on ``mesh["model"]``, so
+DTensor inserts the tensor-parallel collectives; :func:`_constrain`
+pins activations over ``model`` as the JAX code's
+``with_sharding_constraint`` does. Inside a command (the sharded train
+step, parallel/train.py) the same functions take this rank's rows with
+the whole sequence and return this rank's block.
 """
 from __future__ import annotations
 
@@ -79,16 +91,15 @@ class GPTConfig:
     max_seq: int = 2048
     rope_theta: float = 10000.0
     dtype: torch.dtype = torch.bfloat16
-    # the JAX config's distributed knobs: refused until item 12
+    # distributed knobs (None = one device): a parallel/mesh.py mesh
     mesh: Any = None
-    seq_axis: Optional[str] = None
-
-    def __post_init__(self):
-        if self.mesh is not None or self.seq_axis is not None:
-            from ..pipeline.element import NotPortedError
-            raise NotPortedError(
-                "GPTConfig: mesh / seq_axis (ring and ulysses sequence-"
-                "parallel attention) is not ported yet (ROADMAP item 12)")
+    data_axis: Optional[str] = "data"
+    seq_axis: Optional[str] = None     # set to e.g. "seq" for seq parallelism
+    model_axis: Optional[str] = "model"
+    # sequence-parallel attention scheme: "ring" (K/V rotated around the
+    # ring, any head count) or "ulysses" (all-to-all head/seq exchange,
+    # needs local heads % seq_axis_size == 0) — both exact
+    seq_scheme: str = "ring"
 
     @property
     def ff(self) -> int:
@@ -205,6 +216,74 @@ def _dense_attention(q, k, v, positions_q, positions_k):
     return _attend(q, k, v, mask, q.dtype)
 
 
+def _axis(cfg: GPTConfig, axis: Optional[str]) -> int:
+    if cfg.mesh is None:
+        return 1
+    from ..parallel.mesh import axis_size
+    return axis_size(cfg.mesh, axis)
+
+
+def _constrain(x, cfg: GPTConfig, spec):
+    """Activation sharding hint over the model axis (the only axis an
+    activation is a DTensor on); a no-op off-mesh and on plain tensors."""
+    if cfg.mesh is None:
+        return x
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(x, DTensor):
+        return x
+    want = Replicate()
+    for d, axis in enumerate(spec):
+        if axis is not None and axis == cfg.model_axis:
+            want = Shard(d)
+    if x.placements[0] != want:
+        x = x.redistribute(x.device_mesh, [want])
+    return x
+
+
+def _attention(q, k, v, positions, cfg: GPTConfig):
+    if cfg.seq_scheme not in ("ring", "ulysses"):
+        # both schemes are exact, so a typo would be undetectable from
+        # outputs — fail loudly instead of silently running ring
+        raise ValueError(f"unknown seq_scheme {cfg.seq_scheme!r}; "
+                         "expected 'ring' or 'ulysses'")
+    if _axis(cfg, cfg.seq_axis) > 1:
+        from functools import partial
+        if cfg.seq_scheme == "ulysses":
+            from ..parallel.ulysses import check_heads, ulysses_attention_local
+            check_heads(cfg.n_heads, cfg.mesh, cfg.seq_axis, cfg.model_axis)
+            body = ulysses_attention_local
+        else:
+            from ..parallel.ring import ring_attention_local
+            body = ring_attention_local
+        fn = partial(body, mesh=cfg.mesh, axis_name=cfg.seq_axis)
+        from torch.distributed.tensor import DTensor
+        if isinstance(q, DTensor):
+            # heads sharded over model: the body runs on the local heads
+            from torch.distributed.tensor import Shard
+            from torch.distributed.tensor.experimental import local_map
+            q, k, v = (_constrain(x, cfg, (None, None, cfg.model_axis))
+                       for x in (q, k, v))
+            pl = [Shard(2)]
+            fn = local_map(fn, out_placements=pl, in_placements=(pl, pl, pl),
+                           device_mesh=q.device_mesh)
+        return fn(q, k, v)
+    return _dense_attention(q, k, v, positions, positions)
+
+
+def _seq_block(x: torch.Tensor, cfg: GPTConfig) -> torch.Tensor:
+    """This rank's block of the sequence (dim 1) when the seq axis is
+    larger than 1."""
+    n = _axis(cfg, cfg.seq_axis)
+    if n == 1:
+        return x
+    if x.shape[1] % n:
+        raise ValueError(f"sequence length {x.shape[1]} does not divide "
+                         f"over the seq axis ({n})")
+    t = x.shape[1] // n
+    i = cfg.mesh.get_local_rank(cfg.seq_axis)
+    return x[:, i * t:(i + 1) * t]
+
+
 def _mlp(h: torch.Tensor, layer: GPTBlock) -> torch.Tensor:
     x = rmsnorm(h, layer.ln2)
     ff = F.silu(x @ layer.w1) * (x @ layer.w3)
@@ -229,28 +308,111 @@ def block(h, layer: GPTBlock, positions, cfg: GPTConfig,
     b, s, d = h.shape
     q, k, v = _qkv(h, layer, rope_tables(positions, cfg.head_dim,
                                          cfg.rope_theta), cfg)
-    attn = _dense_attention(q, k, v, positions, positions)
+    attn = _attention(q, k, v, positions, cfg)
     h = h + attn.reshape(b, s, d) @ layer.wo
-    h = _mlp(h, layer)
+    h = _constrain(h, cfg, (cfg.data_axis, cfg.seq_axis, None))
+    if cfg.mesh is None:
+        h = _mlp(h, layer)
+    else:
+        x = rmsnorm(h, layer.ln2)
+        ff = F.silu(x @ layer.w1) * (x @ layer.w3)
+        ff = _constrain(ff, cfg, (cfg.data_axis, cfg.seq_axis,
+                                  cfg.model_axis))
+        h = h + ff @ layer.w2
+        h = _constrain(h, cfg, (cfg.data_axis, cfg.seq_axis, None))
     return (h, k, v) if return_kv else h
 
 
 def forward(params: GPT, tokens: torch.Tensor, cfg: GPTConfig) -> torch.Tensor:
-    """tokens [B,S] integer -> logits [B,S,V] float32."""
+    """tokens [B,S] integer -> logits [B,S,V] float32. With a mesh,
+    outside a command: one mesh command over the whole batch (see the
+    module docstring); inside one: this rank's rows in, this rank's
+    sequence block of logits out."""
+    if cfg.mesh is not None:
+        from ..parallel import world
+        if not world.in_command():
+            return world.run(_mesh_forward, params, tokens, cfg)
+        tokens = _seq_block(tokens, cfg)
     b, s = tokens.shape
-    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    offset = 0
+    if _axis(cfg, cfg.seq_axis) > 1:
+        offset = cfg.mesh.get_local_rank(cfg.seq_axis) * s
+    positions = (offset + torch.arange(s, device=tokens.device)).expand(b, s)
     h = params.embed[tokens]
+    h = _constrain(h, cfg, (cfg.data_axis, cfg.seq_axis, None))
     for layer in params.layers:
         h = block(h, layer, positions, cfg)
     h = rmsnorm(h, params.ln_f)
-    return (h @ params.head).float()
+    return _constrain((h @ params.head).float(), cfg,
+                      (cfg.data_axis, cfg.seq_axis, cfg.model_axis))
+
+
+def _mesh_rows(tokens: torch.Tensor, cfg: GPTConfig):
+    """(this rank's rows of rank 0's ``tokens``, whether rows are split)."""
+    from torch.distributed.tensor import DTensor, Shard
+    from ..parallel.sharding import place_local
+    placed = tokens if isinstance(tokens, DTensor) else \
+        place_local(tokens, cfg.mesh)
+    return placed.to_local(), any(isinstance(p, Shard)
+                                  for p in placed.placements)
+
+
+def _whole(x: torch.Tensor, cfg: GPTConfig, rows_split: bool,
+           seq_split: bool) -> torch.Tensor:
+    """The whole tensor from each rank's block (rows over data, dim 1
+    over seq)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        x = x.full_tensor()
+    for axis, dim, split in ((cfg.seq_axis, 1, seq_split),
+                             (cfg.data_axis, 0, rows_split)):
+        if not split or _axis(cfg, axis) == 1:
+            continue
+        group = cfg.mesh.get_group(axis)
+        parts = [torch.empty_like(x) for _ in range(_axis(cfg, axis))]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        x = torch.cat(parts, dim=dim)
+    return x
+
+
+def _mesh_forward(params: GPT, tokens: torch.Tensor,
+                  cfg: GPTConfig) -> torch.Tensor:
+    from torch.distributed.tensor.experimental import implicit_replication
+    rows, split = _mesh_rows(tokens, cfg)
+    with torch.no_grad(), implicit_replication():
+        out = forward(params, rows, cfg)
+        return _whole(out, cfg, split, _axis(cfg, cfg.seq_axis) > 1)
 
 
 def loss_fn(params: GPT, batch: torch.Tensor, cfg: GPTConfig) -> torch.Tensor:
-    """Next-token cross-entropy; batch = tokens [B,S+1] integer."""
+    """Next-token cross-entropy; batch = tokens [B,S+1] integer. With a
+    mesh, outside a command: the mean over the whole batch, as one mesh
+    command; inside one: the mean over this rank's block (the train
+    step averages gradients and losses over ``data`` x ``seq``)."""
+    if cfg.mesh is not None:
+        from ..parallel import world
+        if not world.in_command():
+            return world.run(_mesh_loss, params, batch, cfg)
     inputs, targets = batch[:, :-1], batch[:, 1:]
+    if cfg.mesh is not None:
+        targets = _seq_block(targets, cfg)
     logp = torch.log_softmax(forward(params, inputs, cfg), dim=-1)
     return -logp.gather(-1, targets[..., None].long())[..., 0].mean()
+
+
+def _mesh_loss(params: GPT, batch: torch.Tensor,
+               cfg: GPTConfig) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from ..parallel.collectives import all_mean
+    from ..parallel.mesh import replica_group
+    rows, _ = _mesh_rows(batch, cfg)
+    with torch.no_grad(), implicit_replication():
+        loss = loss_fn(params, rows, cfg)
+        if isinstance(loss, DTensor):
+            loss = loss.full_tensor()
+        return all_mean(loss, replica_group(cfg.mesh))
 
 
 def _last(h: torch.Tensor, true_len, t: int) -> torch.Tensor:

@@ -170,6 +170,21 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _fused_local_map(query, key, value):
+    """The kernel over each rank's local q/k/v: attention is independent
+    per batch row and per head, so a layout split over B (dim 0) or H
+    (dim 2) stays; any other is made whole first."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    pl = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+          for p in query.placements]
+    q, k, v = (x.redistribute(query.device_mesh, pl)
+               for x in (query, key, value))
+    return local_map(fused_attention, out_placements=pl,
+                     in_placements=(pl, pl, pl),
+                     device_mesh=query.device_mesh)(q, k, v)
+
+
 def fused_attention(query: torch.Tensor, key: torch.Tensor,
                     value: torch.Tensor, bias: Optional[torch.Tensor] = None,
                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -177,9 +192,15 @@ def fused_attention(query: torch.Tensor, key: torch.Tensor,
 
     On CPU tensors it computes :func:`attention_plain`; on CUDA tensors it
     launches the kernel or raises. ``bias``/``mask`` take the stock path
-    (:func:`dot_product_attention`), so a mask is never ignored."""
+    (:func:`dot_product_attention`), so a mask is never ignored. The
+    kernel takes raw pointers and has no DTensor rule: a DTensor (a mesh
+    invoke with heads or batch split over ``model``) runs the kernel on
+    each rank's local tensors through ``local_map``."""
     if bias is not None or mask is not None:
         return dot_product_attention(query, key, value, bias=bias, mask=mask)
+    from torch.distributed.tensor import DTensor
+    if isinstance(query, DTensor):
+        return _fused_local_map(query, key, value)
     _check(query, key, value)
     if query.device.type == "cpu":
         return attention_plain(query, key, value)

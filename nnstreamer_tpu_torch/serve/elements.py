@@ -39,8 +39,13 @@ no-drain preemption abandons.
 
 ``llm-role=prefill|decode|both`` advertises a disaggregated LLM
 replica's phase on REGISTER and on every PONG's load report, which the
-fleet router's phase-aware pick reads. Not ported: ``mesh=`` (ROADMAP
-item 12) raises :class:`~..pipeline.element.NotPortedError` at start.
+fleet router's phase-aware pick reads.
+
+``mesh=DxSxT`` (or ``auto``) makes the serve path mesh-aware: buckets
+snap up to multiples of the spec's data-parallel degree and every
+stacked batch is laid out batch-major on the mesh before dispatch
+(serve/scheduler.py ``place``), so a downstream ``custom=mesh:...``
+filter runs one sharded invoke per bucket.
 """
 from __future__ import annotations
 
@@ -105,9 +110,13 @@ class TensorServeSrc(SrcElement):
              # every PONG load report: the fleet's blue/green rollout
              # verifies the whole ring converged on the new version
              # before retiring the old one ("" = unversioned)
-             "version": ""}
-    # mesh-aware serving (ROADMAP item 12): only the per-card default
-    NOT_PORTED = {"mesh": ""}
+             "version": "",
+             # mesh-aware serving ("DxSxT"/"auto", matching the
+             # downstream filter's custom=mesh:...): buckets snap up to
+             # multiples of the data-parallel degree and each stacked
+             # batch is placed batch-major on the mesh before dispatch
+             # — one sharded invoke per batch. "" = per-card.
+             "mesh": ""}
 
     def __init__(self, name=None, **props):
         super().__init__(name, **props)
@@ -156,7 +165,7 @@ class TensorServeSrc(SrcElement):
             max_wait_s=float(self.max_wait_ms) / 1e3,
             max_queue=int(self.max_queue),
             deadline_s=float(self.deadline_ms) / 1e3,
-            name=self.name)
+            name=self.name, mesh_spec=str(self.mesh))
         if self._restored is not None:
             # declare (never replay) the pre-crash pending ledger: reply
             # routes died with the old process, the router's failover
@@ -214,6 +223,8 @@ class TensorServeSrc(SrcElement):
     def stop(self) -> None:
         super().stop()
         unregister_scheduler(self.id)
+        if self.scheduler is not None:
+            self.scheduler.release_mesh()
         if self._broker_sock is not None:
             try:
                 self._broker_sock.close()

@@ -25,11 +25,19 @@ reference's one ``jax.device_get``; a fetch already in flight
 (``prefetch-host``) is waited for. A padded row is fetched with its
 batch (one copy of the stack) and never demuxed.
 
-Not ported: the mesh placement (``mesh_spec``, ``place``; ROADMAP item
-12) — batches stay where :func:`~.batcher.stack_requests` made them, on
-the host, and the bucket snap is 1. The pending ledger a checkpoint
-records (``pending_ledger``) and the one a restored replica declares
-(``record_recovered``) are the JAX scheduler's.
+Mesh-aware serving (``mesh_spec``, the JAX scheduler's): the declared
+mesh's data-parallel degree snaps the buckets up (every stacked batch
+divides dp), and :meth:`place` lays each stacked batch out batch-major
+on the mesh (parallel/sharding.py ``place_batch``: a mesh command that
+leaves each rank its rows) before the filter dispatches, so a
+``custom=mesh:`` filter finds its inputs placed. The mesh lives in the
+running mesh world, whose device the filter's ``accelerator`` chose at
+open (parallel/world.py). When the mesh cannot be built (fewer devices
+than the spec, or no world and no card), the buckets stay snapped, the
+batches stay on the host, and it is logged once — the reference's
+degrade. The pending ledger a checkpoint records (``pending_ledger``)
+and the one a restored replica declares (``record_recovered``) are the
+JAX scheduler's.
 """
 from __future__ import annotations
 
@@ -70,9 +78,18 @@ class ServeScheduler:
                  max_wait_s: float = 0.005, max_queue: int = 16,
                  deadline_s: float = 0.0,
                  invoke_fn: Optional[Callable] = None,
-                 name: str = "serve"):
+                 name: str = "serve", mesh_spec: str = ""):
         self.name = name
-        self.batcher = BucketBatcher(buckets, max_wait_s, max_queue)
+        self.mesh_spec = str(mesh_spec or "")
+        snap = 1
+        if self.mesh_spec:
+            from ..parallel.mesh import spec_dp
+            snap = spec_dp(self.mesh_spec)
+        self.batcher = BucketBatcher(buckets, max_wait_s, max_queue,
+                                     snap_multiple=snap)
+        self._mesh = None          # built lazily on the first place()
+        self._mesh_failed = False  # too few devices: degrade once
+        self._mesh_retained = False
         self.deadline_s = max(0.0, float(deadline_s))
         self._invoke_fn = invoke_fn
         self._thread: Optional[threading.Thread] = None
@@ -213,7 +230,47 @@ class ServeScheduler:
                                            "queue", t_wall - wait, wait,
                                            r.ctx)
                     r.ctx.q_ns += wait
-        return batch, bucket, stack_requests(batch, bucket)
+        return batch, bucket, self.place(stack_requests(batch, bucket))
+
+    def place(self, stacked):
+        """Lay a stacked batch out on the declared mesh batch-major
+        BEFORE dispatch, so the downstream filter finds every input
+        already placed and its own placement passes them through.
+        Degrades to host arrays (logged once) when the mesh cannot be
+        built: bucket snapping still applies, placement does not."""
+        mesh = self._mesh_for_place()
+        if mesh is None:
+            return stacked
+        from ..parallel.sharding import place_batch
+        placed = place_batch(stacked, mesh)
+        self.stats.inc("placed_batches")
+        return placed
+
+    def _mesh_for_place(self):
+        if not self.mesh_spec or self._mesh_failed:
+            return self._mesh
+        if self._mesh is None:
+            try:
+                from ..parallel import world
+                from ..parallel.mesh import mesh_from_spec
+                mesh = mesh_from_spec(self.mesh_spec)
+                world.retain()
+                self._mesh, self._mesh_retained = mesh, True
+            except Exception as exc:  # noqa: BLE001 — degrade, keep serving
+                self._mesh_failed = True
+                logger.warning(
+                    "%s: mesh %s unavailable (%s); buckets stay snapped "
+                    "but batches are not mesh-placed", self.name,
+                    self.mesh_spec, exc)
+        return self._mesh
+
+    def release_mesh(self) -> None:
+        """Let go of the mesh world (the serve source's stop)."""
+        if self._mesh_retained:
+            from ..parallel import world
+            self._mesh_retained = False
+            self._mesh = None
+            world.release()
 
     def complete(self, batch: List[Request], outputs: Sequence[Any]) -> None:
         """Demux: row ``i`` of every output tensor goes back to the
@@ -280,7 +337,15 @@ class ServeScheduler:
             qd = self._queue_delay.percentiles()
             bl = self._batch_latency.percentiles()
         filled = s["bucket_rows"] - s["rows_padded"]
+        mesh_info = {}
+        if self.mesh_spec:
+            mesh_info = {"mesh": self.mesh_spec,
+                         "buckets": list(self.batcher.buckets),
+                         "devices": int(self._mesh.mesh.numel())
+                         if self._mesh is not None else 0,
+                         "placed_batches": s.get("placed_batches", 0)}
         return {
+            **mesh_info,
             "batches": b["batches"],
             "requests": b["submitted"],
             "completed": s["completed"],

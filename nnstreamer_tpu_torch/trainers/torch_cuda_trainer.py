@@ -30,9 +30,13 @@ Device: ``cuda:0`` unless ``accelerators`` opts out (tensor_trainer's
 missing raises at create. Randomness comes from explicit generators
 (the zoo's seeded init); the loop itself draws none.
 
+``mesh=DxSxT`` (or ``auto``) with ``rules=<table>`` trains on a device
+mesh (trainers/mesh.py): the model is placed by the rule table, and a
+step is one mesh command over every rank, the batch split over
+``data``.
+
 Refused at create, with :class:`~..pipeline.element.NotPortedError`:
 
-* ``mesh``/``rules`` (the sharded train step; ROADMAP item 12);
 * ``zoo://vit?attn=pallas``: the hand attention kernel has no backward.
   The JAX reference fails at its first step on its own device (no
   linearization of ``pallas_call``) and on the CPU trains through its
@@ -101,6 +105,25 @@ def _zoo_classifier_trainer(name: str, **kwargs):
     return loss_fn, module, lambda params: torch.optim.Adam(params, lr=lr)
 
 
+def load_trainer_config(cfg: str):
+    """``(loss_fn, module, optimizer)`` of a ``zoo://`` URI or a ``.py``
+    model-config defining ``get_trainer()``."""
+    if cfg.startswith("zoo://"):
+        parsed = urllib.parse.urlparse(cfg)
+        kwargs = {k: v[0] for k, v in
+                  urllib.parse.parse_qs(parsed.query).items()}
+        name = parsed.netloc or parsed.path.lstrip("/")
+        return _zoo_classifier_trainer(name, **kwargs)
+    if cfg.endswith(".py"):
+        ns: Dict[str, Any] = {}
+        with open(cfg) as f:
+            exec(compile(f.read(), cfg, "exec"), ns)  # noqa: S102 — user model config
+        if "get_trainer" not in ns:
+            raise ValueError(f"{cfg}: must define get_trainer()")
+        return ns["get_trainer"]()
+    raise ValueError(f"torch-cuda trainer cannot load model-config {cfg!r}")
+
+
 @register_trainer
 class TorchCudaTrainer(TrainerFramework):
     NAME = "torch-cuda"
@@ -123,37 +146,21 @@ class TorchCudaTrainer(TrainerFramework):
         self._step_lock = threading.Lock()
         # epochs whose step is complete; training resumes after it
         self._epoch_done = 0
+        # mesh mode (trainers/mesh.py): the mesh and the kept trainer
+        self._mesh = None
+        self._mesh_trainer = None
 
     # -- lifecycle --------------------------------------------------------
     def create(self, props: TrainerProperties) -> None:
         from ..filters.torch_cuda_backend import device_for, full_f32_numerics
-        from ..pipeline.element import NotPortedError
-        if props.mesh or props.rules:
-            raise NotPortedError(
-                f"torch-cuda trainer: mesh={props.mesh!r} "
-                f"rules={props.rules!r} — the sharded train step is not "
-                "ported yet (ROADMAP item 12)")
         self._props = props
+        if props.mesh:
+            self._create_mesh(props)
+            return
         self.device = device_for(props.accelerators)
         full_f32_numerics()
         cfg = props.model_config
-        if cfg.startswith("zoo://"):
-            parsed = urllib.parse.urlparse(cfg)
-            kwargs = {k: v[0] for k, v in
-                      urllib.parse.parse_qs(parsed.query).items()}
-            name = parsed.netloc or parsed.path.lstrip("/")
-            self._loss_fn, module, optimizer = \
-                _zoo_classifier_trainer(name, **kwargs)
-        elif cfg.endswith(".py"):
-            ns: Dict[str, Any] = {}
-            with open(cfg) as f:
-                exec(compile(f.read(), cfg, "exec"), ns)  # noqa: S102 — user model config
-            if "get_trainer" not in ns:
-                raise ValueError(f"{cfg}: must define get_trainer()")
-            self._loss_fn, module, optimizer = ns["get_trainer"]()
-        else:
-            raise ValueError(
-                f"torch-cuda trainer cannot load model-config {cfg!r}")
+        self._loss_fn, module, optimizer = load_trainer_config(cfg)
         if props.model_load_path:
             from .checkpoint import restore_params
             restore_params(props.model_load_path, module)
@@ -166,6 +173,32 @@ class TorchCudaTrainer(TrainerFramework):
             optimizer, torch.optim.Optimizer) \
             else optimizer(list(self.module.parameters()))
         logger.info("torch-cuda trainer: %s on %s", cfg, self.device)
+
+    def _create_mesh(self, props: TrainerProperties) -> None:
+        """Mesh mode (trainers/mesh.py): the model opened and placed on
+        every rank of the mesh."""
+        from ..filters.torch_cuda_backend import device_for, full_f32_numerics
+        from ..parallel import mesh as pmesh, sharding, world
+        from . import mesh as tmesh
+        # the card unless the caller opts out; raises without CUDA
+        device = device_for(props.accelerators)
+        mesh = pmesh.mesh_from_spec(str(props.mesh), device.type)
+        rules = sharding.rules_by_name(str(props.rules or ""))
+        world.retain(device.type)
+        try:
+            full_f32_numerics()
+            self.device = world.local_device()
+            self._mesh_trainer = world.run(
+                tmesh.open_trainer, props.model_config,
+                props.model_load_path or "", rules, mesh)
+        except BaseException:
+            world.release()
+            raise
+        self._mesh = mesh
+        self.module = self._mesh_trainer.state.params
+        self.optimizer = self._mesh_trainer.state.opt_state
+        logger.info("torch-cuda trainer: %s on mesh %s", props.model_config,
+                    pmesh.shape_of(mesh))
 
     def start(self) -> None:
         self._stop_evt.clear()
@@ -181,12 +214,28 @@ class TorchCudaTrainer(TrainerFramework):
         if self._props and self._props.model_save_path and \
                 self.module is not None:
             from .checkpoint import save_params
-            save_params(self._props.model_save_path, self.module)
+            save_params(self._props.model_save_path, self._whole_params())
             logger.info("torch-cuda trainer: saved model to %s",
                         self._props.model_save_path)
 
     def destroy(self) -> None:
         self._stop_evt.set()
+        if self._mesh is not None:
+            from ..parallel import world
+            self._join()
+            self._mesh = None
+            self._mesh_trainer = None
+            self.module = self.optimizer = None
+            world.release()
+
+    def _whole_params(self):
+        """The module, or in mesh mode its whole ``state_dict`` gathered
+        on rank 0."""
+        if self._mesh is None:
+            return self.module
+        from ..parallel import world
+        from . import mesh as tmesh
+        return world.run(tmesh.gather_state, self._mesh_trainer, False)[0]
 
     def _join(self) -> None:
         self._stop_evt.set()
@@ -217,8 +266,15 @@ class TorchCudaTrainer(TrainerFramework):
             return None
         from .checkpoint import save_params
         with self._step_lock:
-            save_params(os.path.join(snap_dir, "params"), self.module)
-            opt_state = _to_cpu(self.optimizer.state_dict())
+            if self._mesh is not None:
+                from ..parallel import world
+                from . import mesh as tmesh
+                sd, opt_state = world.run(tmesh.gather_state,
+                                          self._mesh_trainer, True)
+                save_params(os.path.join(snap_dir, "params"), sd)
+            else:
+                save_params(os.path.join(snap_dir, "params"), self.module)
+                opt_state = _to_cpu(self.optimizer.state_dict())
             epoch = self._epoch_done
         return {"epoch": int(epoch), "opt_state": opt_state,
                 "status": vars(self.get_status())}
@@ -231,9 +287,16 @@ class TorchCudaTrainer(TrainerFramework):
         from .checkpoint import restore_params
         if self.module is None:
             raise RuntimeError("resume_from requires create()")
-        restore_params(os.path.join(snap_dir, "params"), self.module)
-        if state.get("opt_state") is not None:
-            self.optimizer.load_state_dict(state["opt_state"])
+        if self._mesh is not None:
+            from ..parallel import world
+            from . import mesh as tmesh
+            world.run(tmesh.restore_state, self._mesh_trainer,
+                      restore_params(os.path.join(snap_dir, "params")),
+                      state.get("opt_state"))
+        else:
+            restore_params(os.path.join(snap_dir, "params"), self.module)
+            if state.get("opt_state") is not None:
+                self.optimizer.load_state_dict(state["opt_state"])
         self._epoch_done = int(state.get("epoch", 0))
         st = state.get("status") or {}
         with self._status_lock:
@@ -287,6 +350,10 @@ class TorchCudaTrainer(TrainerFramework):
 
     def _step(self, inputs, labels) -> Tuple[float, float]:
         """One optimizer step on the batch; (loss, accuracy) before it."""
+        if self._mesh is not None:
+            from ..parallel import world
+            from . import mesh as tmesh
+            return world.run(tmesh.step, self._mesh_trainer, inputs, labels)
         self.optimizer.zero_grad(set_to_none=True)
         loss, acc = self._loss_fn(self.module, inputs, labels)
         loss.backward()
@@ -320,7 +387,13 @@ class TorchCudaTrainer(TrainerFramework):
                 with self._step_lock:
                     loss, acc = self._step(*self._batch_of(train))
                     vloss = vacc = 0.0
-                    if val:
+                    if val and self._mesh is not None:
+                        from ..parallel import world
+                        from . import mesh as tmesh
+                        vloss, vacc = world.run(tmesh.evaluate,
+                                                self._mesh_trainer,
+                                                *self._batch_of(val))
+                    elif val:
                         with torch.no_grad():
                             vloss, vacc = (float(x) for x in self._loss_fn(
                                 self.module, *self._batch_of(val)))

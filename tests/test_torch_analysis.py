@@ -48,9 +48,9 @@ CAPS_F32 = ("other/tensors,format=static,num_tensors=1,"
 CAPS_FLEX = "other/tensors,format=flexible,framerate=(fraction)0/1"
 FILTER = "tensor_filter name=f framework=simlink"
 
-DEFERRED = {
-    "sharding-divisibility", "serve-mesh-divisibility", "mesh-colocation",
-}
+# every rule of the reference is ported: none is left out of the
+# comparisons
+DEFERRED: set = set()
 
 
 def _keys(report):
@@ -78,7 +78,7 @@ def findings_for(desc, rule=None):
 
 def test_rule_ids_are_the_reference_minus_the_deferred():
     assert {r.id for r in ALL_RULES} == {r.id for r in NT_RULES} - DEFERRED
-    assert len(ALL_RULES) == 25
+    assert len(ALL_RULES) == 28
 
 
 class TestCapsInference:
@@ -730,3 +730,71 @@ class TestAutoscalerConfigRule:
         ok = ("tensor_autoscaler name=a router=rt "
               "min-replicas=1 max-replicas=4 drain-deadline-ms=2000")
         assert findings_for(ok, "autoscaler-config") == []
+
+
+CAPS_BATCH6 = ("other/tensors,format=static,num_tensors=1,"
+               "types=(string)float32,dimensions=(string)4:6,"
+               "framerate=(fraction)0/1")
+
+
+class TestMeshRules:
+    """The three mesh rules on tests/test_analysis.py's own lines (the
+    framework swapped for simlink, which both packages have), each
+    finding set compared with the JAX package's by ``findings_for``."""
+
+    def test_sharding_divisibility_provable(self):
+        bad = (  # pipelint: skip — batch 6 on a dp=4 mesh
+            f"tensortestsrc caps={CAPS_BATCH6} ! {FILTER} "
+            'input=4 inputtype=float32 custom="mesh:4x1x2" ! fakesink')
+        got = findings_for(bad, "sharding-divisibility")
+        assert [(f.element, f.pad) for f in got] == [("f", "sink")]
+        assert got[0].severity is Severity.ERROR
+        assert "batch 6 is not divisible" in got[0].message
+
+    def test_sharding_divisible_is_clean(self):
+        ok = (f"tensortestsrc caps={CAPS_BATCH6} ! {FILTER} "
+              'input=4 inputtype=float32 custom="mesh:2x1x2" ! fakesink')
+        assert findings_for(ok, "sharding-divisibility") == []
+
+    def test_sharding_leading_dim_unprovable_warns(self):
+        bad = (  # pipelint: skip — leading dim 6 on a dp=4 mesh
+            f"tensortestsrc caps={CAPS_BATCH6} ! {FILTER} "
+            'custom="mesh:4x1x1" ! fakesink')
+        got = findings_for(bad, "sharding-divisibility")
+        assert [(f.element, f.severity) for f in got] == \
+            [("f", Severity.WARNING)]
+
+    def test_serve_mesh_bucket_indivisible(self):
+        bad = (  # pipelint: skip — bucket 6 on a dp=4 mesh filter
+            f"tensor_serve_src name=s buckets=4,6,8 ! {FILTER} "
+            'custom="mesh:4x1x1" ! tensor_serve_sink')
+        got = findings_for(bad, "serve-mesh-divisibility")
+        assert [(f.element, f.pad) for f in got] == [("f", "sink")]
+        assert got[0].severity is Severity.ERROR
+        assert "[6]" in got[0].message and "replicated" in got[0].message
+
+    def test_serve_mesh_src_snapping_clears_it(self):
+        ok = (f"tensor_serve_src name=s buckets=4,6,8 mesh=4x1x1 ! {FILTER} "
+              'custom="mesh:4x1x1" ! tensor_serve_sink')
+        assert findings_for(ok, "serve-mesh-divisibility") == []
+
+    def test_serve_mesh_divisible_is_clean(self):
+        ok = (f"tensor_serve_src name=s buckets=4,8 ! {FILTER} "
+              'custom="mesh:4x1x1" ! tensor_serve_sink')
+        assert findings_for(ok, "serve-mesh-divisibility") == []
+
+    def test_mesh_colocation_mismatch_warns(self):
+        bad = (  # pipelint: skip — trainer and filter declare different meshes
+            f"tensortestsrc caps={CAPS_BATCH6} ! tee name=t "
+            f"t. ! queue ! {FILTER} custom=\"mesh:2x1x2\" ! fakesink "
+            "t. ! queue ! tensor_trainer name=tr mesh=4x1x1 ! fakesink")
+        got = findings_for(bad, "mesh-colocation")
+        assert [f.element for f in got] == ["tr"]
+        assert got[0].severity is Severity.WARNING
+        assert "share the mesh" in got[0].message
+
+    def test_mesh_colocation_same_spec_is_clean(self):
+        ok = (f"tensortestsrc caps={CAPS_BATCH6} ! tee name=t "
+              f"t. ! queue ! {FILTER} custom=\"mesh:2x1x2\" ! fakesink "
+              "t. ! queue ! tensor_trainer name=tr mesh=2x1x2 ! fakesink")
+        assert findings_for(ok, "mesh-colocation") == []

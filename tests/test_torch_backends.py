@@ -497,8 +497,9 @@ def test_new_modules_import_no_jax():
     server, top), flowcheck's runtime half, the model registry, the
     device probe, the fleet, the CLI, the wire codecs, the
     imported-model importers and backends, the image codecs and the
-    media, gRPC and IIO elements and the direct_video and python3
-    decoders (and chip_smoke.py, tools/torch_model_files.py and
+    media, gRPC and IIO elements, the direct_video and python3
+    decoders, and mesh mode (``parallel/``, the trainer's mesh commands)
+    (and chip_smoke.py, tools/torch_model_files.py and
     tools/torch_image_files.py, read as text) import nothing of JAX or
     of the JAX package (ml_dtypes included), and nothing of PIL; the
     modules are imported in a fresh interpreter."""
@@ -561,7 +562,18 @@ def test_new_modules_import_no_jax():
             "nnstreamer_tpu_torch.elements.grpc, "
             "nnstreamer_tpu_torch.elements.iio, "
             "nnstreamer_tpu_torch.decoders.direct_video, "
-            "nnstreamer_tpu_torch.decoders.python3; "
+            "nnstreamer_tpu_torch.decoders.python3, "
+            "nnstreamer_tpu_torch.parallel, "
+            "nnstreamer_tpu_torch.parallel.world, "
+            "nnstreamer_tpu_torch.parallel.follower, "
+            "nnstreamer_tpu_torch.parallel.mesh, "
+            "nnstreamer_tpu_torch.parallel.sharding, "
+            "nnstreamer_tpu_torch.parallel.collectives, "
+            "nnstreamer_tpu_torch.parallel.ring, "
+            "nnstreamer_tpu_torch.parallel.ulysses, "
+            "nnstreamer_tpu_torch.parallel.train, "
+            "nnstreamer_tpu_torch.parallel.dryrun, "
+            "nnstreamer_tpu_torch.trainers.mesh; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes', "
             "'nnstreamer_tpu', 'PIL')]; assert not bad, bad")

@@ -9,12 +9,14 @@ The filter (``filters/llm.py``) emits the JAX filter's greedy tokens at
 float32 through a ``get_lm()`` file each. Then the port's own mirrors of
 tests/test_llm.py and of tests/test_llm_disagg.py's paged-pool classes:
 paged equals contiguous, chunked equals per-token, the prefix cache hits
-with exact tokens. The mesh options raise NotPortedError; the KV link
+with exact tokens. The config's mesh fields are the JAX config's (their
+sharded runs are tests/test_torch_parallel.py's); the KV link
 and the stream snapshot have their own file,
 tests/test_torch_llm_disagg.py. Sampled tokens are the port's own
 (per-stream hash noise, not ``jax.random``); the candidate sets are
 JAX's.
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -479,8 +481,19 @@ def test_out_of_vocab_and_oversized_prompts_are_refused_on_the_host():
 
 
 def test_deferred_model_options_raise_not_ported():
-    with pytest.raises(pt.NotPortedError, match="item 12"):
-        T.GPTConfig(seq_axis="seq")
+    """The mesh fields are ported: a seq axis without a mesh runs the
+    dense attention, and an unknown scheme is refused at the forward,
+    as in JAX. A gguf file is still refused."""
+    cfg = T.GPTConfig(vocab=64, d_model=32, n_heads=4, n_layers=1,
+                      seq_axis="seq", dtype=torch.float32)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    tokens = torch.arange(8)[None] % 64
+    plain = dataclasses.replace(cfg, seq_axis=None)
+    assert torch.equal(T.forward(params, tokens, cfg),
+                       T.forward(params, tokens, plain))
+    with pytest.raises(ValueError, match="unknown seq_scheme"):
+        T.forward(params, tokens,
+                  dataclasses.replace(cfg, seq_scheme="bogus"))
     with pytest.raises(NotImplementedError, match="gguf"):
         mk("", "model.gguf")
 

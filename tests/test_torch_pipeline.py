@@ -205,18 +205,24 @@ def test_auto_framework_resolves_zoo_to_torch_cuda():
     "shared-tensor-filter-key=k", "suspend=100", "invoke-async=true",
     "input-combination=0", "custom=mesh:2x1x1"])
 def test_unported_filter_properties_raise_at_start(prop):
-    """A mesh is not ported: it raises NotPortedError at start.
-    invoke-async is ported with the llm backend, and start refuses it on
-    torch-cuda, which has no async output path. The other properties of
-    the list are ported: the line starts and runs its frame."""
+    """Every property of the list is ported. A mesh larger than the
+    device pool (one host device here) fails to open with the JAX
+    package's error ("mesh (2, 1, 1) needs 2 devices, have 1"), and the
+    world it would need is never started. invoke-async is ported with
+    the llm backend, and start refuses it on torch-cuda, which has no
+    async output path. The others start and run their frame."""
     pipe = pt.parse_launch(
         f"tensortestsrc caps={CAPS} num-buffers=1 ! tensor_filter "
         "framework=torch-cuda accelerator=true:cpu "
         'model="zoo://vit?size=64&d_model=64&layers=1&heads=4&classes=10" '
         f"{prop} ! appsink name=out")
     if prop == "custom=mesh:2x1x1":
-        with pytest.raises(pt.NotPortedError, match="mesh"):
+        from nnstreamer_tpu_torch.parallel import world
+        with pytest.raises(ValueError, match=r"mesh \(2, 1, 1\) needs 2 "
+                           r"devices, have 1"):
             pipe.start()
+        pipe.stop()
+        assert not world.started()
         return
     if prop == "invoke-async=true":
         with pytest.raises(ValueError, match="invoke-async"):

@@ -30,7 +30,8 @@ port's classes, and adds what only a two-package run can show:
 * the settlement of the filter's failure paths (an invoke error on the
   synchronous path, a breaker-open shed) and of ``Pipeline.drain`` with
   a ``suspend`` filter;
-* the refusal of ``mesh=`` and pipelint's
+* ``mesh=`` with too few devices: the reference's degrade (buckets
+  snapped, batches left on the host, logged once), and pipelint's
   ``unbounded-admission`` with the serve halves of ``jit-signatures``,
   ``shed-no-retry-after`` and ``async-window``, on the JAX rule tests'
   own lines (findings compared with the JAX package's).
@@ -58,7 +59,6 @@ from nnstreamer_tpu.serve import batcher as nt_batcher
 from nnstreamer_tpu.serve import elements as nt_serve_elements
 from nnstreamer_tpu_torch.analysis import Severity, analyze
 from nnstreamer_tpu_torch.filters import register_custom_easy
-from nnstreamer_tpu_torch.pipeline.element import NotPortedError
 from nnstreamer_tpu_torch.serve import (BucketBatcher, Request,
                                         ServeScheduler, stack_requests)
 from nnstreamer_tpu_torch.serve import batcher as pt_batcher
@@ -1240,13 +1240,30 @@ def test_vit_serve_path_matches_jax_interpreted_kernel(tmp_path,
 
 @pytest.mark.parametrize("prop", ["mesh=4x1x1"])
 def test_refused_properties_raise_not_ported(prop):
+    """``mesh=`` is ported. With fewer devices than the spec (no mesh
+    world runs and this machine has no card, so the pool the spec wants
+    is empty) the serve path keeps the JAX scheduler's degrade, not a
+    device fallback: the buckets stay snapped to the data-parallel
+    degree, the batches stay on the host (``place`` hands them back),
+    and the failure is logged once; nothing starts a mesh world."""
+    from nnstreamer_tpu_torch.parallel import world
     p = pt.parse_launch(
-        f"tensor_serve_src name=src port=0 {prop} "
+        f"tensor_serve_src name=src port=0 buckets=1,2,6 {prop} "
         "! tensor_filter framework=custom-easy model=serve_double "
         "! tensor_serve_sink")
-    with pytest.raises(NotPortedError, match=prop.split("=")[0]):
-        p.start()
-    assert p["src"].scheduler is None  # nothing was opened
+    p.start()
+    try:
+        sched = p["src"].scheduler
+        assert sched.batcher.buckets == [4, 8]
+        stacked = [np.zeros((4, 3), np.float32)]
+        assert sched.place(stacked) is stacked
+        assert sched.place(stacked) is stacked  # degraded once, for good
+        rep = sched.report()
+        assert rep["mesh"] == "4x1x1" and rep["devices"] == 0
+        assert rep["placed_batches"] == 0
+        assert not world.started()
+    finally:
+        p.stop()
 
 
 # ---------------------------------------------------------- pipelint

@@ -4,8 +4,10 @@ against the JAX package's, on the CPU.
 
 Mirrors tests/test_training.py (the datarepo reader and writer, the
 trainer learning and saving, resume from model-load-path, the GPT
-train-then-serve loop; the mesh cases are refused, below) and holds the
-port to the JAX package where both run:
+train-then-serve loop; the mesh cases' sharded steps are
+tests/test_torch_mesh_filter.py's, a mesh larger than the one host
+device is refused below) and holds the port to the JAX package where
+both run:
 
 * datareposrc emits the JAX element's samples, byte for byte, in the
   JAX element's order (ranges, epochs, shuffle, tensors-sequence), and
@@ -519,12 +521,29 @@ def test_mobilenet_training_is_refused(tmp_path):
 @pytest.mark.parametrize("extra", ["mesh=4x1x2", "rules=gpt",
                                    "mesh=4x1x2 rules=gpt"])
 def test_trainer_mesh_and_rules_are_refused(tmp_path, extra):
-    with pytest.raises(pt.NotPortedError, match="item 12"):
+    """Mesh mode is ported. On one host device a 4x1x2 mesh is refused
+    at start with the JAX package's error, a rule table without a mesh
+    changes nothing (as in JAX), and ``mesh=auto`` with the CPU opt-out
+    resolves to 1x1x1: a one-rank world, stopped again when the trainer
+    is destroyed."""
+    from nnstreamer_tpu_torch.parallel import mesh as pmesh, world
+    if "mesh" in extra:
+        with pytest.raises(ValueError, match="needs 8 devices, have 1"):
+            _start_trainer(tmp_path, MLP, f"accelerator=true:cpu {extra}")
+    else:
         _start_trainer(tmp_path, MLP, f"accelerator=true:cpu {extra}")
+    assert not world.started()
     trainer = find_trainer("torch-cuda")()
     from nnstreamer_tpu_torch.trainers import TrainerProperties
-    with pytest.raises(pt.NotPortedError, match="item 12"):
-        trainer.create(TrainerProperties(model_config=MLP, mesh="auto"))
+    from nnstreamer_tpu_torch.filters.base import Accelerator
+    trainer.create(TrainerProperties(model_config=MLP, mesh="auto",
+                                     accelerators=(Accelerator.CPU,)))
+    try:
+        assert pmesh.factorization(trainer._mesh) == (1, 1, 1)
+        assert world.started() and world.world().size == 1
+    finally:
+        trainer.destroy()
+    assert not world.started()
 
 
 def test_trainer_runs_on_the_card_unless_told(tmp_path, monkeypatch):
