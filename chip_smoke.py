@@ -459,6 +459,21 @@ Native queue — the headline line with queue backend=native against
               8 seeds (MESH_ATTN_TOL; one seq rank rotates no block);
               custom=mesh:2x1x1 refused with "needs 2
               devices, have 1"; the world stopped, no follower left.
+50. analysis — the code analyzers on this machine (no JAX here):
+              racecheck, flowcheck --min-acquire-sites 10 and jitcheck
+              --min-hot-sites 20 over the shipped nnstreamer_tpu_torch,
+              each exiting 0 (run as subprocesses beside the rest of the
+              phase); tools/torch_jit_stability.py on cuda:0, whose
+              second pass must capture no graph on the frame path; then
+              the batch-64 ViT-B/16 line (attn=pallas, in-flight=4,
+              breaker-threshold=50) run plain and then under a
+              LockMonitor (the filter, its overlap executor, its window,
+              its breaker, its counters) and a CompileEventMonitor: no
+              capture and no backend compile after the 2 warm-up
+              buffers, a recorded lock graph acyclic and within the
+              static racecheck graph, check_against_static passing on
+              the compile cache's kinds, 12 attention launches a buffer,
+              and logits bitwise equal to the plain run's.
 Every model line runs through the backend's per-signature executable,
 one captured CUDA graph per input signature: the first frame runs
 eagerly (the capture's warm-up), every later frame is one replay, so a
@@ -7149,6 +7164,195 @@ def phase_mesh(smi, tmp):
     return rows
 
 
+# -- phase 50: the code analyzers and their runtime monitors ----------------
+
+ANALYSIS_GATES = (("racecheck",),
+                  ("flowcheck", "--min-acquire-sites", "10"),
+                  ("jitcheck", "--min-hot-sites", "20"))
+ANALYSIS_WARMUP = 2        # batch-64 ViT buffers before the steady window
+ANALYSIS_BUFFERS = 6       # batch-64 ViT buffers a run (monitored, plain)
+ANALYSIS_TIMEOUT_S = 300   # each analyzer CLI and the stability tool
+ANALYSIS_DEVICE = "cuda"   # tools/torch_jit_stability.py --device
+
+
+def _analysis_line(n):
+    """Phase 4's ViT-B/16 line at batch 64 with an in-flight window and a
+    breaker, so the filter has every lock tests/test_async.py traces."""
+    return (f"tensortestsrc caps={CAPS.format(dims=f'3:224:224:{VIT_BATCH}')} "
+            f"pattern=random seed={SEED} num-buffers={n} ! tensor_filter "
+            'name=f framework=torch-cuda model="zoo://vit?attn=pallas" '
+            "in-flight=4 breaker-threshold=50 ! appsink name=out")
+
+
+def _analysis_vit(monitored):
+    """One run of phase 50's ViT line. Monitored: a LockMonitor on the
+    filter, its overlap executor, its in-flight window, its breaker and
+    its counters (instrumented right after start, as tests/test_async.py
+    does) and a CompileEventMonitor, reset once the warm-up buffers
+    arrived. Returns (logits by pts, kernel launches, the lock monitor,
+    the steady window's captures and backend compiles)."""
+    import nnstreamer_tpu_torch as pt
+    from nnstreamer_tpu_torch.analysis import concurrency as conc
+    from nnstreamer_tpu_torch.analysis.jit import CompileEventMonitor
+    pipe = pt.parse_launch(_analysis_line(ANALYSIS_BUFFERS))
+    logits = {}
+    captures = CompileEventMonitor().install() if monitored else None
+    locks = conc.LockMonitor()
+    warm = {}
+
+    def on_buffer(buf):
+        logits[buf.pts] = buf.chunks[0].host()
+        if len(logits) == ANALYSIS_WARMUP and captures is not None:
+            captures.reset()
+            warm["compiles"] = pipe["f"].fw.compile_count
+
+    pipe["out"].connect(on_buffer)
+    _reset_launches()
+    try:
+        pipe.start()
+        if monitored:
+            f = pipe["f"]
+            conc.instrument_object(f._overlap, locks)         # _cv
+            conc.instrument_object(f._overlap.window, locks)  # _cv
+            conc.instrument_object(f, locks)                  # _stats_lock
+            conc.instrument_object(f._breaker, locks)         # _lock
+            conc.instrument_counters(f.stats, locks)
+        pipe.wait_eos(600)
+        steady = {"captures": captures.count if monitored else 0,
+                  "compiles": (pipe["f"].fw.compile_count
+                               - warm.get("compiles", 0)) if monitored
+                  else 0}
+    finally:
+        pipe.stop()
+        if captures is not None:
+            captures.uninstall()
+    launches = _kernel_launches()
+    if len(logits) != ANALYSIS_BUFFERS:
+        sys.exit(f"chip_smoke: {len(logits)} of {ANALYSIS_BUFFERS} buffers "
+                 "arrived on phase 50's ViT line")
+    return logits, launches, locks, steady
+
+
+def phase_analysis(smi):
+    """Phase 50 (see the module doc): the three analyzer gates on this
+    machine, tools/torch_jit_stability.py on cuda:0, and the full-width
+    ViT-B/16 line under the runtime lock and capture monitors."""
+    from nnstreamer_tpu_torch.analysis.jit import check_against_static
+    from nnstreamer_tpu_torch.fleet import cache as compile_cache
+    root = os.path.dirname(os.path.abspath(__file__))
+    # (a) the gates run beside (b) and (c): they need no card
+    gates = {g[0]: subprocess.Popen(
+        [sys.executable, "-m", "nnstreamer_tpu_torch", g[0],
+         "nnstreamer_tpu_torch", *g[1:], "--json"], cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for g in ANALYSIS_GATES}
+    try:
+        # (b) the two-pass capture-stability run on cuda:0
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, os.path.join(root, "tools",
+                                          "torch_jit_stability.py"),
+             "--device", ANALYSIS_DEVICE, "--json"], cwd=root,
+            capture_output=True, text=True, timeout=ANALYSIS_TIMEOUT_S)
+        stab_s = time.perf_counter() - t0
+        try:
+            stab = json.loads(r.stdout.strip().splitlines()[-1])
+        except (IndexError, ValueError):
+            stab = None
+        if r.returncode != 0 or not stab or not stab["ok"] \
+                or stab["device"] != ANALYSIS_DEVICE:
+            sys.exit(f"chip_smoke: torch_jit_stability.py failed "
+                     f"({r.returncode}): {r.stdout[-2000:]}{r.stderr[-2000:]}")
+        pass2 = {row["label"]: (row["pass2_captures_at_open"],
+                                row["pass2_captures_on_frames"],
+                                row["pass2_compiles"])
+                 for row in stab["lines"]}
+        if any(on_frames or compiles
+               for _, on_frames, compiles in pass2.values()) or (
+                ANALYSIS_DEVICE == "cuda"
+                and not all(row["pass1_captures"] for row in stab["lines"])):
+            sys.exit(f"chip_smoke: torch_jit_stability.py pass 2 captured "
+                     f"on the frame path: {stab['lines']}")
+        log(f"analysis: torch_jit_stability.py on {ANALYSIS_DEVICE} in "
+            f"{stab_s:.1f} s: "
+            f"{stab['signatures']} signature(s), kinds "
+            f"{stab['observed_kinds']} within {stab['static_kinds']}; "
+            "pass 2 (captures at open, on frames, compiles): "
+            f"{pass2}; pass 1 captures: "
+            f"{ {row['label']: row['pass1_captures'] for row in stab['lines']} }")
+        # (c) the ViT line, plain, then monitored with a compile cache
+        plain, plain_launches, _, _ = _analysis_vit(False)
+        with tempfile.TemporaryDirectory() as cc_dir:
+            compile_cache.deactivate()
+            cc = compile_cache.install(cc_dir, export_env=False)
+            try:
+                got, launches, locks, steady = _analysis_vit(True)
+                observed = cc.kinds()
+            finally:
+                compile_cache.deactivate()
+        reports = {}
+        for name, proc in gates.items():
+            out, err = proc.communicate(timeout=ANALYSIS_TIMEOUT_S)
+            if proc.returncode != 0:
+                sys.exit(f"chip_smoke: {name} exited {proc.returncode}: "
+                         f"{out[-2000:]}{err[-2000:]}")
+            reports[name] = json.loads(out)
+    finally:
+        for proc in gates.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    race, flow, jit = (reports["racecheck"], reports["flowcheck"],
+                       reports["jitcheck"])
+    log(f"analysis: racecheck {len(race['findings'])} finding(s) "
+        f"({len(race['suppressed'])} suppressed) in {race['classes']} "
+        f"classes, {len(race['lock_order_edges'])} lock-order edges; "
+        f"flowcheck {len(flow['findings'])} finding(s), "
+        f"{flow['acquire_sites']} acquire sites, "
+        f"{len(flow['identities_checked'])} identities; jitcheck "
+        f"{len(jit['findings'])} finding(s) ({len(jit['suppressed'])} "
+        f"suppressed), {jit['hot_sites']} hot sites, "
+        f"{jit['compiled_bodies']} captured bodies, capture sites "
+        f"{jit['jit_site_kinds']}; all exit 0 on {sys.version.split()[0]}")
+    n = ANALYSIS_BUFFERS
+    if launches["attention"] != VIT_LAYERS * n or launches["normalize"] \
+            or plain_launches["attention"] != VIT_LAYERS * n:
+        sys.exit(f"chip_smoke: phase 50's ViT line launched {launches} "
+                 f"(plain run {plain_launches}), expected "
+                 f"{VIT_LAYERS * n} attention launches for {n} buffers")
+    static_edges = {tuple(e) for e in race["lock_order_edges"]}
+    cycles, missed = locks.check_against_static(static_edges)
+    if not locks.acquisitions or cycles or missed:
+        sys.exit(f"chip_smoke: phase 50's lock graph: cycles {cycles}, "
+                 f"edges the static graph missed {missed}, acquisitions "
+                 f"{locks.acquisitions}")
+    stability = check_against_static(jit["jit_site_kinds"], observed,
+                                     steady["compiles"], strict=False)
+    if steady["captures"] or not stability.ok or "torch-cuda" not in observed:
+        sys.exit(f"chip_smoke: phase 50's steady window captured "
+                 f"{steady['captures']} graph(s); {stability}")
+    if sorted(got) != sorted(plain) or not all(
+            np.array_equal(got[k], plain[k]) for k in plain):
+        sys.exit("chip_smoke: phase 50's monitored ViT logits differ from "
+                 "the unmonitored line's")
+    first = got[min(got)]
+    if first.shape != (VIT_BATCH, 1000) or not np.isfinite(first).all():
+        sys.exit(f"chip_smoke: phase 50's logits are {first.shape} or not "
+                 "finite")
+    log(f"analysis: ViT-B/16 batch {VIT_BATCH}, {n} buffers, in-flight 4: "
+        f"{launches['attention']} attention launches "
+        f"({VIT_LAYERS} x {n}); {steady['captures']} captures and "
+        f"{steady['compiles']} backend compiles after {ANALYSIS_WARMUP} "
+        f"warm-up buffers; lock graph {sorted(locks.edge_set())} acyclic, "
+        f"within the static graph; acquisitions {locks.acquisitions}; "
+        f"{stability}; logits bitwise equal to the unmonitored run; {smi}")
+    return {"vit": {"kernel_launches": launches, "buffers": n,
+                    "steady_captures": steady["captures"],
+                    "lock_edges": len(locks.edges),
+                    "stability_s": stab_s, "stability_pass2": pass2},
+            "vit_plain": {"kernel_launches": plain_launches, "buffers": n}}
+
+
 def main():
     smi = timed("device", phase_device)
     kind = torch.cuda.get_device_name(0)
@@ -7280,6 +7484,9 @@ def main():
     # phase 49: mesh mode on the card's one rank
     with tempfile.TemporaryDirectory() as tmp:
         multi["mesh"] = timed("mesh", phase_mesh, smi, tmp)
+    # phase 50: the analyzers and the runtime lock and capture monitors
+    multi["analysis"] = timed("analysis", phase_analysis, smi)
+    log(f"phase 50 (analysis): {PHASE_S['analysis']:.1f} s")
     if lines["train_vit"]["kernel_launches"]["normalize"]:
         sys.exit("chip_smoke: the normalize kernel ran on train_vit")
     for k in ("obs_vit", "fleet_vit_replicas"):
@@ -7303,7 +7510,7 @@ def main():
                          f"{row['kernel_launches']}")
     pt.parse_launch = parse
     log(f"queues: {queues['python']} Python queues on the lines of "
-        f"phases 1-49, {queues['native']} ring queues, all on the native "
+        f"phases 1-50, {queues['native']} ring queues, all on the native "
         "queue lines")
     pipelint = phase_pipelint(smi, list(dict.fromkeys(launched)))
     for k in ("clean", "retry", "skip", "restart"):
@@ -7363,7 +7570,7 @@ def main():
                     "codec_sizes": codec_sizes,
                     "pipelint": pipelint, "card": smi}))
     running = {pid: v for pid, v in _descendants().items() if v[0] != "Z"}
-    log(f"processes of this run still running after phase 49: "
+    log(f"processes of this run still running after phase 50: "
         f"{running or 'none'}")
     log(f"phase seconds: {PHASE_S}; "
         f"{time.perf_counter() - T_START:.1f} s since the script started")

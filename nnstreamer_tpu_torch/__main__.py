@@ -17,23 +17,35 @@ Static analysis (pipelint)::
     python -m nnstreamer_tpu_torch lint 'tensortestsrc ... ! fakesink'
     python -m nnstreamer_tpu_torch lint --json '<desc>'   # exit 0/1/2
 
+Concurrency analysis (racecheck)::
+
+    python -m nnstreamer_tpu_torch racecheck nnstreamer_tpu_torch/
+    python -m nnstreamer_tpu_torch racecheck --json -o build/racecheck.json
+
+Settlement / conservation analysis (flowcheck)::
+
+    python -m nnstreamer_tpu_torch flowcheck nnstreamer_tpu_torch/ \
+        --min-acquire-sites 10
+
+Capture/host-sync analysis (jitcheck)::
+
+    python -m nnstreamer_tpu_torch jitcheck nnstreamer_tpu_torch/ \
+        --min-hot-sites 20
+
+Each analyzer exits 0 clean, 1 on findings, 2 on a usage error.
+
 Fleet telemetry (scrapes obs metrics endpoints into one table)::
 
     python -m nnstreamer_tpu_torch top --targets localhost:9100,localhost:9101
     python -m nnstreamer_tpu_torch top --broker localhost:5000 --watch 2
 
 A standalone broker: ``--broker mqtt|discovery [--port N]``.
-
-The code analyzers ``racecheck``, ``flowcheck`` and ``jitcheck`` are not
-ported (``ROADMAP.md`` item 16): each says so and exits 2.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import sys
-
-NOT_PORTED = ("racecheck", "flowcheck", "jitcheck")
 
 
 def _inspect(name: str | None) -> int:
@@ -105,11 +117,15 @@ def main(argv=None) -> int:
     if argv and argv[0] == "lint":
         from .analysis.cli import main as lint_main
         return lint_main(argv[1:])
-    if argv and argv[0] in NOT_PORTED:
-        print(f"{argv[0]} is not ported to nnstreamer_tpu_torch "
-              "(ROADMAP.md item 16); run it from nnstreamer_tpu",
-              file=sys.stderr)
-        return 2
+    if argv and argv[0] == "racecheck":
+        from .analysis.concurrency.cli import main as racecheck_main
+        return racecheck_main(argv[1:])
+    if argv and argv[0] == "flowcheck":
+        from .analysis.flow.cli import main as flowcheck_main
+        return flowcheck_main(argv[1:])
+    if argv and argv[0] == "jitcheck":
+        from .analysis.jit.cli import main as jitcheck_main
+        return jitcheck_main(argv[1:])
     if argv and argv[0] == "top":
         from .obs.top import main as top_main
         return top_main(argv[1:])

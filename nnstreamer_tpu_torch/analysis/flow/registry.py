@@ -2,26 +2,32 @@
 
 A copy of ``nnstreamer_tpu/analysis/flow/registry.py``, which is
 framework neutral (the port imports nothing of the JAX package). The
-port carries the runtime half of flowcheck: these declarations and
-:mod:`.runtime`'s :func:`~.runtime.check_identities`, which the
-autoscaler, the router and the serve elements' settlement checks assert
-over live ``Counters`` snapshots. The static pass over the code
-(``model.py``, ``passes.py``, ``cli.py``) is not ported (``ROADMAP.md``
-item 16).
+static pass (:mod:`.model`, :mod:`.passes`) matches call sites against
+these specs, and :mod:`.runtime`'s :func:`~.runtime.check_identities`,
+which the autoscaler, the router and the serve elements' settlement
+checks assert over live ``Counters`` snapshots, evaluates the
+identities.
 
 Two kinds of declarations live here:
 
 * :class:`ResourceSpec` — a paired acquire/settle protocol (window
   slots, KV blocks, sockets...). Call sites are matched by method name
   *and* a receiver regex (``self.window.acquire`` is a slot acquire;
-  ``self._lock.acquire`` is not).
+  ``self._lock.acquire`` is not). ``@flow.acquires/@flow.settles``
+  decorations found during the scan union extra method names into the
+  matching spec, so new code self-registers without editing this file.
 
 * :class:`Identity` — a module's declared conservation identity over
   its ``Counters`` (e.g. the serve identity
   ``requests == completed + shed_deadline + cancelled + shed_failed +
-  pending``). Each term names the port file that produces it; the
-  runtime validator (:mod:`.runtime`) asserts the arithmetic over live
-  snapshots.
+  pending``). Each term names the port file that produces it. The
+  static pass proves every non-derived term is actually *produced*
+  (``inc``/``add``) in its declaring file; the runtime validator
+  (:mod:`.runtime`) asserts the arithmetic over live snapshots.
+
+Fixture modules can declare their own identity with a module-level
+string constant ``FLOW_IDENTITY = "lhs == a + b"`` — every name is then
+required to be produced in that same module.
 """
 from __future__ import annotations
 

@@ -79,7 +79,7 @@ class ImageSegment(DecoderPlugin):
             arr = arrays[0]
             colors = palettes.get(arr.device)
             if colors is None:
-                colors = palettes[arr.device] = torch.from_numpy(
+                colors = palettes[arr.device] = torch.from_numpy(  # jitcheck: ok(capture_in_place runs fn eagerly before capture_begin, so the palette is copied there; the captured run only reads it)
                     _COLORS).to(arr.device)
             if heatmap:
                 classes = torch.argmax(arr, dim=-1)

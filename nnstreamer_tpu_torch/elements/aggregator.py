@@ -48,8 +48,7 @@ class TensorAggregator(TransformElement):
 
     def restore_state(self, state, snap_dir):
         from ..checkpoint.state import load_buffers
-        # restore runs before start(): no chain thread exists yet
-        self._window = collections.deque(load_buffers(state["window"]))
+        self._window = collections.deque(load_buffers(state["window"]))  # racecheck: ok(restore runs before start(): no chain thread exists yet)
 
     def _np_axis(self, ndim: int) -> int:
         ref_dim = int(self.frames_dim)

@@ -139,7 +139,8 @@ class TensorDelta(TransformElement):
             ref = self._ref
             if not isinstance(ref, torch.Tensor):
                 ref = torch.from_numpy(ref).to(cur.device)
-            err = tile_error(cur, ref.to(cur.device), tile).cpu().numpy()
+            # the (gh, gw) energies cross the host boundary
+            err = Chunk(tile_error(cur, ref.to(cur.device), tile)).host()
             self._ref = cur
             return err
         cur = _collapse(c.host())

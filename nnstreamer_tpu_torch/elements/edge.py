@@ -659,9 +659,7 @@ class EdgeSrc(SrcElement):
                 self._sess.reset(self._restored_last)
             else:
                 self._sess.reset(int(meta.get("base", 0)))
-            # written by restore_state before start(); afterwards only
-            # this source-loop resume path touches it
-            self._restored_last = None
+            self._restored_last = None  # racecheck: ok(written by restore_state before start(); afterwards only this source-loop resume path touches it)
         elif not meta.get("resumed", False):
             # the publisher no longer knows us (restarted: ring and seq
             # space gone). The in-flight gap is unresolvable — declare

@@ -25,7 +25,7 @@ from ..pipeline.element import Element, TransformElement
 from ..pipeline.events import FlushEvent, QosEvent, SegmentEvent
 from ..pipeline.pad import Pad, PadDirection
 from ..pipeline.registry import register_element
-from ..tensors.buffer import Buffer
+from ..tensors.buffer import Buffer, Chunk
 from ..tensors.caps import Caps
 from ..tensors.info import TensorsConfig, TensorsInfo
 
@@ -144,10 +144,9 @@ class TensorIf(Element):
             ref_idx = [int(i) for i in idx_str.split(":")] if idx_str else []
             ref_idx += [0] * (arr.ndim - len(ref_idx))
             np_idx = tuple(reversed(ref_idx[:arr.ndim]))
-            # on the card: a copy of the one element compared
-            value = arr[np_idx]
-            return float(value.item() if isinstance(value, torch.Tensor)
-                         else value)
+            # on the card: the one element compared crosses the host
+            # boundary, not the whole tensor
+            return float(Chunk(arr[np_idx]).host())
         if cv == "TENSOR_AVERAGE_VALUE":
             host = buf.chunks[int(opt or 0)].host()
             if isinstance(host, torch.Tensor):  # bfloat16
@@ -225,11 +224,10 @@ class TensorRate(TransformElement):
 
     def restore_state(self, state, snap_dir):
         from ..checkpoint.state import load_buffer
-        # restore runs before start(): no chain thread exists yet
-        self._next_ts = state["next_ts"]
-        self._last_in_pts = state["last_in_pts"]
-        self._throttling = bool(state["throttling"])
-        self._prev = (load_buffer(state["prev"])
+        self._next_ts = state["next_ts"]  # racecheck: ok(restore runs before start(): no chain thread exists yet)
+        self._last_in_pts = state["last_in_pts"]  # racecheck: ok(restore runs before start())
+        self._throttling = bool(state["throttling"])  # racecheck: ok(restore runs before start())
+        self._prev = (load_buffer(state["prev"])  # racecheck: ok(restore runs before start())
                       if state.get("prev") is not None else None)
 
     def handle_event(self, pad, event) -> None:

@@ -520,9 +520,12 @@ class TensorQueryClient(Element):
         # reconnector interleave.
         self._pending: "collections.deque" = collections.deque()
         self._plock = threading.Lock()
-        # signalled whenever a request settles; on_eos waits on it until
-        # nothing is owed (``_pushing``: results settled but still on
-        # their way downstream, which EOS must not overtake)
+        # guards _pending and _pushing over _plock; the code takes the
+        # lock through this one name, so racecheck's lockset sees every
+        # mutation of _pending under a common lock. Signalled whenever a
+        # request settles: on_eos waits on it until nothing is owed
+        # (``_pushing``: results settled but still on their way
+        # downstream, which EOS must not overtake)
         self._settled = threading.Condition(self._plock)
         self._pushing = 0
         self._conn_gen = 0
@@ -656,7 +659,7 @@ class TensorQueryClient(Element):
             # FIFO request->result pairing; the generation mark skips
             # entries the streaming thread already sent on THIS connection
             with self._send_lock:
-                with self._plock:
+                with self._settled:
                     replay = list(self._pending)
                 for entry in replay:
                     if entry[2] == gen:
@@ -722,7 +725,7 @@ class TensorQueryClient(Element):
         # the entry holds the BUFFER: it is packed at send time, under
         # the config of the connection it actually goes out on
         entry = [buf, seq, -1]  # -1 = not yet sent on any connection
-        with self._plock:
+        with self._settled:
             self._pending.append(entry)
         for attempt in (1, 2):
             sock = None
@@ -784,7 +787,7 @@ class TensorQueryClient(Element):
         ``session_declared_lost`` (plus a structured bus warning), so
         the accounting identity still balances — never a silent
         swallow between error detection and re-dial."""
-        with self._plock:
+        with self._settled:
             try:
                 self._pending.remove(entry)
             except ValueError:
@@ -807,7 +810,7 @@ class TensorQueryClient(Element):
         return 1
 
     def session_info(self) -> Dict:
-        with self._plock:
+        with self._settled:
             n = len(self._pending)
         return {"in_flight": n} if n else {}
 
@@ -894,7 +897,7 @@ class TensorQueryClient(Element):
                 logger.warning("%s: server connection closed", self.name)
                 # unblock senders so the next frame triggers a reconnect
                 self._handle_disconnect(sock)
-                with self._plock:
+                with self._settled:
                     owed = len(self._pending)
                 if owed:
                     # answers are still owed: reconnect proactively so the

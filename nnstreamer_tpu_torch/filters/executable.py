@@ -62,6 +62,29 @@ _capture_lock = threading.Lock()
 # device index -> the side stream every capture on that device runs on;
 # made at the first capture, read and written under _capture_lock
 _capture_streams: Dict[int, torch.cuda.Stream] = {}
+# told the kind of every capture that completes (jitcheck's
+# CompileEventMonitor counts them); read under _capture_lock
+_capture_listeners: List[Callable[[str], None]] = []
+
+
+def add_capture_listener(fn: Callable[[str], None]) -> None:
+    """Call ``fn(event)`` after every CUDA-graph capture that completes:
+    ``"graph_capture"`` for a graph of :func:`capture_in_place`,
+    ``"pool_keeper_capture"`` for a :class:`GraphPool`'s keeper."""
+    with _capture_lock:
+        _capture_listeners.append(fn)
+
+
+def remove_capture_listener(fn: Callable[[str], None]) -> None:
+    with _capture_lock:
+        if fn in _capture_listeners:
+            _capture_listeners.remove(fn)
+
+
+def _captured(event: str) -> None:
+    """Tell the listeners; the caller holds ``_capture_lock``."""
+    for fn in list(_capture_listeners):
+        fn(event)
 
 
 def _capture_stream(device: torch.device) -> torch.cuda.Stream:
@@ -128,6 +151,7 @@ class GraphPool:
                     keeper.capture_end()
                 current.wait_stream(side)
                 self._handle, self._keeper = handle, keeper
+                _captured("pool_keeper_capture")
             return self._handle
 
     def release(self) -> None:
@@ -163,6 +187,7 @@ def capture_in_place(fn: Callable[[], None], device: torch.device,
                     pass  # the capture is void; fn's error says why
                 raise
             graph.capture_end()
+        _captured("graph_capture")
     current.wait_stream(side)
     return graph
 
@@ -217,7 +242,7 @@ class Executable:
             out = _as_list(self.fn(list(self.static_in)))
             # the eager run's outputs are cloned before the capture
             # begins: fn may hand back views of the static inputs
-            runs.append(out if runs else [o.clone() for o in out])
+            runs.append(out if runs else [o.clone() for o in out])  # jitcheck: ok(collects the eager warm-up's outputs and the capture's static outputs, once each; a replay writes into those same static tensors)
 
         with torch.inference_mode(), _tally.recording() as tally:
             graph = capture_in_place(run, dev, self.pool)

@@ -85,6 +85,8 @@ _FOLLOWER: Optional["_Follower"] = None
 # rank 0 gives up on a follower's answer this long after its own part
 # of a command raised (the follower is then stuck in a collective)
 _ACK_AFTER_ERROR_S = 10.0
+# close() waits this long for a follower it killed (under the world lock)
+_KILL_WAIT_S = 5.0
 # a collective that waits longer than this fails (gloo/NCCL timeout)
 _COLLECTIVE_TIMEOUT = timedelta(seconds=180)
 
@@ -333,7 +335,10 @@ class World:
         self._procs: List[subprocess.Popen] = []
         self._conns: List[Any] = []
         self._acks: "queue.Queue" = queue.Queue()
+        # why the world broke; written by _watch and by the command
+        # thread, so only through _break
         self._broken: Optional[str] = None
+        self._broken_lock = threading.Lock()
         self._closing = False
         # set while no command runs on rank 0
         self._idle = threading.Event()
@@ -401,14 +406,19 @@ class World:
                 except (EOFError, OSError):
                     conns.remove(conn)
                     if self._procs and not self._closing:
-                        self._broken = self._broken or \
-                            "a follower left the mesh world"
+                        self._break("a follower left the mesh world")
                         self._acks.put(("lost", -1, -1, None))
                     continue
                 self._acks.put(msg)
                 if msg[0] == "error" and not self._idle.wait(2.0):
-                    self._broken = self._broken or msg[3]
+                    self._break(msg[3])
                     self._kill()
+
+    def _break(self, reason: str) -> None:
+        """Mark the world broken; the first reason given stays."""
+        with self._broken_lock:
+            if self._broken is None:
+                self._broken = reason
 
     def _kill(self) -> None:
         for p in self._procs:
@@ -433,7 +443,13 @@ class World:
                     p.wait(timeout=max(0.1, deadline - time.monotonic()))
                 except subprocess.TimeoutExpired:
                     p.kill()
-                    p.wait()
+                    try:
+                        # bounded: a follower stuck in the driver may
+                        # not die at once, and the world lock is held
+                        p.wait(timeout=_KILL_WAIT_S)
+                    except subprocess.TimeoutExpired:
+                        logger.warning("mesh follower %d did not exit "
+                                       "after SIGKILL", p.pid)
             for conn in self._conns:
                 conn.close()
             self._procs, self._conns = [], []
@@ -522,8 +538,8 @@ class World:
                     max(0.0, deadline - time.monotonic())
                 msg = self._acks.get(timeout=timeout)
             except queue.Empty:
-                self._broken = (f"followers did not answer command "
-                                f"{self._seq} after rank 0 raised {err!r}")
+                self._break(f"followers did not answer command "
+                            f"{self._seq} after rank 0 raised {err!r}")
                 break
             if msg[0] == "lost":
                 break
@@ -540,8 +556,7 @@ class World:
         if err is not None and len(errors) == n and self._broken is None:
             return
         if errors or got < n:
-            self._broken = self._broken or "; ".join(errors) or \
-                "a follower did not answer"
+            self._break("; ".join(errors) or "a follower did not answer")
             self._kill()
             raise RuntimeError(
                 f"the mesh world broke in command {self._seq}: "

@@ -90,6 +90,10 @@ class ServeScheduler:
         self._mesh = None          # built lazily on the first place()
         self._mesh_failed = False  # too few devices: degrade once
         self._mesh_retained = False
+        # serializes building the mesh (the serving thread's place())
+        # against release_mesh() (the source's stop), so every
+        # world.retain() meets its world.release()
+        self._mesh_lock = threading.Lock()
         self.deadline_s = max(0.0, float(deadline_s))
         self._invoke_fn = invoke_fn
         self._thread: Optional[threading.Thread] = None
@@ -247,30 +251,33 @@ class ServeScheduler:
         return placed
 
     def _mesh_for_place(self):
-        if not self.mesh_spec or self._mesh_failed:
+        if not self.mesh_spec or self._mesh_failed \
+                or self._mesh is not None:
             return self._mesh
-        if self._mesh is None:
-            try:
-                from ..parallel import world
-                from ..parallel.mesh import mesh_from_spec
-                mesh = mesh_from_spec(self.mesh_spec)
-                world.retain()
-                self._mesh, self._mesh_retained = mesh, True
-            except Exception as exc:  # noqa: BLE001 — degrade, keep serving
-                self._mesh_failed = True
-                logger.warning(
-                    "%s: mesh %s unavailable (%s); buckets stay snapped "
-                    "but batches are not mesh-placed", self.name,
-                    self.mesh_spec, exc)
-        return self._mesh
+        with self._mesh_lock:
+            if self._mesh is None and not self._mesh_failed:
+                try:
+                    from ..parallel import world
+                    from ..parallel.mesh import mesh_from_spec
+                    mesh = mesh_from_spec(self.mesh_spec)
+                    world.retain()
+                    self._mesh, self._mesh_retained = mesh, True
+                except Exception as exc:  # noqa: BLE001 — degrade, keep serving
+                    self._mesh_failed = True
+                    logger.warning(
+                        "%s: mesh %s unavailable (%s); buckets stay "
+                        "snapped but batches are not mesh-placed",
+                        self.name, self.mesh_spec, exc)
+            return self._mesh
 
     def release_mesh(self) -> None:
         """Let go of the mesh world (the serve source's stop)."""
-        if self._mesh_retained:
-            from ..parallel import world
-            self._mesh_retained = False
-            self._mesh = None
-            world.release()
+        with self._mesh_lock:
+            if self._mesh_retained:
+                from ..parallel import world
+                self._mesh_retained = False
+                self._mesh = None
+                world.release()
 
     def complete(self, batch: List[Request], outputs: Sequence[Any]) -> None:
         """Demux: row ``i`` of every output tensor goes back to the

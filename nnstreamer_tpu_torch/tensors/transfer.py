@@ -341,7 +341,7 @@ class _Downloader(_Coalescer):
         for stream in used.values():
             copied = torch.cuda.Event()
             copied.record(stream)
-            copied.synchronize()
+            copied.synchronize()  # jitcheck: ok(the fetch service's own thread: this wait is the D2H boundary that fetch_host sanctions; a frame waits only on its ticket)
         return [_host_value(s) for s in staged]
 
 

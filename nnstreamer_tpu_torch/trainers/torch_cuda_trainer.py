@@ -297,7 +297,7 @@ class TorchCudaTrainer(TrainerFramework):
             restore_params(os.path.join(snap_dir, "params"), self.module)
             if state.get("opt_state") is not None:
                 self.optimizer.load_state_dict(state["opt_state"])
-        self._epoch_done = int(state.get("epoch", 0))
+        self._epoch_done = int(state.get("epoch", 0))  # racecheck: ok(resume_from runs in the trainer element's start() before fw.start(): the training worker does not exist yet)
         st = state.get("status") or {}
         with self._status_lock:
             self._status = TrainerStatus(**st) if st else TrainerStatus(

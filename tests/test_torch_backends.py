@@ -498,9 +498,11 @@ def test_new_modules_import_no_jax():
     device probe, the fleet, the CLI, the wire codecs, the
     imported-model importers and backends, the image codecs and the
     media, gRPC and IIO elements, the direct_video and python3
-    decoders, and mesh mode (``parallel/``, the trainer's mesh commands)
-    (and chip_smoke.py, tools/torch_model_files.py and
-    tools/torch_image_files.py, read as text) import nothing of JAX or
+    decoders, mesh mode (``parallel/``, the trainer's mesh commands) and
+    the code analyzers (racecheck, flowcheck's static half, jitcheck)
+    (and chip_smoke.py, tools/torch_model_files.py,
+    tools/torch_image_files.py and tools/torch_jit_stability.py, read as
+    text) import nothing of JAX or
     of the JAX package (ml_dtypes included), and nothing of PIL; the
     modules are imported in a fresh interpreter."""
     code = ("import sys; import nnstreamer_tpu_torch.filters.custom, "
@@ -573,7 +575,14 @@ def test_new_modules_import_no_jax():
             "nnstreamer_tpu_torch.parallel.ulysses, "
             "nnstreamer_tpu_torch.parallel.train, "
             "nnstreamer_tpu_torch.parallel.dryrun, "
-            "nnstreamer_tpu_torch.trainers.mesh; "
+            "nnstreamer_tpu_torch.trainers.mesh, "
+            "nnstreamer_tpu_torch.analysis.concurrency, "
+            "nnstreamer_tpu_torch.analysis.concurrency.cli, "
+            "nnstreamer_tpu_torch.analysis.flow.model, "
+            "nnstreamer_tpu_torch.analysis.flow.passes, "
+            "nnstreamer_tpu_torch.analysis.flow.cli, "
+            "nnstreamer_tpu_torch.analysis.jit, "
+            "nnstreamer_tpu_torch.analysis.jit.cli; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes', "
             "'nnstreamer_tpu', 'PIL')]; assert not bad, bad")
@@ -583,7 +592,8 @@ def test_new_modules_import_no_jax():
                          r"nnstreamer_tpu|PIL)(\.|\s|$)", re.M)
     sources = [os.path.join(ROOT, "chip_smoke.py"),
                os.path.join(ROOT, "tools", "torch_model_files.py"),
-               os.path.join(ROOT, "tools", "torch_image_files.py")] + [
+               os.path.join(ROOT, "tools", "torch_image_files.py"),
+               os.path.join(ROOT, "tools", "torch_jit_stability.py")] + [
         os.path.join(d, f) for d, _, files in os.walk(
             os.path.join(ROOT, "nnstreamer_tpu_torch"))
         for f in files if f.endswith(".py")]
