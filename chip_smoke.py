@@ -22,11 +22,14 @@ line:
               serve bucket of 8, batch 64) and ragged, D=20/72 and
               storage-offset-1 ones, with the tolerance stated beside
               each; kernel, plain and library times from CUDA events, and
-              for bf16 the kernel's device time (torch.profiler).
+              for bf16 the kernel's device time (torch.profiler: the
+              total over the calls it saw, none where it lost a launch;
+              a device time under the bound fails the phase).
 3b. normalize — the normalize kernel against normalize_plain on the card,
               bitwise, at frame, batch, ragged and unaligned shapes in
               bf16/f16/f32; kernel and plain times (CUDA events), the
-              kernel's device time (torch.profiler) and the bound.
+              kernel's device time (torch.profiler, as in phase 3) and
+              the bound; a device time under the bound fails the phase.
 4. pipeline — the ViT-B/16 labeling line at full published width
               (patch 16, d_model 768, 12 layers, 12 heads, 224x224, 1000
               classes; seeded random weights) through parse_launch:
@@ -414,19 +417,27 @@ Native queue — the headline line with queue backend=native against
               picks the same backend for each extension. Neither hand
               kernel runs.
 48. media   — tools/torch_image_files.py writes 16 seeded 320x240 RGB
-              PNGs and 16 baseline 4:2:0 JPEGs; multifilesrc ! pngdec !
+              PNGs, 16 baseline 4:2:0 JPEGs and the same 16 as
+              progressive JPEGs (libjpeg's simple progression);
+              multifilesrc ! pngdec !
               videoscale width=224 height=224 ! videoconvert format=RGB !
               tensor_converter ! tensor_filter framework=torch-cuda
               model="zoo://vit?attn=pallas" ! tensor_decoder
               mode=image_labeling (a tee keeps the logits), the same with
-              jpegdec: ViT-B/16 at full width, 12 attention launches a
+              jpegdec over each JPEG series: ViT-B/16 at full width, 12
+              attention launches a
               frame, fps and p50, the host ms a frame of the decoder and
               of videoscale from the tracer (each element's proctime less
               the next one's: a chain call holds every element after it),
               the logits of the first frames against the same line with
               accelerator=true:cpu at phase 4's tolerance; each JPEG's
               decode against the SHA-256 of PIL's decode of the same file
-              (constants below; the card's machine has no PIL). The
+              (constants below; the card's machine has no PIL), and so
+              one 320x240 file of each other mode jpegdec decodes (CMYK
+              with and without the Adobe marker, YCCK, Adobe RGB, h1v2,
+              h4v1, a progressive file cut after three scans, which
+              block smoothing fills in, lossless RGB, arithmetic-coded
+              sequential and progressive). The
               reference's TFLite golden line, filesrc ! pngdec ! videoscale
               ! tensor_converter ! tensor_filter framework=tensorflow-lite
               (phase 47's u8 MobileNet-v2) ! tensor_decoder
@@ -729,23 +740,60 @@ def _trace_counts(parts, names):
     return out
 
 
-def device_ms(fn, kernel, iters=20):
+PROFILE_HEAD_KERNELS = 16
+
+
+def device_mean_ms(events, iters, launches_per_call):
+    """Mean device ms of one call from torch.profiler's averaged kernel
+    events (each with ``count`` and ``self_device_time_total`` in us)
+    over ``iters`` calls of ``launches_per_call`` launches each: the
+    total over the calls the profiler saw. None, with the counts
+    logged, when it did not see every launch: a trace that lost events
+    would read low."""
+    seen = sum(e.count for e in events)
+    if seen != iters * launches_per_call:
+        log(f"device time: the profiler kept {seen} kernel events of "
+            f"{iters * launches_per_call} ({iters} calls x "
+            f"{launches_per_call} launches); no device time")
+        return None
+    calls = seen // launches_per_call
+    return sum(e.self_device_time_total for e in events) / 1e3 / calls
+
+
+def check_device_bound(row, what):
+    """A device time under the row's bound is not a possible time: the
+    phase fails with the numbers."""
+    if row.get("device_ms") is not None \
+            and row["device_ms"] < row["bound_ms"]:
+        sys.exit(f"chip_smoke: {what}: device time {row['device_ms']} ms "
+                 f"is under the {row['bound_ms']} ms {row['bound_by']} "
+                 "bound")
+
+
+def device_ms(fn, kernel, iters=20, launches_per_call=1):
     """Mean device time (ms) of the kernels named ``kernel`` in one call,
-    from torch.profiler's CUDA trace over ``iters`` calls; None if the
-    profiler records none. Event times of back-to-back calls measure the
-    host's enqueue rate where a launch is shorter than its enqueue."""
+    from torch.profiler's CUDA trace over ``iters`` calls (see
+    device_mean_ms). Event times of back-to-back calls measure the
+    host's enqueue rate where a launch is shorter than its enqueue.
+
+    Once phase 32's traces have run, a session's trace lacks its first
+    kernels on an H100 (17 of 20 attention kernels kept in the whole
+    script; PERF.md section 6): PROFILE_HEAD_KERNELS throwaway kernels
+    of another name open each session."""
     from torch.profiler import profile
     fn()
+    pad = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=_profiled()) as prof:
+        for _ in range(PROFILE_HEAD_KERNELS):
+            pad.add_(1)
+        torch.cuda.synchronize()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
     found = [e for e in prof.key_averages() if kernel in e.key and
              e.device_type == torch.autograd.DeviceType.CUDA]
-    if not found:
-        return None
-    return sum(e.self_device_time_total for e in found) / 1e3 / iters
+    return device_mean_ms(found, iters, launches_per_call)
 
 
 def attention_bound(b, s, h, d, itemsize):
@@ -814,6 +862,7 @@ def phase_kernels():
                 lambda: F.scaled_dot_product_attention(bq, bk, bv))
             row["bound_ms"], row["bound_by"] = attention_bound(
                 *shape, q.element_size())
+            check_device_bound(row, f"attention {shape}")
         log(f"kernel attention {row} {'ok' if ok else 'MISMATCH'}")
         if not ok:
             sys.exit(f"chip_smoke: attention kernel disagrees with "
@@ -1003,6 +1052,7 @@ def phase_normalize():
         row["plain_ms"] = time_ms(lambda: N.normalize_plain(x))
         row["bound_ms"], row["bound_by"] = normalize_bound(x.numel(), 2)
         row["library_ms"] = None
+        check_device_bound(row, f"normalize {shape}")
         log(f"kernel normalize {row}")
         rows.append(row)
     return rows, worst
@@ -1556,10 +1606,12 @@ def phase_graphs():
                                     warmup=2)}
         if "vit" in uri:
             row["replay_attention_device_ms"] = device_ms(
-                lambda: fw.invoke([x]), "attention_fwd_mma_kernel", iters=5)
+                lambda: fw.invoke([x]), "attention_fwd_mma_kernel", iters=5,
+                launches_per_call=VIT_LAYERS)
             if row["replay_attention_device_ms"] is None:
-                sys.exit("chip_smoke: attention_fwd_mma_kernel is not in a "
-                         "profiled replay's device trace")
+                sys.exit("chip_smoke: a profiled replay's device trace "
+                         f"lacks some of its {VIT_LAYERS} "
+                         "attention_fwd_mma_kernel launches a replay")
             if launches != 2 * VIT_LAYERS:
                 sys.exit(f"chip_smoke: {launches} attention launches for "
                          f"one eager frame and one replay, expected "
@@ -6003,9 +6055,19 @@ def phase_fleet_vit(smi, vit_local, tmp):
         track()
         states = auto.replicas()
         versions = sorted(auto.handle(i).version for i in states)
-        loads = sorted(v["load"].get("version", "")
-                       for v in rt.router_report().values()
-                       if v["state"] == "healthy")
+
+        def router_versions():
+            return sorted(v["load"].get("version", "")
+                          for v in rt.router_report().values()
+                          if v["state"] == "healthy")
+
+        # a link reads "suspect" while one of its 50 ms PINGs is in
+        # flight: poll the router's view as phase 37 does
+        deadline = time.monotonic() + 10.0
+        loads = router_versions()
+        while loads != ["v2", "v2"] and time.monotonic() < deadline:
+            time.sleep(0.05)
+            loads = router_versions()
         pts = [p for p, _ in arrived]
         once = sorted(pts) == sorted(set(pts))
         worst_c = max(float(np.abs(g - vit_local[p % len(vit_local)]).max())
@@ -6488,6 +6550,67 @@ MEDIA_JPEG_SHA256 = (
     "574e91ad7d1eb9027934608d563f1cae21f488f5475faa72fb0f393590b89f10")
 
 
+# SHA-256 of PIL's decode of each progressive JPEG of the same call with
+# progressive=True (libjpeg's simple progression, 10 scans). Its last
+# scans bring every coefficient to full precision, so these files hold
+# the baseline files' quantized coefficients and PIL decodes them to the
+# same bytes; tests/test_torch_media.py recomputes them with PIL
+MEDIA_JPEG_PROGRESSIVE_SHA256 = MEDIA_JPEG_SHA256
+# one 320x240 file for each other JPEG mode the port decodes
+# (media_mode_files), and the SHA-256 of PIL's decode of it (CMYK with
+# and without the marker are the same file but for the marker: Adobe
+# transform 0 is what libjpeg assumes without one)
+MEDIA_JPEG_MODE_SHA256 = {
+    "cmyk_adobe":
+        "7d18ae81252b747681d0eb808724327b479cd13051b46ea82072a7f876f13832",
+    "cmyk_no_marker":
+        "7d18ae81252b747681d0eb808724327b479cd13051b46ea82072a7f876f13832",
+    "ycck":
+        "2a6ce3bfe40b318965d9a8822db03b6ad02d777a023e4f13a80a29c2acab0363",
+    "adobe_rgb":
+        "b8143cd1da65bcdffae37f7b290db6d50a695ddb483a54256be5e047296fb122",
+    "h1v2":
+        "a8c069cc2c133b71c59f54e3460d55e610dd045f9ca2635ecc29af8539aaf81d",
+    "h4v1":
+        "d0000a1814eb708536e8c9fff7d362b2d329a202e1c1fd2df08039cd28a27be9",
+    "progressive_cut3":
+        "62effa6c2ef194cc0c13c05f86e7d15ce52ba66a620574499626ee29caf16160",
+    # lossless, the RGB planes exactly: the digest of the source pixels
+    "lossless":
+        "69d35e7f73a7f47a6fd20523ee2142092da81622c530a3a83545cd3f7c6dfd64",
+    # the same coefficients, sequential or progressive: the same pixels
+    "arithmetic":
+        "f19a70cec43ce9f040f6f23b912d0a1e0ee35ab3e6dfc1a932fec49fd7e630e1",
+    "arithmetic_progressive":
+        "f19a70cec43ce9f040f6f23b912d0a1e0ee35ab3e6dfc1a932fec49fd7e630e1"}
+
+
+def media_mode_files(imf):
+    """{mode: bytes}: one MEDIA_WIDTH x MEDIA_HEIGHT file from
+    tools/torch_image_files.py for each JPEG mode beside baseline and
+    progressive YCbCr, at quality MEDIA_JPEG_QUALITY: CMYK with and
+    without the Adobe marker, YCCK, Adobe RGB, h1v2 and h4v1 luma, a
+    progressive file cut after its third scan (block smoothing), a
+    lossless RGB file (predictor 7) and arithmetic-coded sequential and
+    progressive files."""
+    h, w, q = MEDIA_HEIGHT, MEDIA_WIDTH, MEDIA_JPEG_QUALITY
+    rgb = imf.smooth_image(MEDIA_SEED + 100, h, w).astype(np.uint8)
+    cmyk = imf.smooth_image(MEDIA_SEED + 101, h, w, 4).astype(np.uint8)
+    return {
+        "cmyk_adobe": imf.jpeg_bytes(cmyk, q),
+        "cmyk_no_marker": imf.jpeg_bytes(cmyk, q, adobe=None),
+        "ycck": imf.jpeg_bytes(cmyk, q, color="ycck"),
+        "adobe_rgb": imf.jpeg_bytes(rgb, q, color="rgb"),
+        "h1v2": imf.jpeg_bytes(rgb, q, "440"),
+        "h4v1": imf.jpeg_bytes(rgb, q, "411"),
+        "progressive_cut3": imf.jpeg_prefix(
+            imf.jpeg_bytes(rgb, q, progressive=True), 3),
+        "lossless": imf.jpeg_bytes(rgb, color="rgb", lossless=(7, 0)),
+        "arithmetic": imf.jpeg_bytes(rgb, q, arithmetic=True),
+        "arithmetic_progressive": imf.jpeg_bytes(rgb, q, progressive=True,
+                                                 arithmetic=True)}
+
+
 def _image_files():
     """tools/torch_image_files.py, loaded by path (it imports neither
     package and is not part of one)."""
@@ -6575,21 +6698,47 @@ def _sink_arrays(line, sink, timeout=600):
     return [np.asarray(b.chunks[0].host()) for b in pipe[sink].buffers]
 
 
-def _media_jpeg_digests(pattern):
-    """The port's jpegdec on the card's machine against PIL's digests;
-    the host ms a frame of the decode alone."""
+def _media_jpeg_digests(pattern, want, name):
+    """The port's jpegdec on the card's machine against PIL's digests
+    ``want``; the host ms a frame of the decode alone."""
     import hashlib
     t0 = time.perf_counter()
     frames = _sink_arrays(f"multifilesrc location={pattern} ! jpegdec "
                     "! appsink name=out", "out")
     ms = (time.perf_counter() - t0) * 1e3 / max(len(frames), 1)
     got = tuple(hashlib.sha256(f.tobytes()).hexdigest() for f in frames)
-    if got != MEDIA_JPEG_SHA256:
-        bad = [i for i, (g, w) in enumerate(zip(got, MEDIA_JPEG_SHA256))
-               if g != w]
-        sys.exit(f"chip_smoke: media: {len(got)} JPEG decodes, frames {bad} "
-                 "differ from PIL's digests")
+    if got != want:
+        bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+        sys.exit(f"chip_smoke: media: {len(got)} {name} JPEG decodes, "
+                 f"frames {bad} differ from PIL's digests")
     return ms
+
+
+def _media_jpeg_modes(tmp, smi):
+    """Each file of media_mode_files through filesrc ! jpegdec on the
+    card's machine against the SHA-256 of PIL's decode; a mismatch
+    names the mode."""
+    import hashlib
+    imf = _image_files()
+    row = {}
+    for mode, data in media_mode_files(imf).items():
+        path = os.path.join(tmp, f"mode_{mode}.jpg")
+        with open(path, "wb") as f:
+            f.write(data)
+        t0 = time.perf_counter()
+        frames = _sink_arrays(f"filesrc location={path} ! jpegdec "
+                              "! appsink name=out", "out")
+        ms = (time.perf_counter() - t0) * 1e3
+        got = [hashlib.sha256(f.tobytes()).hexdigest() for f in frames]
+        if got != [MEDIA_JPEG_MODE_SHA256[mode]]:
+            sys.exit(f"chip_smoke: media: the {mode} JPEG decodes to "
+                     f"{got}, not PIL's {MEDIA_JPEG_MODE_SHA256[mode]}")
+        row[mode] = {"bytes": len(data), "ms": ms}
+    times = ", ".join(f"{k} {v['ms']:.1f}" for k, v in row.items())
+    log(f"media jpeg modes: {sorted(row)} each equal PIL's SHA-256 digest "
+        f"({MEDIA_WIDTH}x{MEDIA_HEIGHT}, q{MEDIA_JPEG_QUALITY}); filesrc ! "
+        f"jpegdec ! appsink host ms: {times}; {smi}")
+    return row
 
 
 def _media_tflite(u8_tflite, png, smi):
@@ -6775,6 +6924,7 @@ def phase_media(smi, tmp):
     imf = _image_files()
     mf = _model_files()
     pdir, jdir = os.path.join(tmp, "png"), os.path.join(tmp, "jpeg")
+    prdir = os.path.join(tmp, "progressive")
     t0 = time.perf_counter()
     pngs = imf.write_png_series(pdir, MEDIA_FRAMES, MEDIA_WIDTH,
                                 MEDIA_HEIGHT, MEDIA_SEED)
@@ -6782,15 +6932,34 @@ def phase_media(smi, tmp):
                           MEDIA_SEED, MEDIA_JPEG_QUALITY, "420")
     log(f"media: wrote {MEDIA_FRAMES} PNGs and {MEDIA_FRAMES} JPEGs of "
         f"{MEDIA_WIDTH}x{MEDIA_HEIGHT} in {time.perf_counter() - t0:.2f} s")
-    jpeg_ms = _media_jpeg_digests(os.path.join(jdir, "frame.%03d.jpg"))
+    t0 = time.perf_counter()
+    imf.write_jpeg_series(prdir, MEDIA_FRAMES, MEDIA_WIDTH, MEDIA_HEIGHT,
+                          MEDIA_SEED, MEDIA_JPEG_QUALITY, "420",
+                          progressive=True)
+    log(f"media: wrote {MEDIA_FRAMES} progressive JPEGs (simple "
+        f"progression) in {time.perf_counter() - t0:.2f} s")
+    jpeg_ms = _media_jpeg_digests(os.path.join(jdir, "frame.%03d.jpg"),
+                                  MEDIA_JPEG_SHA256, "baseline")
     log(f"media jpegdec: {MEDIA_FRAMES} decodes equal PIL's SHA-256 digests; "
         f"{jpeg_ms:.3f} ms a frame through multifilesrc ! jpegdec ! appsink "
         f"(host); {smi}")
+    prog_ms = _media_jpeg_digests(os.path.join(prdir, "frame.%03d.jpg"),
+                                  MEDIA_JPEG_PROGRESSIVE_SHA256,
+                                  "progressive")
+    log(f"media jpegdec progressive: {MEDIA_FRAMES} decodes equal PIL's "
+        f"SHA-256 digests; {prog_ms:.3f} ms a frame through multifilesrc "
+        f"! jpegdec ! appsink (host); {smi}")
+    modes = _media_jpeg_modes(tmp, smi)
     rows = {"png_vit": _media_vit_line(
         "png", os.path.join(pdir, "frame.%03d.png"), "pngdec", smi)}
     rows["jpeg_vit"] = _media_vit_line(
         "jpeg", os.path.join(jdir, "frame.%03d.jpg"), "jpegdec", smi)
     rows["jpeg_vit"]["jpegdec_alone_ms"] = jpeg_ms
+    rows["jpeg_progressive_vit"] = _media_vit_line(
+        "jpeg progressive", os.path.join(prdir, "frame.%03d.jpg"), "jpegdec",
+        smi)
+    rows["jpeg_progressive_vit"]["jpegdec_alone_ms"] = prog_ms
+    rows["jpeg_progressive_vit"]["modes"] = modes
     rows["tflite"] = _media_tflite(
         os.path.join(tmp, mf.MOBILENET_FILES["tflite_u8"]), pngs[0], smi)
     rows["direct_video"] = _media_direct_video(smi)

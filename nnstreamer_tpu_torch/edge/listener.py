@@ -2,12 +2,13 @@
 
 A copy of ``nnstreamer_tpu/edge/listener.py``, which is framework
 neutral. In the port it backs the discovery broker, the MQTT broker and
-the KV handoff receiver; the gRPC bridge is not ported yet.
+the KV handoff receiver. The port's gRPC bridge (``elements/grpc.py``)
+runs on grpcio's own server, not on this listener.
 
 One implementation of the bind/SO_REUSEADDR/listen/accept-thread/close
-pattern used by the discovery broker, the MQTT-style message broker,
-and the gRPC bridge endpoints — so fixes to the accept/shutdown
-behavior land everywhere at once.
+pattern used by the discovery broker, the MQTT-style message broker
+and the KV handoff receiver — so fixes to the accept/shutdown behavior
+land everywhere at once.
 """
 from __future__ import annotations
 

@@ -529,6 +529,9 @@ class TensorQueryClient(Element):
         self._settled = threading.Condition(self._plock)
         self._pushing = 0
         self._conn_gen = 0
+        # the last connection whose replay has gone out (under
+        # _send_lock): until then a new frame is left to that replay
+        self._replayed_gen = 0
         # negotiated per-connection wire config (None = v1 peer);
         # published under _conn_lock together with the socket it belongs
         # to, so a sender always packs for the link it sends on
@@ -656,7 +659,9 @@ class TensorQueryClient(Element):
             # re-encoded under THIS connection's negotiated config; the
             # send lock is held across the whole replay so a new frame
             # from the streaming thread cannot interleave and break the
-            # FIFO request->result pairing; the generation mark skips
+            # FIFO request->result pairing, and the streaming thread
+            # sends nothing on this connection before the replay has
+            # gone out (_replayed_gen); the generation mark skips
             # entries the streaming thread already sent on THIS connection
             with self._send_lock:
                 with self._settled:
@@ -677,6 +682,7 @@ class TensorQueryClient(Element):
                              stats=self.stats)
                     entry[2] = gen
                     self.stats.inc("session_replayed")
+                self._replayed_gen = gen
             return True
         except (ConnectionError, OSError):
             self._handle_disconnect(sock)
@@ -750,6 +756,11 @@ class TensorQueryClient(Element):
                     raise TimeoutError(f"{self.name}: server not answering")
                 with self._send_lock:
                     if entry[2] == gen:   # replay won the race meanwhile
+                        inflight.release()
+                    elif self._replayed_gen != gen:
+                        # the connection is up but its replay has not
+                        # gone out: our frame is pending, and that replay
+                        # sends it after the older ones
                         inflight.release()
                     else:
                         meta, payloads = wire.pack_buffer(buf, cfg,

@@ -435,6 +435,56 @@ def test_frame_replayed_on_a_link_that_dies_at_once_is_not_lost(monkeypatch):
     assert stats["session_declared_lost"] == 0
 
 
+def test_new_frame_waits_for_the_replay_of_its_connection(monkeypatch):
+    """The background reconnect publishes the new link, then stalls 0.2 s
+    before its replay while frames go on arriving 30 ms apart. A frame
+    that finds the link up before its replay is left to that replay, so
+    the answers still come back in order."""
+    n = 20
+    xs = _mlp_frames(n)
+    model = "zoo://mlp"
+    want = _local(pt, xs, model=model, caps=MLP_CAPS)
+
+    class SlowReplay(threading.Thread):
+        def start(self):
+            super().start()
+            if self.name.startswith("qclient-recv") \
+                    and threading.current_thread().name.startswith(
+                        "qclient-reconn"):
+                time.sleep(0.2)
+
+    shim = type(threading)("threading")
+    shim.__dict__.update(vars(threading))
+    shim.Thread = SlowReplay
+    monkeypatch.setattr(pt_query, "threading", shim)
+    server, port = _server(
+        pt, mid="tensor_fault mode=kill-link target=s every=5 ! ",
+        model=model)
+    c = pt.parse_launch(
+        f"appsrc name=in caps={MLP_CAPS} ! tensor_query_client name=c "
+        f"port={port} timeout=60 max-request=8 ! appsink name=out")
+    c.start()
+    try:
+        for i, f in enumerate(xs):
+            c["in"].push_buffer(pt.Buffer.from_arrays([f], pts=i))
+            time.sleep(0.03)
+        c["in"].end_stream()
+        c.wait_eos(120)
+        stats = c["c"].stats.snapshot()
+        err = c._error
+    finally:
+        c.stop()
+        server.stop()
+    assert err is None
+    got = [(b.pts, np.asarray(b.chunks[0].host()))
+           for b in c["out"].buffers]
+    _answered_once_in_order(got, n)
+    for (_, g), w in zip(got, want):
+        assert g.tobytes() == w.tobytes()
+    assert stats["session_delivered"] == n
+    assert stats["session_declared_lost"] == 0
+
+
 # -- units: stacking, trimming, demux ---------------------------------------
 
 

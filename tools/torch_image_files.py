@@ -2,13 +2,20 @@
 
 Neither package ships a PNG or JPEG fixture, so this module writes them:
 PNGs in every colour type, bit depth, filter strategy and interlace
-mode of the PNG specification, and baseline JPEGs (integer forward
-DCT, the standard quantization tables scaled by a quality, the standard
-Huffman tables) at 4:4:4, 4:2:2 and 4:2:0, grey or YCbCr, with optional
-restart intervals. It uses the standard library (``zlib``, ``struct``)
-and numpy only and imports neither ``nnstreamer_tpu`` nor
-``nnstreamer_tpu_torch``, so the packages' decoders are checked against
-an independent writer.
+mode of the PNG specification, and JPEGs (integer forward DCT, the
+standard quantization tables scaled by a quality): baseline with the
+standard Huffman tables, or progressive (libjpeg's simple progression
+or any scan script of DC first/refine and AC first/refine scans, each
+scan with its own optimal Huffman tables), either of them
+arithmetic-coded instead (the QM coder of jcarith.c), or lossless
+(predictors 1-7, a point transform); grey, YCbCr, RGB-stored,
+CMYK or YCCK, with or without the JFIF and Adobe APP14 markers; any
+integral sampling factors (4:4:4, 4:2:2, 4:2:0, 4:4:0 i.e. h1v2, 4:1:1
+i.e. h4v1, or per component); optional restart intervals; and a
+progressive file cut after its first scans (``jpeg_prefix``). It uses
+the standard library (``zlib``, ``struct``) and numpy only and imports
+neither ``nnstreamer_tpu`` nor ``nnstreamer_tpu_torch``, so the
+packages' decoders are checked against an independent writer.
 
 Pictures come from ``np.random.default_rng(seed)`` as smooth fields plus
 noise: a coarse grid of random levels interpolated across the frame,
@@ -22,13 +29,15 @@ Use::
         [--height 240] [--format png|jpeg] [--seed 0]
 
 or ``write_png_series``/``write_jpeg_series``, ``png_bytes``,
-``jpeg_bytes`` and ``smooth_image`` after loading this file by path
+``jpeg_bytes``, ``jpeg_prefix`` and ``smooth_image`` after loading this
+file by path
 (``importlib.util.spec_from_file_location``).
 """
 from __future__ import annotations
 
 import argparse
 import os
+import re
 import struct
 import zlib
 from typing import List, Optional, Sequence
@@ -198,7 +207,7 @@ def png_case(color_type: int, depth: int, seed: int = 0, height: int = 23,
 
 
 # ---------------------------------------------------------------------------
-# baseline JPEG
+# JPEG
 # ---------------------------------------------------------------------------
 
 # ITU T.81 Annex K: the example quantization tables (natural order) and
@@ -236,7 +245,8 @@ ZIGZAG = np.array([
 # round(4096 * cos(k * pi / 16)), k = 0..8: integers, so the DCT below is
 # exact integer arithmetic on every machine
 _COS = [4096, 4017, 3784, 3406, 2896, 2276, 1567, 799, 0]
-SUBSAMPLING = {"444": (1, 1), "422": (2, 1), "420": (2, 2)}
+SUBSAMPLING = {"444": (1, 1), "422": (2, 1), "420": (2, 2), "440": (1, 2),
+               "411": (4, 1)}
 
 
 def _cos_matrix() -> np.ndarray:
@@ -354,75 +364,862 @@ def _segment(marker: int, payload: bytes) -> bytes:
     return struct.pack(">BBH", 0xFF, marker, len(payload) + 2) + payload
 
 
+# colour -> (channels of the input, components coded with table 1)
+COLORS = {"gray": (1, ()), "ycbcr": (3, (1, 2)), "rgb": (3, ()),
+          "cmyk": (4, ()), "ycck": (4, (1, 2))}
+
+
+def _planes(image: np.ndarray, color: str) -> np.ndarray:
+    """(H, W, C) input -> the (H, W, N) component samples to code: YCbCr
+    from RGB; YCCK from CMYK as libjpeg's cmyk_ycck_convert makes it
+    (YCbCr of 255 - C, 255 - M, 255 - Y; K as it is); the rest as
+    given."""
+    image = image.reshape(image.shape[:2] + (-1,)).astype(np.int64)
+    if image.shape[-1] != COLORS[color][0]:
+        raise ValueError(f"colour {color} takes {COLORS[color][0]} "
+                         f"channels, got {image.shape[-1]}")
+    if color == "ycbcr":
+        return _to_ycbcr(image)
+    if color == "ycck":
+        return np.concatenate([_to_ycbcr(255 - image[..., :3]),
+                               image[..., 3:]], -1)
+    return image
+
+
+def simple_progression(ncomp: int, color: str = "ycbcr"):
+    """libjpeg's jpeg_simple_progression scan script: (components, Ss,
+    Se, Ah, Al) a scan. YCbCr gets its own 10-scan script, every other
+    colour space the all-purpose one."""
+    comps = tuple(range(ncomp))
+    if ncomp == 3 and color == "ycbcr":
+        return [(comps, 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((2,), 1, 63, 0, 1),
+                ((1,), 1, 63, 0, 1), ((0,), 6, 63, 0, 2),
+                ((0,), 1, 63, 2, 1), (comps, 0, 0, 1, 0),
+                ((2,), 1, 63, 1, 0), ((1,), 1, 63, 1, 0),
+                ((0,), 1, 63, 1, 0)]
+    dc = [(comps, 0, 0, 0, 1)] if ncomp <= 4 else \
+        [((c,), 0, 0, 0, 1) for c in comps]
+    dc_refine = [(comps, 0, 0, 1, 0)] if ncomp <= 4 else \
+        [((c,), 0, 0, 1, 0) for c in comps]
+    return (dc + [((c,), 1, 5, 0, 2) for c in comps]
+            + [((c,), 6, 63, 0, 2) for c in comps]
+            + [((c,), 1, 63, 2, 1) for c in comps] + dc_refine
+            + [((c,), 1, 63, 1, 0) for c in comps])
+
+
+def _optimal_code_lengths(freq) -> tuple:
+    """jchuff.c jpeg_gen_optimal_table: (counts of 1..16-bit codes,
+    symbols in code order) for a {symbol: count} table, one code point
+    reserved so that no code is all ones."""
+    f = [0] * 257
+    for sym, n in freq.items():
+        f[sym] = n
+    f[256] = 1
+    size, others = [0] * 257, [-1] * 257
+    while True:
+        live = [i for i in range(257) if f[i]]
+        if len(live) < 2:
+            break
+        live.sort(key=lambda i: (f[i], -i))
+        c1, c2 = live[0], live[1]
+        f[c1] += f[c2]
+        f[c2] = 0
+        for c in (c1, c2):
+            size[c] += 1
+            while others[c] >= 0:
+                c = others[c]
+                size[c] += 1
+        c = c1
+        while others[c] >= 0:
+            c = others[c]
+        others[c] = c2
+    bits = [0] * 33
+    for i in range(257):
+        if size[i]:
+            bits[size[i]] += 1
+    for i in range(32, 16, -1):
+        while bits[i] > 0:
+            j = i - 2
+            while bits[j] == 0:
+                j -= 1
+            bits[i] -= 2
+            bits[i - 1] += 1
+            bits[j + 1] += 2
+            bits[j] -= 1
+    i = 16
+    while bits[i] == 0:
+        i -= 1
+    bits[i] -= 1
+    order = sorted((s for s in range(256) if size[s]),
+                   key=lambda s: (size[s], s))
+    return bits[1:17], bytes(order)
+
+
+class _Tokens:
+    """A scan as Huffman symbols (table key, symbol), raw bits and
+    restart markers, kept until the scan's optimal tables are known."""
+
+    def __init__(self):
+        self.items = []
+        self.freq = {}
+
+    def sym(self, key, symbol: int) -> None:
+        self.items.append((0, key, symbol))
+        f = self.freq.setdefault(key, {})
+        f[symbol] = f.get(symbol, 0) + 1
+
+    def bits(self, value: int, length: int) -> None:
+        if length:
+            self.items.append((1, value, length))
+
+    def restart(self, n: int) -> None:
+        self.items.append((2, n, 0))
+
+    def emit(self, codes) -> bytes:
+        bw = _BitWriter()
+        for kind, a, b in self.items:
+            if kind == 0:
+                bw.put(*codes[a][b])
+            elif kind == 1:
+                bw.put(a, b)
+            else:
+                bw.flush()
+                bw.out += bytes([0xFF, 0xD0 + a % 8])
+        bw.flush()
+        return bytes(bw.out)
+
+
+def _scan_units(members, comps, mcux, mcuy):
+    """(component, block row, block column) of each block of a scan, a
+    list an MCU: one component's real block grid, or whole interleaved
+    MCUs."""
+    if len(members) == 1:
+        c = comps[members[0]]
+        return [[(members[0], by, bx)] for by in range(c["gh"])
+                for bx in range(c["gw"])]
+    return [[(ci, my * comps[ci]["v"] + by, mx * comps[ci]["h"] + bx)
+             for ci in members for by in range(comps[ci]["v"])
+             for bx in range(comps[ci]["h"])]
+            for my in range(mcuy) for mx in range(mcux)]
+
+
+def _progressive_scan(tok: _Tokens, scan, comps, mcux, mcuy,
+                      restart_interval: int) -> None:
+    """One scan of a progressive file as tokens, as jcphuff.c codes it:
+    DC first (the DC shifted down by Al, differences coded) and refine
+    (one bit a block), AC first (magnitudes shifted down by Al, runs of
+    empty bands as EOBn symbols) and AC refine (newly non-zero
+    coefficients as run/1 symbols, one correction bit for every
+    coefficient already non-zero, held until the next symbol)."""
+    members, ss, se, ah, al = scan
+    units = _scan_units(members, comps, mcux, mcuy)
+    state = {"eobrun": 0, "be": [], "preds": {ci: 0 for ci in members}}
+
+    def eob(key):
+        run = state["eobrun"]
+        if run:
+            n = run.bit_length() - 1
+            tok.sym(key, n << 4)
+            tok.bits(run & ((1 << n) - 1), n)
+            state["eobrun"] = 0
+            for bit in state["be"]:
+                tok.bits(bit, 1)
+            state["be"] = []
+
+    key_ac = ("ac", comps[members[0]]["t"])
+    for u, unit in enumerate(units):
+        if restart_interval and u and u % restart_interval == 0:
+            if ss:
+                eob(key_ac)
+            tok.restart(u // restart_interval - 1)
+            state.update(eobrun=0, be=[], preds={ci: 0 for ci in members})
+        for ci, by, bx in unit:
+            coef = comps[ci]["coef"][by, bx]
+            if ss == 0 and ah == 0:
+                v = int(coef[0]) >> al
+                size, bits = _magnitude(v - state["preds"][ci])
+                state["preds"][ci] = v
+                tok.sym(("dc", comps[ci]["t"]), size)
+                tok.bits(bits, size)
+            elif ss == 0:
+                tok.bits((int(coef[0]) >> al) & 1, 1)
+            elif ah == 0:
+                _ac_first(tok, key_ac, coef, ss, se, al, state, eob)
+            else:
+                _ac_refine(tok, key_ac, coef, ss, se, al, state, eob)
+    if ss:
+        eob(key_ac)
+
+
+def _ac_first(tok, key, coef, ss, se, al, state, eob) -> None:
+    band = coef[ss:se + 1]
+    mag = np.abs(band) >> al
+    nz = np.flatnonzero(mag)
+    if not len(nz):
+        state["eobrun"] += 1
+        if state["eobrun"] == 0x7FFF:
+            eob(key)
+        return
+    eob(key)
+    prev = -1
+    for k in nz.tolist():
+        run = k - prev - 1
+        while run > 15:
+            tok.sym(key, 0xF0)
+            run -= 16
+        m = int(mag[k])
+        size, bits = _magnitude(m if band[k] >= 0 else -m)
+        tok.sym(key, (run << 4) | size)
+        tok.bits(bits, size)
+        prev = k
+    if prev < se - ss:
+        state["eobrun"] += 1
+        if state["eobrun"] == 0x7FFF:
+            eob(key)
+
+
+def _ac_refine(tok, key, coef, ss, se, al, state, eob) -> None:
+    band = coef[ss:se + 1]
+    mag = (np.abs(band) >> al).tolist()
+    ones = [k for k, m in enumerate(mag) if m == 1]
+    last_new = ones[-1] if ones else -1
+    r, br = 0, []
+    for k, m in enumerate(mag):
+        if m == 0:
+            r += 1
+            continue
+        while r > 15 and k <= last_new:
+            eob(key)
+            tok.sym(key, 0xF0)
+            r -= 16
+            for bit in br:
+                tok.bits(bit, 1)
+            br = []
+        if m > 1:
+            br.append(m & 1)
+            continue
+        eob(key)
+        tok.sym(key, (r << 4) | 1)
+        tok.bits(1 if band[k] >= 0 else 0, 1)
+        for bit in br:
+            tok.bits(bit, 1)
+        br, r = [], 0
+    if r > 0 or br:
+        state["eobrun"] += 1
+        state["be"] += br
+        # jcphuff.c's MAX_CORR_BITS (1000) less a block's worth
+        if state["eobrun"] == 0x7FFF or len(state["be"]) > 1000 - 64 + 1:
+            eob(key)
+
+
 def jpeg_bytes(image: np.ndarray, quality: int = 75, subsampling: str = "420",
-               restart_interval: int = 0) -> bytes:
-    """A baseline JPEG of an (H, W) grey or (H, W, 3) RGB uint8 image:
-    one interleaved scan, JFIF, the Annex K tables scaled to
-    ``quality``, chroma averaged over each ``subsampling`` cell, a
-    restart marker every ``restart_interval`` MCUs (0: none)."""
+               restart_interval: int = 0, *, color: Optional[str] = None,
+               factors: Optional[Sequence[tuple]] = None,
+               adobe: Optional[int] = None, jfif: Optional[bool] = None,
+               ids: Optional[Sequence[int]] = None,
+               progressive=False,
+               lossless: Optional[tuple] = None, arithmetic=False) -> bytes:
+    """A JPEG of an (H, W) grey, (H, W, 3) RGB or (H, W, 4) CMYK uint8
+    image: the Annex K tables scaled to ``quality``, each component
+    averaged over the cells of its sampling ratio to the largest
+    factors, a restart marker every ``restart_interval`` MCUs (0: none).
+
+    ``color``: ``gray``, ``ycbcr`` (the default for 3 channels), ``rgb``
+    (coded as it is), ``cmyk`` (the default for 4 channels, coded as it
+    is) or ``ycck``. ``factors``: each component's (h, v) sampling
+    factors; by default the first component (and K of YCCK) takes
+    ``subsampling`` (``SUBSAMPLING``) and the others 1x1, while RGB and
+    CMYK are 1x1 throughout. ``adobe``: the APP14 transform to write
+    (None: none; by default 0 for RGB and CMYK, 2 for YCCK); ``jfif``:
+    write the JFIF APP0 marker (by default for grey and YCbCr);
+    ``ids``: the component ids (1, 2, ...).
+
+    ``progressive``: False for one interleaved baseline scan with the
+    standard Huffman tables; True for libjpeg's
+    ``simple_progression`` script, or a script of (component indices,
+    Ss, Se, Ah, Al) scans, each coded with its own optimal Huffman
+    tables. ``arithmetic``: code the scans with the QM arithmetic coder
+    in place of Huffman (SOF9, or SOF10 when progressive), True for the
+    default conditioning or {"dc": (L, U), "ac": K} for a DAC marker's
+    own. ``lossless``: (predictor 1-7, point transform) for a
+    lossless (SOF3) file in place of the DCT, one interleaved scan with
+    optimal tables; ``restart_interval`` must then be whole MCU rows."""
     image = np.asarray(image)
-    gray = image.ndim == 2 or image.shape[-1] == 1
-    planes = image.reshape(image.shape[:2] + (1,)) if gray \
-        else _to_ycbcr(image)
+    channels = 1 if image.ndim == 2 else image.shape[-1]
+    if color is None:
+        color = {1: "gray", 3: "ycbcr", 4: "cmyk"}[channels]
+    planes = _planes(image, color)
+    n = planes.shape[-1]
     h, w = image.shape[:2]
-    hs, vs = (1, 1) if gray else SUBSAMPLING[subsampling]
-    mw, mh = 8 * hs, 8 * vs
+    if factors is None:
+        hs, vs = SUBSAMPLING[subsampling]
+        if color in ("gray", "rgb", "cmyk"):
+            factors = [(1, 1)] * n
+        else:
+            factors = [(hs, vs) if ci in (0, 3) else (1, 1)
+                       for ci in range(n)]
+    factors = [tuple(f) for f in factors]
+    if len(factors) != n:
+        raise ValueError(f"{n} components, {len(factors)} sampling factors")
+    hmax = max(f[0] for f in factors)
+    vmax = max(f[1] for f in factors)
+    if adobe is None and color in ("rgb", "cmyk", "ycck"):
+        adobe = 2 if color == "ycck" else 0
+    if jfif is None:
+        jfif = color in ("gray", "ycbcr")
+    ids = list(ids) if ids is not None else list(range(1, n + 1))
+    if lossless:
+        return _lossless_bytes(planes, factors, lossless, restart_interval,
+                               color, adobe, jfif, ids, w, h)
+    mw, mh = 8 * hmax, 8 * vmax
     mcux, mcuy = -(-w // mw), -(-h // mh)
     pad = np.pad(planes.astype(np.int64),
                  ((0, mcuy * mh - h), (0, mcux * mw - w), (0, 0)), mode="edge")
     qts = quant_tables(quality)
-    comps = []          # (quantized blocks on the component's grid, h, v, t)
-    for ci in range(pad.shape[-1]):
+    chroma = COLORS[color][1]
+    comps = []
+    for ci in range(n):
+        fh, fv = factors[ci]
+        rh, rv = hmax // fh, vmax // fv
+        if hmax % fh or vmax % fv:
+            raise ValueError(f"sampling {fh}x{fv} is not an integral "
+                             f"fraction of {hmax}x{vmax}")
         plane = pad[..., ci]
-        fh, fv = (hs, vs) if ci == 0 else (1, 1)
-        if ci:
-            plane = plane.reshape(plane.shape[0] // vs, vs,
-                                  plane.shape[1] // hs, hs)
-            plane = (plane.sum((1, 3)) + hs * vs // 2) // (hs * vs)
+        if (rh, rv) != (1, 1):
+            plane = plane.reshape(plane.shape[0] // rv, rv,
+                                  plane.shape[1] // rh, rh)
+            plane = (plane.sum((1, 3)) + rh * rv // 2) // (rh * rv)
         gy, gx = plane.shape[0] // 8, plane.shape[1] // 8
         blocks = plane.reshape(gy, 8, gx, 8).transpose(0, 2, 1, 3)
-        coef = _fdct_quant(blocks.reshape(-1, 8, 8) - 128, qts[min(ci, 1)])
-        comps.append((coef.reshape(gy, gx, 64), fh, fv, min(ci, 1)))
+        t = 1 if ci in chroma else 0
+        coef = _fdct_quant(blocks.reshape(-1, 8, 8) - 128, qts[t])
+        dw, dh = -(-w * fh // hmax), -(-h * fv // vmax)
+        comps.append({"coef": coef.reshape(gy, gx, 64), "h": fh, "v": fv,
+                      "t": t, "gw": -(-dw // 8), "gh": -(-dh // 8)})
+    tables = sorted({c["t"] for c in comps})
+    out = [b"\xff\xd8"]
+    if jfif:
+        out.append(_segment(0xE0,
+                            b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"))
+    if adobe is not None:
+        out.append(_segment(0xEE, b"Adobe\x00\x64\x00\x00\x00\x00"
+                            + bytes([adobe])))
+    for t in tables:
+        out.append(_segment(0xDB, bytes([t]) + bytes(
+            qts[t][ZIGZAG].astype(np.uint8))))
+    sof = struct.pack(">BHHB", 8, h, w, n)
+    for ci, c in enumerate(comps):
+        sof += bytes([ids[ci], (c["h"] << 4) | c["v"], c["t"]])
+    out.append(_segment((0xCA if progressive else 0xC9) if arithmetic
+                        else 0xC2 if progressive else 0xC0, sof))
+    if arithmetic:
+        cond = {"dc": (0, 1), "ac": 5}
+        if isinstance(arithmetic, dict):
+            cond.update(arithmetic)
+        if progressive:
+            script = simple_progression(n, color) if progressive is True \
+                else list(progressive)
+            script = [tuple(sc) + (False,) for sc in script]
+        else:
+            script = [(tuple(range(n)), 0, 63, 0, 0, True)]
+        if restart_interval:
+            out.append(_segment(0xDD, struct.pack(">H", restart_interval)))
+        for scan in script:
+            members, ss, se, ah, al, seq = scan
+            used = sorted({comps[ci]["t"] for ci in members})
+            dac = b""
+            for t in used:
+                if seq or (ss == 0 and ah == 0):
+                    dac += bytes([t, cond["dc"][0] | cond["dc"][1] << 4])
+                if seq or se:
+                    dac += bytes([t | 0x10, cond["ac"]])
+            if dac:
+                out.append(_segment(0xCC, dac))
+            sos = bytes([len(members)])
+            for ci in members:
+                t = comps[ci]["t"]
+                sos += bytes([ids[ci], (t << 4) | t])
+            out.append(_segment(0xDA, sos + bytes([ss, se, (ah << 4) | al])))
+            parts = []
+            _arith_scan(parts, scan, comps, mcux, mcuy, restart_interval,
+                        cond)
+            out += parts
+        out.append(b"\xff\xd9")
+        return b"".join(out)
+    if progressive:
+        script = simple_progression(n, color) if progressive is True \
+            else list(progressive)
+        if restart_interval:
+            out.append(_segment(0xDD, struct.pack(">H", restart_interval)))
+        for scan in script:
+            tok = _Tokens()
+            _progressive_scan(tok, scan, comps, mcux, mcuy, restart_interval)
+            codes = {}
+            for (cls, t), freq in sorted(tok.freq.items()):
+                counts, symbols = _optimal_code_lengths(freq)
+                codes[(cls, t)] = _huff_codes((counts, symbols))
+                out.append(_segment(0xC4, bytes([(cls == "ac") << 4 | t])
+                                    + bytes(counts) + symbols))
+            members, ss, se, ah, al = scan
+            sos = bytes([len(members)])
+            for ci in members:
+                t = comps[ci]["t"]
+                sos += bytes([ids[ci], (t << 4) | t])
+            out.append(_segment(0xDA, sos + bytes([ss, se, (ah << 4) | al])))
+            out.append(tok.emit(codes))
+        out.append(b"\xff\xd9")
+        return b"".join(out)
     dc = [_huff_codes(_DC_LUMA), _huff_codes(_DC_CHROMA)]
     ac = [_huff_codes(_AC_LUMA), _huff_codes(_AC_CHROMA)]
     bw = _BitWriter()
-    preds = [0] * len(comps)
+    preds = [0] * n
     n_mcu = mcux * mcuy
     for m in range(n_mcu):
         if restart_interval and m and m % restart_interval == 0:
             bw.flush()
             bw.out += bytes([0xFF, 0xD0 + (m // restart_interval - 1) % 8])
-            preds = [0] * len(comps)
+            preds = [0] * n
         my, mx = divmod(m, mcux)
-        for ci, (coef, fh, fv, t) in enumerate(comps):
+        for ci, c in enumerate(comps):
+            fh, fv = c["h"], c["v"]
             for by in range(fv):
                 for bx in range(fh):
                     preds[ci] = _encode_block(
-                        bw, coef[my * fv + by, mx * fh + bx], preds[ci],
-                        dc[t], ac[t])
+                        bw, c["coef"][my * fv + by, mx * fh + bx], preds[ci],
+                        dc[c["t"]], ac[c["t"]])
     bw.flush()
-    out = [b"\xff\xd8",
-           _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
-    for t, qt in enumerate(qts[:1 if gray else 2]):
-        out.append(_segment(0xDB, bytes([t]) + bytes(
-            qt[ZIGZAG].astype(np.uint8))))
-    sof = struct.pack(">BHHB", 8, h, w, len(comps))
-    for ci, (_, fh, fv, t) in enumerate(comps):
-        sof += bytes([ci + 1, (fh << 4) | fv, t])
-    out.append(_segment(0xC0, sof))
     for cls, specs in ((0, (_DC_LUMA, _DC_CHROMA)), (1, (_AC_LUMA, _AC_CHROMA))):
-        for t, (counts, symbols) in enumerate(specs[:1 if gray else 2]):
+        for t in tables:
+            counts, symbols = specs[t]
             out.append(_segment(0xC4, bytes([(cls << 4) | t]) + bytes(counts)
                                 + bytes(symbols)))
     if restart_interval:
         out.append(_segment(0xDD, struct.pack(">H", restart_interval)))
-    sos = bytes([len(comps)])
-    for ci, (_, _, _, t) in enumerate(comps):
-        sos += bytes([ci + 1, (t << 4) | t])
+    sos = bytes([n])
+    for ci, c in enumerate(comps):
+        sos += bytes([ids[ci], (c["t"] << 4) | c["t"]])
     out.append(_segment(0xDA, sos + b"\x00\x3f\x00"))
     out.append(bytes(bw.out))
     out.append(b"\xff\xd9")
     return b"".join(out)
+
+
+def _lossless_diffs(x: np.ndarray, predictor: int, pt: int,
+                    first_rows) -> np.ndarray:
+    """T.81 Annex H differences of a component's padded plane: the
+    first row of the scan and of each restart interval predicted from
+    its left neighbour (its first sample from 2**(7 - pt)), the first
+    column from above, the rest by ``predictor``; modulo 2**16, as
+    signed values."""
+    pred = np.zeros_like(x)
+    ra = np.concatenate([x[:, :1] * 0, x[:, :-1]], 1)
+    rb = np.concatenate([x[:1] * 0, x[:-1]], 0)
+    rc = np.concatenate([rb[:, :1] * 0, rb[:, :-1]], 1)
+    pred = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc, 5: ra + ((rb - rc) >> 1),
+            6: rb + ((ra - rc) >> 1), 7: (ra + rb) >> 1}[predictor].copy()
+    pred[:, 0] = rb[:, 0]
+    for r in first_rows:
+        pred[r, 1:] = x[r, :-1]
+        pred[r, 0] = 1 << (7 - pt)
+    d = (x - pred) & 0xFFFF
+    return np.where(d >= 32768, d - 65536, d)
+
+
+def _lossless_bytes(planes, factors, lossless, restart_interval, color,
+                    adobe, jfif, ids, w, h) -> bytes:
+    predictor, pt = lossless
+    n = planes.shape[-1]
+    hmax = max(f[0] for f in factors)
+    vmax = max(f[1] for f in factors)
+    mcux, mcuy = -(-w // hmax), -(-h // vmax)
+    if restart_interval % mcux:
+        raise ValueError("a lossless restart interval is whole MCU rows "
+                         f"({mcux} MCUs)")
+    pad = np.pad(planes.astype(np.int64),
+                 ((0, mcuy * vmax - h), (0, mcux * hmax - w), (0, 0)),
+                 mode="edge")
+    rows_per = restart_interval // mcux if restart_interval else mcuy
+    chroma = COLORS[color][1]
+    comps = []
+    for ci in range(n):
+        fh, fv = factors[ci]
+        rh, rv = hmax // fh, vmax // fv
+        plane = pad[..., ci]
+        if (rh, rv) != (1, 1):
+            plane = plane.reshape(plane.shape[0] // rv, rv,
+                                  plane.shape[1] // rh, rh)
+            plane = (plane.sum((1, 3)) + rh * rv // 2) // (rh * rv)
+        plane = plane >> pt
+        first = range(0, mcuy * fv, rows_per * fv)
+        comps.append({"d": _lossless_diffs(plane, predictor, pt, first),
+                      "h": fh, "v": fv, "t": 1 if ci in chroma else 0})
+    tok = _Tokens()
+    for m in range(mcux * mcuy):
+        if restart_interval and m and m % restart_interval == 0:
+            tok.restart(m // restart_interval - 1)
+        my, mx = divmod(m, mcux)
+        for c in comps:
+            for by in range(c["v"]):
+                for bx in range(c["h"]):
+                    v = int(c["d"][my * c["v"] + by, mx * c["h"] + bx])
+                    if v == 32768 or v == -32768:
+                        tok.sym(("dc", c["t"]), 16)
+                        continue
+                    size, bits = _magnitude(v)
+                    tok.sym(("dc", c["t"]), size)
+                    tok.bits(bits, size)
+    out = [b"\xff\xd8"]
+    if jfif:
+        out.append(_segment(0xE0,
+                            b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"))
+    if adobe is not None:
+        out.append(_segment(0xEE, b"Adobe\x00\x64\x00\x00\x00\x00"
+                            + bytes([adobe])))
+    sof = struct.pack(">BHHB", 8, h, w, n)
+    for ci, c in enumerate(comps):
+        sof += bytes([ids[ci], (c["h"] << 4) | c["v"], 0])
+    out.append(_segment(0xC3, sof))
+    codes = {}
+    for (cls, t), freq in sorted(tok.freq.items()):
+        counts, symbols = _optimal_code_lengths(freq)
+        codes[(cls, t)] = _huff_codes((counts, symbols))
+        out.append(_segment(0xC4, bytes([t]) + bytes(counts) + symbols))
+    if restart_interval:
+        out.append(_segment(0xDD, struct.pack(">H", restart_interval)))
+    sos = bytes([n])
+    for ci, c in enumerate(comps):
+        sos += bytes([ids[ci], c["t"] << 4])
+    out.append(_segment(0xDA, sos + bytes([predictor, 0, pt])))
+    out.append(tok.emit(codes))
+    out.append(b"\xff\xd9")
+    return b"".join(out)
+
+
+# ITU T.81 Table D.3, the QM coder's probability estimation: (Qe,
+# Next_Index_LPS, Next_Index_MPS, Switch_MPS) a state, and state 113 the
+# fixed probability 0.5. Packed as libjpeg packs it: Qe << 16 |
+# Next_Index_MPS << 8 | Switch_MPS << 7 | Next_Index_LPS
+QE_TABLE = [
+    (0x5a1d, 1, 1, 1), (0x2586, 14, 2, 0), (0x1114, 16, 3, 0),
+    (0x080b, 18, 4, 0), (0x03d8, 20, 5, 0), (0x01da, 23, 6, 0),
+    (0x00e5, 25, 7, 0), (0x006f, 28, 8, 0), (0x0036, 30, 9, 0),
+    (0x001a, 33, 10, 0), (0x000d, 35, 11, 0), (0x0006, 9, 12, 0),
+    (0x0003, 10, 13, 0), (0x0001, 12, 13, 0), (0x5a7f, 15, 15, 1),
+    (0x3f25, 36, 16, 0), (0x2cf2, 38, 17, 0), (0x207c, 39, 18, 0),
+    (0x17b9, 40, 19, 0), (0x1182, 42, 20, 0), (0x0cef, 43, 21, 0),
+    (0x09a1, 45, 22, 0), (0x072f, 46, 23, 0), (0x055c, 48, 24, 0),
+    (0x0406, 49, 25, 0), (0x0303, 51, 26, 0), (0x0240, 52, 27, 0),
+    (0x01b1, 54, 28, 0), (0x0144, 56, 29, 0), (0x00f5, 57, 30, 0),
+    (0x00b7, 59, 31, 0), (0x008a, 60, 32, 0), (0x0068, 62, 33, 0),
+    (0x004e, 63, 34, 0), (0x003b, 32, 35, 0), (0x002c, 33, 9, 0),
+    (0x5ae1, 37, 37, 1), (0x484c, 64, 38, 0), (0x3a0d, 65, 39, 0),
+    (0x2ef1, 67, 40, 0), (0x261f, 68, 41, 0), (0x1f33, 69, 42, 0),
+    (0x19a8, 70, 43, 0), (0x1518, 72, 44, 0), (0x1177, 73, 45, 0),
+    (0x0e74, 74, 46, 0), (0x0bfb, 75, 47, 0), (0x09f8, 77, 48, 0),
+    (0x0861, 78, 49, 0), (0x0706, 79, 50, 0), (0x05cd, 48, 51, 0),
+    (0x04de, 50, 52, 0), (0x040f, 50, 53, 0), (0x0363, 51, 54, 0),
+    (0x02d4, 52, 55, 0), (0x025c, 53, 56, 0), (0x01f8, 54, 57, 0),
+    (0x01a4, 55, 58, 0), (0x0160, 56, 59, 0), (0x0125, 57, 60, 0),
+    (0x00f6, 58, 61, 0), (0x00cb, 59, 62, 0), (0x00ab, 61, 63, 0),
+    (0x008f, 61, 32, 0), (0x5b12, 65, 65, 1), (0x4d04, 80, 66, 0),
+    (0x412c, 81, 67, 0), (0x37d8, 82, 68, 0), (0x2fe8, 83, 69, 0),
+    (0x293c, 84, 70, 0), (0x2379, 86, 71, 0), (0x1edf, 87, 72, 0),
+    (0x1aa9, 87, 73, 0), (0x174e, 72, 74, 0), (0x1424, 72, 75, 0),
+    (0x119c, 74, 76, 0), (0x0f6b, 74, 77, 0), (0x0d51, 75, 78, 0),
+    (0x0bb6, 77, 79, 0), (0x0a40, 77, 48, 0), (0x5832, 80, 81, 1),
+    (0x4d1c, 88, 82, 0), (0x438e, 89, 83, 0), (0x3bdd, 90, 84, 0),
+    (0x34ee, 91, 85, 0), (0x2eae, 92, 86, 0), (0x299a, 93, 87, 0),
+    (0x2516, 86, 71, 0), (0x5570, 88, 89, 1), (0x4ca9, 95, 90, 0),
+    (0x44d9, 96, 91, 0), (0x3e22, 97, 92, 0), (0x3824, 99, 93, 0),
+    (0x32b4, 99, 94, 0), (0x2e17, 93, 86, 0), (0x56a8, 95, 96, 1),
+    (0x4f46, 101, 97, 0), (0x47e5, 102, 98, 0), (0x41cf, 103, 99, 0),
+    (0x3c3d, 104, 100, 0), (0x375e, 99, 93, 0), (0x5231, 105, 102, 0),
+    (0x4c0f, 106, 103, 0), (0x4639, 107, 104, 0), (0x415e, 103, 99, 0),
+    (0x5627, 105, 106, 1), (0x50e7, 108, 107, 0), (0x4b85, 109, 103, 0),
+    (0x5597, 110, 109, 0), (0x504f, 111, 107, 0), (0x5a10, 110, 111, 1),
+    (0x5522, 112, 109, 0), (0x59eb, 112, 111, 1), (0x5a1d, 113, 113, 0)]
+_QE = [(q << 16) | (nm << 8) | (sw << 7) | nl for q, nl, nm, sw in QE_TABLE]
+
+
+class _ArithEncoder:
+    """jcarith.c's QM coder: arith_encode (Annex D.1 with libjpeg's
+    carry handling through stacked 0xFF and 0x00 bytes) and its
+    termination (finish_pass)."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.c, self.a, self.ct = 0, 0x10000, 11
+        self.sc = self.zc = 0
+        self.buffer = -1
+
+    def _byte(self, b: int) -> None:
+        self.out.append(b)
+
+    def _flush_zeros(self) -> None:
+        self.out += b"\x00" * self.zc
+        self.zc = 0
+
+    def encode(self, st, i: int, val: int) -> None:
+        sv = st[i]
+        qe = _QE[sv & 0x7F]
+        nl, nm, qe = qe & 0xFF, (qe >> 8) & 0xFF, qe >> 16
+        self.a -= qe
+        if val != sv >> 7:
+            if self.a >= qe:
+                self.c += self.a
+                self.a = qe
+            st[i] = (sv & 0x80) ^ nl
+        else:
+            if self.a >= 0x8000:
+                return
+            if self.a < qe:
+                self.c += self.a
+                self.a = qe
+            st[i] = (sv & 0x80) ^ nm
+        while True:
+            self.a <<= 1
+            self.c <<= 1
+            self.ct -= 1
+            if self.ct == 0:
+                temp = self.c >> 19
+                if temp > 0xFF:
+                    if self.buffer >= 0:
+                        self._flush_zeros()
+                        self._byte(self.buffer + 1)
+                        if self.buffer + 1 == 0xFF:
+                            self._byte(0)
+                    self.zc += self.sc
+                    self.sc = 0
+                    self.buffer = temp & 0xFF
+                elif temp == 0xFF:
+                    self.sc += 1
+                else:
+                    self._release()
+                    self.buffer = temp & 0xFF
+                self.c &= 0x7FFFF
+                self.ct += 8
+            if self.a >= 0x8000:
+                break
+
+    def _release(self) -> None:
+        """Output the buffered byte and the stacked 0xFF bytes: they can
+        no longer take a carry."""
+        if self.buffer == 0:
+            self.zc += 1
+        elif self.buffer >= 0:
+            self._flush_zeros()
+            self._byte(self.buffer)
+        if self.sc:
+            self._flush_zeros()
+            self.out += b"\xff\x00" * self.sc
+            self.sc = 0
+
+    def finish(self) -> bytes:
+        temp = (self.a - 1 + self.c) & 0xFFFF0000
+        self.c = temp + 0x8000 if temp < self.c else temp
+        self.c <<= self.ct
+        if self.c & 0xF8000000:
+            if self.buffer >= 0:
+                self._flush_zeros()
+                self._byte(self.buffer + 1)
+                if self.buffer + 1 == 0xFF:
+                    self._byte(0)
+            self.zc += self.sc
+            self.sc = 0
+        else:
+            self._release()
+        if self.c & 0x7FFF800:
+            self._flush_zeros()
+            for shift, mask in ((19, 0x7FFF800), (11, 0x7F800)):
+                if not self.c & mask:
+                    break
+                b = (self.c >> shift) & 0xFF
+                self._byte(b)
+                if b == 0xFF:
+                    self._byte(0)
+        return bytes(self.out)
+
+
+def _arith_magnitude(enc, st, i, v, x1, k=None, kx=None) -> None:
+    """Figures F.8 and F.9: the magnitude category of v - 1 (v >= 1)
+    from bin ``i``, its first further bins at ``x1`` (AC: 189 or 217 by
+    the conditioning K), then its bits."""
+    m = 0
+    v -= 1
+    if v:
+        enc.encode(st, i, 1)
+        m = 1
+        v2 = v
+        if x1 is None:            # DC: every further bit from X1 = 20
+            i = 20
+            while v2 >> 1:
+                v2 >>= 1
+                enc.encode(st, i, 1)
+                m <<= 1
+                i += 1
+        else:
+            v2 >>= 1
+            if v2:
+                enc.encode(st, i, 1)
+                m <<= 1
+                i = x1
+                while v2 >> 1:
+                    v2 >>= 1
+                    enc.encode(st, i, 1)
+                    m <<= 1
+                    i += 1
+    enc.encode(st, i, 0)
+    i += 14
+    m >>= 1
+    while m:
+        enc.encode(st, i, 1 if m & v else 0)
+        m >>= 1
+    return None
+
+
+def _arith_dc(enc, st, ctx, v, cond) -> int:
+    """Figure F.4 with F.1.4.4.1's conditioning: one DC difference from
+    statistics area ``st`` in context ``ctx``; returns the next
+    context."""
+    lo, hi = cond
+    if v == 0:
+        enc.encode(st, ctx, 0)
+        return 0
+    enc.encode(st, ctx, 1)
+    sign = v < 0
+    enc.encode(st, ctx + 1, int(sign))
+    v = abs(v)
+    nxt = 8 if sign else 4
+    m = (v - 1).bit_length() and 1 << ((v - 1).bit_length() - 1)
+    if m < (1 << lo) >> 1:
+        nxt = 0
+    elif m > (1 << hi) >> 1:
+        nxt += 8
+    _arith_magnitude(enc, st, ctx + 2 + sign, v, None)
+    return nxt
+
+
+def _arith_scan(enc_parts, scan, comps, mcux, mcuy, restart_interval, cond):
+    """One scan of an arithmetic-coded file (jcarith.c): sequential when
+    ``scan`` covers 0..63 with Ah = Al = 0 in a sequential frame, else
+    its progressive kind. Appends the entropy-coded segments, RST
+    markers between them, to ``enc_parts``."""
+    members, ss, se, ah, al, sequential = scan
+    units = _scan_units(members, comps, mcux, mcuy)
+    fixed = [113]
+
+    def fresh():
+        return (_ArithEncoder(), {t: [0] * 64 for t in range(4)},
+                {t: [0] * 256 for t in range(4)},
+                {ci: 0 for ci in members}, {ci: 0 for ci in members})
+
+    enc, dc_st, ac_st, last, ctx = fresh()
+    for u, unit in enumerate(units):
+        if restart_interval and u and u % restart_interval == 0:
+            enc_parts.append(enc.finish())
+            enc_parts.append(bytes([0xFF, 0xD0 + (u // restart_interval - 1)
+                                    % 8]))
+            enc, dc_st, ac_st, last, ctx = fresh()
+        for ci, by, bx in unit:
+            c = comps[ci]
+            coef = [int(x) for x in c["coef"][by, bx]]   # zigzag order
+            t = c["t"]
+            if ss == 0 and ah == 0:
+                dc = coef[0] >> al
+                ctx[ci] = _arith_dc(enc, dc_st[t], ctx[ci], dc - last[ci],
+                                    cond["dc"])
+                last[ci] = dc
+            elif ss == 0:
+                enc.encode(fixed, 0, (coef[0] >> al) & 1)
+            if sequential:
+                _arith_ac(enc, ac_st[t], coef, 1, 63, 0, cond["ac"], fixed)
+            elif ss and ah == 0:
+                _arith_ac(enc, ac_st[t], coef, ss, se, al, cond["ac"], fixed)
+            elif ss:
+                _arith_ac_refine(enc, ac_st[t], coef, ss, se, ah, al, fixed)
+    enc_parts.append(enc.finish())
+
+
+def _shifted(v: int, al: int) -> int:
+    """The point transform of an AC coefficient: |v| >> al, signed."""
+    return (abs(v) >> al) * (1 if v >= 0 else -1)
+
+
+def _arith_ac(enc, st, coef, ss, se, al, kx, fixed) -> None:
+    """Figure F.5 over the band ``ss..se`` of one block (``coef`` in
+    zigzag order), the values shifted by ``al``."""
+    vals = [_shifted(coef[k], al) for k in range(64)]
+    ke = se
+    while ke > 0 and not vals[ke]:
+        ke -= 1
+    k = ss
+    while k <= ke:
+        i = 3 * (k - 1)
+        enc.encode(st, i, 0)
+        while not vals[k]:
+            enc.encode(st, i + 1, 0)
+            i += 3
+            k += 1
+        enc.encode(st, i + 1, 1)
+        v = vals[k]
+        enc.encode(fixed, 0, int(v < 0))
+        _arith_magnitude(enc, st, i + 2, abs(v), 189 if k <= kx else 217)
+        k += 1
+    if k <= se:
+        enc.encode(st, 3 * (k - 1), 1)
+
+
+def _arith_ac_refine(enc, st, coef, ss, se, ah, al, fixed) -> None:
+    """Figure G.10: one bit more of every coefficient of the band; the
+    end-of-band decision only past the last one known before."""
+    mags = [abs(coef[k]) >> al for k in range(64)]
+    ke = se
+    while ke > 0 and not mags[ke]:
+        ke -= 1
+    kex = ke
+    while kex > 0 and not abs(coef[kex]) >> ah:
+        kex -= 1
+    k = ss
+    while k <= ke:
+        i = 3 * (k - 1)
+        if k > kex:
+            enc.encode(st, i, 0)
+        while True:
+            m = mags[k]
+            if m:
+                if m >> 1:
+                    enc.encode(st, i + 2, m & 1)
+                else:
+                    enc.encode(st, i + 1, 1)
+                    enc.encode(fixed, 0, int(coef[k] < 0))
+                break
+            enc.encode(st, i + 1, 0)
+            i += 3
+            k += 1
+        k += 1
+    if k <= se:
+        enc.encode(st, 3 * (k - 1), 1)
+
+
+_SCAN_END = re.compile(rb"\xff+[^\x00\xd0-\xd7\xff]")
+
+
+def jpeg_prefix(data: bytes, scans: int) -> bytes:
+    """``data`` cut after its first ``scans`` scans, an EOI appended: the
+    file a decoder sees when a progressive download stops there."""
+    pos, seen = 2, 0
+    while True:
+        marker = data[pos + 1]
+        if marker == 0xD9:
+            return data
+        length = struct.unpack_from(">H", data, pos + 2)[0]
+        if marker == 0xDA:
+            if seen == scans:
+                return data[:pos] + b"\xff\xd9"
+            seen += 1
+            pos = _SCAN_END.search(data, pos + 2 + length).end() - 2
+        else:
+            pos += 2 + length
 
 
 # ---------------------------------------------------------------------------
@@ -448,16 +1245,18 @@ def write_png_series(out_dir: str, count: int, width: int, height: int,
 def write_jpeg_series(out_dir: str, count: int, width: int, height: int,
                       seed: int = 0, quality: int = 75,
                       subsampling: str = "420",
-                      restart_interval: int = 0) -> List[str]:
-    """``count`` baseline JPEGs ``frame.%03d.jpg`` (seeds ``seed``,
-    ``seed + 1``, ...)."""
+                      restart_interval: int = 0, **kw) -> List[str]:
+    """``count`` RGB JPEGs ``frame.%03d.jpg`` (seeds ``seed``,
+    ``seed + 1``, ...): baseline, or what ``kw`` asks of ``jpeg_bytes``
+    (``progressive=True``, ``factors=...``, ...)."""
     os.makedirs(out_dir, exist_ok=True)
     paths = []
     for i in range(count):
         path = os.path.join(out_dir, f"frame.{i:03d}.jpg")
         img = smooth_image(seed + i, height, width).astype(np.uint8)
         with open(path, "wb") as f:
-            f.write(jpeg_bytes(img, quality, subsampling, restart_interval))
+            f.write(jpeg_bytes(img, quality, subsampling, restart_interval,
+                               **kw))
         paths.append(path)
     return paths
 
