@@ -485,13 +485,31 @@ Native queue — the headline line with queue backend=native against
               static racecheck graph, check_against_static passing on
               the compile cache's kinds, 12 attention launches a buffer,
               and logits bitwise equal to the plain run's.
+51. gates   — the port's check gates on cuda:0, each exiting 0:
+              tools/torch_lint_corpus.py (pipelint over every description
+              of tests/*.py, README.md and the tutorials); the fuse and
+              async byte-parity gates of tools/torch_fuse_parity.py over
+              the whole corpus (fused against fuse=false; in-flight=4
+              against 1), each gate's attention launches equal to 12 a
+              ViT-B/16 buffer its lines ran; tools/torch_shard_parity.py
+              on the card's world (each mesh spec fitted to one rank);
+              tools/torch_obs_overhead.py on bench.py's devres row at
+              full width (MobileNet-v2 batch 32, recording on against
+              off in subprocesses, best of 3 in turns, within 3 % fps);
+              then racecheck's card half: phase 36's served ViT-B/16
+              line with a breaker and phase 37's two replicas behind
+              tensor_serve_router, 4 clients x 16 frames each, under one
+              LockMonitor, every recorded lock-order edge within
+              racecheck's static graph of the port and no cycle; the
+              edges witnessed out of the static ones are printed.
 Every model line runs through the backend's per-signature executable,
 one captured CUDA graph per input signature: the first frame runs
 eagerly (the capture's warm-up), every later frame is one replay, so a
 hand kernel inside the graph counts once a frame.
 Phases 8-11, 13, 16, 17, 19, 20, 22, 24, 26, 27, 29-35, 37, 39-42, 43's
 serve line, 45, 47, 48's TFLite, direct_video and iio lines, 49's lines
-but its ViT line, and the native queue lines launch neither hand kernel
+but its ViT line, 51's lint, fuse, shard, obs-overhead and router lines,
+and the native queue lines launch neither hand kernel
 (their models inline their input affine, as the JAX models do); their
 launch counts are read all the same and written on the kernels line as
 0. Phase 44's replicas count in their own processes: the kernels line
@@ -4953,12 +4971,39 @@ def phase_serve_vit(smi, vit_local):
     return row
 
 
+def _router_fleet(prefix, key):
+    """Two MobileNet-v2 serve replicas (``<prefix>0``, ``<prefix>1``; one
+    backend through shared-tensor-filter-key ``key``) and a started
+    tensor_serve_router ``rt`` in front of them; returns (replicas,
+    router)."""
+    import nnstreamer_tpu_torch as pt
+    ports = [_free_port(), _free_port()]
+    reps = [_serve_server(p, "zoo://mobilenet_v2", f"{prefix}{i}",
+                          f"shared-tensor-filter-key={key} ")
+            for i, p in enumerate(ports)]
+    router = pt.parse_launch(
+        f"tensor_serve_router name=rt port=0 replicas=localhost:{ports[0]},"
+        f"localhost:{ports[1]} heartbeat-ms=50 breaker-reset-ms=100")
+    router.start()
+    return reps, router
+
+
+def _wait_healthy(rt, timeout_s=30):
+    """Until the router reads both replicas healthy (or ``timeout_s``)."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        rows = rt.router_report()
+        if len(rows) == 2 and all(r["state"] == "healthy"
+                                  for r in rows.values()):
+            return
+        time.sleep(0.01)
+
+
 def phase_serve_drain_router(smi, clean):
     """Phase 37: Pipeline.drain() on the MobileNet serve line mid-stream,
     then two serve replicas (one shared-tensor-filter-key) behind
     tensor_serve_router with 4 clients and session affinity, one
     replica's links killed mid-stream. Returns both rows."""
-    import nnstreamer_tpu_torch as pt
     frames = _frames(QUERY_DISTINCT, _frame_shape()).numpy()
     want = _headline_logits(clean, QUERY_DISTINCT)
     n_sent = DRAIN_CLIENTS * DRAIN_FRAMES
@@ -5016,21 +5061,9 @@ def phase_serve_drain_router(smi, clean):
 
     # the fleet: two replicas, one copy of the weights, one router
     _reset_launches()
-    ports = [_free_port(), _free_port()]
-    reps = [_serve_server(p, "zoo://mobilenet_v2", f"r{i}",
-                          "shared-tensor-filter-key=fleet ")
-            for i, p in enumerate(ports)]
-    router = pt.parse_launch(
-        f"tensor_serve_router name=rt port=0 replicas=localhost:{ports[0]},"
-        f"localhost:{ports[1]} heartbeat-ms=50 breaker-reset-ms=100")
-    router.start()
+    reps, router = _router_fleet("r", "fleet")
     rt = router["rt"]
     killed = {}
-
-    def healthy():
-        rows = rt.router_report()
-        return len(rows) == 2 and all(r["state"] == "healthy"
-                                      for r in rows.values())
 
     def kill():
         loads = [r[f"r{i}src"].scheduler.report()["completed"]
@@ -5040,9 +5073,7 @@ def phase_serve_drain_router(smi, clean):
         killed["links"] = reps[victim][f"r{victim}src"].kill_link()
 
     try:
-        deadline = time.monotonic() + 30
-        while not healthy() and time.monotonic() < deadline:
-            time.sleep(0.01)
+        _wait_healthy(rt)
         _, results, stats = _fanout(
             rt.bound_port, frames, ROUTER_CLIENTS, 0, ROUTER_FRAMES, 8,
             during=(ROUTER_CLIENTS * ROUTER_FRAMES // 3, kill))
@@ -6292,16 +6323,20 @@ INTEROP_FORMS = (          # (writer form, framework)
     ("pb", "tensorflow"))
 
 
-def _model_files():
-    """tools/torch_model_files.py, loaded by path (it imports neither
-    package and is not part of one)."""
+def _tool(name):
+    """tools/<name>.py, loaded by path (the tools are scripts, not a
+    package, and import nothing of JAX)."""
     import importlib.util
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
-                        "torch_model_files.py")
-    spec = importlib.util.spec_from_file_location("torch_model_files", path)
+                        f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _model_files():
+    return _tool("torch_model_files")
 
 
 def phase_codecs(smi):
@@ -6612,15 +6647,7 @@ def media_mode_files(imf):
 
 
 def _image_files():
-    """tools/torch_image_files.py, loaded by path (it imports neither
-    package and is not part of one)."""
-    import importlib.util
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
-                        "torch_image_files.py")
-    spec = importlib.util.spec_from_file_location("torch_image_files", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return _tool("torch_image_files")
 
 
 def _vit_tol(cpu):
@@ -7522,6 +7549,216 @@ def phase_analysis(smi):
             "vit_plain": {"kernel_launches": plain_launches, "buffers": n}}
 
 
+
+# -- phase 51: the check gates over the corpus, on the card ------------------
+
+GATES_TIMEOUT_S = 120      # a corpus line's run in the fuse/async/shard gates
+RACE_CLIENTS = 4           # clients of each racecheck line,
+RACE_FRAMES = 16           # frames a client (max-request 16)
+RACE_VIT = "zoo://vit?attn=pallas"   # phase 36's served ViT-B/16
+
+
+def _gate_row(res, launches, keys=("seconds",)):
+    return {"rc": res["rc"], "kernel_launches": launches,
+            **{k: res[k] for k in keys if k in res}}
+
+
+def _race_trace(pipe, monitor):
+    """Put every lock of a started serve-path pipeline under ``monitor``:
+    each element's own, its serve scheduler's and batcher's, its
+    breaker's, its fleet router's, and every Counters they keep."""
+    from nnstreamer_tpu_torch.analysis import concurrency as conc
+    from nnstreamer_tpu_torch.utils.atomic import Counters
+    objs = []
+    for e in pipe.elements.values():
+        objs.append(e)
+        sched = getattr(e, "scheduler", None)
+        if sched is not None:
+            objs += [sched, sched.batcher]
+        for attr in ("_breaker", "router"):
+            if getattr(e, attr, None) is not None:
+                objs.append(getattr(e, attr))
+    for obj in objs:
+        conc.instrument_object(obj, monitor)
+        if isinstance(getattr(obj, "stats", None), Counters):
+            conc.instrument_counters(obj.stats, monitor)
+
+
+def _race_clients(port, frames, monitor):
+    """RACE_CLIENTS clients x RACE_FRAMES frames through ``port``, every
+    client pipeline under ``monitor`` from its start; each frame must be
+    answered once, with finite logits."""
+    import nnstreamer_tpu_torch as pt
+    parse = pt.parse_launch
+
+    def parse_traced(desc, *args, **kwargs):
+        pipe = parse(desc, *args, **kwargs)
+        start = pipe.start
+
+        def start_traced():
+            out = start()
+            _race_trace(pipe, monitor)
+            return out
+        pipe.start = start_traced
+        return pipe
+
+    pt.parse_launch = parse_traced
+    try:
+        _, results, stats = _fanout(port, frames, RACE_CLIENTS, 0,
+                                    RACE_FRAMES, RACE_FRAMES)
+    finally:
+        pt.parse_launch = parse
+    for c, res in enumerate(results):
+        pts = sorted(p for p, _ in res["replies"])
+        if pts != list(range(RACE_FRAMES)) or not all(
+                np.isfinite(np.asarray(v, np.float32)).all()
+                for _, v in res["replies"]):
+            sys.exit(f"chip_smoke: racecheck client {c}: replies {pts}")
+    return sum(s.get("session_declared_lost", 0) for s in stats)
+
+
+def _race_lines(smi, static_edges):
+    """Racecheck's card half: phase 36's served ViT-B/16 line (attn=pallas,
+    a breaker), then phase 37's two MobileNet-v2 replicas behind
+    tensor_serve_router, each with its clients, under one LockMonitor,
+    the recorded lock-order graph held to racecheck's static graph of the
+    port."""
+    from nnstreamer_tpu_torch.analysis import concurrency as conc
+    frames = _frames(QUERY_DISTINCT, _frame_shape()).numpy()
+    monitor = conc.LockMonitor()
+    rows = {}
+    # (a) the served ViT line with a breaker
+    _reset_launches()
+    port = _free_port()
+    server = _serve_server(port, RACE_VIT, "g", "breaker-threshold=50 ")
+    try:
+        _race_trace(server, monitor)
+        lost = _race_clients(port, frames, monitor)
+        batches = server["gsrc"].scheduler.report()["batches"]
+    finally:
+        server.stop()
+    launches = _kernel_launches()
+    rows["race_vit"] = {"batches": batches, "declared_lost": lost,
+                        "kernel_launches": launches}
+    if launches["attention"] != VIT_LAYERS * batches or launches["normalize"] \
+            or lost:
+        sys.exit(f"chip_smoke: racecheck ViT line: {rows['race_vit']}")
+    # (b) two replicas (one shared backend) behind the router
+    _reset_launches()
+    reps, router = _router_fleet("q", "race")
+    rt = router["rt"]
+    try:
+        for pipe in (*reps, router):
+            _race_trace(pipe, monitor)
+        _wait_healthy(rt)
+        lost = _race_clients(rt.bound_port, frames, monitor)
+        st = rt.stats.snapshot()
+    finally:
+        router.stop()
+        for r in reps:
+            r.stop()
+    launches = _kernel_launches()
+    rows["race_router"] = {"delivered": st["router_delivered"],
+                           "declared_lost": lost,
+                           "kernel_launches": launches}
+    if launches["attention"] or launches["normalize"] or lost \
+            or st["router_delivered"] != RACE_CLIENTS * RACE_FRAMES:
+        sys.exit(f"chip_smoke: racecheck router line: {rows['race_router']}")
+    cycles, missed = monitor.check_against_static(static_edges)
+    seen = sorted(monitor.edge_set())
+    witnessed = sorted(set(seen) & static_edges)
+    log(f"gates: racecheck card half: the served ViT-B/16 line ({batches} "
+        f"batches, {rows['race_vit']['kernel_launches']['attention']} "
+        f"attention launches) and two replicas behind the router "
+        f"({st['router_delivered']} delivered), {RACE_CLIENTS} clients x "
+        f"{RACE_FRAMES} frames each: {sum(monitor.acquisitions.values())} "
+        f"acquisitions of {len(monitor.acquisitions)} traced locks; "
+        f"{len(seen)} lock-order edge(s) recorded {seen}; "
+        f"{len(witnessed)} of racecheck's {len(static_edges)} static edges "
+        f"witnessed {witnessed}; cycles {cycles}; edges outside the static "
+        f"graph {sorted(missed)}; {smi}")
+    if not monitor.acquisitions or cycles or missed:
+        sys.exit(f"chip_smoke: racecheck card half: cycles {cycles}, edges "
+                 f"the static graph missed {sorted(missed)}")
+    rows["race_vit"]["edges_witnessed"] = len(witnessed)
+    rows["race_vit"]["edges_recorded"] = len(seen)
+    return rows
+
+
+def phase_gates(smi):
+    """Phase 51 (see the module doc): the port's check gates on cuda:0 —
+    the corpus lint, the fuse and async byte-parity gates over the whole
+    corpus, the shard gate on the card's world, the obs-overhead gate on
+    bench.py's devres row at full width — and racecheck's card half. Any
+    gate's nonzero exit fails the script."""
+    from nnstreamer_tpu_torch.analysis.concurrency import analyze_paths
+    rows = {}
+    _reset_launches()
+    lint = _tool("torch_lint_corpus").run()
+    rows["lint"] = _gate_row(lint, _kernel_launches(),
+                             ("seconds", "linted", "errors"))
+    log(f"gates: lint {lint['linted']} descriptions, {lint['skipped']} "
+        f"non-pipeline strings, {lint['warnings']} warnings, "
+        f"{lint['errors']} errors in {lint['seconds']:.1f} s")
+    if lint["rc"]:
+        sys.exit(f"chip_smoke: the lint gate exited {lint['rc']}: "
+                 f"{lint['failures'][:5]}")
+    parity = _tool("torch_fuse_parity")
+    for mode in ("fuse", "async"):
+        _reset_launches()
+        res = parity.run(mode, "cuda", timeout=GATES_TIMEOUT_S)
+        launches = _kernel_launches()
+        ok = parity.STATUSES[mode][0]
+        ran = [where for where, _, status, _ in res["results"]
+               if status in (ok, "FAIL")]
+        rows[mode] = _gate_row(res, launches, (
+            "seconds", "counts", "lines_run", "runs",
+            "attention_launches"))
+        log(f"gates: {parity.summary(res)} on cuda:0 in "
+            f"{res['seconds']:.1f} s; {res['lines_run']} corpus lines ran "
+            f"{res['runs']} pipelines on the card ({ok}: {ran}); kernel "
+            f"launches {launches} (attention expected "
+            f"{res['attention_launches']}: {VIT_LAYERS} a ViT-B/16 buffer)")
+        for failure in res["failures"]:
+            log(f"  {failure}")
+        if res["rc"] or launches["normalize"] \
+                or launches["attention"] != res["attention_launches"]:
+            sys.exit(f"chip_smoke: the {mode} gate exited {res['rc']}, "
+                     f"launches {launches}")
+    _reset_launches()
+    shard = _tool("torch_shard_parity").run("cuda", timeout=GATES_TIMEOUT_S)
+    launches = _kernel_launches()
+    rows["shard"] = _gate_row(shard, launches, (
+        "seconds", "counts", "world", "rewritten"))
+    log(f"gates: {_tool('torch_shard_parity').summary(shard)} in "
+        f"{shard['seconds']:.1f} s; kernel launches {launches}")
+    for failure in shard["failures"]:
+        log(f"  {failure}")
+    if shard["rc"] or shard["world"] != torch.cuda.device_count() \
+            or launches["attention"] or launches["normalize"]:
+        sys.exit(f"chip_smoke: the shard gate exited {shard['rc']} on a "
+                 f"world of {shard['world']}")
+    obs = _tool("torch_obs_overhead").run("cuda")
+    rows["obs"] = _gate_row(obs, {"attention": 0, "normalize": 0}, (
+        "seconds", "fps_off", "fps_on", "loss_pct"))
+    if obs["rc"] == 2:
+        sys.exit(f"chip_smoke: the obs-overhead gate's harness failed: "
+                 f"{obs['error'][-3000:]}")
+    log(f"gates: obs-overhead on bench.py's devres row (MobileNet-v2 batch "
+        f"32, {obs['warmup']} + {obs['frames']} buffers, best of "
+        f"{obs['reps']} in turns): fps off {obs['fps_off']}, on "
+        f"{obs['fps_on']}; best {obs['best_off']:.2f} against "
+        f"{obs['best_on']:.2f}, {obs['loss_pct']:+.2f} % (budget "
+        f"{obs['budget_pct']} %); spans off {obs['spans_off']}, on "
+        f"{obs['spans_on']}; {obs['seconds']:.1f} s; {smi}")
+    if obs["rc"] or any(obs["spans_off"]) or not all(obs["spans_on"]):
+        sys.exit(f"chip_smoke: the obs-overhead gate exited {obs['rc']}")
+    static = analyze_paths([os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "nnstreamer_tpu_torch")])
+    rows.update(_race_lines(smi, {tuple(e) for e in static.lock_edges}))
+    return rows
+
+
 def main():
     smi = timed("device", phase_device)
     kind = torch.cuda.get_device_name(0)
@@ -7656,6 +7893,9 @@ def main():
     # phase 50: the analyzers and the runtime lock and capture monitors
     multi["analysis"] = timed("analysis", phase_analysis, smi)
     log(f"phase 50 (analysis): {PHASE_S['analysis']:.1f} s")
+    # phase 51: the check gates over the corpus and racecheck's card half
+    multi["gates"] = timed("gates", phase_gates, smi)
+    log(f"phase 51 (gates): {PHASE_S['gates']:.1f} s")
     if lines["train_vit"]["kernel_launches"]["normalize"]:
         sys.exit("chip_smoke: the normalize kernel ran on train_vit")
     for k in ("obs_vit", "fleet_vit_replicas"):
@@ -7679,7 +7919,7 @@ def main():
                          f"{row['kernel_launches']}")
     pt.parse_launch = parse
     log(f"queues: {queues['python']} Python queues on the lines of "
-        f"phases 1-50, {queues['native']} ring queues, all on the native "
+        f"phases 1-51, {queues['native']} ring queues, all on the native "
         "queue lines")
     pipelint = phase_pipelint(smi, list(dict.fromkeys(launched)))
     for k in ("clean", "retry", "skip", "restart"):
@@ -7739,7 +7979,7 @@ def main():
                     "codec_sizes": codec_sizes,
                     "pipelint": pipelint, "card": smi}))
     running = {pid: v for pid, v in _descendants().items() if v[0] != "Z"}
-    log(f"processes of this run still running after phase 50: "
+    log(f"processes of this run still running after phase 51: "
         f"{running or 'none'}")
     log(f"phase seconds: {PHASE_S}; "
         f"{time.perf_counter() - T_START:.1f} s since the script started")

@@ -623,11 +623,15 @@ class FleetRouter:
                         buf, self._client_cfg(ent[0]), stats=self.stats)
                     out_meta["client_id"] = ent[0]
                     out_meta["seq"] = ent[1]
-                    if self._send_client(ent[0], MsgKind.RESULT, out_meta,
-                                         out_payloads):
-                        self.stats.inc("router_delivered")
-                    else:
-                        self.stats.inc("router_orphaned")
+                    # booked before the client can read the reply: a
+                    # client that has its answer finds it in the
+                    # counters (the JAX router books after the send,
+                    # nnstreamer_tpu/serve/router.py:620-624)
+                    self.stats.inc("router_delivered")
+                    if not self._send_client(ent[0], MsgKind.RESULT,
+                                             out_meta, out_payloads):
+                        self.stats.add(router_delivered=-1,
+                                       router_orphaned=1)
                 elif kind == MsgKind.SHED:
                     rep.hb.heard()
                     ent = self._settle(meta.get("seq"))

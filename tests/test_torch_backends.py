@@ -500,11 +500,14 @@ def test_new_modules_import_no_jax():
     media, gRPC and IIO elements, the direct_video and python3
     decoders, mesh mode (``parallel/``, the trainer's mesh commands) and
     the code analyzers (racecheck, flowcheck's static half, jitcheck)
-    (and chip_smoke.py, tools/torch_model_files.py,
-    tools/torch_image_files.py and tools/torch_jit_stability.py, read as
-    text) import nothing of JAX or
-    of the JAX package (ml_dtypes included), and nothing of PIL; the
-    modules are imported in a fresh interpreter."""
+    and the corpus of the check gates (and chip_smoke.py,
+    tools/torch_model_files.py, tools/torch_image_files.py,
+    tools/torch_jit_stability.py and the gate tools
+    tools/torch_{lint_corpus,fuse_parity,shard_parity,obs_overhead,
+    gen_element_docs}.py, read as text) import nothing of JAX or
+    of the JAX package (ml_dtypes included), nothing of the JAX gate
+    tools and nothing of PIL; the modules are imported in a fresh
+    interpreter."""
     code = ("import sys; import nnstreamer_tpu_torch.filters.custom, "
             "nnstreamer_tpu_torch.filters.custom_c, "
             "nnstreamer_tpu_torch.filters.torch_backend, "
@@ -582,7 +585,8 @@ def test_new_modules_import_no_jax():
             "nnstreamer_tpu_torch.analysis.flow.passes, "
             "nnstreamer_tpu_torch.analysis.flow.cli, "
             "nnstreamer_tpu_torch.analysis.jit, "
-            "nnstreamer_tpu_torch.analysis.jit.cli; "
+            "nnstreamer_tpu_torch.analysis.jit.cli, "
+            "nnstreamer_tpu_torch.analysis.corpus; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes', "
             "'nnstreamer_tpu', 'PIL')]; assert not bad, bad")
@@ -594,8 +598,16 @@ def test_new_modules_import_no_jax():
                os.path.join(ROOT, "tools", "torch_model_files.py"),
                os.path.join(ROOT, "tools", "torch_image_files.py"),
                os.path.join(ROOT, "tools", "torch_jit_stability.py")] + [
+        os.path.join(ROOT, "tools", f"torch_{name}.py") for name in (
+            "lint_corpus", "fuse_parity", "shard_parity", "obs_overhead",
+            "gen_element_docs")] + [
         os.path.join(d, f) for d, _, files in os.walk(
             os.path.join(ROOT, "nnstreamer_tpu_torch"))
         for f in files if f.endswith(".py")]
-    bad = [p for p in sources if pattern.search(open(p).read())]
+    # nor the JAX package's gate tools, of which the port keeps its own
+    jax_tools = re.compile(r"^\s*(from|import)\s+tools\.(lint_corpus|"
+                           r"fuse_parity|shard_parity|obs_overhead|"
+                           r"gen_element_docs)\b", re.M)
+    bad = [p for p in sources if pattern.search(open(p).read())
+           or jax_tools.search(open(p).read())]
     assert not bad, bad

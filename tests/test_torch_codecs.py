@@ -165,6 +165,7 @@ def test_decoder_converter_round_trip_equals_the_jax_line(mode):
     """tensors -> codec bytes -> tensors (tests/test_codecs.py's round
     trip): the port's line hands its sinks the JAX line's buffers, and
     the round trip gives back the straight leg's arrays."""
+    # pipelint: skip (a template: the codec mode is parametrised)
     desc = (f'tensortestsrc caps="{CAPS}" num-buffers=3 pattern=random '
             f"seed=7 ! tee name=t "
             f"t. ! queue ! appsink name=ref "
@@ -181,6 +182,7 @@ def test_decoder_converter_round_trip_equals_the_jax_line(mode):
     ("protobuf", "other/protobuf-tensor"),
     ("octet_stream", "application/octet-stream")])
 def test_decoder_bytes_and_mimetype_equal_the_jax_line(mode, mime):
+    # pipelint: skip (a template: the codec mode is parametrised)
     desc = (f'tensortestsrc caps="{CAPS}" num-buffers=2 pattern=random '
             f"seed=5 ! tensor_decoder mode={mode} ! appsink name=out")
     _, pp = _assert_same_sinks(desc, ["out"], 2)
@@ -208,6 +210,7 @@ def test_octet_round_trip_via_converter_equals_the_jax_line():
 def test_jax_bytes_convert_in_the_port(mode):
     """The JAX package's decoder output fed to the port's converter (and
     the port's to the JAX converter) comes out as the frame it packed."""
+    # pipelint: skip (a template: the codec mode is parametrised)
     desc = (f'tensortestsrc caps="{CAPS}" num-buffers=2 pattern=random '
             f"seed=9 ! tee name=t t. ! queue ! appsink name=ref "
             f"t. ! queue ! tensor_decoder mode={mode} ! appsink name=out")

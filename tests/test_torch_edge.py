@@ -285,6 +285,7 @@ def test_delta_line_delivers_what_a_raw_line_delivers():
     def run(codec):
         port = _free_port()
         pub = pt.parse_launch(
+            # pipelint: skip (a template: the wire codec is parametrised)
             f'appsrc name=in caps="{CAPS_512}" ! edgesink name=p '
             f'port={port} topic=t wire-codec={codec} wire-delta-k=4')
         pub.start()

@@ -104,6 +104,7 @@ def test_audio_to_tensor():
 @pytest.mark.parametrize("fmt", ["U8", "F32LE"])
 def test_audio_formats_match_jax(fmt):
     _assert_same_stream(
+        # pipelint: skip (a template: the audio format is parametrised)
         "audiotestsrc samplesperbuffer=64 num-buffers=2 freq=1000 "
         f'caps="audio/x-raw,format={fmt},channels=1,rate=8000" '
         "! tensor_converter ! appsink name=out", 2)
@@ -173,6 +174,7 @@ def test_filesink_writes_every_chunk(tmp_path):
                                      ("GRAY8", "RGB"), ("RGB", "RGB")])
 def test_videoconvert_matches_jax(src, dst):
     _assert_same_stream(
+        # pipelint: skip (a template: both video formats are parametrised)
         f"videotestsrc pattern=random seed=2 num-buffers=2 "
         f'caps="video/x-raw,format={src},width=6,height=4,framerate=30/1" '
         f"! videoconvert format={dst} ! tensor_converter ! appsink name=out",

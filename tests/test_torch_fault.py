@@ -450,6 +450,7 @@ class TestSourceSupervision:
         ("retry(3,0.01)", "retries", 3), ("restart(5,30)", "restarts", 3),
         ("skip", "dropped", 3)])
     def test_same_recovery(self, policy, counter, n):
+        # pipelint: skip (a template: the on-error policy is parametrised)
         line = (f"torch_parity_flaky_src num-buffers=9 every=3 "
                 f"on_error={policy} name=src ! tensor_sink name=s")
         outs = _both(lambda pkg: _outcome(

@@ -43,6 +43,7 @@ from nnstreamer_tpu.filters import register_custom_easy as nt_register
 from nnstreamer_tpu.serve import router as nt_router
 from nnstreamer_tpu_torch.analysis import Severity, analyze
 from nnstreamer_tpu_torch.edge.broker import DiscoveryBroker, discover_meta
+from nnstreamer_tpu_torch.edge.protocol import MsgKind
 from nnstreamer_tpu_torch.filters import register_custom_easy
 from nnstreamer_tpu_torch.serve import router as pt_router
 from nnstreamer_tpu_torch.serve.router import HashRing, parse_replicas
@@ -381,6 +382,40 @@ class TestRouterE2E:
             rp.stop()
             for sp in reps:
                 sp.stop()
+
+    def test_delivery_is_booked_before_the_client_reads_it(self):
+        """Each RESULT's ``router_delivered`` is booked before the reply
+        goes to its client, so a client that has all its answers reads
+        a settled router (the JAX router books it after the send, and
+        ``router-settlement`` could then read one short)."""
+        sp = _serve_pipeline(90)
+        sp.start()
+        rp = pt.parse_launch(
+            f"tensor_serve_router name=rt port=0 "
+            f"replicas=localhost:{sp['src'].bound_port} heartbeat-ms=50")
+        rp.start()
+        rt = rp["rt"]
+        seen = []
+        send = rt.router._send_client
+
+        def send_after_booking(cid, kind, meta, payloads=()):
+            if kind == MsgKind.RESULT:
+                seen.append(rt.stats["router_delivered"])
+            return send(cid, kind, meta, payloads)
+
+        rt.router._send_client = send_after_booking
+        c = _client_pipeline(rt.bound_port)
+        c.start()
+        try:
+            _push(c, range(8))
+            assert _wait_settled(c, 8) == [2.0 * i for i in range(8)]
+            assert seen == list(range(1, 9))
+            check_identities(rt.stats.snapshot(), names=["router-settlement"])
+        finally:
+            c["in"].end_stream()
+            c.stop()
+            rp.stop()
+            sp.stop()
 
     def test_kill_links_redispatches_with_zero_loss(self):
         """The chaos hook severs every replica link while frames are in
