@@ -490,8 +490,12 @@ Native queue — the headline line with queue backend=native against
               of tests/*.py, README.md and the tutorials); the fuse and
               async byte-parity gates of tools/torch_fuse_parity.py over
               the whole corpus (fused against fuse=false; in-flight=4
-              against 1), each gate's attention launches equal to 12 a
-              ViT-B/16 buffer its lines ran; tools/torch_shard_parity.py
+              against 1), each gate's attention launches equal to its
+              lines' completed invokes on the card times their built
+              models' hand-attention modules (12 a ViT-B/16 invoke); a
+              line whose filters lost frames to failed invokes is
+              skipped only where the CPU loses as many, else it fails
+              the gate; tools/torch_shard_parity.py
               on the card's world (each mesh spec fitted to one rank);
               tools/torch_obs_overhead.py on bench.py's devres row at
               full width (MobileNet-v2 batch 32, recording on against
@@ -514,7 +518,8 @@ and the native queue lines launch neither hand kernel
 launch counts are read all the same and written on the kernels line as
 0. Phase 44's replicas count in their own processes: the kernels line
 gives their sum as fleet_vit_replicas (the parent's own, 0, as
-fleet_vit). The
+fleet_vit); so do phase 51's obs-overhead children, summed as
+gates_obs. The
 tracer's times are host times: a filter's proctime is its dispatch
 (staging and the graph launch), not the device time.
 
@@ -7711,20 +7716,30 @@ def phase_gates(smi):
         ok = parity.STATUSES[mode][0]
         ran = [where for where, _, status, _ in res["results"]
                if status in (ok, "FAIL")]
+        lossy = [f"{where}: {detail}" for where, _, status, detail
+                 in res["results"] if status == "skipped"
+                 and ("failed invokes" in detail or "crashed" in detail
+                      or "nothing compared" in detail)]
         rows[mode] = _gate_row(res, launches, (
             "seconds", "counts", "lines_run", "runs",
-            "attention_launches"))
+            "attention_launches", "attention_expected", "line_launches"))
         log(f"gates: {parity.summary(res)} on cuda:0 in "
             f"{res['seconds']:.1f} s; {res['lines_run']} corpus lines ran "
             f"{res['runs']} pipelines on the card ({ok}: {ran}); kernel "
-            f"launches {launches} (attention expected "
-            f"{res['attention_launches']}: {VIT_LAYERS} a ViT-B/16 buffer)")
+            f"launches {launches}, by line {res['line_launches']} "
+            f"(attention expected from the built models' hand-attention "
+            f"modules and the completed invokes: "
+            f"{res['attention_expected']}); skipped after running, with "
+            f"the CPU's verdict: {lossy}")
         for failure in res["failures"]:
             log(f"  {failure}")
         if res["rc"] or launches["normalize"] \
-                or launches["attention"] != res["attention_launches"]:
+                or launches["attention"] != res["attention_launches"] \
+                or res["attention_launches"] != res["attention_expected"]:
             sys.exit(f"chip_smoke: the {mode} gate exited {res['rc']}, "
-                     f"launches {launches}")
+                     f"launches {launches}, the gate read "
+                     f"{res['attention_launches']}, expected "
+                     f"{res['attention_expected']}")
     _reset_launches()
     shard = _tool("torch_shard_parity").run("cuda", timeout=GATES_TIMEOUT_S)
     launches = _kernel_launches()
@@ -7739,20 +7754,25 @@ def phase_gates(smi):
         sys.exit(f"chip_smoke: the shard gate exited {shard['rc']} on a "
                  f"world of {shard['world']}")
     obs = _tool("torch_obs_overhead").run("cuda")
-    rows["obs"] = _gate_row(obs, {"attention": 0, "normalize": 0}, (
-        "seconds", "fps_off", "fps_on", "loss_pct"))
     if obs["rc"] == 2:
         sys.exit(f"chip_smoke: the obs-overhead gate's harness failed: "
                  f"{obs['error'][-3000:]}")
+    # the rows run in child processes: their counts are the children's
+    rows["obs"] = _gate_row(obs, obs["launches"], (
+        "seconds", "fps_off", "fps_on", "loss_pct"))
     log(f"gates: obs-overhead on bench.py's devres row (MobileNet-v2 batch "
         f"32, {obs['warmup']} + {obs['frames']} buffers, best of "
         f"{obs['reps']} in turns): fps off {obs['fps_off']}, on "
         f"{obs['fps_on']}; best {obs['best_off']:.2f} against "
         f"{obs['best_on']:.2f}, {obs['loss_pct']:+.2f} % (budget "
         f"{obs['budget_pct']} %); spans off {obs['spans_off']}, on "
-        f"{obs['spans_on']}; {obs['seconds']:.1f} s; {smi}")
-    if obs["rc"] or any(obs["spans_off"]) or not all(obs["spans_on"]):
-        sys.exit(f"chip_smoke: the obs-overhead gate exited {obs['rc']}")
+        f"{obs['spans_on']}; kernel launches in the {2 * obs['reps']} "
+        f"child processes {obs['launches']}; {obs['seconds']:.1f} s; {smi}")
+    if obs["rc"] or any(obs["spans_off"]) or not all(obs["spans_on"]) \
+            or any(obs["launches"].values()):
+        sys.exit(f"chip_smoke: the obs-overhead gate exited {obs['rc']}, "
+                 f"launches {obs['launches']} (MobileNet-v2 runs no hand "
+                 "kernel)")
     static = analyze_paths([os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "nnstreamer_tpu_torch")])
     rows.update(_race_lines(smi, {tuple(e) for e in static.lock_edges}))

@@ -25,9 +25,9 @@ hermetically: no socket, no file, no hardware, no wall clock),
 ``Chunk.host()``), :func:`sink_keys` (sinks by parse position and kind),
 :func:`place` (``--device cpu`` puts ``accelerator=true:cpu`` on every
 filter; on the card a line keeps what it says), :func:`run_to_eos` (a
-run its timeout cut is an error, not a shorter output), :func:`mesh_world` (one
-mesh world held across a gate's lines) and :func:`attention_launches`
-(what a finished run should have launched of the attention kernel).
+run its timeout cut is an error, not a shorter output; a hook reads the
+finished run before its backends close) and :func:`mesh_world` (one mesh
+world held across a gate's lines).
 """
 from __future__ import annotations
 
@@ -35,7 +35,8 @@ import ast
 import contextlib
 import re
 from pathlib import Path
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import (Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -254,14 +255,18 @@ def mesh_world(device: str, ranks: int = 1):
             set_host_devices(None)
 
 
-def run_to_eos(pipe, timeout: float) -> None:
+def run_to_eos(pipe, timeout: float,
+               at_eos: Optional[Callable[[object], None]] = None) -> None:
     """Start, wait for EOS, stop. A run its timeout cut raises
     ``TimeoutError``: its sinks hold part of the stream, and comparing
-    them would read as a byte difference."""
+    them would read as a byte difference. ``at_eos(pipe)`` reads the
+    finished run before stop closes its filters' backends."""
     pipe.start()
     try:
         if not pipe.wait_eos(timeout):
             raise TimeoutError(f"no EOS within {timeout:g} s")
+        if at_eos is not None:
+            at_eos(pipe)
     finally:
         pipe.stop()
 
@@ -317,38 +322,6 @@ def sink_keys(pipe) -> Dict[str, str]:
     sinks = [(n, e) for n, e in pipe.elements.items()
              if isinstance(e, SinkElement)]
     return {name: f"#{i}:{kind_of(e)}" for i, (name, e) in enumerate(sinks)}
-
-
-def _launches_an_invoke(model: str) -> int:
-    """Hand-attention launches one invoke of ``model`` makes: one a layer
-    of a ``zoo://vit`` with ``attn=pallas``, else 0."""
-    uri = str(model or "").split(",")[0]
-    if not uri.startswith("zoo://vit?"):
-        return 0
-    query = dict(p.split("=", 1) for p in uri.split("?", 1)[1].split("&")
-                 if "=" in p)
-    return int(query.get("layers", 12)) if query.get("attn") == "pallas" \
-        else 0
-
-
-def attention_launches(pipe) -> int:
-    """The attention-kernel launches a finished run of ``pipe`` made on
-    the card: each buffer a filter (or a fused segment holding it)
-    invoked, less those it dropped (QoS, a failed invoke, an open
-    breaker), times its model's launches an invoke; 0 on the CPU."""
-    total = 0
-    for e in pipe.elements.values():
-        members = list(getattr(e, "members", ())) \
-            if getattr(e, "IS_FUSED_SEGMENT", False) else [e]
-        st = e.stats.snapshot()
-        invokes = st["buffers"] - st.get("qos_dropped", 0) \
-            - st.get("frames_dropped", 0)
-        for m in members:
-            acc = str(m.accelerator).lower() \
-                if kind_of(m) == "tensor_filter" else "false"
-            if "cpu" not in acc and acc != "false":
-                total += invokes * _launches_an_invoke(m.model)
-    return total
 
 
 def first_difference(want: Dict[str, list], got: Dict[str, list],

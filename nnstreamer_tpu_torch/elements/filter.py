@@ -866,6 +866,13 @@ class TensorFilter(Element):
             return (sum(self._recent_latency)
                     / len(self._recent_latency) / 1e3)
 
+    @property
+    def invokes(self) -> int:
+        """Invokes completed since the element was made (a failed one is
+        not counted)."""
+        with self._stats_lock:
+            return self._invoke_count
+
     def throughput_fps(self) -> float:
         """Invokes/sec since start (≙ throughput prop, tensor_filter.c:452)."""
         if self._start_time is None or self._invoke_count == 0:

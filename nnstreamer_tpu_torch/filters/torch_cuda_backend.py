@@ -216,6 +216,15 @@ class TorchCudaFilter(FilterFramework):
         self._mesh_suspended = False
         self._mesh_sigs: set = set()
 
+    @property
+    def module(self) -> Optional[torch.nn.Module]:
+        """The open model (on the host while suspended; this rank's copy
+        in mesh mode); None once closed."""
+        if self.mesh_model is not None:
+            return self.mesh_model.module
+        return self._module if self._module is not None \
+            else self._host_module
+
     # -- mesh mode ----------------------------------------------------------
     @property
     def mesh(self):

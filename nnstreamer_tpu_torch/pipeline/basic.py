@@ -480,9 +480,11 @@ class TensorTestSrc(SrcElement):
             chunks = [Chunk(t) for t in
                       self._pool[self._count % len(self._pool)]]
             if self.unique:
-                chunks = [Chunk(c.raw + torch.tensor(
-                    self._count % 199 + 1, dtype=c.raw.dtype,
-                    device=c.raw.device)) for c in chunks]
+                # a Python scalar rides in the kernel's arguments: a
+                # tensor made from it would be a pageable host-to-device
+                # copy, which waits for all the card's queued work
+                chunks = [Chunk(c.raw + (self._count % 199 + 1))
+                          for c in chunks]
         else:
             chunks = [Chunk(a) for a in self._make_frame(self._count)]
         cfg = self._config

@@ -98,6 +98,35 @@ def test_tensortestsrc_device_pool(card, unique):
         assert b.chunks[0].host().tobytes() == want.tobytes()
 
 
+@pytest.mark.parametrize("dtype", ["uint8", "int8", "float32", "bfloat16"])
+def test_unique_device_frames_do_not_wait_for_the_card(card, dtype):
+    """unique=true adds the counter as a kernel argument: making a frame
+    queues its add behind the card's work and returns (a tensor made of
+    the counter would be a pageable copy that waits for the whole
+    queue, so the stream would never run ahead of the source). The
+    frames are the pool's plus the counter, wrapped to the dtype, as a
+    tensor of the counter gives them."""
+    import time
+    caps = (f"other/tensors,format=static,num_tensors=1,types={dtype},"
+            "dimensions=16,framerate=0/1")
+    src = pt.parse_launch(  # pipelint: skip (a fixture)
+        f"tensortestsrc name=s caps={caps} pattern=random seed=3 "
+        "pool-size=2 device=true unique=true ! fakesink")["s"]
+    src.negotiate_src_caps()
+    first = src.create()  # stages the pool
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000_000)  # about a second of the card's time
+    t0 = time.perf_counter()
+    bufs = [src.create() for _ in range(4)]
+    queued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    assert queued < 0.25, f"4 frames took {queued:.3f} s to queue"
+    for i, b in enumerate([first] + bufs):
+        x = src._pool[i % 2][0]
+        want = x + torch.tensor(i % 199 + 1, device=x.device).to(x.dtype)
+        assert torch.equal(b.chunks[0].raw, want)
+
+
 def test_small_vit_line_on_card(card):
     """A small ViT line on the card launches the kernel once per encoder
     block and frame, and its logits equal the CPU run's within the bf16

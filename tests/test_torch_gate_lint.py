@@ -197,40 +197,25 @@ def test_chunk_records_compare_bf16_by_its_bits():
         == ("int16", (2, 2), np.arange(4, dtype=np.int16).tobytes())
 
 
-@pytest.mark.parametrize("model,n", [
-    ("zoo://vit?attn=pallas", 12), ("zoo://vit?attn=pallas&layers=2", 2),
-    ("zoo://vit?attn=stock", 0), ("zoo://vit", 0),
-    ("zoo://mobilenet_v2", 0), ("m.py", 0)])
-def test_attention_launches_an_invoke(model, n):
-    assert corpus._launches_an_invoke(model) == n
+def test_at_eos_reads_the_run_before_its_backends_close():
+    """``run_to_eos``'s hook sees the finished run with its filters'
+    backends still open (the fuse gate reads each built model there);
+    stop closes them after it."""
+    import nnstreamer_tpu_torch as pt
+    seg = ("other/tensors,format=static,num_tensors=1,types=(string)"
+           "float32,dimensions=(string)8:8,framerate=(fraction)0/1")
+    pipe = pt.parse_launch(  # pipelint: skip (a fixture)
+        f"tensortestsrc caps={seg} num-buffers=3 ! tensor_filter name=f "
+        "framework=torch-cuda model=zoo://toyseg accelerator=true:cpu "
+        "! appsink name=out")
+    seen = {}
 
-
-def test_attention_launches_count_the_invokes_on_the_card():
-    """What a finished run should have launched: the buffers a card
-    filter invoked (less those it dropped) times its layers; a filter on
-    the CPU launches nothing."""
-    from nnstreamer_tpu_torch.utils.atomic import Counters
-
-    class Filter:
-        ELEMENT_NAME = "tensor_filter"
-
-        def __init__(self, model, acc, **stats):
-            self.model, self.accelerator = model, acc
-            self.stats = Counters({"buffers": 0, "qos_dropped": 0,
-                                   "frames_dropped": 0, **stats})
-
-    class Pipe:
-        def __init__(self, *elements):
-            self.elements = {str(i): e for i, e in enumerate(elements)}
-
-    vit = "zoo://vit?attn=pallas"
-    assert corpus.attention_launches(Pipe(
-        Filter(vit, "", buffers=64),
-        Filter(vit + "&layers=2", "", buffers=6, frames_dropped=6),
-        Filter(vit, "true:cpu", buffers=5),
-        Filter("zoo://mobilenet_v2", "", buffers=9),
-        Filter(vit, "", buffers=10, qos_dropped=3, frames_dropped=1))) \
-        == 12 * 64 + 12 * 6
+    def read(p):
+        seen.update(fw=p["f"].fw is not None, invokes=p["f"].invokes,
+                    out=len(p["out"].buffers))
+    corpus.run_to_eos(pipe, 60, read)
+    assert seen == {"fw": True, "invokes": 3, "out": 3}
+    assert pipe["f"].fw is None
 
 
 def test_a_run_cut_by_its_timeout_is_an_error():

@@ -29,6 +29,8 @@ def test_each_arm_prints_one_fps_line(obs, on):
     assert res["fps"] > 0 and res["device"] == "cpu"
     assert res["obs"] is on
     assert (res["spans"] > 0) is on
+    # the child's own counters: the CPU row launches no hand kernel
+    assert res["launches"] == {"attention": 0, "normalize": 0}
 
 
 def test_child_prints_one_json_line_last():
@@ -69,11 +71,14 @@ def test_interleaves_the_arms_and_keeps_every_rep(obs, monkeypatch):
 
     def fake(on, device, frames, warmup):
         order.append(on)
-        return {"fps": 100.0 if on else 101.0, "spans": int(on)}
+        return {"fps": 100.0 if on else 101.0, "spans": int(on),
+                "launches": {"attention": 12 * on, "normalize": 1}}
     monkeypatch.setattr(obs, "run_once", fake)
     res = obs.run("cpu", frames=4, warmup=1, reps=3)
     assert order == [False, True] * 3
     assert res["fps_off"] == [101.0] * 3 and res["rc"] == 0
+    # each child's launches, summed over every rep of both arms
+    assert res["launches"] == {"attention": 36, "normalize": 6}
 
 
 def test_card_row_is_bench_devres_at_full_width(obs):

@@ -22,6 +22,14 @@ crop fan-out) always runs, so the gate compares something even where the
 corpus yields nothing to fuse. A line that needs a network peer, a file
 on disk, hardware or another framework is skipped and counted.
 
+A line compares only what its filters made. Where a filter (or a fused
+segment) lost frames to failed invokes in either twin, or no buffer
+reached a sink, the line is ``skipped`` with that reason, not passed:
+equal empty sinks prove nothing. On the card such a loss (and the
+async gate's crashed synchronous twin) is skipped only where the same
+line on the CPU loses as many frames (crashes too): the line's input
+does not fit its model. A loss the card alone shows is ``FAIL``.
+
     python3 tools/torch_fuse_parity.py                       # on cuda:0
     python3 tools/torch_fuse_parity.py --device cpu          # on the CPU
     python3 tools/torch_fuse_parity.py --mode async --device cpu
@@ -49,11 +57,12 @@ import torch  # noqa: E402
 
 from nnstreamer_tpu_torch.analysis import analyze  # noqa: E402
 from nnstreamer_tpu_torch.analysis.corpus import (  # noqa: E402
-    attention_launches, bound_sources, capture_sinks, distinct,
-    first_difference, mesh_world, place, port_corpus, run_to_eos,
-    runnable, sink_keys)
+    bound_sources, capture_sinks, distinct, first_difference, mesh_world,
+    place, port_corpus, run_to_eos, runnable, sink_keys)
 from nnstreamer_tpu_torch.analysis.rules import kind_of  # noqa: E402
 from nnstreamer_tpu_torch.fusion import plan_fusion  # noqa: E402
+from nnstreamer_tpu_torch.models.vit import MultiHeadAttention  # noqa: E402
+from nnstreamer_tpu_torch.ops import attention  # noqa: E402
 from nnstreamer_tpu_torch.parallel.world import host_devices  # noqa: E402
 from nnstreamer_tpu_torch.pipeline.parser import parse_launch  # noqa: E402
 
@@ -102,12 +111,56 @@ def _parse(desc: str, device: str):
     return pipe
 
 
-def _ran(pipe, tally: Optional[Dict]) -> None:
-    """Book a finished run: one more pipeline, and the attention-kernel
-    launches it should have made on the card."""
-    if tally is not None:
-        tally["runs"] += 1
-        tally["attention"] += attention_launches(pipe)
+def _hand_attention(fw) -> int:
+    """Attention-kernel launches one call of an open backend's model
+    makes on the card: the built model's attention modules that route
+    through ``ops.fused_attention``; 0 for a backend on the CPU."""
+    module = getattr(fw, "module", None)
+    device = getattr(fw, "device", None)
+    if not isinstance(module, torch.nn.Module) \
+            or getattr(device, "type", None) != "cuda":
+        return 0
+    return sum(isinstance(m, MultiHeadAttention) and m.fused
+               for m in module.modules())
+
+
+def _read_run(pipe) -> Dict[str, int]:
+    """A finished run, read before its backends close: ``lost``, the
+    frames its filters (and fused segments) lost to failed invokes, and
+    ``attention``, the launches its calls should have made on the card
+    (a filter's completed invokes, a segment's dispatched frames, times
+    each built model's hand-attention modules)."""
+    lost = expected = 0
+    for e in pipe.elements.values():
+        if getattr(e, "IS_FUSED_SEGMENT", False):
+            lost += e.stats.snapshot().get("dropped", 0)
+            calls = e.stats["jit_hits"] + e.stats["jit_misses"]
+            members = e.members
+        elif kind_of(e) == "tensor_filter":
+            lost += e.stats["invoke_errors"]
+            calls, members = e.invokes, [e]
+        else:
+            continue
+        expected += calls * sum(_hand_attention(getattr(m, "fw", None))
+                                for m in members)
+    return {"lost": lost, "attention": expected}
+
+
+def _run_line(pipe, timeout: float, tally: Optional[Dict]) -> int:
+    """Run a parsed line to EOS; the frames it lost to failed invokes.
+    ``tally`` books the run: ``runs``, ``attention`` (the launches the
+    run made, read off the kernel's counter) and
+    ``attention_expected`` (:func:`_read_run`)."""
+    read: Dict[str, int] = {}
+    before = attention.launches
+    try:
+        run_to_eos(pipe, timeout, lambda p: read.update(_read_run(p)))
+    finally:
+        if tally is not None:
+            tally["runs"] += 1
+            tally["attention"] += attention.launches - before
+            tally["attention_expected"] += read.get("attention", 0)
+    return read["lost"]
 
 
 def _run_once(desc: str, fuse: bool, device: str, timeout: float,
@@ -115,11 +168,10 @@ def _run_once(desc: str, fuse: bool, device: str, timeout: float,
     pipe = _parse(desc, device)
     pipe.fuse = fuse
     got = capture_sinks(pipe)
-    run_to_eos(pipe, timeout)
-    _ran(pipe, tally)
+    lost = _run_line(pipe, timeout, tally)
     fused = [e.name for e in pipe.elements.values()
              if getattr(e, "IS_FUSED_SEGMENT", False)]
-    return got, fused
+    return got, fused, lost
 
 
 def _run_async(desc: str, k: int, device: str, timeout: float,
@@ -135,12 +187,31 @@ def _run_async(desc: str, k: int, device: str, timeout: float,
             e.set_property("reorder", True)
     got = capture_sinks(pipe)
     keys = sink_keys(pipe)
-    run_to_eos(pipe, timeout)
-    _ran(pipe, tally)
+    lost = _run_line(pipe, timeout, tally)
     # a stopped filter keeps its (stopped) executor
     windowed = [e.name for e in pipe.elements.values()
                 if getattr(e, "_overlap", None) is not None]
-    return {keys[n]: recs for n, recs in got.items()}, windowed
+    return {keys[n]: recs for n, recs in got.items()}, windowed, lost
+
+
+def _lost_verdict(desc: str, lost: Tuple[int, int], device: str,
+                  timeout: float, twin) -> Tuple[str, str]:
+    """The status of a line whose twins lost ``lost`` frames to failed
+    invokes (their outputs equal): skipped, with the reason, where the
+    CPU loses as many on ``twin``'s run of the line (the input does not
+    fit the model); FAIL where only the card does."""
+    what = f"{lost[0]} and {lost[1]} frame(s) lost to failed invokes"
+    nothing = "; nothing of theirs compared"
+    if device == "cpu":
+        return "skipped", what + nothing
+    try:
+        cpu_lost = twin(desc, "cpu", timeout)[-1]
+    except Exception as exc:  # noqa: BLE001
+        return "FAIL", f"{what} on the card; the CPU run crashed: {exc!r}"
+    if cpu_lost != lost[1]:
+        return "FAIL", (f"{what} on the card, {cpu_lost} on the CPU: the "
+                        "card's invokes fail where the CPU's do not")
+    return "skipped", f"{what}, as many on the CPU{nothing}"
 
 
 def _probe(desc: str, device: str):
@@ -157,11 +228,17 @@ def _probe(desc: str, device: str):
     return probe, None
 
 
+def _nothing_compared(out: Dict[str, list]) -> Optional[Tuple[str, str]]:
+    if not any(out.values()):
+        return "skipped", "no buffer reached a sink: nothing compared"
+    return None
+
+
 def check_parity(where: str, desc: str, device: str = "cuda",
                  timeout: float = 60.0,
                  tally: Optional[Dict] = None) -> Tuple[str, str]:
     """-> (status, detail); status in {fused-ok, unfused, skipped, FAIL}.
-    ``tally`` (``runs``, ``attention``) books each finished run."""
+    ``tally`` books each run (:func:`_run_line`)."""
     probe, verdict = _probe(desc, device)
     if verdict is not None:
         return verdict
@@ -175,8 +252,10 @@ def check_parity(where: str, desc: str, device: str = "cuda",
     finally:
         probe.stop()  # the planner opens the models (and a mesh's world)
     try:
-        fused_out, fused = _run_once(desc, True, device, timeout, tally)
-        plain_out, _ = _run_once(desc, False, device, timeout, tally)
+        fused_out, fused, fused_lost = _run_once(desc, True, device,
+                                                 timeout, tally)
+        plain_out, _, plain_lost = _run_once(desc, False, device, timeout,
+                                             tally)
     except Exception as exc:  # noqa: BLE001
         return "FAIL", f"run crashed: {exc!r}"
     if not fused:
@@ -185,6 +264,13 @@ def check_parity(where: str, desc: str, device: str = "cuda",
                             "fused bytes differ from the chain path")
     if diff is not None:
         return "FAIL", diff
+    if fused_lost or plain_lost:
+        return _lost_verdict(
+            desc, (fused_lost, plain_lost), device, timeout,
+            lambda d, dev, t: _run_once(d, False, dev, t))
+    empty = _nothing_compared(plain_out)
+    if empty is not None:
+        return empty
     nbuf = sum(len(v) for v in plain_out.values())
     return "fused-ok", f"{len(fused)} segment(s), {nbuf} buffers identical"
 
@@ -205,13 +291,14 @@ def check_async_parity(where: str, desc: str, device: str = "cuda",
     if analyze(probe).errors:
         return "skipped", "pipelint rejects it (validation gate)"
     try:
-        sync_out, _ = _run_async(desc, 1, device, timeout, tally)
+        sync_out, _, sync_lost = _run_async(desc, 1, device, timeout, tally)
     except Exception as exc:  # noqa: BLE001
         # the line cannot run even without a window: not an async
-        # defect, no coverage
-        return "skipped", f"baseline (sync) run crashed: {exc!r}"
+        # defect, no coverage -- where the CPU cannot run it either
+        return _sync_crash_verdict(desc, device, timeout, exc)
     try:
-        async_out, windowed = _run_async(desc, k, device, timeout, tally)
+        async_out, windowed, async_lost = _run_async(desc, k, device,
+                                                     timeout, tally)
     except Exception as exc:  # noqa: BLE001
         return "FAIL", f"windowed run crashed: {exc!r}"
     if not windowed:
@@ -220,9 +307,28 @@ def check_async_parity(where: str, desc: str, device: str = "cuda",
                             "windowed bytes differ from the sync path")
     if diff is not None:
         return "FAIL", diff
+    if async_lost or sync_lost:
+        return _lost_verdict(
+            desc, (async_lost, sync_lost), device, timeout,
+            lambda d, dev, t: _run_async(d, 1, dev, t))
+    empty = _nothing_compared(sync_out)
+    if empty is not None:
+        return empty
     nbuf = sum(len(v) for v in sync_out.values())
     return "async-ok", (f"window={k} on {len(windowed)} filter(s), "
                         f"{nbuf} buffers identical")
+
+
+def _sync_crash_verdict(desc: str, device: str, timeout: float,
+                        exc: Exception) -> Tuple[str, str]:
+    what = f"baseline (sync) run crashed: {exc!r}"
+    if device == "cpu":
+        return "skipped", what
+    try:
+        _run_async(desc, 1, "cpu", timeout)
+    except Exception:  # noqa: BLE001
+        return "skipped", f"{what} (on the CPU too)"
+    return "FAIL", f"{what} on the card; the CPU runs it"
 
 
 def run(mode: str = "fuse", device: str = "cuda",
@@ -231,8 +337,10 @@ def run(mode: str = "fuse", device: str = "cuda",
     """The gate over BUILTIN and the corpus; the result as a dict
     (``rc``, ``counts``, per-line ``results`` [where, desc, status, detail],
     ``failures``, ``seconds``, ``lines_run``: lines that ran at least one
-    pipeline, ``runs``, ``attention_launches``: what the runs should
-    have launched of the attention kernel on the card). On the CPU the
+    pipeline, ``runs``, ``attention_launches``: the attention kernel's
+    launches over the runs, read off its counter, and by line in
+    ``line_launches``; ``attention_expected``: what the runs' completed
+    invokes should have launched, from each built model). On the CPU the
     mesh lines share one world of the host pool's ranks
     (``parallel.mesh.set_host_devices``, one by default), as the JAX
     gate's lines get the virtual CPU devices of their process; a mesh
@@ -252,10 +360,11 @@ def _run(mode, device, paths, timeout, window, verbose) -> Dict:
     counts = {s: 0 for s in STATUSES[mode]}
     results: List[List[str]] = []
     failures: List[str] = []
-    tally = {"runs": 0, "attention": 0}
+    tally = {"runs": 0, "attention": 0, "attention_expected": 0}
     lines_run = 0
+    line_launches: Dict[str, int] = {}
     for where, desc in distinct(BUILTIN + port_corpus(paths)):
-        runs = tally["runs"]
+        runs, launched = tally["runs"], tally["attention"]
         if mode == "async":
             status, detail = check_async_parity(where, desc, device,
                                                 window, timeout, tally)
@@ -263,6 +372,8 @@ def _run(mode, device, paths, timeout, window, verbose) -> Dict:
             status, detail = check_parity(where, desc, device, timeout,
                                           tally)
         lines_run += tally["runs"] > runs
+        if tally["attention"] > launched:
+            line_launches[where] = tally["attention"] - launched
         counts[status] += 1
         results.append([where, desc, status, detail])
         if status == "FAIL":
@@ -275,6 +386,8 @@ def _run(mode, device, paths, timeout, window, verbose) -> Dict:
             "rc": rc, "counts": counts, "vacuous": vacuous,
             "lines_run": lines_run, "runs": tally["runs"],
             "attention_launches": tally["attention"],
+            "attention_expected": tally["attention_expected"],
+            "line_launches": line_launches,
             "seconds": time.perf_counter() - t0, "results": results,
             "failures": failures}
 

@@ -76,10 +76,12 @@ def row_desc(device: str, frames: int, warmup: int) -> str:
 def run_child(device: str, frames: int, warmup: int,
               timeout: float = 300.0) -> Dict:
     """One measured run in THIS process: the fps over the measured
-    buffers and the spans the run recorded."""
+    buffers, the spans the run recorded and the hand kernels' launches
+    in this process (the parent's counters never see a child's)."""
     import threading
 
     from nnstreamer_tpu_torch.obs import spans
+    from nnstreamer_tpu_torch.ops import attention, normalize
     from nnstreamer_tpu_torch.pipeline.parser import parse_launch
 
     pipe = parse_launch(row_desc(device, frames, warmup))
@@ -104,7 +106,9 @@ def run_child(device: str, frames: int, warmup: int,
         return {"error": f"saw {mark['n']} buffers"}
     return {"fps": frames / (mark["t1"] - mark["t0"]),
             "spans": len(spans.snapshot()), "obs": spans.enabled(),
-            "device": device}
+            "device": device,
+            "launches": {"attention": attention.launches,
+                         "normalize": normalize.launches}}
 
 
 def run_once(obs_on: bool, device: str, frames: int, warmup: int,
@@ -141,7 +145,8 @@ def verdict(off: Sequence[float], on: Sequence[float],
 def run(device: str = "cuda", frames: int = 0, warmup: int = 0,
         reps: int = 3, budget_pct: float = BUDGET_PCT) -> Dict:
     """Both arms, interleaved; the result as a dict (``rc``, each arm's
-    fps, ``loss_pct``, ``seconds``). ``frames``/``warmup`` 0 take the
+    fps, ``loss_pct``, ``seconds``, ``launches``: the hand kernels'
+    launches summed over the children). ``frames``/``warmup`` 0 take the
     row's own."""
     import torch
     if device == "cuda" and not torch.cuda.is_available():
@@ -152,6 +157,7 @@ def run(device: str = "cuda", frames: int = 0, warmup: int = 0,
     t0 = time.perf_counter()
     samples: Dict[bool, List[float]] = {False: [], True: []}
     spans_seen: Dict[bool, List[int]] = {False: [], True: []}
+    launches = {"attention": 0, "normalize": 0}
     res = {"gate": "obs-overhead", "device": device, "frames": frames,
            "warmup": warmup, "reps": reps, "budget_pct": budget_pct,
            "row": row_desc(device, frames, warmup)}
@@ -161,6 +167,8 @@ def run(device: str = "cuda", frames: int = 0, warmup: int = 0,
                 child = run_once(obs_on, device, frames, warmup)
                 samples[obs_on].append(child["fps"])
                 spans_seen[obs_on].append(child["spans"])
+                for kernel, n in child["launches"].items():
+                    launches[kernel] += n
     except HarnessError as exc:
         res.update(rc=2, error=str(exc),
                    seconds=time.perf_counter() - t0)
@@ -169,7 +177,8 @@ def run(device: str = "cuda", frames: int = 0, warmup: int = 0,
     res.update(rc=rc, fps_off=samples[False], fps_on=samples[True],
                spans_off=spans_seen[False], spans_on=spans_seen[True],
                best_off=max(samples[False]), best_on=max(samples[True]),
-               loss_pct=loss_pct, seconds=time.perf_counter() - t0)
+               loss_pct=loss_pct, launches=launches,
+               seconds=time.perf_counter() - t0)
     return res
 
 
