@@ -437,7 +437,15 @@ Native queue — the headline line with queue backend=native against
               with and without the Adobe marker, YCCK, Adobe RGB, h1v2,
               h4v1, a progressive file cut after three scans, which
               block smoothing fills in, lossless RGB, arithmetic-coded
-              sequential and progressive). The
+              sequential and progressive). Then 16 320x240 RGB files in
+              the other formats the JAX jpegdec opens through PIL, file i
+              in format variant i mod 32 of tools/torch_image_files.py
+              format_variants (BMP/DIB, PPM, QOI, TGA, GIF, TIFF, ICO,
+              CUR), through the same ViT-B/16 line with jpegdec (192
+              attention launches, the card against the CPU, fps, p50,
+              jpegdec's host ms), and one file of each of the 32 variants
+              through filesrc ! jpegdec ! appsink against the SHA-256 of
+              PIL's decode (MEDIA_FORMAT_SHA256), with its host ms. The
               reference's TFLite golden line, filesrc ! pngdec ! videoscale
               ! tensor_converter ! tensor_filter framework=tensorflow-lite
               (phase 47's u8 MobileNet-v2) ! tensor_decoder
@@ -499,7 +507,10 @@ Native queue — the headline line with queue backend=native against
               on the card's world (each mesh spec fitted to one rank);
               tools/torch_obs_overhead.py on bench.py's devres row at
               full width (MobileNet-v2 batch 32, recording on against
-              off in subprocesses, best of 3 in turns, within 3 % fps);
+              off in subprocesses, best of 3 in turns, within 3 % fps),
+              each rep GATES_OBS_FRAMES buffers after GATES_OBS_WARMUP
+              (about 9 s at the row's ~220 fps, so the fetcher's bursts,
+              up to 135 ms apart, move a rep's fps by under 2 %);
               then racecheck's card half: phase 36's served ViT-B/16
               line with a breaker and phase 37's two replicas behind
               tensor_serve_router, 4 clients x 16 frames each, under one
@@ -6651,6 +6662,87 @@ def media_mode_files(imf):
                                                  arithmetic=True)}
 
 
+# SHA-256 of PIL's Image.open(...).convert("RGB") of one MEDIA_WIDTH x
+# MEDIA_HEIGHT file in each variant of tools/torch_image_files.py
+# format_variants (media_format_files): the lossless variants share the
+# source frame's digest; tests/test_torch_formats.py recomputes them with
+# PIL
+MEDIA_FORMAT_SHA256 = {
+    "bmp_24":
+        "d4cd9480469f926035c470012c79936dd7eb565f12b25981226feff65d525879",
+    "ppm_raw":
+        "d4cd9480469f926035c470012c79936dd7eb565f12b25981226feff65d525879",
+    "qoi_rgb":
+        "d4cd9480469f926035c470012c79936dd7eb565f12b25981226feff65d525879",
+    "tga_24_rle":
+        "d4cd9480469f926035c470012c79936dd7eb565f12b25981226feff65d525879",
+    "gif_332":
+        "8299a0bf1d63468e39ae947f4bd744fde4ed5fa8ff35495b30a21cb0a3b36fd8",
+    "tiff_lzw_predictor":
+        "d4cd9480469f926035c470012c79936dd7eb565f12b25981226feff65d525879",
+    "ico_png":
+        "d4cd9480469f926035c470012c79936dd7eb565f12b25981226feff65d525879",
+    "tiff_deflate":
+        "d4cd9480469f926035c470012c79936dd7eb565f12b25981226feff65d525879",
+    "bmp_16_565":
+        "851360b7d78d4a6a56e1d882f6e97ecc342f10831d61d7c5fcf117833b278aaf",
+    "ppm_plain":
+        "d4cd9480469f926035c470012c79936dd7eb565f12b25981226feff65d525879",
+    "tga_32_rle_top_left":
+        "d4cd9480469f926035c470012c79936dd7eb565f12b25981226feff65d525879",
+    "gif_332_interlaced":
+        "8299a0bf1d63468e39ae947f4bd744fde4ed5fa8ff35495b30a21cb0a3b36fd8",
+    "tiff_packbits":
+        "d4cd9480469f926035c470012c79936dd7eb565f12b25981226feff65d525879",
+    "cur_bmp_24":
+        "d4cd9480469f926035c470012c79936dd7eb565f12b25981226feff65d525879",
+    "dib_24":
+        "d4cd9480469f926035c470012c79936dd7eb565f12b25981226feff65d525879",
+    "bigtiff_deflate":
+        "d4cd9480469f926035c470012c79936dd7eb565f12b25981226feff65d525879",
+    "bmp_24_top_down":
+        "d4cd9480469f926035c470012c79936dd7eb565f12b25981226feff65d525879",
+    "bmp_24_os2":
+        "d4cd9480469f926035c470012c79936dd7eb565f12b25981226feff65d525879",
+    "bmp_32":
+        "d4cd9480469f926035c470012c79936dd7eb565f12b25981226feff65d525879",
+    "bmp_32_bitfields_v5":
+        "d4cd9480469f926035c470012c79936dd7eb565f12b25981226feff65d525879",
+    "bmp_16_555":
+        "025305e31cc656af10ee3e699aaffb7468cb885cfab44fa8bbc2520cfcc43f48",
+    "ppm_raw_16":
+        "d4cd9480469f926035c470012c79936dd7eb565f12b25981226feff65d525879",
+    "qoi_rgba":
+        "d4cd9480469f926035c470012c79936dd7eb565f12b25981226feff65d525879",
+    "tga_24":
+        "d4cd9480469f926035c470012c79936dd7eb565f12b25981226feff65d525879",
+    "tga_16":
+        "025305e31cc656af10ee3e699aaffb7468cb885cfab44fa8bbc2520cfcc43f48",
+    "tiff_none":
+        "d4cd9480469f926035c470012c79936dd7eb565f12b25981226feff65d525879",
+    "tiff_none_mm":
+        "d4cd9480469f926035c470012c79936dd7eb565f12b25981226feff65d525879",
+    "tiff_lzw":
+        "d4cd9480469f926035c470012c79936dd7eb565f12b25981226feff65d525879",
+    "tiff_deflate_predictor_mm":
+        "d4cd9480469f926035c470012c79936dd7eb565f12b25981226feff65d525879",
+    "tiff_lzw_tiles":
+        "d4cd9480469f926035c470012c79936dd7eb565f12b25981226feff65d525879",
+    "tiff_deflate_planar":
+        "d4cd9480469f926035c470012c79936dd7eb565f12b25981226feff65d525879",
+    "ico_bmp_32":
+        "d4cd9480469f926035c470012c79936dd7eb565f12b25981226feff65d525879"}
+
+
+def media_format_files(imf):
+    """{variant: bytes}: one MEDIA_WIDTH x MEDIA_HEIGHT RGB frame (seed
+    MEDIA_SEED + 200) in each variant of format_variants, in its order."""
+    img = imf.smooth_image(MEDIA_SEED + 200, MEDIA_HEIGHT,
+                           MEDIA_WIDTH).astype(np.uint8)
+    return {name: write(img) for name, write in
+            imf.format_variants().items()}
+
+
 def _image_files():
     return _tool("torch_image_files")
 
@@ -6746,15 +6838,14 @@ def _media_jpeg_digests(pattern, want, name):
     return ms
 
 
-def _media_jpeg_modes(tmp, smi):
-    """Each file of media_mode_files through filesrc ! jpegdec on the
-    card's machine against the SHA-256 of PIL's decode; a mismatch
-    names the mode."""
+def _media_digest_files(tmp, files, want, what, smi):
+    """Each file of ``files`` ({name: bytes}) through filesrc ! jpegdec
+    on the card's machine against ``want[name]``, the SHA-256 of PIL's
+    decode; a mismatch names the file. Returns {name: bytes, host ms}."""
     import hashlib
-    imf = _image_files()
     row = {}
-    for mode, data in media_mode_files(imf).items():
-        path = os.path.join(tmp, f"mode_{mode}.jpg")
+    for name, data in files.items():
+        path = os.path.join(tmp, f"{what.replace(' ', '_')}_{name}.img")
         with open(path, "wb") as f:
             f.write(data)
         t0 = time.perf_counter()
@@ -6762,14 +6853,14 @@ def _media_jpeg_modes(tmp, smi):
                               "! appsink name=out", "out")
         ms = (time.perf_counter() - t0) * 1e3
         got = [hashlib.sha256(f.tobytes()).hexdigest() for f in frames]
-        if got != [MEDIA_JPEG_MODE_SHA256[mode]]:
-            sys.exit(f"chip_smoke: media: the {mode} JPEG decodes to "
-                     f"{got}, not PIL's {MEDIA_JPEG_MODE_SHA256[mode]}")
-        row[mode] = {"bytes": len(data), "ms": ms}
+        if got != [want[name]]:
+            sys.exit(f"chip_smoke: media: the {name} {what} file decodes to "
+                     f"{got}, not PIL's {want[name]}")
+        row[name] = {"bytes": len(data), "ms": ms}
     times = ", ".join(f"{k} {v['ms']:.1f}" for k, v in row.items())
-    log(f"media jpeg modes: {sorted(row)} each equal PIL's SHA-256 digest "
-        f"({MEDIA_WIDTH}x{MEDIA_HEIGHT}, q{MEDIA_JPEG_QUALITY}); filesrc ! "
-        f"jpegdec ! appsink host ms: {times}; {smi}")
+    log(f"media {what}s: {len(row)} files ({MEDIA_WIDTH}x{MEDIA_HEIGHT}) "
+        f"each equal PIL's SHA-256 digest; filesrc ! jpegdec ! appsink host "
+        f"ms: {times}; {smi}")
     return row
 
 
@@ -6981,7 +7072,8 @@ def phase_media(smi, tmp):
     log(f"media jpegdec progressive: {MEDIA_FRAMES} decodes equal PIL's "
         f"SHA-256 digests; {prog_ms:.3f} ms a frame through multifilesrc "
         f"! jpegdec ! appsink (host); {smi}")
-    modes = _media_jpeg_modes(tmp, smi)
+    modes = _media_digest_files(tmp, media_mode_files(imf),
+                                MEDIA_JPEG_MODE_SHA256, "jpeg mode", smi)
     rows = {"png_vit": _media_vit_line(
         "png", os.path.join(pdir, "frame.%03d.png"), "pngdec", smi)}
     rows["jpeg_vit"] = _media_vit_line(
@@ -6992,6 +7084,18 @@ def phase_media(smi, tmp):
         smi)
     rows["jpeg_progressive_vit"]["jpegdec_alone_ms"] = prog_ms
     rows["jpeg_progressive_vit"]["modes"] = modes
+    fdir = os.path.join(tmp, "formats")
+    t0 = time.perf_counter()
+    imf.write_format_series(fdir, MEDIA_FRAMES, MEDIA_WIDTH, MEDIA_HEIGHT,
+                            MEDIA_SEED)
+    log(f"media: wrote {MEDIA_FRAMES} files in format variants "
+        f"{list(imf.format_variants())[:MEDIA_FRAMES]} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    rows["formats_vit"] = _media_vit_line(
+        "formats", os.path.join(fdir, "frame.%03d.img"), "jpegdec", smi)
+    rows["formats_vit"]["variants"] = _media_digest_files(
+        tmp, media_format_files(imf), MEDIA_FORMAT_SHA256, "format variant",
+        smi)
     rows["tflite"] = _media_tflite(
         os.path.join(tmp, mf.MOBILENET_FILES["tflite_u8"]), pngs[0], smi)
     rows["direct_video"] = _media_direct_video(smi)
@@ -7558,6 +7662,8 @@ def phase_analysis(smi):
 # -- phase 51: the check gates over the corpus, on the card ------------------
 
 GATES_TIMEOUT_S = 120      # a corpus line's run in the fuse/async/shard gates
+GATES_OBS_FRAMES = 2000    # buffers each obs-overhead rep times on the card,
+GATES_OBS_WARMUP = 200     # after these (the tool's row: 200 after 40)
 RACE_CLIENTS = 4           # clients of each racecheck line,
 RACE_FRAMES = 16           # frames a client (max-request 16)
 RACE_VIT = "zoo://vit?attn=pallas"   # phase 36's served ViT-B/16
@@ -7753,7 +7859,8 @@ def phase_gates(smi):
             or launches["attention"] or launches["normalize"]:
         sys.exit(f"chip_smoke: the shard gate exited {shard['rc']} on a "
                  f"world of {shard['world']}")
-    obs = _tool("torch_obs_overhead").run("cuda")
+    obs = _tool("torch_obs_overhead").run("cuda", frames=GATES_OBS_FRAMES,
+                                          warmup=GATES_OBS_WARMUP)
     if obs["rc"] == 2:
         sys.exit(f"chip_smoke: the obs-overhead gate's harness failed: "
                  f"{obs['error'][-3000:]}")

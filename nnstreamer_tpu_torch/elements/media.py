@@ -209,14 +209,19 @@ def _host_frame(buf: Buffer) -> np.ndarray:
 
 @register_element("pngdec")
 class PngDec(TransformElement):
-    """Decode PNG or JPEG buffers into video/x-raw RGB frames (≙ gst
-    pngdec in the reference's golden pipelines,
-    tests/nnstreamer_filter_tensorflow2_lite/runTest.sh:77). The format
-    is sniffed from the magic bytes, as PIL does for the JAX package's
-    element (``jpegdec`` is the same element). The frame equals PIL's
-    ``Image.open(...).convert("RGB")`` (``imaging/png.py``,
-    ``imaging/jpeg.py``). Output caps are fixed from the first decoded
-    frame."""
+    """Decode image buffers into video/x-raw RGB frames (≙ gst pngdec in
+    the reference's golden pipelines,
+    tests/nnstreamer_filter_tensorflow2_lite/runTest.sh:77). The JAX
+    package's element opens any format PIL opens; this one finds the
+    format as PIL's ``Image.open`` does (``imaging.sniff``: PIL's plugins
+    in PIL's order) and decodes PNG, JPEG, BMP/DIB, PBM/PGM/PPM/PFM, GIF
+    (its first frame), TIFF (none, PackBits, LZW, Deflate), ICO/CUR, TGA
+    and QOI (``jpegdec`` is the same element). The frame equals PIL's
+    ``Image.open(...).convert("RGB")`` (``imaging/``). Any other format
+    PIL opens (WebP, JPEG 2000, AVIF, PCX, SGI, ...) raises
+    ``NotPortedError`` naming PIL's format; bytes PIL cannot open raise
+    ``ValueError``. Output caps are fixed from the first decoded frame,
+    as in the JAX element."""
 
     SINK_TEMPLATES = {"sink": None}
     SRC_TEMPLATES = {"src": "video/x-raw"}

@@ -76,6 +76,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ..pipeline.element import NotPortedError
+from .modes import cmyk_to_rgb
 
 ZIGZAG = np.array([
     0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
@@ -914,12 +915,8 @@ def _ycc_to_rgb(y, cb, cr) -> np.ndarray:
 
 def _cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
     """What PIL makes of libjpeg's (H, W, 4) CMYK output: it reads it
-    inverted ("CMYK;I"), then ``convert("RGB")`` is Pillow's cmyk2rgb,
-    ``nk - nk * c / 255`` with nk = 255 - k, rounded as MULDIV255."""
-    inv = 255 - cmyk.astype(np.int64)
-    nk = 255 - inv[..., 3:]
-    t = inv[..., :3] * nk + 128
-    return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
+    inverted ("CMYK;I"), then ``convert("RGB")`` is Pillow's cmyk2rgb."""
+    return cmyk_to_rgb(255 - cmyk.astype(np.int64))
 
 
 def _color_space(nf: int, jfif: bool, adobe: Optional[int], ids,

@@ -31,6 +31,9 @@ from typing import List
 
 import numpy as np
 
+from .base import unpack_bits
+from .modes import to_rgb
+
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
@@ -139,10 +142,8 @@ def _samples(rows: np.ndarray, width: int, channels: int,
     if depth == 16:
         return rows[:, :width * channels * 2].copy().view(">u2").astype(
             np.uint16).reshape(h, width, channels)
-    bits = np.unpackbits(rows, axis=1).reshape(h, -1, depth)
-    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
-    vals = (bits * weights).sum(-1, dtype=np.uint8)
-    return vals[:, :width * channels].reshape(h, width, channels)
+    return unpack_bits(rows, width * channels, depth).reshape(h, width,
+                                                              channels)
 
 
 def decode_png(data: bytes) -> np.ndarray:
@@ -204,14 +205,11 @@ def _to_rgb(samples: np.ndarray, ctype: int, depth: int,
         if idx.max(initial=0) >= len(palette):
             raise ValueError(f"corrupt PNG: palette index {int(idx.max())} "
                              f"past a {len(palette)}-entry PLTE")
-        return palette[idx]
-    if depth == 16:
-        # I;16 clips to 255; RGB;16B, RGBA;16B and LA;16B keep the high byte
-        s8 = (np.minimum(samples, 255) if ctype == 0
-              else samples >> 8).astype(np.uint8)
-    else:
-        s8 = samples * np.uint8(_GRAY_STRETCH[depth]) if ctype == 0 \
-            else samples
-    if ctype in (0, 4):
-        return np.repeat(s8[..., :1], 3, axis=-1)
-    return np.ascontiguousarray(s8[..., :3])
+        return to_rgb("P", idx, palette)
+    if ctype == 0:
+        if depth == 16:     # I;16: clipped, not scaled
+            return to_rgb("I;16", samples[..., 0])
+        return to_rgb("L", samples[..., 0] * np.uint8(_GRAY_STRETCH[depth]))
+    # RGB;16B, RGBA;16B and LA;16B keep each sample's high byte
+    s8 = (samples >> 8).astype(np.uint8) if depth == 16 else samples
+    return to_rgb({2: "RGB", 4: "LA", 6: "RGBA"}[ctype], s8)

@@ -496,8 +496,9 @@ def test_new_modules_import_no_jax():
     the llm filter, the telemetry plane (recorder, metrics, scrape
     server, top), flowcheck's runtime half, the model registry, the
     device probe, the fleet, the CLI, the wire codecs, the
-    imported-model importers and backends, the image codecs and the
-    media, gRPC and IIO elements, the direct_video and python3
+    imported-model importers and backends, the image codecs (PNG, JPEG,
+    BMP/DIB, PNM, QOI, TGA, GIF, TIFF, ICO/CUR, the mode conversions and
+    the sniffer) and the media, gRPC and IIO elements, the direct_video and python3
     decoders, mesh mode (``parallel/``, the trainer's mesh commands) and
     the code analyzers (racecheck, flowcheck's static half, jitcheck)
     and the corpus of the check gates (and chip_smoke.py,
@@ -563,6 +564,15 @@ def test_new_modules_import_no_jax():
             "nnstreamer_tpu_torch.imaging.png, "
             "nnstreamer_tpu_torch.imaging.jpeg, "
             "nnstreamer_tpu_torch.imaging.resample, "
+            "nnstreamer_tpu_torch.imaging.base, "
+            "nnstreamer_tpu_torch.imaging.modes, "
+            "nnstreamer_tpu_torch.imaging.bmp, "
+            "nnstreamer_tpu_torch.imaging.pnm, "
+            "nnstreamer_tpu_torch.imaging.qoi, "
+            "nnstreamer_tpu_torch.imaging.tga, "
+            "nnstreamer_tpu_torch.imaging.gif, "
+            "nnstreamer_tpu_torch.imaging.tiff, "
+            "nnstreamer_tpu_torch.imaging.ico, "
             "nnstreamer_tpu_torch.elements.media, "
             "nnstreamer_tpu_torch.elements.grpc, "
             "nnstreamer_tpu_torch.elements.iio, "

@@ -24,13 +24,16 @@ the port decodes and resizes in numpy. Here PIL is the oracle:
   DAC conditioning); 12-bit, hierarchical, arithmetic-coded lossless and
   DNL files raise ``NotPortedError``;
 * chip_smoke.py's JPEG digests are PIL's decode of its seeded files;
-* a divergence kept: BMP, GIF, TIFF and PPM decode in the JAX package's
-  ``jpegdec`` (PIL) and fail, named, in the port's;
+* the other formats PIL opens (tests/test_torch_formats.py holds each
+  decoder to PIL): both element names over BMP, PPM, QOI, TGA, GIF,
+  TIFF, ICO and mixed series against the JAX ``jpegdec``; a divergence
+  kept: WebP, PCX, SGI and JPEG 2000 decode in the JAX package's
+  ``jpegdec`` (PIL) and raise ``NotPortedError``, named, in the port's;
 * the golden line shape ``filesrc ! pngdec ! videoscale ! videoconvert !
   tensor_converter ! tensor_filter`` in both packages, through a small
   u8 ``.tflite`` (within 1 LSB, argmax equal) and through a small ViT
   (tests/test_torch_pipeline.py's bf16 tolerance, 3e-2 absolute, argmax
-  equal);
+  equal), the ViT line again over a mixed-format series (``jpegdec``);
 * ``direct_video`` and ``python3``: equal frames and caps in both
   packages;
 * chip_smoke.py's device-time arithmetic with fake profiler events (a
@@ -753,12 +756,18 @@ def test_chip_smoke_cut_progressive_file_is_smoothed():
 
 
 def test_decode_image_sniffs_the_format():
+    """PNG, JPEG and the other formats PIL opens decode as PIL decodes
+    them; bytes PIL cannot identify (a GIF header cut short among them)
+    raise ValueError."""
     img = imf.smooth_image(9, 16, 24).astype(np.uint8)
     png = imf.png_bytes(img, 2, 8)
     jpg = imf.jpeg_bytes(img, 90, "444")
     np.testing.assert_array_equal(decode_image(png), img)
     np.testing.assert_array_equal(decode_image(jpg), _pil_rgb(jpg))
-    with pytest.raises(ValueError, match="not a PNG or JPEG"):
+    for write in imf.format_variants().values():
+        data = write(img)
+        np.testing.assert_array_equal(decode_image(data), _pil_rgb(data))
+    with pytest.raises(ValueError, match="cannot identify"):
         decode_image(b"GIF89a....")
 
 
@@ -769,23 +778,51 @@ def _write_cmyk_series(out_dir, count, width, height, seed):
             f.write(imf.jpeg_bytes(img, 75, progressive=i % 2 == 1))
 
 
+def _variant_series(*names):
+    """A series writer: file i in the i-th of ``names`` (cycled), as
+    ``frame.%03d.img``."""
+    def write(out_dir, count, width, height, seed=0):
+        variants = imf.format_variants()
+        for i in range(count):
+            img = imf.smooth_image(seed + i, height, width).astype(np.uint8)
+            with open(os.path.join(out_dir, f"frame.{i:03d}.img"), "wb") as f:
+                f.write(variants[names[i % len(names)]](img))
+    return write
+
+
 WRITE_SERIES = {
     "png": imf.write_png_series, "jpeg": imf.write_jpeg_series,
     "jpeg_progressive": lambda *a, **k: imf.write_jpeg_series(
         *a, progressive=True, **k),
-    "jpeg_cmyk": _write_cmyk_series}
+    "jpeg_cmyk": _write_cmyk_series,
+    "bmp": _variant_series("bmp_24", "bmp_16_565", "dib_24"),
+    "ppm": _variant_series("ppm_raw", "ppm_plain", "ppm_raw_16"),
+    "qoi": _variant_series("qoi_rgb", "qoi_rgba"),
+    "tga": _variant_series("tga_24_rle", "tga_32_rle_top_left", "tga_16"),
+    "gif": _variant_series("gif_332", "gif_332_interlaced"),
+    "tiff": _variant_series("tiff_lzw_predictor", "tiff_deflate_planar",
+                            "tiff_packbits"),
+    "ico": _variant_series("ico_png", "ico_bmp_32", "cur_bmp_24"),
+    "mixed": imf.write_format_series}
+SERIES_EXT = {"png": "png", "jpeg": "jpg", "jpeg_progressive": "jpg",
+              "jpeg_cmyk": "jpg"}
 
 
 @pytest.mark.parametrize("element", ["pngdec", "jpegdec"])
 @pytest.mark.parametrize("kind", ["png", "jpeg", "jpeg_progressive",
-                                  "jpeg_cmyk"])
+                                  "jpeg_cmyk", "bmp", "ppm", "qoi", "tga",
+                                  "gif", "tiff", "ico", "mixed"])
 def test_decoder_elements_equal_jax(element, kind, tmp_path):
     """Both element names sniff the format, as PIL does for the JAX
     package's element: frames and caps equal across packages (the JAX
-    one decodes through PIL): PNG, baseline and progressive JPEG, and
-    CMYK JPEG (baseline and progressive frames in turn)."""
+    one decodes through PIL): PNG, baseline and progressive JPEG, CMYK
+    JPEG (baseline and progressive frames in turn), and a series of each
+    other format the port decodes (three variants in turn; ``ico``: ICO
+    with PNG and BMP entries and CUR) and of the first three variants of
+    the mixed series. Caps come from the first frame, as in the JAX
+    element."""
     WRITE_SERIES[kind](str(tmp_path), 3, 40, 30, seed=11)
-    ext = "png" if kind == "png" else "jpg"
+    ext = SERIES_EXT.get(kind, "img")
     line = (f"multifilesrc location={tmp_path}/frame.%03d.{ext} "
             f"! {element} ! appsink name=out")
     out = {}
@@ -800,11 +837,12 @@ def test_decoder_elements_equal_jax(element, kind, tmp_path):
         np.testing.assert_array_equal(g, w)
 
 
-@pytest.mark.parametrize("fmt", ["BMP", "GIF", "TIFF", "PPM"])
+@pytest.mark.parametrize("fmt", ["WEBP", "PCX", "SGI", "JPEG2000"])
 def test_other_pil_formats_decode_in_jax_jpegdec_only(fmt, tmp_path):
     """A divergence kept (ROADMAP.md C): the JAX package's jpegdec opens
-    whatever PIL opens; the port's decodes PNG and JPEG only and fails
-    on another format, naming it."""
+    whatever PIL opens; the port's decodes PNG, JPEG, BMP/DIB, PNM, GIF,
+    TIFF, ICO/CUR, TGA and QOI and raises NotPortedError on another
+    format PIL opens, naming PIL's format."""
     img = imf.smooth_image(5, 12, 16).astype(np.uint8)
     Image.fromarray(img).save(tmp_path / "frame.000.img", fmt)
     line = (f"multifilesrc location={tmp_path}/frame.%03d.img ! jpegdec "
@@ -813,7 +851,7 @@ def test_other_pil_formats_decode_in_jax_jpegdec_only(fmt, tmp_path):
     p.run(60)
     got = [np.asarray(b.chunks[0].host()) for b in p["out"].buffers]
     assert len(got) == 1 and got[0].shape == (12, 16, 3)
-    with pytest.raises(ValueError, match=f"a {fmt} image"):
+    with pytest.raises(pt.NotPortedError, match=repr(fmt)):
         pt.parse_launch(line).run(60)
 
 
@@ -876,6 +914,20 @@ def get_model():
 def test_golden_line_vit_equals_jax(tmp_path):
     """The same line into a small ViT (the JAX zoo model's weights in
     both packages): logits within 3e-2 absolute, argmax equal."""
+    _golden_vit(tmp_path, _golden_pngs(tmp_path), "pngdec", 3)
+
+
+def test_golden_line_vit_mixed_formats_equals_jax(tmp_path):
+    """The golden ViT line over phase 48's mixed series (one file in
+    each of the first six format variants: BMP, PPM, QOI, TGA RLE, GIF,
+    TIFF LZW with predictor) through jpegdec, at the same reduced width
+    and tolerance: logits within 3e-2 absolute, argmax equal."""
+    imf.write_format_series(str(tmp_path), 6, 80, 60, seed=21)
+    _golden_vit(tmp_path, f"multifilesrc location={tmp_path}/frame.%03d.img",
+                "jpegdec", 6)
+
+
+def _golden_vit(tmp_path, src, dec, n):
     _, params, _, _ = jax_zoo.build("vit", **VIT)
     flat = {"/".join(str(k.key) for k in path): np.asarray(leaf)
             for path, leaf in jax.tree_util.tree_flatten_with_path(
@@ -884,7 +936,7 @@ def test_golden_line_vit_equals_jax(tmp_path):
     np.savez(npz, **flat)
     model = tmp_path / "model.py"
     model.write_text(MODEL_PY.format(npz=str(npz)))
-    head = (f"{_golden_pngs(tmp_path)} ! pngdec ! videoscale width=64 "
+    head = (f"{src} ! {dec} ! videoscale width=64 "
             "height=64 ! videoconvert format=RGB ! tensor_converter ")
     jax_model = "zoo://vit?" + "&".join(f"{k}={v}" for k, v in VIT.items())
     lines = {"jax": f'{head} ! tensor_filter framework=jax model="{jax_model}" '
@@ -897,7 +949,7 @@ def test_golden_line_vit_equals_jax(tmp_path):
         p.run(300)
         out[pkg] = [np.asarray(b.chunks[0].host(), np.float32)
                     for b in p["out"].buffers]
-    assert len(out["port"]) == len(out["jax"]) == 3
+    assert len(out["port"]) == len(out["jax"]) == n
     for g, w in zip(out["port"], out["jax"]):
         assert np.abs(g - w).max() <= BF16_ATOL
         assert np.argmax(g) == np.argmax(w)

@@ -80,10 +80,40 @@ def json_result(proc, timeout=1200):
     return res
 
 
+def _jax_ring_loadable():
+    """The ring library whole on disk, and the JAX loader able to load it
+    (the corpus has ``queue backend=native`` lines). Under parallel test
+    workers another process's ``make native`` can be linking the library
+    while this one's loader first runs: its ``make`` fails or finds a
+    short file, and the JAX loader never tries again in that process
+    (its one-shot ``_tried``, nnstreamer_tpu/native/lib.py:60-69), so
+    every later native queue there raises. As
+    tests/test_torch_pipeline.py's ``ring_library`` does, the library is
+    made here until a load succeeds, and a JAX loader that gave up is let
+    try once more."""
+    import ctypes
+    import time
+
+    import nnstreamer_tpu.native.lib as jax_lib
+    for _ in range(50):
+        subprocess.run(["make", "-C", str(ROOT), "native"],
+                       capture_output=True, timeout=120)
+        try:
+            ctypes.CDLL(jax_lib._LIB_PATH)
+            break
+        except OSError:
+            time.sleep(0.1)
+    else:
+        pytest.fail(f"{jax_lib._LIB_PATH} never became loadable")
+    if jax_lib._lib is None:
+        jax_lib._tried = False
+
+
 def jax_statuses(candidates, check):
     """{description: (where, status, detail)} of the JAX gate's ``check``
     over ``candidates`` ((where, desc, *args) entries, each description
     once, as the JAX gate's loop takes them)."""
+    _jax_ring_loadable()
     out = {}
     for where, desc, *args in corpus.distinct(candidates):
         status, detail = check(where, desc, *args)[:2]

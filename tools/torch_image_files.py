@@ -1223,6 +1223,733 @@ def jpeg_prefix(data: bytes, scans: int) -> bytes:
 
 
 # ---------------------------------------------------------------------------
+# the other formats PIL opens: BMP/DIB, PNM, QOI, TGA, GIF, TIFF, ICO/CUR
+# ---------------------------------------------------------------------------
+
+
+def indexed_image(seed: int, height: int, width: int,
+                  colors: int = 256) -> np.ndarray:
+    """(H, W) uint8 palette indices in [0, colors): a smooth grey field
+    scaled down to the palette."""
+    g = smooth_image(seed, height, width, 1)[..., 0]
+    return (g * colors // 256).astype(np.uint8)
+
+
+def random_palette(seed: int, colors: int) -> np.ndarray:
+    """(colors, 3) uint8 random colours."""
+    return np.frombuffer(np.random.default_rng(seed).bytes(3 * colors),
+                         np.uint8).reshape(colors, 3).copy()
+
+
+def _pack_indices(idx: np.ndarray, bits: int) -> np.ndarray:
+    """(H, W) samples of ``bits`` (1, 2, 4, 8) -> (H, ceil(W*bits/8))
+    bytes, most significant first."""
+    if bits == 8:
+        return idx.astype(np.uint8)
+    h, w = idx.shape
+    per = 8 // bits
+    pad = (-w) % per
+    v = np.pad(idx.astype(np.uint8), ((0, 0), (0, pad)))
+    v = v.reshape(h, -1, per).astype(np.uint16)
+    shifts = np.arange(per - 1, -1, -1) * bits
+    return (v << shifts).sum(-1).astype(np.uint8)
+
+
+def _rle_bmp_row(row: np.ndarray, rle4: bool) -> bytes:
+    """One row of BMP RLE8/RLE4: runs of two or more as encoded runs,
+    the rest as literal runs (RLE4: even lengths, as PIL reads only whole
+    bytes of a literal) padded to 16 bits, short leftovers as runs of
+    one; then end-of-line."""
+    out = bytearray()
+    v = [int(x) for x in row]
+    n, i = len(v), 0
+    while i < n:
+        j = i + 1
+        while j < n and v[j] == v[i] and j - i < 255:
+            j += 1
+        if j - i >= 2:
+            b = (v[i] << 4 | v[i]) if rle4 else v[i]
+            out += bytes([j - i, b])
+            i = j
+            continue
+        j = i + 1
+        while j < n and j - i < 254 and (j + 1 >= n or v[j] != v[j + 1]):
+            j += 1
+        lit = j - i
+        if rle4:
+            lit -= lit % 2
+        if lit < 3:
+            b = (v[i] << 4) if rle4 else v[i]
+            out += bytes([1, b])
+            i += 1
+            continue
+        if rle4:
+            body = bytes(v[k] << 4 | v[k + 1] for k in range(i, i + lit, 2))
+        else:
+            body = bytes(v[i:i + lit])
+        out += bytes([0, lit]) + body + bytes(len(body) % 2)
+        i += lit
+    return bytes(out) + b"\x00\x00"
+
+
+def bmp_bytes(pixels: np.ndarray, bits: int = 24, compression: str = "rgb",
+              header: int = 40, top_down: bool = False, palette=None,
+              colors: Optional[int] = None, alpha: bool = False,
+              file_header: bool = True) -> bytes:
+    """A BMP (or, without ``file_header``, a bare DIB): ``pixels`` (H, W)
+    palette indices for ``bits`` 1/4/8 with ``palette`` ((N, 3) RGB;
+    ``colors`` entries written, a short palette allowed), else (H, W, 3)
+    RGB or (H, W, 4) RGBA. ``compression``: ``rgb`` (16-bit: 5-5-5),
+    ``rle8``, ``rle4``, ``bitfields`` (16-bit: 5-6-5; 32-bit: BGRX, or
+    BGRA with ``alpha`` and a header of 56 bytes or more). ``header`` 12
+    is the OS/2 core header (3-byte palette entries)."""
+    h, w = pixels.shape[:2]
+    comp = {"rgb": 0, "rle8": 1, "rle4": 2, "bitfields": 3}[compression]
+    if bits <= 8:
+        pal = np.asarray(palette, np.uint8).reshape(-1, 3)
+        ncol = len(pal) if colors is None else colors
+        entry = 3 if header == 12 else 4
+        pal_bytes = b"".join(bytes([b, g, r]) + bytes(entry - 3)
+                             for r, g, b in pal[:ncol])
+    else:
+        pal_bytes, ncol = b"", 0
+    rows = pixels if top_down else pixels[::-1]
+    if comp in (1, 2):
+        body = b"".join(_rle_bmp_row(r, comp == 2) for r in rows) + \
+            b"\x00\x01"
+    else:
+        if bits <= 8:
+            packed = _pack_indices(rows, bits)
+        elif bits == 16:
+            p = rows.astype(np.uint16)
+            if comp == 3:
+                v = (p[..., 0] >> 3) << 11 | (p[..., 1] >> 2) << 5 | \
+                    p[..., 2] >> 3
+            else:
+                v = (p[..., 0] >> 3) << 10 | (p[..., 1] >> 3) << 5 | \
+                    p[..., 2] >> 3
+            packed = v.astype("<u2").view(np.uint8).reshape(h, -1)
+        elif bits == 24:
+            packed = rows[..., 2::-1].reshape(h, -1)
+        else:
+            a = rows[..., 3] if rows.shape[-1] == 4 else \
+                np.zeros((h, w), np.uint8)
+            packed = np.stack([rows[..., 2], rows[..., 1], rows[..., 0], a],
+                              -1).reshape(h, -1)
+        stride = ((w * bits + 31) >> 3) & ~3
+        body = np.pad(packed.astype(np.uint8),
+                      ((0, 0), (0, stride - packed.shape[1]))).tobytes()
+    masks = b""
+    if comp == 3:
+        if bits == 16:
+            m = (0xF800, 0x7E0, 0x1F, 0)
+        else:
+            m = (0xFF0000, 0xFF00, 0xFF, 0xFF000000 if alpha else 0)
+        masks = struct.pack("<4I", *m)
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, w, h, 1, bits)
+    else:
+        height = -h if top_down else h
+        info = struct.pack("<IiiHHIIiiII", header, w, height, 1, bits, comp,
+                           len(body), 2835, 2835, ncol if bits <= 8 else 0,
+                           0)
+        if header == 40:    # the masks follow a 40-byte header
+            info += masks[:12]
+        else:
+            info = (info + masks.ljust(16, b"\0")).ljust(header,
+                                                         b"\0")[:header]
+    dib = info + pal_bytes + body
+    if not file_header:
+        return dib
+    off = 14 + len(info) + len(pal_bytes)
+    return b"BM" + struct.pack("<IHHI", off + len(body), 0, 0, off) + dib
+
+
+def pnm_bytes(samples: np.ndarray, magic: str = "P6", maxval: int = 255,
+              comment: Optional[str] = None, scale: float = -1.0,
+              line: int = 17) -> bytes:
+    """A Netpbm file: ``P1``/``P4`` (``samples`` (H, W), 1 = black),
+    ``P2``/``P5`` ((H, W) at most ``maxval``), ``P3``/``P6`` ((H, W, 3)),
+    ``Pf`` ((H, W) float32, rows written bottom-up, little-endian for a
+    negative ``scale``). Raw samples over 255 are big-endian 16-bit.
+    ``comment`` goes after the magic and inside the plain data;
+    ``line`` samples a line of plain data."""
+    h, w = samples.shape[:2]
+    c = f"# {comment}\n" if comment is not None else ""
+    head = f"{magic}\n{c}{w} {h}\n"
+    if magic not in ("P1", "P4"):
+        head += f"{scale}\n" if magic == "Pf" else f"{maxval}\n"
+    if magic == "Pf":
+        body = samples[::-1].astype("<f4" if scale < 0 else ">f4").tobytes()
+    elif magic == "P4":
+        body = _pack_indices(samples.astype(np.uint8), 1).tobytes()
+    elif magic in ("P5", "P6"):
+        dt = np.uint8 if maxval < 256 else ">u2"
+        body = samples.astype(dt).tobytes()
+    else:
+        flat = [str(int(v)) for v in samples.reshape(-1)]
+        sep = "" if magic == "P1" else " "
+        lines = [sep.join(flat[i:i + line]) for i in range(0, len(flat), line)]
+        if c:
+            lines.insert(len(lines) // 2, c.strip())
+        body = ("\n".join(lines) + "\n").encode()
+    return head.encode() + body
+
+
+def qoi_bytes(pixels: np.ndarray) -> bytes:
+    """A QOI file of (H, W, 3) RGB or (H, W, 4) RGBA ``pixels``: the
+    reference encoder's choice among its six ops."""
+    h, w, c = pixels.shape
+    flat = pixels.reshape(-1, c).astype(np.int64)
+    if c == 3:
+        flat = np.concatenate([flat, np.full((len(flat), 1), 255)], 1)
+    out = bytearray(b"qoif" + struct.pack(">IIBB", w, h, c, 0))
+    seen = [None] * 64
+    prev = (0, 0, 0, 255)
+    run = 0
+    for i, p in enumerate(map(tuple, flat.tolist())):
+        if p == prev:
+            run += 1
+            if run == 62 or i == len(flat) - 1:
+                out.append(0xC0 | (run - 1))
+                run = 0
+            continue
+        if run:
+            out.append(0xC0 | (run - 1))
+            run = 0
+        r, g, b, a = p
+        k = (r * 3 + g * 5 + b * 7 + a * 11) % 64
+        if seen[k] == p:
+            out.append(k)
+        else:
+            seen[k] = p
+            if a == prev[3]:
+                dr = (r - prev[0] + 128) % 256 - 128
+                dg = (g - prev[1] + 128) % 256 - 128
+                db = (b - prev[2] + 128) % 256 - 128
+                if -2 <= dr <= 1 and -2 <= dg <= 1 and -2 <= db <= 1:
+                    out.append(0x40 | (dr + 2) << 4 | (dg + 2) << 2 | (db + 2))
+                elif -32 <= dg <= 31 and -8 <= dr - dg <= 7 and \
+                        -8 <= db - dg <= 7:
+                    out += bytes([0x80 | (dg + 32),
+                                  (dr - dg + 8) << 4 | (db - dg + 8)])
+                else:
+                    out += bytes([0xFE, r, g, b])
+            else:
+                out += bytes([0xFF, r, g, b, a])
+        prev = p
+    return bytes(out) + b"\x00" * 7 + b"\x01"
+
+
+def _tga_rle(px: np.ndarray) -> bytes:
+    """TGA RLE packets over (N, bytes a pixel) pixels of one row: repeats
+    of two or more as run packets, the rest as raw packets, 128 at
+    most."""
+    rows = [bytes(r) for r in px]
+    out = bytearray()
+    i, n = 0, len(rows)
+    while i < n:
+        j = i + 1
+        while j < n and rows[j] == rows[i] and j - i < 128:
+            j += 1
+        if j - i >= 2:
+            out.append(0x80 | (j - i - 1))
+            out += rows[i]
+            i = j
+            continue
+        j = i + 1
+        while j < n and j - i < 128 and (j + 1 >= n or rows[j] != rows[j + 1]):
+            j += 1
+        out.append(j - i - 1)
+        out += b"".join(rows[i:j])
+        i = j
+    return bytes(out)
+
+
+def tga_bytes(pixels: np.ndarray, image_type: int = 2, depth: int = 24,
+              origin: str = "bottom-left", palette=None, map_start: int = 0,
+              map_depth: int = 24, ident: bytes = b"") -> bytes:
+    """A TGA file. ``image_type`` 1/9 (colour-mapped: (H, W) indices into
+    ``palette`` (N, 3), written from entry ``map_start`` on at
+    ``map_depth`` 15/16, 24 or 32 bits), 2/10 (true colour: (H, W, 3) at
+    ``depth`` 16 (5-5-5 with the top bit set) or 24, (H, W, 4) at 32),
+    3/11 (grey: (H, W) at 8, or (H, W, 2) grey+alpha at 16); 9, 10 and
+    11 are RLE. ``origin``: bottom-left, top-left, bottom-right or
+    top-right."""
+    h, w = pixels.shape[:2]
+    flags = {"bottom-left": 0, "bottom-right": 0x10, "top-left": 0x20,
+             "top-right": 0x30}[origin]
+    if depth == 32 or (depth == 16 and image_type in (3, 11)):
+        flags |= 8
+    rows = pixels if flags & 0x20 else pixels[::-1]
+    if flags & 0x10:
+        rows = rows[:, ::-1]
+    base = image_type & 7
+    cmap = b""
+    if base == 1:
+        pal = np.asarray(palette, np.uint8).reshape(-1, 3)[map_start:]
+        if map_depth in (15, 16):
+            p = pal.astype(np.uint16)
+            v = (p[:, 0] >> 3) << 10 | (p[:, 1] >> 3) << 5 | p[:, 2] >> 3
+            cmap = v.astype("<u2").tobytes()
+        elif map_depth == 24:
+            cmap = pal[:, ::-1].tobytes()
+        else:
+            cmap = np.concatenate([pal[:, ::-1], np.full((len(pal), 1), 255,
+                                                         np.uint8)],
+                                  1).tobytes()
+        px = rows.reshape(-1, 1).astype(np.uint8)
+    elif base == 2:
+        if depth == 16:
+            p = rows.astype(np.uint16)
+            v = 0x8000 | (p[..., 0] >> 3) << 10 | (p[..., 1] >> 3) << 5 | \
+                p[..., 2] >> 3
+            px = v.astype("<u2").view(np.uint8).reshape(-1, 2)
+        else:
+            order = [2, 1, 0, 3][:rows.shape[-1]]
+            px = rows[..., order].reshape(-1, rows.shape[-1]).astype(np.uint8)
+    else:
+        px = rows.reshape(h * w, -1).astype(np.uint8)
+    ncmap = len(pal) if base == 1 else 0
+    header = struct.pack("<BBBHHBHHHHBB", len(ident), 1 if base == 1 else 0,
+                         image_type, map_start if ncmap else 0, ncmap,
+                         map_depth if ncmap else 0, 0, 0, w, h, depth, flags)
+    if image_type & 8:
+        body = b"".join(_tga_rle(r) for r in np.split(px, h))
+    else:
+        body = px.tobytes()
+    return header + ident + cmap + body
+
+
+def lzw_gif(indices: bytes, min_size: int, defer_clear: bool = False,
+            clear_first: bool = True) -> bytes:
+    """GIF's LZW over ``indices``: codes from ``min_size + 1`` bits up to
+    12, least significant bit first, a clear code first and the end code
+    last. When the table is full it emits a clear code, or with
+    ``defer_clear`` goes on at 12 bits adding nothing (a deferred
+    clear)."""
+    clear, eoi = 1 << min_size, (1 << min_size) + 1
+    out = bytearray()
+    acc = nbits = 0
+    size = min_size + 1
+
+    def emit(code):
+        nonlocal acc, nbits
+        acc |= code << nbits
+        nbits += size
+        while nbits >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            nbits -= 8
+
+    def reset():
+        nonlocal size
+        size = min_size + 1
+        return {bytes([i]): i for i in range(clear)}, clear + 2
+
+    table, nxt = reset()
+    if clear_first:
+        emit(clear)
+    w = b""
+    for c in indices:
+        wc = w + bytes([c])
+        if wc in table:
+            w = wc
+            continue
+        emit(table[w])
+        if nxt < 4096:
+            table[wc] = nxt
+            nxt += 1
+            if nxt > 1 << size and size < 12:
+                size += 1
+        elif not defer_clear:
+            emit(clear)
+            table, nxt = reset()
+        w = bytes([c])
+    if w:
+        emit(table[w])
+        if nxt < 4096:
+            nxt += 1
+            if nxt > 1 << size and size < 12:
+                size += 1
+    emit(eoi)
+    if nbits:
+        out.append(acc & 255)
+    return bytes(out)
+
+
+def _gif_table(palette, bits: int) -> bytes:
+    pal = np.zeros((1 << bits, 3), np.uint8)
+    p = np.asarray(palette, np.uint8).reshape(-1, 3)[:1 << bits]
+    pal[:len(p)] = p
+    return pal.tobytes()
+
+
+def gif_bytes(indices: np.ndarray, palette, screen=None, offset=(0, 0),
+              interlace: bool = False, local: bool = False,
+              transparency: Optional[int] = None, min_size: int = 8,
+              defer_clear: bool = False, comment: Optional[bytes] = None,
+              frames: int = 1) -> bytes:
+    """A GIF89a of (H, W) ``indices`` into ``palette`` ((N, 3), written
+    as the global table, or with ``local`` as the frame's own table,
+    the global one then a reversed copy), placed at ``offset`` on a
+    ``screen`` (W, H) that defaults to the frame's size; ``interlace``
+    writes GIF's four passes; ``transparency`` adds a graphic control
+    extension; ``frames`` > 1 repeats the frame (PIL reads the first)."""
+    h, w = indices.shape
+    sw, sh = screen or (w, h)
+    bits = max(1, int(np.ceil(np.log2(max(len(np.asarray(palette)) // 1
+                                          if np.ndim(palette) == 2 else
+                                          len(palette) // 3, 2)))))
+    pal = np.asarray(palette, np.uint8).reshape(-1, 3)
+    gpal = pal[::-1] if local else pal
+    out = bytearray(b"GIF89a" + struct.pack("<HHBBB", sw, sh,
+                                            0x80 | (bits - 1), 0, 0))
+    out += _gif_table(gpal, bits)
+    if comment is not None:
+        out += b"\x21\xfe" + bytes([len(comment)]) + comment + b"\0"
+    rows = indices
+    if interlace:
+        order = np.concatenate([np.arange(0, h, 8), np.arange(4, h, 8),
+                                np.arange(2, h, 4), np.arange(1, h, 2)])
+        rows = indices[order]
+    data = lzw_gif(rows.astype(np.uint8).tobytes(), min_size, defer_clear)
+    for _ in range(frames):
+        if transparency is not None:
+            out += b"\x21\xf9\x04" + struct.pack("<BHB", 1, 10,
+                                                 transparency) + b"\0"
+        flags = (0x40 if interlace else 0) | ((0x80 | (bits - 1))
+                                              if local else 0)
+        out += b"\x2c" + struct.pack("<HHHHB", offset[0], offset[1], w, h,
+                                     flags)
+        if local:
+            out += _gif_table(pal, bits)
+        out.append(min_size)
+        for i in range(0, len(data), 255):
+            out += bytes([len(data[i:i + 255])]) + data[i:i + 255]
+        out += b"\0"
+    return bytes(out) + b"\x3b"
+
+
+def packbits(data: bytes) -> bytes:
+    """PackBits: runs of 3 to 128 repeats, literals of up to 128."""
+    out = bytearray()
+    i, n = 0, len(data)
+    while i < n:
+        j = i + 1
+        while j < n and data[j] == data[i] and j - i < 128:
+            j += 1
+        if j - i >= 3:
+            out += bytes([257 - (j - i), data[i]])
+            i = j
+            continue
+        j = i
+        while j < n and j - i < 128 and not (
+                j + 2 < n and data[j] == data[j + 1] == data[j + 2]):
+            j += 1
+        out += bytes([j - i - 1]) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+def lzw_tiff(data: bytes) -> bytes:
+    """TIFF's LZW: codes most significant bit first, 9 to 12 bits, the
+    width growing one code early, a clear code first, another before the
+    table would pass 4094 entries, the end code last."""
+    out = bytearray()
+    acc = nbits = 0
+    size = 9
+
+    def emit(code):
+        nonlocal acc, nbits
+        acc = acc << size | code
+        nbits += size
+        while nbits >= 8:
+            out.append(acc >> (nbits - 8) & 255)
+            nbits -= 8
+        acc &= (1 << nbits) - 1
+
+    def reset():
+        nonlocal size
+        size = 9
+        return {bytes([i]): i for i in range(256)}, 258
+
+    emit(256)
+    table, nxt = reset()
+    w = b""
+    for c in data:
+        wc = w + bytes([c])
+        if wc in table:
+            w = wc
+            continue
+        emit(table[w])
+        table[wc] = nxt
+        nxt += 1
+        if nxt == (1 << size) - 1 + 1 and size < 12:
+            size += 1
+        if nxt >= 4094:
+            emit(256)
+            table, nxt = reset()
+        w = bytes([c])
+    if w:
+        emit(table[w])
+        nxt += 1
+        if nxt == (1 << size) and size < 12:
+            size += 1
+    emit(257)
+    if nbits:
+        out.append(acc << (8 - nbits) & 255)
+    return bytes(out)
+
+
+def _tiff_predict(block: np.ndarray, predictor: int, spp: int) -> np.ndarray:
+    """Predictor 2 (differences along each row, per sample) or 3 (float:
+    each row's sample bytes split into planes, most significant first,
+    then byte differences) over (rows, width, spp) samples; predictor 3
+    returns bytes, the others samples."""
+    if predictor == 2:
+        d = block.copy()
+        d[:, 1:] = block[:, 1:] - block[:, :-1]
+        return d
+    if predictor == 3:
+        h = block.shape[0]
+        k = block.dtype.itemsize
+        b = block.astype(block.dtype.newbyteorder(">")).view(np.uint8)
+        planes = b.reshape(h, -1, k).transpose(0, 2, 1).reshape(h, -1)
+        out = planes.copy()
+        out[:, spp:] = planes[:, spp:] - planes[:, :-spp]
+        return out
+    return block
+
+
+def tiff_bytes(samples: np.ndarray, photometric: int = 2, bits: int = 8,
+               compression: int = 1, predictor: int = 1,
+               rows_per_strip: Optional[int] = None, tile=None,
+               planar: int = 1, byteorder: str = "<", bigtiff: bool = False,
+               extra: Sequence[int] = (), sample_format: int = 1,
+               colormap=None, fill_order: int = 1,
+               orientation: Optional[int] = None) -> bytes:
+    """A TIFF of ``samples`` ((H, W) or (H, W, spp): uint8/uint16/int16/
+    int32/float32 as ``bits`` and ``sample_format`` say; 1-, 2- and 4-bit
+    values packed). ``compression`` 1 (none), 5 (LZW), 8 or 32946
+    (Deflate), 32773 (PackBits); ``predictor`` 2 or 3; strips of
+    ``rows_per_strip`` rows, or tiles of ``tile`` (w, h) (multiples of
+    16); ``planar`` 2 stores each sample in its own plane; ``byteorder``
+    ``<`` (II) or ``>`` (MM); ``bigtiff``; ``extra`` the ExtraSamples
+    values; ``colormap`` (N, 3) RGB for photometric 3 (stored 16-bit);
+    ``fill_order`` 2 reverses every stored byte's bits."""
+    s = samples if samples.ndim == 3 else samples[..., None]
+    h, w, spp = s.shape
+    e = byteorder
+    dt = {(8, 1): np.uint8, (16, 1): np.uint16, (16, 2): np.int16,
+          (32, 1): np.uint32, (32, 2): np.int32, (32, 3): np.float32}
+    pred_dt = dt.get((bits, sample_format), np.uint8)
+    rev = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
+
+    def encode(block: np.ndarray) -> bytes:
+        """(rows, cols, n) samples -> stored bytes of one strip/tile."""
+        n = block.shape[2]
+        if bits < 8:
+            raw = _pack_indices(block.reshape(block.shape[0], -1),
+                                bits).tobytes()
+        else:
+            v = block.astype(pred_dt)
+            v = _tiff_predict(v, predictor, n) if compression != 1 else v
+            if predictor == 3 and compression != 1:
+                raw = v.tobytes()
+            else:
+                raw = v.astype(np.dtype(pred_dt).newbyteorder(e)).tobytes()
+        if compression == 5:
+            raw = lzw_tiff(raw)
+        elif compression in (8, 32946):
+            raw = zlib.compress(raw, 6)
+        elif compression == 32773:
+            rb = -(-block.shape[1] * n * bits // 8)
+            raw = b"".join(packbits(raw[i:i + rb])
+                           for i in range(0, len(raw), rb))
+        if fill_order == 2:
+            raw = rev[np.frombuffer(raw, np.uint8)].tobytes()
+        return raw
+
+    planes = [s[..., i:i + 1] for i in range(spp)] if planar == 2 else [s]
+    chunks = []
+    if tile:
+        tw, th = tile
+        for pl in planes:
+            pad = np.zeros((-(-h // th) * th, -(-w // tw) * tw,
+                            pl.shape[2]), pl.dtype)
+            pad[:h, :w] = pl
+            for y in range(0, pad.shape[0], th):
+                for x in range(0, pad.shape[1], tw):
+                    chunks.append(encode(pad[y:y + th, x:x + tw]))
+    else:
+        rps = rows_per_strip or h
+        for pl in planes:
+            for y in range(0, h, rps):
+                chunks.append(encode(pl[y:y + rps]))
+    head_len = 16 if bigtiff else 8
+    body = bytearray()
+    offsets = []
+    for ch in chunks:
+        offsets.append(head_len + len(body))
+        body += ch + bytes(len(ch) % 2)
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp),
+            259: (3, [compression]), 262: (3, [photometric]),
+            277: (3, [spp]), 284: (3, [planar])}
+    off_type = 16 if bigtiff else 4
+    if tile:
+        tags.update({322: (3, [tile[0]]), 323: (3, [tile[1]]),
+                     324: (off_type, offsets),
+                     325: (off_type, [len(c) for c in chunks])})
+    else:
+        tags.update({273: (off_type, offsets), 278: (4, [rows_per_strip
+                                                         or h]),
+                     279: (off_type, [len(c) for c in chunks])})
+    if predictor != 1:
+        tags[317] = (3, [predictor])
+    if fill_order != 1:
+        tags[266] = (3, [fill_order])
+    if orientation:
+        tags[274] = (3, [orientation])
+    if extra:
+        tags[338] = (3, list(extra))
+    if sample_format != 1:
+        tags[339] = (3, [sample_format] * spp)
+    if colormap is not None:
+        cm = np.zeros((1 << bits, 3), np.int64)
+        c = np.asarray(colormap, np.int64).reshape(-1, 3)[:1 << bits]
+        cm[:len(c)] = c
+        tags[320] = (3, list((cm * 257).T.reshape(-1)))
+    codes = {3: "H", 4: "I", 16: "Q"}
+    inline = 8 if bigtiff else 4
+    ifd_pos = head_len + len(body)
+    n = len(tags)
+    ifd_len = (8 + 20 * n + 8) if bigtiff else (2 + 12 * n + 4)
+    extra_pos = ifd_pos + ifd_len
+    entries, blobs = bytearray(), bytearray()
+    for tag in sorted(tags):
+        typ, vals = tags[tag]
+        data = struct.pack(e + codes[typ] * len(vals), *vals)
+        if len(data) <= inline:
+            val = data.ljust(inline, b"\0")
+        else:
+            val = struct.pack(e + ("Q" if bigtiff else "I"),
+                              extra_pos + len(blobs))
+            blobs += data + bytes(len(data) % 2)
+        if bigtiff:
+            entries += struct.pack(e + "HHQ", tag, typ, len(vals)) + val
+        else:
+            entries += struct.pack(e + "HHI", tag, typ, len(vals)) + val
+    if bigtiff:
+        ifd = struct.pack(e + "Q", n) + entries + struct.pack(e + "Q", 0)
+        head = (b"II" if e == "<" else b"MM") + struct.pack(e + "HHHQ", 43,
+                                                             8, 0, ifd_pos)
+    else:
+        ifd = struct.pack(e + "H", n) + entries + struct.pack(e + "I", 0)
+        head = (b"II" if e == "<" else b"MM") + struct.pack(e + "HI", 42,
+                                                             ifd_pos)
+    return head + bytes(body) + ifd + bytes(blobs)
+
+
+def ico_bytes(entries, cursor: bool = False) -> bytes:
+    """An ICO (or, with ``cursor``, a CUR) of ``entries``: each a PNG
+    file's bytes, or (pixels, bits, palette) for a DIB entry (pixels as
+    ``bmp_bytes`` takes them; its AND mask all opaque)."""
+    payloads, dims = [], []
+    for e in entries:
+        if isinstance(e, bytes):
+            w, h = struct.unpack(">II", e[16:24])
+            payloads.append(e)
+            dims.append((w, h, 32, 0))
+            continue
+        pixels, bits, palette = e
+        h, w = pixels.shape[:2]
+        dib = bmp_bytes(pixels, bits, palette=palette, file_header=False)
+        dib = dib[:8] + struct.pack("<i", 2 * h) + dib[12:]
+        mask_row = ((w + 31) // 32) * 4
+        payloads.append(dib + bytes(mask_row * h))
+        ncol = 0 if bits > 8 else min(len(np.asarray(palette).reshape(-1, 3)),
+                                      255)
+        dims.append((w, h, bits, ncol))
+    out = bytearray(struct.pack("<HHH", 0, 2 if cursor else 1, len(entries)))
+    off = 6 + 16 * len(entries)
+    for (w, h, bits, ncol), pay in zip(dims, payloads):
+        out += struct.pack("<BBBBHHII", w & 255, h & 255, ncol, 0, 1, bits,
+                           len(pay), off)
+        off += len(pay)
+    return bytes(out) + b"".join(payloads)
+
+
+def _palette_332() -> np.ndarray:
+    i = np.arange(256)
+    return np.stack([(i >> 5) * 255 // 7, ((i >> 2) & 7) * 255 // 7,
+                     (i & 3) * 255 // 3], -1).astype(np.uint8)
+
+
+def _to_332(rgb: np.ndarray) -> np.ndarray:
+    r, g, b = (rgb[..., k].astype(np.int64) for k in range(3))
+    return ((r >> 5) << 5 | (g >> 5) << 2 | b >> 6).astype(np.uint8)
+
+
+def format_variants():
+    """{name: writer}: each writer takes one (H, W, 3) uint8 RGB frame
+    and returns a file of one format variant that holds it as a true-
+    colour frame (BMP and TGA 16 bits and GIF, a 3-3-2 palette, at less
+    depth). The first 16 cover every format, so a series of 16 files
+    in turn does."""
+    def bmp(**kw):
+        return lambda img: bmp_bytes(img, **kw)
+
+    def tif(**kw):
+        return lambda img: tiff_bytes(img, 2, 8, **kw)
+
+    def rgba(img):
+        return np.concatenate([img, np.full(img.shape[:2] + (1,), 255,
+                                            np.uint8)], -1)
+    return {
+        "bmp_24": bmp(bits=24),
+        "ppm_raw": lambda img: pnm_bytes(img, "P6"),
+        "qoi_rgb": qoi_bytes,
+        "tga_24_rle": lambda img: tga_bytes(img, 10, 24),
+        "gif_332": lambda img: gif_bytes(_to_332(img), _palette_332()),
+        "tiff_lzw_predictor": tif(compression=5, predictor=2,
+                                  rows_per_strip=32),
+        "ico_png": lambda img: ico_bytes([png_bytes(img, 2, 8)]),
+        "tiff_deflate": tif(compression=8),
+        "bmp_16_565": bmp(bits=16, compression="bitfields"),
+        "ppm_plain": lambda img: pnm_bytes(img, "P3", comment="plain"),
+        "tga_32_rle_top_left": lambda img: tga_bytes(rgba(img), 10, 32,
+                                                     "top-left"),
+        "gif_332_interlaced": lambda img: gif_bytes(
+            _to_332(img), _palette_332(), interlace=True),
+        "tiff_packbits": tif(compression=32773, rows_per_strip=32),
+        "cur_bmp_24": lambda img: ico_bytes([(img, 24, None)], cursor=True),
+        "dib_24": bmp(bits=24, file_header=False),
+        "bigtiff_deflate": tif(compression=8, bigtiff=True),
+        "bmp_24_top_down": bmp(bits=24, top_down=True),
+        "bmp_24_os2": bmp(bits=24, header=12),
+        "bmp_32": bmp(bits=32),
+        "bmp_32_bitfields_v5": lambda img: bmp_bytes(
+            rgba(img), 32, "bitfields", header=124, alpha=True),
+        "bmp_16_555": bmp(bits=16),
+        "ppm_raw_16": lambda img: pnm_bytes(img.astype(np.int64) * 257,
+                                            "P6", 65535),
+        "qoi_rgba": lambda img: qoi_bytes(rgba(img)),
+        "tga_24": lambda img: tga_bytes(img, 2, 24),
+        "tga_16": lambda img: tga_bytes(img, 2, 16),
+        "tiff_none": tif(rows_per_strip=16),
+        "tiff_none_mm": tif(byteorder=">"),
+        "tiff_lzw": tif(compression=5, rows_per_strip=32),
+        "tiff_deflate_predictor_mm": tif(compression=32946, predictor=2,
+                                         byteorder=">"),
+        "tiff_lzw_tiles": tif(compression=5, tile=(64, 64)),
+        "tiff_deflate_planar": tif(compression=8, planar=2,
+                                   rows_per_strip=64),
+        "ico_bmp_32": lambda img: ico_bytes([(rgba(img), 32, None)]),
+    }
+
+
+# ---------------------------------------------------------------------------
 # series and the command line
 # ---------------------------------------------------------------------------
 
@@ -1261,16 +1988,35 @@ def write_jpeg_series(out_dir: str, count: int, width: int, height: int,
     return paths
 
 
+def write_format_series(out_dir: str, count: int, width: int, height: int,
+                        seed: int = 0) -> List[str]:
+    """``count`` RGB frames ``frame.%03d.img`` (seeds ``seed``,
+    ``seed + 1``, ...), file ``i`` in the ``i % k``-th of the ``k``
+    variants of ``format_variants``, in its order."""
+    os.makedirs(out_dir, exist_ok=True)
+    writers = list(format_variants().values())
+    paths = []
+    for i in range(count):
+        path = os.path.join(out_dir, f"frame.{i:03d}.img")
+        img = smooth_image(seed + i, height, width).astype(np.uint8)
+        with open(path, "wb") as f:
+            f.write(writers[i % len(writers)](img))
+        paths.append(path)
+    return paths
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("out_dir")
     ap.add_argument("--count", type=int, default=16)
     ap.add_argument("--width", type=int, default=320)
     ap.add_argument("--height", type=int, default=240)
-    ap.add_argument("--format", choices=("png", "jpeg"), default="png")
+    ap.add_argument("--format", choices=("png", "jpeg", "mixed"),
+                    default="png")
     ap.add_argument("--seed", type=int, default=0)
     a = ap.parse_args(argv)
-    write = write_png_series if a.format == "png" else write_jpeg_series
+    write = {"png": write_png_series, "jpeg": write_jpeg_series,
+             "mixed": write_format_series}[a.format]
     for p in write(a.out_dir, a.count, a.width, a.height, a.seed):
         print(p, os.path.getsize(p))
 
